@@ -1,0 +1,66 @@
+"""Carry state across from the JAX package, handed over as numpy arrays.
+
+With these a test can start both implementations from the same root
+states, keys or mid-search tree:
+
+* :func:`keys_from_numpy` — raw key data ``uint32[..., 2]`` (what
+  ``jax.random.key_data``, or a legacy ``PRNGKey`` array, holds) becomes
+  the port's ``int64`` key tensor;
+* :func:`state_from_numpy` — a root-state ``NamedTuple`` of arrays
+  (``TapGameState``, ``BanditTreeState``) becomes the port's state class
+  of the same name;
+* :func:`tree_from_numpy` — a whole ``BatchedTree`` (its fields as numpy)
+  becomes the port's ``BatchedTree``, index buffers widened to ``int64``.
+
+Every function copies its input and takes an explicit ``device``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .core.batched_tree import BatchedTree
+from .envs.bandit_tree import BanditTreeState
+from .envs.tap_game import TapGameState
+
+STATE_TYPES = {cls.__name__: cls for cls in (TapGameState, BanditTreeState)}
+_INDEX_FIELDS = ("parent", "action", "children", "depth", "size")
+
+
+def _tensor(x, device) -> torch.Tensor:
+    # A copy: the port updates trees in place, and numpy views of JAX
+    # arrays are read-only buffers JAX still owns.
+    arr = np.array(x, dtype=np.int64 if np.asarray(x).dtype == np.uint32 else None)
+    return torch.from_numpy(arr).to(device)
+
+
+def keys_from_numpy(data, *, device) -> torch.Tensor:
+    """Key data ``uint32[..., 2]`` -> ``int64[..., 2]``."""
+    arr = np.asarray(data)
+    if arr.dtype != np.uint32 or arr.shape[-1:] != (2,):
+        raise ValueError(f"expected uint32[..., 2] key data, got {arr.dtype}{arr.shape}")
+    return _tensor(arr, device)
+
+
+def state_from_numpy(state: Any, *, device, cls=None):
+    """A reference state ``NamedTuple`` -> the port's state of the same
+    name (or ``cls``).  ``uint32`` leaves (keys) become ``int64``."""
+    cls = cls or STATE_TYPES.get(type(state).__name__)
+    if cls is None:
+        raise TypeError(f"no port state type for {type(state).__name__}")
+    return cls(**{f: _tensor(getattr(state, f), device) for f in cls._fields})
+
+
+def tree_from_numpy(tree: Any, *, device, state_cls=None) -> BatchedTree:
+    """A reference ``BatchedTree`` -> the port's ``BatchedTree``."""
+    fields = {}
+    for f in BatchedTree._fields:
+        if f == "states":
+            fields[f] = state_from_numpy(tree.states, device=device, cls=state_cls)
+            continue
+        x = _tensor(getattr(tree, f), device)
+        fields[f] = x.to(torch.int64) if f in _INDEX_FIELDS else x
+    return BatchedTree(**fields)

@@ -1,0 +1,99 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Each ``src/repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library,
+which :func:`load` opens with ``ctypes``.  Libraries go into
+``build/repro_torch/`` at the root of the checkout (git-ignored), named by
+a hash of the source and flags, so a rebuild happens only when either
+changes.  :func:`build` starts one ``nvcc`` per missing library, all
+together, and waits for all of them.
+
+Nothing here runs at import: ``nvcc`` and a CUDA device are needed only
+when a kernel is first launched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # Exact rounding: no contraction of products and sums into FMAs.
+    "--fmad=false",
+    "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the port's "
+        "CUDA kernels are built from source at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Sequence[str]) -> dict[str, Path]:
+    """Compile every missing library of ``names``; nvcc runs in parallel.
+
+    Raises ``RuntimeError`` with the compiler's output if a build fails.
+    The compiler's output of each build (``-Xptxas=-v`` reports registers
+    and spills) is kept in :data:`BUILD_LOGS`.
+    """
+    paths = {name: library_path(name) for name in names}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of library ``name``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        _LOADED[name] = lib
+    return lib

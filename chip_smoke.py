@@ -107,42 +107,47 @@ def time_ms(torch, fn, iters):
 
 
 def check_tree_select(torch, device):
-    """Kernel vs plain version on the card; returns the JSON fields."""
-    from repro_torch.kernels.tree_select.ops import tree_select
-    from repro_torch.kernels.tree_select.ref import tree_select_ref, tree_select_scores
+    """Kernel vs plain version on the card; returns the JSON fields.
 
+    Both run on the card with the same rounding (``_rn`` intrinsics and no
+    FMA contraction in the kernel, IEEE ``log``/``sqrt`` on both sides), so
+    ``act`` and ``best`` must be equal bit for bit, near-ties included.
+    """
+    from repro_torch.kernels.tree_select.ops import tree_select
+    from repro_torch.kernels.tree_select.ref import tree_select_ref
+
+    max_err = 0.0
+
+    def check(args, params, what):
+        nonlocal max_err
+        act, best = tree_select(*args, **params)
+        sync(device)
+        act_r, best_r = tree_select_ref(*args, **params)
+        both_inf = torch.isinf(best) & (best == best_r)
+        err = torch.where(both_inf, 0.0, (best - best_r).abs())
+        max_err = max(max_err, float(err.max()))
+        if not torch.equal(act.long(), act_r.long()):
+            raise AssertionError(f"tree_select act differs from its plain version: {what}")
+        if not torch.equal(best, best_r):
+            raise AssertionError(f"tree_select best differs from its plain version: {what}")
+
+    # The grid, plus the shapes the driven paths give the kernel: the tap
+    # main path [256, 36], the bandit path [1024, 4], the single root [1, 36].
+    shapes = ([(b, a) for b in (1, 257, 4096) for a in (4, 36, 81)]
+              + [(MAIN_B, MAIN_A), (BANDIT_B, 4)])
     rs = np.random.default_rng(0)
-    max_err, near_ties = 0.0, 0
     for kind in KINDS:
         params = dict(kind=kind, beta=1.3, r_vl=0.7, n_vl=1.5)
-        for b in (1, 257, 4096):
-            for a in (4, 36, 81):
-                args = select_inputs(torch, rs, b, a, device)
-                act, best = tree_select(*args, **params)
-                sync(device)
-                act_r, best_r = tree_select_ref(*args, **params)
-                both_inf = torch.isinf(best) & (best == best_r)
-                err = torch.where(both_inf, 0.0, (best - best_r).abs())
-                max_err = max(max_err, float(err.max()))
-                if not torch.allclose(best, best_r, rtol=1e-6, atol=0.0):
-                    raise AssertionError(f"tree_select best differs: {kind} B={b} A={a}")
-                # Exact ties must agree (first index); rows whose top two
-                # scores differ by at most 1e-5 relative may not.
-                top = torch.topk(tree_select_scores(*args, **params), 2, dim=1).values
-                near = (torch.isfinite(top).all(dim=1) & (top[:, 0] != top[:, 1])
-                        & (top[:, 0] - top[:, 1] <= 1e-5 * top[:, 0].abs()))
-                wrong = (act != act_r) & ~near
-                if bool(wrong.any()):
-                    raise AssertionError(
-                        f"tree_select act differs off near-ties: {kind} B={b} A={a}")
-                near_ties += int(((act != act_r) & near).sum())
-    print(f"tree_select matches its plain version: 4 kinds x B in (1, 257, 4096) "
-          f"x A in (4, 36, 81); max |best - plain| = {max_err!r}; "
-          f"near-tie rows with another act: {near_ties}")
+        for b, a in shapes:
+            check(select_inputs(torch, rs, b, a, device), params, f"{kind} B={b} A={a}")
+    print(f"tree_select equals its plain version bit for bit: 4 kinds x B in "
+          f"(1, 257, 4096) x A in (4, 36, 81), and [{MAIN_B}, {MAIN_A}], "
+          f"[{BANDIT_B}, 4]; max |best - plain| = {max_err!r}")
 
     times = {}
     for kind in KINDS:
         args = select_inputs(torch, np.random.default_rng(1), MAIN_B, MAIN_A, device)
+        check(args, dict(kind=kind), f"{kind} timed inputs")
         k_ms = time_ms(torch, lambda: tree_select(*args, kind=kind), 2000)
         p_ms = time_ms(torch, lambda: tree_select_ref(*args, kind=kind), 200)
         nbytes = (TABLES_READ[kind] * 4 + 1) * MAIN_B * MAIN_A + 2 * 4 * MAIN_B + 2 * 4 * MAIN_B
@@ -167,7 +172,7 @@ def main_path(torch, device):
     from repro_torch.envs import make_tap_game
     from repro_torch.envs.base import map_state
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.sync import SYNCS
+    from repro_torch.sync import SYNCS, reset_syncs
 
     env = make_tap_game(6, 4, goal_count=10, step_budget=20)
     spec = SearchSpec(algo="wu_uct", engine="wave", batch=MAIN_B,
@@ -179,13 +184,13 @@ def main_path(torch, device):
     sync(device)
 
     reset_launches()
-    SYNCS.reset()
+    reset_syncs()
     t0 = time.perf_counter()
     res = search(roots, rngs)
     sync(device)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    syncs = SYNCS.count
+    syncs = SYNCS["host_any"]
 
     if launches["tree_select"] < spec.num_simulations:
         raise AssertionError(f"tree_select launched {launches['tree_select']} times, "
@@ -265,7 +270,7 @@ def single_root(torch, device):
     if res.root_n.shape != (36,) or not 0 < int(res.root_n.sum()) <= 128:
         raise AssertionError(f"single-root search gave root_n {res.root_n.tolist()}")
     ret, moves, done = play_episode(env, spec.config, rng.PRNGKey(5, device=device),
-                                    max_moves=2, searcher=search)
+                                    max_moves=2, searcher=search, device=device)
     if moves < 1 or not math.isfinite(ret):
         raise AssertionError(f"play_episode gave return {ret}, moves {moves}")
     print(f"single root: action {int(res.action)}; play_episode 2 moves: "

@@ -49,7 +49,7 @@ class SearchSpec(NamedTuple):
     expand_coin: float = 0.5        # traversal rule (iii) stop probability
     value_mix: float = 0.0          # R = (1-m)·R_simu + m·V(s)  (App. D: 0.5)
     deterministic_expansion: bool = False  # first-untried action (tests)
-    use_kernel: bool = True         # tree_select kernel vs. its plain version
+    use_kernel: bool = True         # False only on the CPU, which runs the plain version
 
     @property
     def config(self) -> SearchConfig:
@@ -112,6 +112,10 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
       data ``rng[2]``;
     * ``batch  > 0`` — ``search(root_states, rngs) -> SearchResult`` with a
       leading ``[B]`` axis on every field (``rngs`` is ``[B, 2]``).
+
+    Selection on a GPU always runs the ``tree_select`` kernel, and on the
+    CPU always its plain version, so ``spec.use_kernel=False`` is accepted
+    only with a CPU device.
     """
     cfg = as_search_config(spec)
     if spec.batch < 0:
@@ -131,10 +135,13 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
             f"{type(evaluator).__name__} is not ported yet (ROADMAP.md, queue 1, "
             "slice B: the model evaluators); only RolloutEvaluator runs"
         )
+    on_gpu = torch.device("cuda" if device is None else device).type == "cuda"
+    if not spec.use_kernel and on_gpu:
+        raise ValueError("use_kernel=False would bypass the tree_select kernel on "
+                         "the GPU; the plain version runs only on the CPU")
     dev = resolve_device(device)
     run = run_search_batched if spec.batch > 0 else run_search
-    fn = functools.partial(run, env, cfg, use_kernel=spec.use_kernel,
-                           evaluator=evaluator)
+    fn = functools.partial(run, env, cfg, evaluator=evaluator)
 
     def search(root_states: State, rngs: torch.Tensor) -> SearchResult:
         return fn(map_state(lambda x: torch.as_tensor(x, device=dev), root_states),

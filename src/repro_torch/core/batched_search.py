@@ -24,7 +24,6 @@ import torch
 from .. import rng
 from ..envs.base import Environment, map_state, where_state
 from ..kernels.tree_select.ops import tree_select
-from ..kernels.tree_select.ref import tree_select_ref
 from ..sync import host_any
 from . import batched_tree as btree
 from .batched_tree import BatchedTree, init_batched_tree
@@ -48,13 +47,12 @@ def _split_each(rngs: torch.Tensor, num: int) -> tuple[torch.Tensor, ...]:
     return tuple(ks[:, i] for i in range(num))
 
 
-def batched_select(tree: BatchedTree, nodes: torch.Tensor, pol: PolicyConfig,
-                   use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+def batched_select(tree: BatchedTree, nodes: torch.Tensor,
+                   pol: PolicyConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Best child action of each tree's current node via one ``[B, A]``
     ``tree_select`` call.  Returns ``(act i64[B], any_valid bool[B])``."""
     n_c, o_c, v_c, vl_c, n_p, o_p, valid = gather_children_tables(tree, nodes)
-    select = tree_select if use_kernel else tree_select_ref
-    act, _ = select(
+    act, _ = tree_select(
         n_c, o_c, v_c, n_p, o_p, valid, vl_c,
         kind=pol.kind, beta=pol.beta, r_vl=pol.r_vl, n_vl=pol.n_vl,
     )
@@ -66,8 +64,8 @@ def batched_select(tree: BatchedTree, nodes: torch.Tensor, pol: PolicyConfig,
 # ---------------------------------------------------------------------------
 
 
-def traverse_batched(tree: BatchedTree, rngs: torch.Tensor, cfg: SearchConfig,
-                     use_kernel: bool = True) -> torch.Tensor:
+def traverse_batched(tree: BatchedTree, rngs: torch.Tensor,
+                     cfg: SearchConfig) -> torch.Tensor:
     """Walk every tree from its root by the configured tree policy;
     returns the stop node of each tree (``i64[B]``)."""
     width = min(cfg.max_width, tree.num_actions)
@@ -88,7 +86,7 @@ def traverse_batched(tree: BatchedTree, rngs: torch.Tensor, cfg: SearchConfig,
         coin = rng.uniform(k_coin) < cfg.expand_coin
         stop = is_leaf | at_depth | is_term | (not_full & coin)
 
-        best, any_valid = batched_select(tree, nodes, cfg.policy, use_kernel)
+        best, any_valid = batched_select(tree, nodes, cfg.policy)
         stop = stop | ~any_valid
         nxt = torch.where(stop, nodes, kids.gather(1, best[:, None])[:, 0])
         nodes = torch.where(active, nxt, nodes)
@@ -127,8 +125,8 @@ def _settle(tree, nodes, rets, cfg: SearchConfig, mask):
 # ---------------------------------------------------------------------------
 
 
-def _phase1_select(tree: BatchedTree, rngs: torch.Tensor, cfg: SearchConfig,
-                   use_kernel: bool) -> tuple[BatchedTree, _BatchedSlots, torch.Tensor]:
+def _phase1_select(tree: BatchedTree, rngs: torch.Tensor,
+                   cfg: SearchConfig) -> tuple[BatchedTree, _BatchedSlots, torch.Tensor]:
     """Select W slots per tree one after another, with in-flight statistics
     in between; all B trees fill slot j together."""
     B, W = tree.batch_size, cfg.wave_size
@@ -139,7 +137,7 @@ def _phase1_select(tree: BatchedTree, rngs: torch.Tensor, cfg: SearchConfig,
             for f in _BatchedSlots._fields}
     for j in range(W):
         rngs, k_t, k_e = _split_each(rngs, 3)
-        nodes = traverse_batched(tree, k_t, cfg, use_kernel)
+        nodes = traverse_batched(tree, k_t, cfg)
 
         kids = tree.children[b, nodes]
         n_tried = (kids >= 0).sum(dim=1)
@@ -221,7 +219,7 @@ def _phase3_settle(tree: BatchedTree, cfg: SearchConfig, slots: _BatchedSlots,
 
 
 def run_search_batched(env: Environment, cfg: SearchConfig, root_states: State,
-                       rngs: torch.Tensor, use_kernel: bool = True,
+                       rngs: torch.Tensor,
                        evaluator: Optional[Evaluator] = None) -> SearchResult:
     """Run ``B`` independent searches; every field of the returned
     :class:`SearchResult` carries a leading ``[B]`` axis.
@@ -241,7 +239,7 @@ def run_search_batched(env: Environment, cfg: SearchConfig, root_states: State,
 
     for _ in range(num_waves):
         rngs, k_sel, k_sim = _split_each(rngs, 3)
-        tree, slots, dups = _phase1_select(tree, k_sel, cfg, use_kernel)
+        tree, slots, dups = _phase1_select(tree, k_sel, cfg)
         max_o = torch.maximum(max_o, tree.O[:, 0])
         child_states, r_edge, done_child, rets = _phase2_work(
             env, cfg, tree, slots, k_sim, evaluator

@@ -16,8 +16,9 @@ none is live, which is what ``vmap`` of the reference's per-slot
 ``while_loop`` computes.  Each step costs one host sync.
 
 The slot-aux hooks and ``init_state`` come with the async engines that
-call them, the model evaluators (``ModelEvaluator`` and the KV-cached
-ones) with the model-guided slice, the serving hooks with serving.
+call them; the model evaluators (``ModelEvaluator`` and the KV-cached
+ones), and the protocol's default tick-driven ``rollout`` that they use,
+with the model-guided slice; the serving hooks with serving.
 """
 
 from __future__ import annotations
@@ -77,37 +78,7 @@ class Evaluator:
         return False
 
     def rollout(self, cfg, state, already_done, keys) -> torch.Tensor:
-        """Default rollout: tick all ``N`` slots as SIM until done or the
-        step cap."""
-        n = already_done.shape[0]
-        device = already_done.device
-        kind = torch.full((n,), SIM, dtype=torch.int64, device=device)
-        act = torch.zeros((n,), dtype=torch.int64, device=device)
-        st, done = state, already_done.clone()
-        acc = torch.zeros((n,), dtype=torch.float32, device=device)
-        disc = torch.ones((n,), dtype=torch.float32, device=device)
-        steps = torch.zeros((n,), dtype=torch.int32, device=device)
-        while True:
-            live = ~done & (steps < cfg.max_sim_steps)
-            if not host_any(live):
-                break
-            ks = rng.split(keys)
-            (st2, _, _, acc2, disc2, steps2, done2), _ = self.tick(
-                cfg, kind, act, st, done, acc, disc, steps, ks[:, 1]
-            )
-            st = where_state(live, st2, st)
-            acc = torch.where(live, acc2, acc)
-            disc = torch.where(live, disc2, disc)
-            steps = torch.where(live, steps2, steps)
-            done = torch.where(live, done2, done)
-            keys = torch.where(live[:, None], ks[:, 0], keys)
-        ret = acc
-        if self.has_value():
-            ret = ret + disc * torch.where(done, 0.0, self.value(st))
-            if cfg.value_mix > 0.0:
-                v0 = torch.where(already_done, 0.0, self.value(state))
-                ret = (1.0 - cfg.value_mix) * ret + cfg.value_mix * v0
-        return ret
+        raise NotImplementedError
 
 
 class RolloutEvaluator(Evaluator):

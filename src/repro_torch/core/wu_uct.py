@@ -56,8 +56,7 @@ def _lift(x: torch.Tensor) -> torch.Tensor:
     return x[None]
 
 
-def traverse(tree, rng_key: torch.Tensor, cfg: SearchConfig,
-             use_kernel: bool = True) -> torch.Tensor:
+def traverse(tree, rng_key: torch.Tensor, cfg: SearchConfig) -> torch.Tensor:
     """Walk one tree from its root by the configured tree policy.
 
     ``tree`` is a single tree: a ``BatchedTree`` whose fields carry no
@@ -70,43 +69,48 @@ def traverse(tree, rng_key: torch.Tensor, cfg: SearchConfig,
     lifted = BatchedTree(*(
         map_state(_lift, f) if isinstance(f, tuple) else _lift(f) for f in tree
     ))
-    return traverse_batched(lifted, rng_key[None], cfg, use_kernel=use_kernel)[0]
+    return traverse_batched(lifted, rng_key[None], cfg)[0]
 
 
 def run_search(env: Environment, cfg: SearchConfig, root_state: State,
-               rng_key: torch.Tensor, evaluator: Optional[Evaluator] = None,
-               use_kernel: bool = True) -> SearchResult:
+               rng_key: torch.Tensor,
+               evaluator: Optional[Evaluator] = None) -> SearchResult:
     """Full search from ``root_state`` (leaves without a batch axis) with
     key data ``rng_key[2]``; returns the move decision + stats."""
     from .batched_search import run_search_batched
 
     res = run_search_batched(env, cfg, map_state(_lift, root_state), rng_key[None],
-                             use_kernel=use_kernel, evaluator=evaluator)
+                             evaluator=evaluator)
     return SearchResult(*(x[0] for x in res))
 
 
 def play_episode(env: Environment, cfg: SearchConfig, rng_key: torch.Tensor,
                  max_moves: int = 64,
-                 searcher: Optional[Callable[[State, torch.Tensor], SearchResult]] = None):
+                 searcher: Optional[Callable[[State, torch.Tensor], SearchResult]] = None,
+                 device=None):
     """Play one episode, searching before every move.
 
     ``searcher(state, key)`` defaults to :func:`run_search` with this
-    config.  Runs on the device of ``rng_key``.  Returns (episode_return,
-    moves_used, done) — ``moves_used`` is the paper's "game step" metric
-    for the tap game.
+    config.  The episode runs on ``device`` (default ``"cuda"``; raises
+    without a card unless the caller asks for the CPU).  Returns
+    (episode_return, moves_used, done) — ``moves_used`` is the paper's
+    "game step" metric for the tap game.
     """
+    from .api import resolve_device
+
+    dev = resolve_device(device)
     if searcher is None:
         def searcher(state, key):
             return run_search(env, cfg, state, key)
 
-    rng_key, k_init = rng.split(rng_key)
+    rng_key, k_init = rng.split(rng_key.to(dev))
     state = map_state(lambda x: x[0], env.init(k_init[None]))
     total, moves, done = 0.0, 0, False
     for _ in range(max_moves):
         rng_key, k = rng.split(rng_key)
         k_search, _ = rng.split(k)
         res = searcher(state, k_search)
-        nxt, r, d = env.step(map_state(_lift, state), res.action.reshape(1))
+        nxt, r, d = env.step(map_state(_lift, state), res.action.reshape(1).to(dev))
         state = map_state(lambda x: x[0], nxt)
         total += float(r[0])
         moves += 1

@@ -36,7 +36,7 @@ from repro_torch.core import SearchSpec, build_searcher, play_episode
 from repro_torch.core.api import resolve_device
 from repro_torch.envs import make_bandit_tree, make_tap_game
 from repro_torch.kernels import LAUNCHES, reset_launches
-from repro_torch.sync import SYNCS
+from repro_torch.sync import SYNCS, reset_syncs
 
 
 def make_env(name: str):
@@ -75,7 +75,7 @@ def _print_profile(prof, wall: float, device: torch.device) -> None:
     launches = sum(r[1] for r in rows)
     print(f"profile on {_device_name(device)}: wall {wall!r} s, device busy {busy!r} s "
           f"({busy / wall!r} of wall), {launches} device kernels, "
-          f"tree_select launches {LAUNCHES['tree_select']}, host syncs {SYNCS.count}")
+          f"tree_select launches {LAUNCHES['tree_select']}, host syncs {SYNCS['host_any']}")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {dev_us * 1e-3!r} ms  {count} x  {key[:90]}")
 
@@ -121,7 +121,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         search(roots, rngs)  # warm-up: builds the kernels, initialises the card
         _sync(device)
         reset_launches()
-        SYNCS.reset()
+        reset_syncs()
         activities = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -147,7 +147,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         t0 = time.perf_counter()
         ret, moves, done = play_episode(
             env, spec.config, rng.PRNGKey(args.seed + ep, device=device),
-            max_moves=32, searcher=search,
+            max_moves=32, searcher=search, device=device,
         )
         rets.append(ret)
         steps.append(moves)

@@ -3,8 +3,9 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the
   JAX package ``repro`` (only the tests import both);
 * the entry points run on CUDA unless the caller asks for the CPU: on a
-  machine without a card, ``build_searcher`` and the launcher raise
-  instead of running on the CPU.
+  machine without a card, ``build_searcher``, ``play_episode`` and the
+  launcher raise instead of running on the CPU;
+* selection on a GPU always goes through the kernel.
 """
 
 import ast
@@ -13,7 +14,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.core import SearchSpec, build_searcher
+from repro_torch import rng
+from repro_torch.core import SearchSpec, build_searcher, play_episode
 from repro_torch.envs import make_bandit_tree
 from repro_torch.launch import search as launch_search
 
@@ -65,6 +67,31 @@ def test_build_searcher_defaults_to_cuda():
     assert callable(build_searcher(env, SearchSpec(), device="cpu"))
 
 
+def test_play_episode_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    env = make_bandit_tree(depth=3, num_actions=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        play_episode(env, SearchSpec().config, rng.PRNGKey(0), max_moves=1)
+
+
+def test_plain_selection_only_on_the_cpu():
+    """``use_kernel=False`` may not route selection on a GPU around the
+    kernel; on the CPU the plain version runs either way."""
+    env = make_bandit_tree(depth=3, num_actions=3)
+    spec = SearchSpec(batch=2, num_simulations=4, wave_size=2, max_depth=3,
+                      max_sim_steps=3, max_width=3, use_kernel=False)
+    for device in (None, "cuda", torch.device("cuda", 0)):
+        with pytest.raises(ValueError, match="use_kernel=False"):
+            build_searcher(env, spec, device=device)
+    roots = env.init(rng.split(rng.PRNGKey(0), 2))
+    keys = rng.split(rng.PRNGKey(1), 2)
+    plain = build_searcher(env, spec, device="cpu")(roots, keys)
+    default = build_searcher(env, spec._replace(use_kernel=True), device="cpu")(roots, keys)
+    for a, b in zip(plain, default):
+        assert torch.equal(a, b)
+
+
 def test_launcher_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without a CUDA device")
@@ -98,7 +125,6 @@ def test_cuda_search_matches_cpu_search():
     path's decisions on the bandit tree, where every draw is exact."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from repro_torch import rng
     from repro_torch.kernels import LAUNCHES
 
     env = make_bandit_tree(depth=4, num_actions=4, seed=3)

@@ -39,7 +39,7 @@ from repro_torch.core import batched_search as tbs
 from repro_torch.core.batched_search import run_search_batched
 from repro_torch.core import wu_uct
 from repro_torch.core.batched_tree import BatchedTree
-from repro_torch.core.evaluators import Evaluator, RolloutEvaluator
+from repro_torch.core.evaluators import RolloutEvaluator
 from repro_torch.core.policies import PolicyConfig
 from repro_torch.envs import make_bandit_tree, make_tap_game
 
@@ -139,7 +139,7 @@ def test_select_and_phase1_on_converted_tree(kind):
     single = BatchedTree(*(type(f)(*(x[B - 1] for x in f)) if isinstance(f, tuple)
                            else f[B - 1] for f in tree))
     assert int(wu_uct.traverse(single, walk[B - 1], spec.config)) == int(j_single_stop)
-    tree2, slots, dups = tbs._phase1_select(tree, walk, spec.config, True)
+    tree2, slots, dups = tbs._phase1_select(tree, walk, spec.config)
     for f in slots._fields:
         np.testing.assert_array_equal(getattr(slots, f).numpy(),
                                       np.asarray(getattr(j_slots, f)), err_msg=f)
@@ -215,28 +215,11 @@ def test_play_episode_matches_jax():
     kd = _key_data(40, n=1)[0]
     ref = jax_play_episode(jax_env, j_spec.config, jnp.asarray(kd), max_moves=3,
                            searcher=jax_build_searcher(jax_env, j_spec, jit=False))
-    out = play_episode(env, spec.config, convert.keys_from_numpy(kd, device="cpu"),
-                       max_moves=3, searcher=build_searcher(env, spec, device="cpu"))
+    key = convert.keys_from_numpy(kd, device="cpu")
+    out = play_episode(env, spec.config, key, max_moves=3,
+                       searcher=build_searcher(env, spec, device="cpu"), device="cpu")
     assert out == ref
-
-
-def test_default_rollout_over_ticks_equals_rollout_evaluator():
-    """The protocol's tick-driven default rollout draws and accounts like
-    the classic env rollout (the reference's contract for model
-    evaluators)."""
-    env = make_tap_game(6, 4, goal_count=10, step_budget=20)
-
-    class TickOnly(Evaluator):
-        def tick(self, *args, **kw):
-            return RolloutEvaluator(env).tick(*args, **kw)
-
-    cfg = SearchSpec(max_sim_steps=8, gamma=0.95).config
-    _, state = _roots(jax_tap_game(6, 4, goal_count=10, step_budget=20), 60, n=12)
-    done = torch.from_numpy(np.random.default_rng(61).random(12) < 0.25)
-    _, keys = _keys(62, n=12)
-    ref = RolloutEvaluator(env).rollout(cfg, state, done, keys)
-    assert torch.equal(TickOnly().rollout(cfg, state, done, keys), ref)
-    assert bool((ref[done] == 0).all()) and bool((ref[~done] != 0).all())
+    assert play_episode(env, spec.config, key, max_moves=3, device="cpu") == ref
 
 
 @pytest.mark.parametrize("value_mix", [0.0, 0.5])

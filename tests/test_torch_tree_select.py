@@ -107,6 +107,8 @@ def test_wrapper_rejects_unknown_kind_and_device():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
+    """On the card the kernel and its plain version round alike, so both
+    outputs are equal bit for bit, near-ties included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from repro_torch.kernels import LAUNCHES
@@ -120,6 +122,5 @@ def test_cuda_kernel_matches_plain_version():
                 torch.cuda.synchronize()
                 assert LAUNCHES["tree_select"] == before + 1
                 ref_act, ref_best = tree_select_ref(*tensors, kind=kind, **PARAMS)
-                scores = tree_select_scores(*tensors, kind=kind, **PARAMS).cpu().numpy()
-                _assert_matches(act.cpu().numpy(), best.cpu().numpy(),
-                                ref_act.cpu().numpy(), ref_best.cpu().numpy(), scores)
+                assert torch.equal(act.long(), ref_act.long()), (kind, b, a)
+                assert torch.equal(best, ref_best), (kind, b, a)

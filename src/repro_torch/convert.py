@@ -7,10 +7,13 @@ states, keys or mid-search tree:
   ``jax.random.key_data``, or a legacy ``PRNGKey`` array, holds) becomes
   the port's ``int64`` key tensor;
 * :func:`state_from_numpy` — a root-state ``NamedTuple`` of arrays
-  (``TapGameState``, ``BanditTreeState``) becomes the port's state class
-  of the same name;
+  (``TapGameState``, ``BanditTreeState``, ``TokenEnvState``) becomes the
+  port's state class of the same name;
 * :func:`tree_from_numpy` — a whole ``BatchedTree`` (its fields as numpy)
-  becomes the port's ``BatchedTree``, index buffers widened to ``int64``.
+  becomes the port's ``BatchedTree``, index buffers widened to ``int64``;
+* :func:`params_from_numpy` — the reference's LM parameter pytree (nested
+  dicts of numpy arrays, bfloat16 ones included) becomes the port's
+  parameter dict of the same layout.
 
 Every function copies its input and takes an explicit ``device``.
 """
@@ -25,8 +28,10 @@ import torch
 from .core.batched_tree import BatchedTree
 from .envs.bandit_tree import BanditTreeState
 from .envs.tap_game import TapGameState
+from .envs.token_env import TokenEnvState
+from .models.config import ModelConfig
 
-STATE_TYPES = {cls.__name__: cls for cls in (TapGameState, BanditTreeState)}
+STATE_TYPES = {cls.__name__: cls for cls in (TapGameState, BanditTreeState, TokenEnvState)}
 _INDEX_FIELDS = ("parent", "action", "children", "depth", "size")
 
 
@@ -64,3 +69,33 @@ def tree_from_numpy(tree: Any, *, device, state_cls=None) -> BatchedTree:
         x = _tensor(getattr(tree, f), device)
         fields[f] = x.to(torch.int64) if f in _INDEX_FIELDS else x
     return BatchedTree(**fields)
+
+
+def _param_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(np.asarray(x))
+    if arr.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: same bits
+        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    if not t.is_floating_point():
+        raise TypeError(f"parameter leaves are floating point, got {arr.dtype}")
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_numpy(params: Any, cfg: ModelConfig, *, device) -> dict:
+    """The reference's parameter pytree (nested dicts, numpy leaves) ->
+    the port's parameter dict: same keys and shapes, leaves in
+    ``cfg.dtype`` on ``device``."""
+    if not isinstance(params, dict) or "embed" not in params:
+        raise TypeError("expected the reference's LM parameter dict (with 'embed')")
+    embed = np.shape(params["embed"])
+    if tuple(embed) != (cfg.vocab_size, cfg.d_model):
+        raise ValueError(f"embed has shape {tuple(embed)}, the config wants "
+                         f"{(cfg.vocab_size, cfg.d_model)}")
+
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {k: convert(v) for k, v in tree.items()}
+        return _param_tensor(tree, cfg.dtype, device)
+
+    return convert(params)

@@ -1,8 +1,14 @@
-# The rollout-evaluated WU-UCT wave engine of the port; describe a search
-# with `SearchSpec` and build it with `build_searcher(env, spec)`.
+# The WU-UCT engines of the port (wave and async); describe a search with
+# `SearchSpec` and build it with `build_searcher(env, spec)`.
 from .api import SearchSpec, as_search_config, build_searcher
+from .batched_async_search import BatchedAsyncEngine
 from .batched_tree import BatchedTree, init_batched_tree
-from .evaluators import Evaluator, RolloutEvaluator
+from .evaluators import (
+    CachedModelEvaluator,
+    Evaluator,
+    ModelEvaluator,
+    RolloutEvaluator,
+)
 from .policies import PolicyConfig
 from .wu_uct import SearchConfig, SearchResult, play_episode
 
@@ -10,8 +16,11 @@ __all__ = [
     "SearchSpec",
     "as_search_config",
     "build_searcher",
+    "BatchedAsyncEngine",
     "Evaluator",
     "RolloutEvaluator",
+    "ModelEvaluator",
+    "CachedModelEvaluator",
     "PolicyConfig",
     "SearchConfig",
     "SearchResult",

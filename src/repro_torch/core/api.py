@@ -5,10 +5,13 @@
 returns a plain callable (PyTorch runs eagerly: there is no ``jit``) that
 runs on CUDA unless the caller asks for another device.
 
-This slice ports the wave engine with rollout evaluation, for the algos
-``wu_uct``, ``uct``, ``treep`` and ``treep_vc``, single-root (``batch=0``)
-and batched (``batch=B``).  The rest raises ``NotImplementedError`` naming
-the ROADMAP item that ports it.
+Ported: the wave and the async engine, single-root (``batch=0``) and
+batched (``batch=B``), for the algos ``wu_uct``, ``uct``, ``treep`` and
+``treep_vc``; leaves evaluated by environment rollouts
+(:class:`RolloutEvaluator`, the default), an LM forward per tick
+(:class:`ModelEvaluator`) or a KV-cached decode step per tick
+(:class:`CachedModelEvaluator`, async engine only).  The rest raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from ..envs.base import Environment, map_state
+from .async_search import run_async_search
+from .batched_async_search import run_async_search_batched
 from .batched_search import run_search_batched
-from .evaluators import Evaluator, RolloutEvaluator
+from .evaluators import CachedModelEvaluator, Evaluator, ModelEvaluator
 from .policies import PolicyConfig
 from .wu_uct import SearchConfig, SearchResult, run_search
 
@@ -29,6 +34,15 @@ State = Any
 ALGOS = ("wu_uct", "uct", "treep", "treep_vc", "leafp", "rootp")
 ENGINES = ("wave", "async")
 PORTED_ALGOS = ("wu_uct", "uct", "treep", "treep_vc")
+# Reference evaluators the port does not have yet, and where they wait.
+UNPORTED_EVALUATORS = {
+    "PagedCachedModelEvaluator": "ROADMAP.md, queue 1: the paged evaluator with "
+                                 "paged_decode_attention",
+    "FrontierModelEvaluator": "ROADMAP.md, queue 1: the frontier evaluators with "
+                              "tree_decode_attention",
+    "PagedFrontierModelEvaluator": "ROADMAP.md, queue 1: the frontier evaluators "
+                                   "with paged_tree_decode_attention",
+}
 
 
 class SearchSpec(NamedTuple):
@@ -113,6 +127,10 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
     * ``batch  > 0`` — ``search(root_states, rngs) -> SearchResult`` with a
       leading ``[B]`` axis on every field (``rngs`` is ``[B, 2]``).
 
+    ``evaluator`` plugs the leaf evaluation (default: environment
+    rollouts); :class:`CachedModelEvaluator` needs ``engine='async'``, and a
+    model evaluator's ``top_k`` must equal ``env.num_actions``.
+
     Selection on a GPU always runs the ``tree_select`` kernel, and on the
     CPU always its plain version, so ``spec.use_kernel=False`` is accepted
     only with a CPU device.
@@ -120,27 +138,35 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
     cfg = as_search_config(spec)
     if spec.batch < 0:
         raise ValueError(f"batch must be >= 0, got {spec.batch}")
-    if spec.engine == "async":
-        raise NotImplementedError(
-            "engine='async' is not ported yet (ROADMAP.md, queue 1: the async "
-            "engines, core/async_search.py and core/batched_async_search.py)"
-        )
     if spec.algo not in PORTED_ALGOS:
         raise NotImplementedError(
             f"algo {spec.algo!r} is not ported yet (ROADMAP.md, queue 1: "
             "core/baselines.py, run_leafp/run_rootp)"
         )
-    if evaluator is not None and type(evaluator) is not RolloutEvaluator:
-        raise NotImplementedError(
-            f"{type(evaluator).__name__} is not ported yet (ROADMAP.md, queue 1, "
-            "slice B: the model evaluators); only RolloutEvaluator runs"
-        )
+    name = type(evaluator).__name__
+    if name in UNPORTED_EVALUATORS:
+        raise NotImplementedError(f"{name} is not ported yet ({UNPORTED_EVALUATORS[name]})")
+    if evaluator is not None and not isinstance(evaluator, Evaluator):
+        raise TypeError(f"evaluator must be a repro_torch Evaluator, got {name}")
+    if isinstance(evaluator, ModelEvaluator) and evaluator.top_k != env.num_actions:
+        # Actions are ranks into the evaluator's top-K table; a mismatched
+        # table would silently alias several env actions onto one token.
+        raise ValueError(f"ModelEvaluator(top_k={evaluator.top_k}) does not match "
+                         f"env.num_actions={env.num_actions}")
+    if isinstance(evaluator, CachedModelEvaluator) and spec.engine != "async":
+        # The KV slot cache lives in the async engine's slot aux; the wave
+        # engine evaluates whole rollouts per slot without it.
+        raise ValueError("CachedModelEvaluator requires engine='async' (the wave "
+                         "engine carries no slot cache; use ModelEvaluator)")
     on_gpu = torch.device("cuda" if device is None else device).type == "cuda"
     if not spec.use_kernel and on_gpu:
         raise ValueError("use_kernel=False would bypass the tree_select kernel on "
                          "the GPU; the plain version runs only on the CPU")
     dev = resolve_device(device)
-    run = run_search_batched if spec.batch > 0 else run_search
+    if spec.engine == "async":
+        run = run_async_search_batched if spec.batch > 0 else run_async_search
+    else:
+        run = run_search_batched if spec.batch > 0 else run_search
     fn = functools.partial(run, env, cfg, evaluator=evaluator)
 
     def search(root_states: State, rngs: torch.Tensor) -> SearchResult:

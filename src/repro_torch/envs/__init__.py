@@ -1,10 +1,13 @@
 from .bandit_tree import make_bandit_tree, solve_bandit_tree
 from .base import Environment
 from .tap_game import make_tap_game
+from .token_env import TokenEnvState, make_token_env
 
 __all__ = [
     "Environment",
+    "TokenEnvState",
     "make_bandit_tree",
     "make_tap_game",
+    "make_token_env",
     "solve_bandit_tree",
 ]

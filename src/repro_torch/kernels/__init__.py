@@ -7,7 +7,11 @@ through the kernels.
 
 from __future__ import annotations
 
-LAUNCHES: dict[str, int] = {"tree_select": 0}
+LAUNCHES: dict[str, int] = {
+    "tree_select": 0,
+    "decode_attention": 0,
+    "flash_attention": 0,
+}
 
 
 def reset_launches() -> None:

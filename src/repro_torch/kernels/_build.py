@@ -2,11 +2,12 @@
 
 Each ``src/repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library,
-which :func:`load` opens with ``ctypes``.  Libraries go into
-``build/repro_torch/`` at the root of the checkout (git-ignored), named by
-a hash of the source and flags, so a rebuild happens only when either
-changes.  :func:`build` starts one ``nvcc`` per missing library, all
-together, and waits for all of them.
+which :func:`load` opens with ``ctypes``.  Every kernel has its own flags
+(:func:`nvcc_flags`: the common ones plus :data:`KERNEL_FLAGS`).
+Libraries go into ``build/repro_torch/`` at the root of the checkout
+(git-ignored), named by a hash of the source and that kernel's flags, so a
+rebuild happens only when either changes.  :func:`build` starts one
+``nvcc`` per missing library, all together, and waits for all of them.
 
 Nothing here runs at import: ``nvcc`` and a CUDA device are needed only
 when a kernel is first launched.
@@ -24,14 +25,24 @@ from typing import Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
+COMMON_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    # Exact rounding: no contraction of products and sums into FMAs.
-    "--fmad=false",
     "-Xptxas=-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+KERNEL_FLAGS: dict[str, tuple[str, ...]] = {
+    # Exact rounding: no contraction of products and sums into FMAs.
+    "tree_select": ("--fmad=false",),
+    # Held to their plain versions within a tolerance: FMAs are welcome.
+    "decode_attention": (),
+    "flash_attention": (),
+}
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The flags kernel ``name`` is compiled with."""
+    return COMMON_FLAGS + KERNEL_FLAGS[name]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}
@@ -54,7 +65,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     source = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(nvcc_flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -73,7 +84,7 @@ def build(names: Sequence[str]) -> dict[str, Path]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp)

@@ -13,6 +13,11 @@ name):
   PYTHONPATH=src python -m repro_torch.launch.search --env tap --batch 256 \
       --workers 16 --simulations 128
 
+``--engine async`` runs the async-slot engine (the paper's master–worker
+interleaving) instead of the wave engine, in either mode:
+  PYTHONPATH=src python -m repro_torch.launch.search --env bandit --batch 32 \
+      --workers 16 --simulations 128 --engine async
+
 ``--device`` defaults to ``cuda``; without a card the launcher raises
 unless ``--device cpu`` is given.  ``--profile`` (batched mode) traces the
 timed search with ``torch.profiler`` and prints the device's busy share,
@@ -85,6 +90,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--env", default="tap", choices=["tap", "tap_hard", "bandit"])
     ap.add_argument("--algo", default="wu_uct",
                     choices=["wu_uct", "uct", "treep", "treep_vc"])
+    ap.add_argument("--engine", default="wave", choices=["wave", "async"])
     ap.add_argument("--workers", type=int, default=16)
     ap.add_argument("--simulations", type=int, default=128)
     ap.add_argument("--episodes", type=int, default=2)
@@ -104,6 +110,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     env = make_env(args.env)
     spec = SearchSpec(
         algo=args.algo,
+        engine=args.engine,
         batch=args.batch,
         num_simulations=args.simulations,
         wave_size=args.workers,
@@ -136,7 +143,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             _print_profile(prof, dt, device)
         acts = res.action.cpu().numpy()
         cfg = spec.config
-        print(f"{args.algo}[wave] B={B} W={cfg.wave_size} T={cfg.num_simulations} "
+        print(f"{args.algo}[{args.engine}] B={B} W={cfg.wave_size} T={cfg.num_simulations} "
               f"on {_device_name(device)}: {B / dt:.1f} searches/s  wall={dt:.2f}s  "
               f"actions={acts[:min(B, 16)].tolist()}{'…' if B > 16 else ''}  "
               f"overflowed={bool(res.overflowed.any())}")

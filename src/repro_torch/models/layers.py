@@ -1,0 +1,302 @@
+"""Transformer building blocks of the dense family (counterpart of
+``repro.models.layers``): RMSNorm, RoPE, GQA attention, SwiGLU.
+
+Everything is a function over a parameter dict, in the reference's
+layouts: activations ``[B, S, d]``, attention ``[B, S, H, D]``, cache
+slices ``[B, S, Hkv, D]``.  Two attention paths reach the port's kernels:
+
+* the cache-free causal path (``forward``) runs ``flash_attention``;
+* single-token decode against a cache runs ``decode_attention``.
+
+On a CUDA tensor each launches its hand-written kernel, on a CPU tensor its
+plain version (``kernels/*/ref.py``); both keep ``p`` and ``p·V`` in
+float32, as the Pallas kernels do.  Chunked prefill and catch-up with a
+cache (``S > 1``) take :func:`chunked_attention`, the reference's plain
+online-softmax path, as the reference does.
+
+**In place:** :func:`attention_block` writes the new K/V into the cache
+tensors it is given and returns them; a caller that needs the old cache
+keeps a copy.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.decode_attention.ops import decode_attention as decode_attention_kernel
+from ..kernels.flash_attention.ops import flash_attention
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms & rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale.float()).to(dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] (or [S])."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)                  # [D/2]
+    angles = positions[..., None].to(torch.float32) * freqs       # [B, S, D/2]
+    cos = torch.cos(angles)[..., None, :]                         # [B, S, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(
+    q: torch.Tensor,            # [B, Sq, Hq, D]
+    k: torch.Tensor,            # [B, Sk, Hkv, D]
+    v: torch.Tensor,            # [B, Sk, Hkv, D]
+    *,
+    causal: bool = True,
+    q_offset=0,                 # int, [] or [B]: absolute position of q[:, 0]
+    kv_len=None,                # None, int, [] or [B]: valid KV prefix length
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (GQA-aware), the reference's
+    plain path: scores in float32, ``p`` rounded to V's dtype before
+    ``p·V`` (float32 accumulation).
+
+    ``q_offset`` and ``kv_len`` may be scalars or per-row ``[B]`` vectors
+    (ragged chunked catch-up: every row decodes its chunk at its own
+    offset against its own valid prefix).
+    """
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    chunk = min(chunk, sk)
+    if sk % chunk != 0:
+        pad = chunk - sk % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_len = (torch.clamp_max(torch.as_tensor(kv_len, device=dev), sk)
+                  if kv_len is not None else torch.tensor(sk, device=dev))
+        sk = sk + pad
+    n_chunks = sk // chunk
+
+    qf = q.float().reshape(b, sq, hkv, group, d)
+    # [Bq, Sq] with Bq in {1, B}: scalar offsets broadcast, vector offsets
+    # give each row its own causal frontier.
+    q_pos = (torch.as_tensor(q_offset, device=dev).to(torch.int64).reshape(-1, 1)
+             + torch.arange(sq, device=dev))
+    kl = None if kv_len is None else torch.as_tensor(kv_len, device=dev).reshape(-1)
+
+    m = torch.full((b, hkv, group, sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, group, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, group, sq, d), dtype=torch.float32, device=dev)
+    for idx in range(n_chunks):
+        k_i = k[:, idx * chunk:(idx + 1) * chunk]
+        v_i = v[:, idx * chunk:(idx + 1) * chunk]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_i.float()) * scale
+        kv_pos = idx * chunk + torch.arange(chunk, device=dev)          # [C]
+        mask = torch.ones((q_pos.shape[0], sq, chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (q_pos[:, :, None] >= kv_pos[None, None, :])
+        if kl is not None:
+            mask = mask & (kv_pos[None, None, :] < kl[:, None, None])
+        mask = mask[:, None, None]                                      # [B?,1,1,Sq,C]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v_i.float())
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-20)[..., None]
+    out = out.reshape(b, hq, sq, d).transpose(1, 2)                     # [B,Sq,Hq,D]
+    return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,        # [B, 1, Hq, D]
+    k_cache: torch.Tensor,  # [B, S, Hkv, D]
+    v_cache: torch.Tensor,  # [B, S, Hkv, D]
+    kv_len,                 # [] or [B] — number of valid cache entries
+) -> torch.Tensor:
+    """Single-token attention over a KV cache: the reference's XLA oracle
+    (full softmax; ``p`` rounded to the cache's dtype before ``p·V``).  The
+    port's attention path runs the ``decode_attention`` kernel instead;
+    this stays for tests."""
+    b, _, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, hkv, group, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    valid = pos[None, :] < torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention module (projections + rope + cache handling)
+# ---------------------------------------------------------------------------
+
+
+def normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
+    """``N(0, std²)`` drawn in float32 from ``gen`` on its device, then cast
+    (the reference draws float32 normals, scales, then casts)."""
+    x = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * std).to(dtype)
+
+
+def init_attention(gen: torch.Generator, cfg, d_model=None, dtype=None) -> dict:
+    d = d_model or cfg.d_model
+    hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    dtype = dtype or cfg.dtype
+    std = 0.02
+    p = {
+        "wq": normal(gen, (d, hq * hd), std, dtype),
+        "wk": normal(gen, (d, hkv * hd), std, dtype),
+        "wv": normal(gen, (d, hkv * hd), std, dtype),
+        "wo": normal(gen, (hq * hd, d), std, dtype),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
+    return p
+
+
+def attention_qkv(p, cfg, x, positions, rope: bool = True):
+    b, s, _ = x.shape
+    hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _write_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, start: torch.Tensor) -> None:
+    """Write the new K/V ``[B, s, Hkv, D]`` into the caches ``[B, S, Hkv,
+    D]`` at ``start``, **in place**, as the reference's functional writes
+    do:
+
+    * scalar ``start``: one slice from ``clamp(start, 0, S - s)`` (what
+      ``dynamic_update_slice`` does);
+    * per-row ``start``, one token: row ``b`` writes at ``start[b]``, and
+      not at all when ``start[b] >= S`` (the reference scatter drops it);
+    * per-row ``start``, ``s > 1`` (ragged catch-up): row ``b`` writes
+      positions ``start[b] + j``; those ``>= S`` are dropped, as the
+      reference's ``mode="drop"`` scatter drops them.  ``index_put_``
+      would raise on them, so they are sent to position ``start[b] - 1``,
+      which no valid write of the row touches, with its own old value.
+    """
+    big_s, s = kc.shape[1], k.shape[1]
+    if s > big_s:
+        raise ValueError(f"cannot write {s} positions into a cache of length {big_s}")
+    k, v = k.to(kc.dtype), v.to(vc.dtype)
+    if start.dim() == 0:
+        pos = torch.clamp(start, 0, big_s - s) + torch.arange(s, device=kc.device)
+        kc.index_copy_(1, pos, k)
+        vc.index_copy_(1, pos, v)
+        return
+    rows = torch.arange(kc.shape[0], device=kc.device)[:, None]
+    pos = start[:, None] + torch.arange(s, device=kc.device)[None, :]   # [B, s]
+    valid = pos < big_s
+    spare = torch.clamp(start - 1, 0, big_s - 1)[:, None]
+    dst = torch.where(valid, pos, spare)
+    keep = valid[:, :, None, None]
+    kc[rows, dst] = torch.where(keep, k, kc[rows, dst])
+    vc[rows, dst] = torch.where(keep, v, vc[rows, dst])
+
+
+def attention_block(
+    p,
+    cfg,
+    x,                       # [B, S, d]
+    positions,               # [B, S]
+    *,
+    causal: bool = True,
+    rope: bool = True,
+    cache=None,              # optional dict(k, v, len) — decode/prefill cache
+):
+    """Full attention block; returns ``(out, new_cache)``.
+
+    Without a cache the causal path runs ``flash_attention``.  With a cache
+    the new K/V are written at ``cache['len']`` (scalar or per-row ``[B]``)
+    into ``cache['k']``/``cache['v']`` in place; a single token then
+    attends through ``decode_attention``, a chunk through
+    :func:`chunked_attention`.
+    """
+    q, k, v = attention_qkv(p, cfg, x, positions, rope=rope)
+    b, s = x.shape[:2]
+    if cache is None:
+        if causal and q.shape[1] == k.shape[1]:
+            out = flash_attention(q, k, v, causal=True)
+        else:
+            out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+        new_cache = None
+    else:
+        kc, vc = cache["k"], cache["v"]
+        start = torch.as_tensor(cache["len"], device=x.device)
+        _write_cache(kc, vc, k, v, start)
+        new_len = torch.clamp_max(start + s, kc.shape[1])
+        if s == 1:
+            # The decode kernel takes scalar or per-row [B] cache lengths.
+            out = decode_attention_kernel(q[:, 0].contiguous(), kc, vc, new_len)[:, None]
+        else:
+            out = chunked_attention(
+                q, kc, vc, causal=causal, q_offset=start, kv_len=new_len,
+                chunk=cfg.attn_chunk,
+            )
+        new_cache = {"k": kc, "v": vc, "len": new_len}
+    out = out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Dense SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) -> dict:
+    std = 0.02
+    return {
+        "w_gate": normal(gen, (d_model, d_ff), std, dtype),
+        "w_up": normal(gen, (d_model, d_ff), std, dtype),
+        "w_down": normal(gen, (d_ff, d_model), std, dtype),
+    }
+
+
+def mlp_block(p, x):
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

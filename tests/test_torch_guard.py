@@ -5,7 +5,13 @@
 * the entry points run on CUDA unless the caller asks for the CPU: on a
   machine without a card, ``build_searcher``, ``play_episode`` and the
   launcher raise instead of running on the CPU;
-* selection on a GPU always goes through the kernel.
+* selection on a GPU always goes through the kernel;
+* each kernel is built with its own nvcc flags, and the library's name
+  hashes them;
+* ``build_searcher`` refuses what the port does not run: unported algos
+  and evaluators (naming their ROADMAP item), the cached evaluator on the
+  wave engine, a model evaluator whose top-K does not match the
+  environment.
 """
 
 import ast
@@ -15,9 +21,21 @@ import pytest
 import torch
 
 from repro_torch import rng
-from repro_torch.core import SearchSpec, build_searcher, play_episode
-from repro_torch.envs import make_bandit_tree
+from repro_torch.configs import get_reduced
+from repro_torch.core import (
+    CachedModelEvaluator,
+    Evaluator,
+    ModelEvaluator,
+    SearchSpec,
+    build_searcher,
+    play_episode,
+)
+from repro_torch.envs import make_bandit_tree, make_token_env
+from repro_torch.kernels import _build
 from repro_torch.launch import search as launch_search
+from repro_torch.models import init_params
+
+torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -40,7 +58,8 @@ def _imports(path: Path):
 
 def test_port_files_exist():
     assert len(PORT_FILES) > 10
-    assert (REPO / "src" / "repro_torch" / "csrc" / "tree_select.cu").exists()
+    for kernel in ("tree_select", "decode_attention", "flash_attention"):
+        assert (REPO / "src" / "repro_torch" / "csrc" / f"{kernel}.cu").exists()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -102,12 +121,74 @@ def test_launcher_defaults_to_cuda():
 
 def test_unported_paths_raise_not_implemented():
     env = make_bandit_tree(depth=3, num_actions=3)
-    for spec in (SearchSpec(engine="async"), SearchSpec(algo="leafp"),
-                 SearchSpec(algo="rootp")):
+    for spec in (SearchSpec(algo="leafp"), SearchSpec(algo="rootp"),
+                 SearchSpec(algo="rootp", engine="async")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_searcher(env, spec, device="cpu")
     with pytest.raises(ValueError, match="unknown algo"):
         build_searcher(env, SearchSpec(algo="mcts"), device="cpu")
+    for batch in (0, 2):
+        assert callable(build_searcher(env, SearchSpec(engine="async", batch=batch),
+                                       device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["PagedCachedModelEvaluator", "FrontierModelEvaluator",
+                                  "PagedFrontierModelEvaluator"])
+def test_paged_and_frontier_evaluators_raise_not_implemented(name):
+    env = make_bandit_tree(depth=3, num_actions=3)
+    unported = type(name, (Evaluator,), {})()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*attention"):
+        build_searcher(env, SearchSpec(engine="async", batch=2), evaluator=unported,
+                       device="cpu")
+
+
+def _tiny_lm():
+    cfg = get_reduced("llama3-8b", vocab_size=16, num_layers=1, d_model=16, num_heads=2,
+                      num_kv_heads=1, head_dim=8, d_ff=32)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_model_evaluators_are_checked_against_the_engine_and_env():
+    cfg, params = _tiny_lm()
+    env = make_token_env(cfg, params, torch.tensor([2, 3]), max_len=6, top_k=3, eos_token=1)
+    cached = CachedModelEvaluator(cfg, params, top_k=3, eos_token=1)
+    for batch in (0, 2):
+        with pytest.raises(ValueError, match="requires engine='async'"):
+            build_searcher(env, SearchSpec(batch=batch), evaluator=cached, device="cpu")
+        assert callable(build_searcher(env, SearchSpec(engine="async", batch=batch),
+                                       evaluator=cached, device="cpu"))
+    with pytest.raises(ValueError, match="top_k=4"):
+        build_searcher(env, SearchSpec(engine="async"), device="cpu",
+                       evaluator=ModelEvaluator(cfg, params, top_k=4))
+    with pytest.raises(TypeError, match="Evaluator"):
+        build_searcher(env, SearchSpec(), evaluator=object(), device="cpu")
+
+
+def test_model_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    cfg, params = _tiny_lm()
+    env = make_token_env(cfg, params, torch.tensor([2, 3]), max_len=6, top_k=3, eos_token=1)
+    ev = CachedModelEvaluator(cfg, params, top_k=3, eos_token=1)
+    for batch in (0, 2):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_searcher(env, SearchSpec(engine="async", batch=batch), evaluator=ev)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_search.main(["--env", "bandit", "--engine", "async", "--batch", "2",
+                            "--simulations", "4", "--workers", "2"])
+
+
+def test_each_kernel_has_its_own_flags_and_they_name_its_library(monkeypatch):
+    flags = {name: _build.nvcc_flags(name) for name in _build.KERNEL_FLAGS}
+    assert "--fmad=false" in flags["tree_select"]
+    for name in ("decode_attention", "flash_attention"):
+        assert "--fmad=false" not in flags[name]
+        assert "arch=compute_90a,code=sm_90a" in flags[name]
+    before = _build.library_path("decode_attention")
+    monkeypatch.setitem(_build.KERNEL_FLAGS, "decode_attention", ("--use_fast_math",))
+    after = _build.library_path("decode_attention")
+    assert after != before and after.name.startswith("libdecode_attention-")
+    assert _build.library_path("tree_select").name.startswith("libtree_select-")
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

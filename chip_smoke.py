@@ -6,12 +6,16 @@
 Phases (any failure raises, so the script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); require CUDA;
-2. build the port's three CUDA kernels from ``src/repro_torch/csrc`` with
-   nvcc, one process per kernel, all at once;
+2. build the port's CUDA libraries from ``src/repro_torch/csrc`` with
+   nvcc, one process per library, all at once (six kernels in five
+   libraries: ``tree_decode_attention`` holds the dense and the paged tree
+   kernel);
 3. hold each kernel against its plain PyTorch version on the card (the
    attention kernels in float32 and bfloat16 over a grid of shapes and the
-   shapes phases 7-9 drive), and time kernel, plain version and one
-   PyTorch library call at the main paths' shapes;
+   shapes phases 7-12 drive), and time kernel, plain version and one
+   PyTorch library call at the main paths' shapes (the paged and tree
+   kernels have no single library call: a gather or concatenation plus
+   SDPA is timed beside them as a two- or three-call yardstick);
 4. the rollout main path: ``build_searcher`` on the tap game answers 256
    searches (the paper's W=16, T=128) through the ``tree_select`` kernel;
    its launch count must cover every selection, and 8 of the trees are
@@ -25,12 +29,32 @@ Phases (any failure raises, so the script exits non-zero):
    (device activity: busy share and the top kernels);
 8. the uncached path: ``ModelEvaluator`` on the wave engine at the same
    width; every forward goes through ``flash_attention`` (32 per forward);
+10. the paged path, while llama3-8b is loaded: phase 7's searches with
+    ``PagedCachedModelEvaluator`` (16-token blocks, 1280 blocks: the dense
+    equivalent); every paged decode step goes through
+    ``paged_decode_attention``;
+11. the dense frontier path: phase 7's searches with
+    ``FrontierModelEvaluator``; every frontier forward goes through
+    ``tree_decode_attention``, every plain step through
+    ``decode_attention``;
+12. the paged frontier path: ``PagedFrontierModelEvaluator``; every
+    frontier forward goes through ``paged_tree_decode_attention``; then a
+    warm second call under torch.profiler;
 9. agreement on the card: cached prefill vs flash forward vs decode step
-   logits (full width, 2 layers, float32), and the reduced model's cached
-   search on the GPU against the port on the CPU.
+   logits (full width, 2 layers, float32), the reduced model's cached and
+   paged frontier searches on the GPU against the port on the CPU, and
+   (9.3) phase 7's cell at full width, 2 layers, float32: the paged,
+   frontier and paged frontier searches against the cached one.
 
-The line before the last is a JSON object with each kernel's launches on
-its main path (phase 4, 7 or 8), error against its plain version, time,
+Phases 10-12 run before phase 9, while phase 7's model is loaded.  Phase
+10 must choose phase 7's action on at least 7 of 8 trees and phase 12
+phase 11's.  Phase 11 prints its agreement with phase 7 without holding
+it: in bf16 over 32 random layers the frontier forward, the decode step
+and the chunked catch-up round differently, and that changes most rows'
+next top-8 tables (phase 11 measures how often); phase 9.3 holds frontier
+to cached decisions in float32.  The line before
+the last is a JSON object with each kernel's launches on its main path
+(phase 4, 7, 8, 10, 11 or 12), error against its plain version, time,
 plain time, bound and library time; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -58,20 +82,41 @@ BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 MAIN_B, MAIN_A = 256, 36      # tap game 6x6: 256 trees, 36 actions
 BANDIT_B = 1024
 KINDS = ("wu_uct", "uct", "treep", "treep_vc")
-KERNELS = ("tree_select", "decode_attention", "flash_attention")
+KERNELS = ("tree_select", "decode_attention", "flash_attention", "paged_decode_attention",
+           "tree_decode_attention", "paged_tree_decode_attention")
+# The library (``csrc/<name>.cu``) of each kernel, and the TPU kernel it replaces.
+SOURCES = {name: name for name in KERNELS[:5]}
+SOURCES["paged_tree_decode_attention"] = "tree_decode_attention"
+REPLACES = {
+    "tree_select": "src/repro/kernels/tree_select/tree_select.py:139",
+    "decode_attention": "src/repro/kernels/decode_attention/decode_attention.py:213",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:120",
+    "paged_decode_attention": "src/repro/kernels/decode_attention/decode_attention.py:169",
+    "tree_decode_attention":
+        "src/repro/kernels/decode_attention/tree_decode_attention.py:161",
+    "paged_tree_decode_attention":
+        "src/repro/kernels/decode_attention/tree_decode_attention.py:259",
+}
 # The model-guided paths (phases 7 and 8): llama3-8b, a 128-token prompt,
 # 160-token sequences, top-8 actions, EOS token 1.
 LM_LAYERS = 32                # full depth; cut here first if phase 7 runs long
 PROMPT_LEN, MAX_LEN, TOP_K, EOS = 128, 160, 8, 1
 ASYNC_B, ASYNC_W = 8, 16
 WAVE_B, WAVE_W = 2, 4
+# Phases 10 and 12: 16-token blocks, as many as the dense caches' rows.
+BLOCK = 16
+POOL_BLOCKS = ASYNC_B * ASYNC_W * (-(-MAX_LEN // BLOCK))       # 1280
 REDUCED_MAX_LEN = 20          # phase 9.2's token sequences
+REDUCED_BLOCK = 4
 # Child tables each kind reads (f32[B, A]) besides the validity bytes.
 TABLES_READ = {"wu_uct": 3, "uct": 2, "treep": 3, "treep_vc": 3}
 
 
+T0 = time.perf_counter()
+
+
 def phase(title):
-    print(f"== {title}", flush=True)
+    print(f"== {title} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def card_info(torch):
@@ -344,6 +389,262 @@ def time_flash(torch, device):
             "library_ms": lib_ms}
 
 
+# The paged and tree-batched decode kernels (phases 10-12).
+
+# Their float32 bar: within 1e-5 of the plain version (inputs N(0, 1),
+# outputs of magnitude up to ~3; the sums differ only in order).
+NEW_F32_TOL = 1e-5
+
+
+def check_f32(by_type, name):
+    if by_type["float32"] > NEW_F32_TOL:
+        raise AssertionError(f"{name}: float32 kernel differs from its plain version by "
+                             f"{by_type['float32']!r} > {NEW_F32_TOL}")
+
+
+def paged_inputs(torch, gen, n, bs, n_pages, hq, hkv, d, dtype, device, a=0, min_len=0):
+    """Pools of ``n * n_pages`` blocks and a shuffled page table; entries
+    past each row's live pages hold the sentinel ``P`` or stale ids, rows 1
+    and 2 share a page, and (unless ``min_len``) the lengths cover 0, a full
+    row and a length ending mid-page.  With ``a``, ``q`` is ``[n, a, hq,
+    d]`` and the speculative tails ``[n, a, hkv, d]`` come too."""
+    p = n * n_pages
+    q = torch.randn((n, a, hq, d) if a else (n, hq, d), generator=gen, device=device)
+    pk = torch.randn((p, bs, hkv, d), generator=gen, device=device).to(dtype)
+    pv = torch.randn((p, bs, hkv, d), generator=gen, device=device).to(dtype)
+    table = torch.randperm(p, generator=gen, device=device).reshape(n, n_pages)
+    full = n_pages * bs
+    lens = torch.randint(min_len, full + 1, (n,), generator=gen, device=device,
+                         dtype=torch.int32)
+    if min_len == 0 and n >= 3:
+        lens[:3] = torch.tensor([0, full, max(1, full - bs // 2)], dtype=torch.int32)
+    pages = torch.arange(n_pages, device=device)[None, :]
+    dead = pages >= ((lens + bs - 1) // bs)[:, None]
+    table = torch.where(dead, torch.where(pages % 2 == 0, p, table[0, 0]), table)
+    if n >= 3 and min_len == 0:
+        table[2, 0] = table[1, 0]
+    table = table.to(torch.int32)
+    spec = ()
+    if a:
+        spec = tuple(torch.randn((n, a, hkv, d), generator=gen, device=device).to(dtype)
+                     for _ in range(2))
+    return q.to(dtype), pk, pv, table, lens, spec
+
+
+def gathered(torch, pool, table):
+    """The dense view ``[n, n_pages * bs, Hkv, D]`` of each row's pages."""
+    p, bs = pool.shape[:2]
+    idx = table.long().clamp(0, p - 1)
+    return pool[idx].reshape(table.shape[0], table.shape[1] * bs, *pool.shape[2:])
+
+
+def tree_masks(torch, a, device):
+    return {"identity": None,
+            "lower": torch.tril(torch.ones((a, a), dtype=torch.bool, device=device))}
+
+
+def check_paged_decode(torch, device, lm_shapes):
+    """paged_decode_attention vs its plain version over the grid and the
+    driven shapes, float32 and bfloat16; and a pool made by paging a dense
+    cache against the dense decode_attention kernel on that cache."""
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        paged_decode_attention,
+        paged_decode_attention_ref,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    shapes = [(n, bs, npg, hq, hkv, d) for n in (1, 128) for bs, npg in
+              ((1, 37), (3, 11), (4, 40), (16, 10)) for hq, hkv in ((32, 8), (4, 1))
+              for d in (64, 128)] + lm_shapes
+    by_type, dense_err = {"float32": 0.0, "bfloat16": 0.0}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for n, bs, npg, hq, hkv, d in shapes:
+            q, pk, pv, table, lens, _ = paged_inputs(torch, gen, n, bs, npg, hq, hkv, d,
+                                                     dtype, device)
+            out = paged_decode_attention(q, pk, pv, table, lens)
+            sync(device)
+            ref = paged_decode_attention_ref(q, pk, pv, table, lens)
+            what = f"paged_decode_attention {name} N={n} bs={bs} pages={npg} " \
+                   f"Hq/Hkv={hq}/{hkv} D={d}"
+            by_type[name] = max(by_type[name], attention_err(torch, out, ref, name, what))
+            if not bool((out[lens == 0] == 0).all()):
+                raise AssertionError("paged_decode_attention: a kv_len = 0 row is not zero")
+            # Paging a dense cache: the dense kernel on the cache and the
+            # paged kernel on its pages read the same keys in the same order.
+            kc, vc = gathered(torch, pk, table), gathered(torch, pv, table)
+            pages = torch.arange(n * npg, device=device, dtype=torch.int32).reshape(n, npg)
+            flat = [x.reshape(n * npg, bs, hkv, d) for x in (kc, vc)]
+            out_p = paged_decode_attention(q, *flat, pages, lens)
+            out_d = decode_attention(q, kc, vc, lens)
+            sync(device)
+            dense_err = max(dense_err, attention_err(torch, out_p, out_d, name,
+                                                     what + " (paged dense cache)"))
+    print(f"paged_decode_attention matches its plain version: {len(shapes)} shapes x "
+          f"(float32, bfloat16), N in (1, 128), bs in (1, 3, 4, 16), Hq/Hkv in (32/8, "
+          f"4/1), D in (64, 128), lengths covering 0, a full row and mid-page, table "
+          f"entries past the live pages the sentinel and stale ids, a page shared by two "
+          f"rows, plus the driven shapes {lm_shapes}; max |kernel - plain| = {by_type}; "
+          f"on a paged dense cache max |paged - dense decode_attention| = {dense_err!r}")
+    check_f32(by_type, "paged_decode_attention")
+    return max(by_type.values())
+
+
+def check_tree(torch, device, dense_shapes, paged_shapes):
+    """tree_decode_attention (dense prefix) and paged_tree_decode_attention
+    vs their plain versions: A in (1, 4, 8, 16), the identity and a
+    lower-triangular tree mask, float32 and bfloat16, plus the driven
+    shapes.  Returns the max errors of both."""
+    from repro_torch.kernels.decode_attention import (
+        paged_tree_decode_attention,
+        paged_tree_decode_attention_ref,
+        tree_decode_attention,
+        tree_decode_attention_ref,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(22)
+    grid = [(n, a, bs, npg, hq, hkv, d) for n in (1, 128) for a in (1, 4, 8)
+            for bs, npg in ((1, 37), (3, 11), (16, 10)) for hq, hkv in ((32, 8), (4, 1))
+            for d in (64, 128)] + [(7, 16, 4, 9, 8, 2, 64)]
+    dense_grid = [(n, a, s, hq, hkv, d) for n, a, bs, npg, hq, hkv, d in grid
+                  for s in (bs * npg, 1)] + dense_shapes
+    err = {name: {"float32": 0.0, "bfloat16": 0.0}
+           for name in ("tree_decode_attention", "paged_tree_decode_attention")}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for n, a, bs, npg, hq, hkv, d in grid + paged_shapes:
+            q, pk, pv, table, lens, (ks, vs) = paged_inputs(torch, gen, n, bs, npg, hq, hkv,
+                                                            d, dtype, device, a=a)
+            for mname, mask in tree_masks(torch, a, device).items():
+                out = paged_tree_decode_attention(q, pk, pv, table, ks, vs, lens, mask)
+                sync(device)
+                ref = paged_tree_decode_attention_ref(q, pk, pv, table, ks, vs, lens, mask)
+                what = (f"paged_tree_decode_attention {name} N={n} A={a} bs={bs} "
+                        f"pages={npg} Hq/Hkv={hq}/{hkv} D={d} mask={mname}")
+                e = err["paged_tree_decode_attention"]
+                e[name] = max(e[name], attention_err(torch, out, ref, name, what))
+        for n, a, s, hq, hkv, d in dense_grid:
+            q = torch.randn((n, a, hq, d), generator=gen, device=device).to(dtype)
+            kc, vc = (torch.randn((n, s, hkv, d), generator=gen, device=device).to(dtype)
+                      for _ in range(2))
+            ks, vs = (torch.randn((n, a, hkv, d), generator=gen, device=device).to(dtype)
+                      for _ in range(2))
+            lens = torch.randint(0, s + 1, (n,), generator=gen, device=device,
+                                 dtype=torch.int32)
+            lens[0] = 0
+            for mname, mask in tree_masks(torch, a, device).items():
+                out = tree_decode_attention(q, kc, vc, ks, vs, lens, mask)
+                sync(device)
+                ref = tree_decode_attention_ref(q, kc, vc, ks, vs, lens, mask)
+                what = (f"tree_decode_attention {name} N={n} A={a} S={s} "
+                        f"Hq/Hkv={hq}/{hkv} D={d} mask={mname}")
+                e = err["tree_decode_attention"]
+                e[name] = max(e[name], attention_err(torch, out, ref, name, what))
+    print(f"tree_decode_attention and paged_tree_decode_attention match their plain "
+          f"versions: A in (1, 4, 8, 16), identity and lower-triangular masks, float32 and "
+          f"bfloat16, N in (1, 128), bs in (1, 3, 16), dense S in (1, bs * pages), Hq/Hkv "
+          f"in (32/8, 4/1, 8/2), D in (64, 128), lengths covering 0, plus the driven shapes "
+          f"{dense_shapes} (dense) and {paged_shapes} (paged); max |kernel - plain| = {err}")
+    for name, by_type in err.items():
+        check_f32(by_type, name)
+    return {name: max(by_type.values()) for name, by_type in err.items()}
+
+
+def time_paged_family(torch, device):
+    """Kernel, plain version and a library yardstick for the three paged and
+    tree kernels at the main path's shapes: 128 slots, a 160-token prefix
+    in 10 blocks of 16 (lengths 129-160) of a 1280-block bf16 pool, 32/8
+    heads, D=128; the tree kernels with A=8 candidates and the identity
+    mask.  No single PyTorch call computes them: the yardstick is a gather
+    of the pages plus SDPA (two calls), a concatenation of prefix and tail
+    plus masked SDPA (two calls), and gather, concatenation and SDPA
+    (three calls), printed and not reported as library_ms."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention,
+        paged_decode_attention_ref,
+        paged_tree_decode_attention,
+        paged_tree_decode_attention_ref,
+        tree_decode_attention,
+        tree_decode_attention_ref,
+    )
+
+    n, a, hq, hkv, d = ASYNC_B * ASYNC_W, TOP_K, 32, 8, 128
+    npg = -(-MAX_LEN // BLOCK)
+    gen = torch.Generator(device=device).manual_seed(23)
+    q1, pk, pv, table, lens, _ = paged_inputs(torch, gen, n, BLOCK, npg, hq, hkv, d,
+                                              torch.bfloat16, device, min_len=PROMPT_LEN + 1)
+    qa = torch.randn((n, a, hq, d), generator=gen, device=device).to(torch.bfloat16)
+    ks, vs = (torch.randn((n, a, hkv, d), generator=gen, device=device).to(torch.bfloat16)
+              for _ in range(2))
+    kc, vc = gathered(torch, pk, table), gathered(torch, pv, table)
+    s = kc.shape[1]
+    valid = int(lens.sum())
+    prefix_bytes = 2 * 2 * valid * hkv * d
+    pos = torch.arange(s, device=device)
+    eye = torch.eye(a, dtype=torch.bool, device=device)
+
+    def sdpa_decode():
+        k_, v_ = gathered(torch, pk, table), gathered(torch, pv, table)
+        mask = (pos[None, :] < lens[:, None])[:, None, None, :]
+        return F.scaled_dot_product_attention(q1[:, :, None, :], k_.transpose(1, 2),
+                                              v_.transpose(1, 2), attn_mask=mask,
+                                              enable_gqa=True)
+
+    def sdpa_tree(k_, v_):
+        kf = torch.cat([k_, ks], dim=1).transpose(1, 2)          # [n, Hkv, S + A, D]
+        vf = torch.cat([v_, vs], dim=1).transpose(1, 2)
+        mask = torch.cat([(pos[None, :] < lens[:, None])[:, None, :].expand(n, a, s),
+                          eye[None].expand(n, a, a)], dim=-1)[:, None]
+        return F.scaled_dot_product_attention(qa.transpose(1, 2), kf, vf, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def bound(nbytes, ops):
+        b_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / BF16_OPS_PER_S}
+        by = max(b_s, key=b_s.get)
+        return b_s[by] * 1e3, by
+
+    fields = {}
+    runs = {
+        "paged_decode_attention": (
+            lambda: paged_decode_attention(q1, pk, pv, table, lens),
+            lambda: paged_decode_attention_ref(q1, pk, pv, table, lens), sdpa_decode,
+            "gather + SDPA, two calls",
+            prefix_bytes + 2 * 2 * n * hq * d + 4 * n * npg + 4 * n, 4 * d * hq * valid),
+        "tree_decode_attention": (
+            lambda: tree_decode_attention(qa, kc, vc, ks, vs, lens),
+            lambda: tree_decode_attention_ref(qa, kc, vc, ks, vs, lens),
+            lambda: sdpa_tree(kc, vc), "concat + masked SDPA, two calls",
+            prefix_bytes + 2 * 2 * n * a * hq * d + 2 * 2 * n * a * hkv * d + 4 * n,
+            4 * d * hq * a * (valid + n)),
+        "paged_tree_decode_attention": (
+            lambda: paged_tree_decode_attention(qa, pk, pv, table, ks, vs, lens),
+            lambda: paged_tree_decode_attention_ref(qa, pk, pv, table, ks, vs, lens),
+            lambda: sdpa_tree(gathered(torch, pk, table), gathered(torch, pv, table)),
+            "gather + concat + masked SDPA, three calls",
+            prefix_bytes + 2 * 2 * n * a * hq * d + 2 * 2 * n * a * hkv * d + 4 * n * npg
+            + 4 * n, 4 * d * hq * a * (valid + n)),
+    }
+    for name, (kern, plain, lib, lib_what, nbytes, ops) in runs.items():
+        err = attention_err(torch, kern(), plain(), "bfloat16", f"timed {name}")
+        lib_err = float((lib().transpose(1, 2).reshape(kern().shape).float()
+                         - plain().float()).abs().max())
+        k_ms = time_ms(torch, kern, 300)
+        p_ms = time_ms(torch, plain, 30)
+        l_ms = time_ms(torch, lib, 300)
+        bound_ms, bound_by = bound(nbytes, ops)
+        print(f"{name} bf16 N={n}{' A=%d' % a if 'tree' in name else ''} prefix {s} "
+              f"(kv_len sum {valid}) 32/8 D=128: kernel {k_ms * 1e3!r} us, plain "
+              f"{p_ms * 1e3!r} us, {lib_what} {l_ms * 1e3!r} us (|yardstick - plain| "
+              f"{lib_err!r}), bound {bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, "
+              f"{ops} flops); |kernel - plain| {err!r}")
+        fields[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None}
+    print("no single PyTorch call computes the paged or tree kernels: library_ms is null")
+    return fields
+
+
 def main_path(torch, device):
     """Phase 4: 256 tap-game searches through build_searcher."""
     from repro_torch import rng
@@ -498,65 +799,289 @@ def search_results_ok(torch, res, spec, what):
         raise AssertionError(f"{what}: a tree overflowed its capacity")
 
 
-def model_guided(torch, device, cfg, params):
-    """Phase 7: 8 async WU-UCT searches over llama3-8b with the KV-cached
-    evaluator; one decode step (32 decode_attention launches) per tick."""
+def guided_cell(torch, device, cfg, params):
+    """Phase 7's cell: the token environment over ``cfg``/``params``, the
+    async wu_uct spec (B=8, W=16, T=64), the roots and the keys."""
     from repro_torch import rng
-    from repro_torch.core import CachedModelEvaluator, SearchSpec, build_searcher
+    from repro_torch.core import SearchSpec
     from repro_torch.envs import make_token_env
+
+    prompt = prompt_tokens(torch, cfg.vocab_size, PROMPT_LEN, seed=2).to(device)
+    env = make_token_env(cfg, params, prompt, max_len=MAX_LEN, top_k=TOP_K, eos_token=EOS)
+    spec = SearchSpec(algo="wu_uct", engine="async", batch=ASYNC_B, num_simulations=64,
+                      wave_size=ASYNC_W, max_depth=8, max_sim_steps=8, max_width=8,
+                      gamma=1.0)
+    roots = env.init(rng.split(rng.PRNGKey(0, device=device), ASYNC_B))
+    rngs = rng.split(rng.PRNGKey(1, device=device), ASYNC_B)
+    return env, spec, roots, rngs
+
+
+def counted_run(torch, device, fn):
+    """Run ``fn`` once with every launch, model-call and sync count at 0
+    before and read after; returns (its result, wall, launches, calls,
+    syncs, peak memory in GiB)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import CALLS, reset_calls
     from repro_torch.sync import SYNCS, reset_syncs
 
-    prompt = prompt_tokens(torch, cfg.vocab_size, PROMPT_LEN, seed=2).to(device)
-    env = make_token_env(cfg, params, prompt, max_len=MAX_LEN, top_k=TOP_K, eos_token=EOS)
-    ev = CachedModelEvaluator(cfg, params, top_k=TOP_K, eos_token=EOS)
-    spec = SearchSpec(algo="wu_uct", engine="async", batch=ASYNC_B, num_simulations=64,
-                      wave_size=ASYNC_W, max_depth=8, max_sim_steps=8, max_width=8,
-                      gamma=1.0)
-    search = build_searcher(env, spec, evaluator=ev, device=device)
-    roots = env.init(rng.split(rng.PRNGKey(0, device=device), ASYNC_B))
-    rngs = rng.split(rng.PRNGKey(1, device=device), ASYNC_B)
     sync(device)
     torch.cuda.reset_peak_memory_stats(device)
-
     reset_launches()
     reset_calls()
     reset_syncs()
     t0 = time.perf_counter()
-    res = search(roots, rngs)
+    out = fn()
     sync(device)
     wall = time.perf_counter() - t0
-    launches, calls, syncs = dict(LAUNCHES), dict(CALLS), SYNCS["host_any"]
+    return (out, wall, dict(LAUNCHES), dict(CALLS), SYNCS["host_any"],
+            torch.cuda.max_memory_allocated(device) / 2 ** 30)
 
+
+def model_guided(torch, device, cfg, params):
+    """Phase 7: 8 async WU-UCT searches over llama3-8b with the KV-cached
+    evaluator; one decode step (32 decode_attention launches) per tick."""
+    from repro_torch.core import CachedModelEvaluator, build_searcher
+
+    env, spec, roots, rngs = guided_cell(torch, device, cfg, params)
+    ev = CachedModelEvaluator(cfg, params, top_k=TOP_K, eos_token=EOS)
+    search = build_searcher(env, spec, evaluator=ev, device=device)
+    res, wall, launches, calls, syncs, peak = counted_run(torch, device,
+                                                         lambda: search(roots, rngs))
     steps = calls["decode_step"]
     if steps == 0 or launches["decode_attention"] < cfg.num_layers * steps:
         raise AssertionError(f"decode_attention launched {launches['decode_attention']} "
                              f"times for {steps} decode steps of {cfg.num_layers} layers")
     search_results_ok(torch, res, spec, "model-guided search")
-    peak = torch.cuda.max_memory_allocated(device)
     print(f"model-guided path: llama3-8b {cfg.num_layers} layers bf16, async wu_uct "
           f"B={ASYNC_B} W={ASYNC_W} T={spec.num_simulations}, prompt {PROMPT_LEN}, "
           f"max_len {MAX_LEN}, top_k {TOP_K}: {ASYNC_B / wall!r} searches/s (wall {wall!r} "
           f"s, first call), master ticks {int(res.ticks.max())}, model calls {calls}, "
-          f"launches {launches}, host syncs {syncs}, peak memory {peak / 2 ** 30!r} GiB; "
+          f"launches {launches}, host syncs {syncs}, peak memory {peak!r} GiB; "
           f"actions {res.action.tolist()}, root_n sums {res.root_n.sum(1).tolist()}")
     profile_call(torch, device, lambda: search(roots, rngs), "model-guided path")
+    return launches, {"action": res.action.cpu(), "calls": calls, "peak": peak,
+                      "wall": wall, "ticks": int(res.ticks.max())}
+
+
+def engine_search(torch, device, cfg, params, ev):
+    """Phase 7's searches with evaluator ``ev``, through the async engine's
+    own entry points (``build_searcher`` checks the evaluator first), so the
+    evaluator's aux and the per-tree frontier hits can be read after."""
+    from repro_torch.core import BatchedAsyncEngine, build_searcher
+
+    env, spec, roots, rngs = guided_cell(torch, device, cfg, params)
+    build_searcher(env, spec, evaluator=ev, device=device)
+    engine = BatchedAsyncEngine(env, spec.config, ASYNC_B, evaluator=ev)
+
+    def run():
+        carry, _, _ = engine.run_segment(engine.init_carry(roots, rngs), 10 ** 9)
+        return carry
+
+    carry, wall, launches, calls, syncs, peak = counted_run(torch, device, run)
+    res = engine.result(carry)
+    search_results_ok(torch, res, spec, type(ev).__name__)
+    return dict(engine=engine, carry=carry, res=res, wall=wall, launches=launches,
+                calls=calls, syncs=syncs, peak=peak, spec=spec, run=run)
+
+
+def launch_identity(launches, calls, kernel, call, layers):
+    """``kernel`` launched exactly once per layer of every ``call``."""
+    if calls[call] == 0 or launches[kernel] != layers * calls[call]:
+        raise AssertionError(f"{kernel} launched {launches[kernel]} times for "
+                             f"{calls[call]} {call} calls of {layers} layers")
+
+
+def agree_actions(torch, res, base, what, other="phase 7"):
+    """At least 7 of 8 trees choose ``base``'s action; returns how many."""
+    same = res.action.cpu() == base["action"]
+    for i in np.flatnonzero(~same.numpy()):
+        print(f"{what} tree {i}: action {int(res.action[i])}, {other} "
+              f"{int(base['action'][i])} (root_n {res.root_n[i].cpu().tolist()})")
+    if int(same.sum()) < 7:
+        raise AssertionError(f"{what}: actions agree with {other}'s on {int(same.sum())} "
+                             "of 8 trees")
+    return int(same.sum())
+
+
+def guided_line(run, cfg, what):
+    res = run["res"]
+    return (f"{what}: llama3-8b {cfg.num_layers} layers bf16, phase 7's cell: "
+            f"{ASYNC_B / run['wall']!r} searches/s (wall {run['wall']!r} s, first call), "
+            f"master ticks {int(res.ticks.max())}, model calls "
+            f"{ {k: v for k, v in run['calls'].items() if v} }, launches "
+            f"{ {k: v for k, v in run['launches'].items() if v} }, host syncs "
+            f"{run['syncs']}, peak memory {run['peak']!r} GiB; actions "
+            f"{res.action.tolist()}")
+
+
+def paged_path(torch, device, cfg, params, base):
+    """Phase 10: phase 7's searches with the paged evaluator (16-token
+    blocks, 1280 of them); every paged decode step launches
+    paged_decode_attention once per layer."""
+    from repro_torch.core import PagedCachedModelEvaluator
+
+    ev = PagedCachedModelEvaluator(cfg, params, top_k=TOP_K, eos_token=EOS,
+                                   block_size=BLOCK, num_blocks=POOL_BLOCKS)
+    run = engine_search(torch, device, cfg, params, ev)
+    launch_identity(run["launches"], run["calls"], "paged_decode_attention",
+                    "paged_decode_step", cfg.num_layers)
+    ev.check_exhausted(run["carry"][7])
+    same = agree_actions(torch, run["res"], base, "paged search")
+    blocks = int(ev.aux_blocks(run["carry"][7]))
+    print(guided_line(run, cfg, "paged path") + f"; blocks in use after the search "
+          f"{blocks} of {POOL_BLOCKS}; phase 7's peak memory {base['peak']!r} GiB; phase "
+          f"7's action on {same}/8 trees")
+    return run["launches"]
+
+
+def frontier_numerics(torch, device, cfg, params):
+    """Where a frontier forward's bf16 logits leave the decode step's, at
+    phase 7's width, depth and type.  Returns three shares:
+
+    * attention: ``tree_decode_attention`` elements that differ from
+      ``decode_attention`` over the cache with each candidate's key
+      appended at position ``kv_len`` (128 rows x 8 candidates, random);
+    * GEMM rows: elements of a layer's down projection over 1024 rows
+      (8 candidates x 128, one call) that differ from the same rows taken
+      128 at a time (the decode step's shape);
+    * end to end: 128 rows of phase 7's prompt plus 8-24 random tokens,
+      each row's top-8 candidates scored by ``decode_frontier`` and, one
+      column at a time, by ``decode_step``: the share of logits that
+      differ, the max difference and the share of rows whose next top-8
+      table is the same.
+    """
+    from repro_torch.envs.token_env import sorted_top_k
+    from repro_torch.kernels.decode_attention import decode_attention, tree_decode_attention
+    from repro_torch.models import decode_frontier, decode_step, init_cache, prefill_ragged
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    n, a, hq, hkv, d = ASYNC_B * ASYNC_W, TOP_K, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+
+    q, kc, vc, ks, vs = (rand(n, a, hq, d), rand(n, MAX_LEN, hkv, d),
+                         rand(n, MAX_LEN, hkv, d), rand(n, a, hkv, d), rand(n, a, hkv, d))
+    lens = torch.randint(PROMPT_LEN, MAX_LEN - 1, (n,), generator=gen, device=device,
+                         dtype=torch.int32)
+    tree = tree_decode_attention(q, kc, vc, ks, vs, lens)
+    rows = torch.arange(n, device=device)
+    attn_differ = 0.0
+    for j in range(a):
+        k2, v2 = kc.clone(), vc.clone()
+        k2[rows, lens.long()] = ks[:, j]
+        v2[rows, lens.long()] = vs[:, j]
+        dec = decode_attention(q[:, j].contiguous(), k2, v2, lens + 1)
+        attn_differ += float((dec != tree[:, j]).float().mean()) / a
+    w_down = params["blocks"]["mlp"]["w_down"][0]
+    h = rand(n, a, w_down.shape[0])
+    whole = (h.reshape(n * a, -1) @ w_down).reshape(n, a, -1)
+    gemm_differ = sum(float((whole[:, j] != h[:, j].contiguous() @ w_down).float().mean())
+                      for j in range(a)) / a
+
+    toks = torch.randint(2, cfg.vocab_size, (n, MAX_LEN), generator=gen, device=device,
+                         dtype=torch.int32)
+    toks[:, :PROMPT_LEN] = prompt_tokens(torch, cfg.vocab_size, PROMPT_LEN, seed=2).to(device)
+    lens = torch.randint(PROMPT_LEN + 8, PROMPT_LEN + 25, (n,), generator=gen, device=device,
+                         dtype=torch.int32)
+    logits, cache = prefill_ragged(params, cfg, toks, lens,
+                                   init_cache(cfg, n, MAX_LEN, device=device))
+    _, cand = sorted_top_k(logits, a)
+    clog, _ = decode_frontier(params, cfg, cand, dict(cache, len=lens))
+    differ, top_same, max_diff = 0.0, 0.0, 0.0
+    for j in range(a):
+        step, _ = decode_step(params, cfg, cand[:, j], {
+            "kv": {k: v.clone() for k, v in cache["kv"].items()}, "len": lens})
+        differ += float((step != clog[:, j]).float().mean()) / a
+        max_diff = max(max_diff, float((step.float() - clog[:, j].float()).abs().max()))
+        top_same += float((sorted_top_k(step, a)[1] == sorted_top_k(clog[:, j], a)[1])
+                          .all(1).float().mean()) / a
+    return attn_differ, gemm_differ, differ, max_diff, top_same
+
+
+def frontier_path(torch, device, cfg, params, base):
+    """Phase 11: phase 7's searches with the dense frontier evaluator; every
+    frontier forward launches tree_decode_attention once per layer, every
+    plain step decode_attention.
+
+    Its actions are printed beside phase 7's but not held to them: in
+    bf16 over 32 random layers the frontier forward (one GEMM over N * A
+    rows), the decode step and the cached evaluator's chunked catch-up are
+    three numerical paths, and their one-ulp differences change the next
+    top-8 tables of most rows (measured here by :func:`frontier_numerics`).
+    Frontier against cached decisions is held in float32 (phase 9.3), and
+    phase 12 is held to this phase's actions."""
+    from repro_torch.core import FrontierModelEvaluator
+
+    ev = FrontierModelEvaluator(cfg, params, top_k=TOP_K, eos_token=EOS)
+    run = engine_search(torch, device, cfg, params, ev)
+    launches, calls = run["launches"], run["calls"]
+    launch_identity(launches, calls, "tree_decode_attention", "decode_frontier",
+                    cfg.num_layers)
+    launch_identity(launches, calls, "decode_attention", "decode_step", cfg.num_layers)
+    same = int((run["res"].action.cpu() == base["action"]).sum())
+    hits = run["engine"].frontier_hits(run["carry"])
+    attn, gemm, differ, max_diff, top_same = frontier_numerics(torch, device, cfg, params)
+    print(guided_line(run, cfg, "frontier path") + f"; frontier hits per tree "
+          f"{hits.tolist()}; model calls against phase 7's "
+          f"{ {k: v for k, v in base['calls'].items() if v} }; phase 7's action on "
+          f"{same}/8 trees (not held: bf16 numerics)")
+    print(f"frontier numerics, bf16: tree_decode_attention vs decode_attention with the "
+          f"candidate's key appended, share of elements differing {attn!r}; down projection "
+          f"over 1024 rows vs 128 at a time, share differing {gemm!r}; decode_frontier vs "
+          f"decode_step logits of the same candidates, 128 rows x 8: share differing "
+          f"{differ!r}, max |difference| {max_diff!r}, next top-8 table unchanged on "
+          f"{top_same!r} of rows")
+    return launches, {"action": run["res"].action.cpu()}
+
+
+def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):
+    """Phase 12: phase 7's searches with the paged frontier evaluator; every
+    frontier forward launches paged_tree_decode_attention once per layer;
+    its actions are held to phase 11's (the dense frontier search, the same
+    numerical path through paged addressing); then a warm second call under
+    torch.profiler."""
+    from repro_torch.core import PagedFrontierModelEvaluator
+
+    ev = PagedFrontierModelEvaluator(cfg, params, top_k=TOP_K, eos_token=EOS,
+                                     block_size=BLOCK, num_blocks=POOL_BLOCKS)
+    run = engine_search(torch, device, cfg, params, ev)
+    launches, calls = run["launches"], run["calls"]
+    launch_identity(launches, calls, "paged_tree_decode_attention",
+                    "paged_decode_frontier", cfg.num_layers)
+    launch_identity(launches, calls, "paged_decode_attention", "paged_decode_step",
+                    cfg.num_layers)
+    ev.check_exhausted(run["carry"][7])
+    same = agree_actions(torch, run["res"], dense_frontier, "paged frontier search",
+                         "phase 11")
+    same7 = int((run["res"].action.cpu() == base["action"]).sum())
+    hits = run["engine"].frontier_hits(run["carry"])
+    blocks = int(ev.aux_blocks(run["carry"][7]))
+    print(guided_line(run, cfg, "paged frontier path") + f"; frontier hits per tree "
+          f"{hits.tolist()}; blocks in use after the search {blocks} of {POOL_BLOCKS}; "
+          f"phase 11's action on {same}/8 trees, phase 7's on {same7}/8 (not held)")
+    profile_call(torch, device, run["run"], "paged frontier path")
     return launches
 
 
 def profile_call(torch, device, fn, what, top=10):
     """Run ``fn`` once more (warm) under torch.profiler: wall, the card's
     busy share and the kernels that took the device time.  Only device
-    activity is traced: the host-side events of a call that launches
-    ~600,000 kernels take minutes to summarise."""
+    activity is traced, and the raw device events are summed by kernel
+    name: ``key_averages()`` first builds a Python event tree, which takes
+    minutes for a call that launches ~700,000 kernels."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         sync(device)
         wall = time.perf_counter() - t0
-    rows = [(evt.self_device_time_total, evt.count, evt.key) for evt in prof.key_averages()
-            if evt.device_type == torch.autograd.DeviceType.CUDA]
+    totals: dict[str, list] = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            row = totals.setdefault(evt.name(), [0.0, 0])
+            row[0] += evt.duration_ns() * 1e-3
+            row[1] += 1
+    rows = [(us, count, key) for key, (us, count) in totals.items()]
     busy = sum(r[0] for r in rows) * 1e-6
     print(f"{what}, second call under torch.profiler: wall {wall!r} s, device busy "
           f"{busy!r} s ({busy / wall!r} of wall), {sum(r[1] for r in rows)} device kernels")
@@ -654,11 +1179,17 @@ def agreement_full_width(torch, device):
 
 
 def agreement_reduced(torch, device):
-    """Phase 9.2: the reduced model's async cached search on the GPU and on
-    the port's CPU path, same keys and parameters."""
+    """Phase 9.2: the reduced model's async search on the GPU and on the
+    port's CPU path, same keys and parameters, with the KV-cached evaluator
+    and with the paged frontier evaluator."""
     from repro_torch import rng
     from repro_torch.configs import get_reduced
-    from repro_torch.core import CachedModelEvaluator, SearchSpec, build_searcher
+    from repro_torch.core import (
+        CachedModelEvaluator,
+        PagedFrontierModelEvaluator,
+        SearchSpec,
+        build_searcher,
+    )
     from repro_torch.envs import make_token_env
     from repro_torch.models import init_params
     from repro_torch.models.lm import tree_map
@@ -667,27 +1198,76 @@ def agreement_reduced(torch, device):
     params = init_params(cfg, torch.Generator(device=device).manual_seed(4))
     spec = SearchSpec(algo="wu_uct", engine="async", batch=8, num_simulations=32,
                       wave_size=4, max_depth=6, max_sim_steps=6, max_width=TOP_K, gamma=1.0)
-    results = []
-    for dev in (device, torch.device("cpu")):
-        p = tree_map(lambda x: x.to(dev), params)
-        env = make_token_env(cfg, p, prompt_tokens(torch, 64, 8, seed=6).to(dev),
-                             max_len=REDUCED_MAX_LEN, top_k=TOP_K, eos_token=EOS)
-        ev = CachedModelEvaluator(cfg, p, top_k=TOP_K, eos_token=EOS)
-        roots = env.init(rng.split(rng.PRNGKey(7, device=dev), 8))
-        results.append(build_searcher(env, spec, evaluator=ev, device=dev)(
-            roots, rng.split(rng.PRNGKey(8, device=dev), 8)))
-    gpu, cpu = results
-    search_results_ok(torch, gpu, spec, "reduced search on the GPU")
-    same = gpu.action.cpu() == cpu.action
-    for i in np.flatnonzero(~same.numpy()):
-        print(f"reduced search tree {i}: GPU action {int(gpu.action[i])}, CPU action "
-              f"{int(cpu.action[i])} (root_n GPU {gpu.root_n[i].cpu().tolist()} CPU "
-              f"{cpu.root_n[i].tolist()})")
-    if int(same.sum()) < 7:
-        raise AssertionError(f"GPU and CPU reduced searches agree on {int(same.sum())} of 8")
-    print(f"reduced llama3-8b (vocab 64, 2 layers) async cached search: GPU and CPU port "
-          f"agree on {int(same.sum())}/8 trees; root_n equal on "
-          f"{int((gpu.root_n.cpu() == cpu.root_n).all(1).sum())}/8")
+    blocks = 8 * 4 * -(-REDUCED_MAX_LEN // REDUCED_BLOCK)
+    evaluators = {
+        "cached": lambda p: CachedModelEvaluator(cfg, p, top_k=TOP_K, eos_token=EOS),
+        "paged frontier": lambda p: PagedFrontierModelEvaluator(
+            cfg, p, top_k=TOP_K, eos_token=EOS, block_size=REDUCED_BLOCK, num_blocks=blocks),
+    }
+    for what, make in evaluators.items():
+        results = []
+        for dev in (device, torch.device("cpu")):
+            p = tree_map(lambda x: x.to(dev), params)
+            env = make_token_env(cfg, p, prompt_tokens(torch, 64, 8, seed=6).to(dev),
+                                 max_len=REDUCED_MAX_LEN, top_k=TOP_K, eos_token=EOS)
+            roots = env.init(rng.split(rng.PRNGKey(7, device=dev), 8))
+            results.append(build_searcher(env, spec, evaluator=make(p), device=dev)(
+                roots, rng.split(rng.PRNGKey(8, device=dev), 8)))
+        gpu, cpu = results
+        search_results_ok(torch, gpu, spec, f"reduced {what} search on the GPU")
+        same = gpu.action.cpu() == cpu.action
+        for i in np.flatnonzero(~same.numpy()):
+            print(f"reduced {what} search tree {i}: GPU action {int(gpu.action[i])}, CPU "
+                  f"action {int(cpu.action[i])} (root_n GPU {gpu.root_n[i].cpu().tolist()} "
+                  f"CPU {cpu.root_n[i].tolist()})")
+        if int(same.sum()) < 7:
+            raise AssertionError(f"GPU and CPU reduced {what} searches agree on "
+                                 f"{int(same.sum())} of 8")
+        print(f"reduced llama3-8b (vocab 64, 2 layers) async {what} search: GPU and CPU "
+              f"port agree on {int(same.sum())}/8 trees; root_n equal on "
+              f"{int((gpu.root_n.cpu() == cpu.root_n).all(1).sum())}/8")
+
+
+def agreement_frontier(torch, device):
+    """Phase 9.3: frontier-speculative search makes the cached search's
+    decisions where the numerics allow it: phase 7's cell (B=8, W=16, T=64,
+    the 128-token prompt, max_len 160, top-8) over llama3-8b at full width,
+    2 layers, float32 (no TF32), with the cached, paged, frontier and paged
+    frontier evaluators; each at least 7 of 8 actions equal to the cached
+    search's."""
+    from repro_torch.core import (
+        CachedModelEvaluator,
+        FrontierModelEvaluator,
+        PagedCachedModelEvaluator,
+        PagedFrontierModelEvaluator,
+        build_searcher,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg, params = lm_setup(torch, device, 2, torch.float32, seed=1)
+    env, spec, roots, rngs = guided_cell(torch, device, cfg, params)
+    kw = dict(top_k=TOP_K, eos_token=EOS)
+    paged = dict(block_size=BLOCK, num_blocks=POOL_BLOCKS)
+    evaluators = {
+        "cached": CachedModelEvaluator(cfg, params, **kw),
+        "paged": PagedCachedModelEvaluator(cfg, params, **kw, **paged),
+        "frontier": FrontierModelEvaluator(cfg, params, **kw),
+        "paged frontier": PagedFrontierModelEvaluator(cfg, params, **kw, **paged),
+    }
+    base = None
+    for what, ev in evaluators.items():
+        res = build_searcher(env, spec, evaluator=ev, device=device)(roots, rngs)
+        search_results_ok(torch, res, spec, f"float32 {what} search")
+        if base is None:
+            base = {"action": res.action.cpu(), "root_n": res.root_n.cpu()}
+            continue
+        same = agree_actions(torch, res, base, f"float32 {what} search", "cached")
+        print(f"full width, 2 layers, float32, phase 7's cell: {what} search chooses the "
+              f"cached search's action on {same}/8 trees; root_n equal on "
+              f"{int((res.root_n.cpu() == base['root_n']).all(1).sum())}/8")
+    del params
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -699,9 +1279,10 @@ def main():
 
     phase("2. build")
     from repro_torch.kernels import _build
+    libraries = sorted(set(SOURCES.values()))
     t0 = time.perf_counter()
-    _build.build(list(KERNELS))
-    print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0!r} s (in parallel)")
+    _build.build(libraries)
+    print(f"built {', '.join(libraries)} in {time.perf_counter() - t0!r} s (in parallel)")
     for name, log in _build.BUILD_LOGS.items():
         print(f"nvcc {name}:\n{log.strip()}")
 
@@ -714,6 +1295,18 @@ def main():
     fields["decode_attention"] = {"max_abs_err": err, **time_decode(torch, device)}
     err = check_flash(torch, device, [(4, 24, 32, 8, 128)])
     fields["flash_attention"] = {"max_abs_err": err, **time_flash(torch, device)}
+    # Phases 10-12 drive 128 slots over 10 blocks of 16 with A = 8 candidates
+    # at full width; phase 9.2 32 slots over 5 blocks of 4, 4/2 heads, D=16.
+    n_main, npg_main = ASYNC_B * ASYNC_W, -(-MAX_LEN // BLOCK)
+    npg_reduced = -(-REDUCED_MAX_LEN // REDUCED_BLOCK)
+    errs = check_tree(torch, device, [(n_main, TOP_K, MAX_LEN, 32, 8, 128)],
+                      [(n_main, TOP_K, BLOCK, npg_main, 32, 8, 128),
+                       (32, TOP_K, REDUCED_BLOCK, npg_reduced, 4, 2, 16)])
+    errs["paged_decode_attention"] = check_paged_decode(
+        torch, device, [(n_main, BLOCK, npg_main, 32, 8, 128),
+                        (32, REDUCED_BLOCK, npg_reduced, 4, 2, 16)])
+    for name, timed in time_paged_family(torch, device).items():
+        fields[name] = {"max_abs_err": errs[name], **timed}
 
     phase("4. main path")
     launches = {"tree_select": main_path(torch, device)["tree_select"]}
@@ -726,28 +1319,40 @@ def main():
 
     phase("7. model-guided main path (KV-cached async search)")
     cfg, params = lm_setup(torch, device, LM_LAYERS, torch.bfloat16, seed=1)
-    launches["decode_attention"] = model_guided(torch, device, cfg, params)["decode_attention"]
+    got, base = model_guided(torch, device, cfg, params)
+    launches["decode_attention"] = got["decode_attention"]
 
     phase("8. uncached path (ModelEvaluator, wave engine)")
     launches["flash_attention"] = uncached(torch, device, cfg, params)["flash_attention"]
+
+    phase("10. paged path (PagedCachedModelEvaluator, phase 7's cell)")
+    got = paged_path(torch, device, cfg, params, base)
+    launches["paged_decode_attention"] = got["paged_decode_attention"]
+
+    phase("11. frontier path (FrontierModelEvaluator, phase 7's cell)")
+    got, dense_frontier = frontier_path(torch, device, cfg, params, base)
+    launches["tree_decode_attention"] = got["tree_decode_attention"]
+
+    phase("12. paged frontier path (PagedFrontierModelEvaluator, phase 7's cell)")
+    got = paged_frontier_path(torch, device, cfg, params, base, dense_frontier)
+    launches["paged_tree_decode_attention"] = got["paged_tree_decode_attention"]
     del params
     torch.cuda.empty_cache()
 
     phase("9. agreement on the card")
     agreement_full_width(torch, device)
     agreement_reduced(torch, device)
+    agreement_frontier(torch, device)
 
-    sources = {"tree_select": "src/repro/kernels/tree_select/tree_select.py:139",
-               "decode_attention": "src/repro/kernels/decode_attention/decode_attention.py:213",
-               "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:120"}
     kernels = [{
         "name": name,
         "route": "cuda",
-        "source": f"src/repro_torch/csrc/{name}.cu",
-        "replaces": sources[name],
+        "source": f"src/repro_torch/csrc/{SOURCES[name]}.cu",
+        "replaces": REPLACES[name],
         "launches": launches[name],
         **fields[name],
     } for name in KERNELS]
+    phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ from .batched_tree import BatchedTree, init_batched_tree
 from .evaluators import (
     CachedModelEvaluator,
     Evaluator,
+    FrontierModelEvaluator,
     ModelEvaluator,
+    PagedCachedModelEvaluator,
+    PagedFrontierModelEvaluator,
     RolloutEvaluator,
 )
 from .policies import PolicyConfig
@@ -21,6 +24,9 @@ __all__ = [
     "RolloutEvaluator",
     "ModelEvaluator",
     "CachedModelEvaluator",
+    "PagedCachedModelEvaluator",
+    "FrontierModelEvaluator",
+    "PagedFrontierModelEvaluator",
     "PolicyConfig",
     "SearchConfig",
     "SearchResult",

@@ -10,8 +10,9 @@ batched (``batch=B``), for the algos ``wu_uct``, ``uct``, ``treep`` and
 ``treep_vc``; leaves evaluated by environment rollouts
 (:class:`RolloutEvaluator`, the default), an LM forward per tick
 (:class:`ModelEvaluator`) or a KV-cached decode step per tick
-(:class:`CachedModelEvaluator`, async engine only).  The rest raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+(:class:`CachedModelEvaluator` and its paged and frontier subclasses,
+async engine only).  The rest raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -34,15 +35,6 @@ State = Any
 ALGOS = ("wu_uct", "uct", "treep", "treep_vc", "leafp", "rootp")
 ENGINES = ("wave", "async")
 PORTED_ALGOS = ("wu_uct", "uct", "treep", "treep_vc")
-# Reference evaluators the port does not have yet, and where they wait.
-UNPORTED_EVALUATORS = {
-    "PagedCachedModelEvaluator": "ROADMAP.md, queue 1: the paged evaluator with "
-                                 "paged_decode_attention",
-    "FrontierModelEvaluator": "ROADMAP.md, queue 1: the frontier evaluators with "
-                              "tree_decode_attention",
-    "PagedFrontierModelEvaluator": "ROADMAP.md, queue 1: the frontier evaluators "
-                                   "with paged_tree_decode_attention",
-}
 
 
 class SearchSpec(NamedTuple):
@@ -128,8 +120,9 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
       leading ``[B]`` axis on every field (``rngs`` is ``[B, 2]``).
 
     ``evaluator`` plugs the leaf evaluation (default: environment
-    rollouts); :class:`CachedModelEvaluator` needs ``engine='async'``, and a
-    model evaluator's ``top_k`` must equal ``env.num_actions``.
+    rollouts); :class:`CachedModelEvaluator` and its paged and frontier
+    subclasses need ``engine='async'``, and a model evaluator's ``top_k``
+    must equal ``env.num_actions``.
 
     Selection on a GPU always runs the ``tree_select`` kernel, and on the
     CPU always its plain version, so ``spec.use_kernel=False`` is accepted
@@ -140,12 +133,10 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
         raise ValueError(f"batch must be >= 0, got {spec.batch}")
     if spec.algo not in PORTED_ALGOS:
         raise NotImplementedError(
-            f"algo {spec.algo!r} is not ported yet (ROADMAP.md, queue 1: "
-            "core/baselines.py, run_leafp/run_rootp)"
+            f"algo {spec.algo!r} is not ported yet (ROADMAP.md §1, queue "
+            "item 4: core/baselines.py, run_leafp/run_rootp)"
         )
     name = type(evaluator).__name__
-    if name in UNPORTED_EVALUATORS:
-        raise NotImplementedError(f"{name} is not ported yet ({UNPORTED_EVALUATORS[name]})")
     if evaluator is not None and not isinstance(evaluator, Evaluator):
         raise TypeError(f"evaluator must be a repro_torch Evaluator, got {name}")
     if isinstance(evaluator, ModelEvaluator) and evaluator.top_k != env.num_actions:

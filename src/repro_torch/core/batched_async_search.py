@@ -22,11 +22,15 @@ and slots are updated **in place** (:mod:`repro_torch.core.batched_tree`).
 Host syncs (:data:`repro_torch.sync.SYNCS`): one per master tick for the
 loop condition, one per slot column for "does any tree refill here", the
 traversal's and path walks' per-level syncs for the columns that do, and
-the evaluator's own (the cached evaluator's catch-up loop).
+the evaluator's own (the cached evaluators' catch-up loops, the frontier
+evaluators' "any EXPAND row" per tick).
+
+The carry counts, per tree, the refills a frontier evaluator answered from
+its snapshot (:meth:`BatchedAsyncEngine.frontier_hits`).
 
 The serving surface of the reference engine (``admit``/``evict``, the
 request ring, ``serve_segment``) and the trace mode (``AsyncTickTrace``)
-are not ported yet (ROADMAP.md, queue 1).
+are not ported yet (ROADMAP.md §1, queue items 2 and 3).
 """
 
 from __future__ import annotations
@@ -63,9 +67,8 @@ class _BatchedAsyncSlots(NamedTuple):
     steps: torch.Tensor         # i32[B, W]  simulation steps taken
 
 
-# The loop carry: (tree, slots, rng[B, 2], t_launch[B], t_done[B],
-# ticks[B], max_o[B], aux) — the reference's, without the frontier-hit
-# counter (no frontier evaluator is ported).
+# The loop carry, the reference's: (tree, slots, rng[B, 2], t_launch[B],
+# t_done[B], ticks[B], max_o[B], aux, frontier_hits[B]).
 Carry = tuple
 
 
@@ -76,7 +79,9 @@ class BatchedAsyncEngine:
     * :meth:`step` / :meth:`run_segment` run one / up to ``n`` master
       ticks with settled trees frozen;
     * :meth:`alive` / :meth:`settled` say which trees still search;
-    * :meth:`result` is the ``SearchResult[B]`` snapshot;
+    * :meth:`result` is the ``SearchResult[B]`` snapshot, and
+      :meth:`frontier_hits` the per-tree count of refills a frontier
+      evaluator answered without a forward;
     * :meth:`run` does all of it for one batch of roots.
     """
 
@@ -128,7 +133,8 @@ class BatchedAsyncEngine:
     # ------------------------------------------------------------------
     # Master tick
     # ------------------------------------------------------------------
-    def _refill(self, tree, slots: _BatchedAsyncSlots, rngs, t_launch, t_done, aux):
+    def _refill(self, tree, slots: _BatchedAsyncSlots, rngs, t_launch, t_done, aux,
+                fr_hits):
         """Fill each tree's FREE slots with fresh selections — slot ``j``
         of all ``B`` trees at once, one ``[B, A]`` kernel call per
         traversal level."""
@@ -160,8 +166,9 @@ class BatchedAsyncEngine:
                            cfg, mask=want & is_term)
             parent_state = btree.get_state(tree, nodes)
             # Slot column j of every tree lives at flat aux row b·W + j.
-            aux, _ = self.evaluator.refill_aux(cfg, aux, bidx * W + j, parent_state,
-                                               want & ~is_term)
+            aux, hit = self.evaluator.refill_aux(cfg, aux, bidx * W + j, parent_state,
+                                                 want & ~is_term)
+            fr_hits = fr_hits + hit.to(fr_hits.dtype)
             kind = torch.where(is_term, FREE, torch.where(needs_exp, EXPAND, SIM))
             self._set_slot(
                 slots, j, want, kind=kind, sim_node=sim_node, act=act,
@@ -172,7 +179,7 @@ class BatchedAsyncEngine:
             )
             t_launch = t_launch + want.to(t_launch.dtype)
             t_done = t_done + (want & is_term).to(t_done.dtype)
-        return tree, slots, rngs, t_launch, t_done, aux
+        return tree, slots, rngs, t_launch, t_done, aux, fr_hits
 
     def _tick(self, slots: _BatchedAsyncSlots, rngs: torch.Tensor, aux):
         """Advance every busy slot by one env step, as one flat ``[B·W]``
@@ -243,12 +250,14 @@ class BatchedAsyncEngine:
         tree's slots are never fed again.
         """
         alive = self.alive(carry)
-        tree, slots, rngs0, t_launch, t_done, ticks0, max_o0, aux = carry
+        tree, slots, rngs0, t_launch, t_done, ticks0, max_o0, aux, fr_hits = carry
         kind0 = slots.kind
         slots = slots._replace(kind=torch.where(alive[:, None], kind0, FREE))
         rngs, k_tick = _split_each(rngs0, 2)
-        tree, slots, rngs, t_launch, t_done, aux = self._refill(
-            tree, slots, rngs, t_launch, t_done, aux)
+        # A finished tree refills nothing (``want`` is false), so its hit
+        # count does not move.
+        tree, slots, rngs, t_launch, t_done, aux, fr_hits = self._refill(
+            tree, slots, rngs, t_launch, t_done, aux, fr_hits)
         max_o = torch.maximum(max_o0, tree.O[:, 0])
         slots, r_edge, done_edge, aux = self._tick(slots, k_tick, aux)
         tree, slots, t_done = self._settle_finished(tree, slots, t_done, r_edge, done_edge)
@@ -261,6 +270,7 @@ class BatchedAsyncEngine:
             torch.where(alive, ticks0 + 1, ticks0),
             torch.where(alive, max_o, max_o0),
             aux,
+            fr_hits,
         )
 
     def init_carry(self, root_states: State, rngs: torch.Tensor) -> Carry:
@@ -278,6 +288,7 @@ class BatchedAsyncEngine:
             zeros(torch.int64), zeros(torch.int64), zeros(torch.int64),
             zeros(torch.float32),
             self.evaluator.init_aux(root_states, (B, self.W)),
+            zeros(torch.int64),
         )
 
     def run_segment(self, carry: Carry, num_ticks: int):
@@ -290,6 +301,11 @@ class BatchedAsyncEngine:
             carry = self.step(carry)
             t += 1
         return carry, t, int(busy)
+
+    def frontier_hits(self, carry: Carry) -> torch.Tensor:
+        """i64[B] — refills answered from a frontier snapshot, per tree
+        (zero for evaluators without a frontier cache)."""
+        return carry[8]
 
     def result(self, carry: Carry) -> SearchResult:
         """``SearchResult[B]`` snapshot (meaningful on settled rows)."""

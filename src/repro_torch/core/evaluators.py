@@ -17,12 +17,16 @@ Rollouts are masked lockstep loops: all ``N`` slots step together until
 none is live, which is what ``vmap`` of the reference's per-slot
 ``while_loop`` computes.  Each step costs one host sync.
 
-Three evaluators: :class:`RolloutEvaluator` (``env.policy`` rollouts),
+The evaluators: :class:`RolloutEvaluator` (``env.policy`` rollouts),
 :class:`ModelEvaluator` (one batched LM ``forward`` per tick over the token
-environment) and :class:`CachedModelEvaluator` (one batched
-``decode_step`` per tick against per-slot KV caches).  The serving hooks
-(``admit_aux``, ``evict_aux``, the ring hooks) come with serving, the
-paged and frontier evaluators with their kernels.
+environment), :class:`CachedModelEvaluator` (one batched ``decode_step``
+per tick against per-slot KV caches), :class:`PagedCachedModelEvaluator`
+(the same over a shared block pool with page tables), and the
+frontier-speculative :class:`FrontierModelEvaluator` and
+:class:`PagedFrontierModelEvaluator` (an EXPAND tick scores every
+candidate child in one forward; refills onto the snapshot parent or one
+of its children need no forward).  The serving hooks (``admit_aux``,
+``evict_aux``, the ring hooks) come with serving.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 
 from .. import rng
 from ..envs.base import Environment, map_state, where_state
+from ..models.layers import put_where_
 from ..sync import host_any
 
 State = Any
@@ -71,8 +76,8 @@ class Evaluator:
       broadcast over the trailing slot axis);
     * ``refill_aux(cfg, aux, rows, new_state, mask)`` re-syncs aux rows
       ``rows`` with the freshly assigned ``new_state`` where ``mask``
-      holds; returns ``(aux, hits)``, ``hits`` all false (no frontier
-      cache in the port yet);
+      holds; returns ``(aux, hits)``, ``hits`` marking the rows a frontier
+      cache answered (all false for the other evaluators);
     * ``aux_len(aux)`` / ``aux_last_logits(aux)``: per-slot cache depth and
       last logits, ``None`` where the evaluator keeps none.
     """
@@ -425,12 +430,8 @@ class CachedModelEvaluator(ModelEvaluator):
         """
         from ..models import decode_step
 
-        idx = torch.arange(token.shape[0], device=token.device)
-        s_max = aux["tokens"].shape[-1]
         length = aux["len"]
-        safe = torch.clamp_max(length, s_max - 1)
-        prev = aux["tokens"][idx, safe]
-        aux["tokens"][idx, safe] = torch.where(fed, token.to(prev.dtype), prev)
+        _, safe = self._write_tokens(aux, token, fed)
         for key, params, cfg in self._branches():
             b = aux[key]
             logits, cache = decode_step(params, cfg, token, dict(b["cache"], len=safe))
@@ -441,6 +442,17 @@ class CachedModelEvaluator(ModelEvaluator):
             }
         aux["len"] = torch.where(fed, length + 1, length)
         return aux
+
+    @staticmethod
+    def _write_tokens(aux, token, fed):
+        """Write each ``fed`` slot's token at its position ``min(len, S - 1)``
+        of ``aux['tokens']`` (in place); returns ``(idx, safe)``, the slot
+        indices and those positions."""
+        idx = torch.arange(token.shape[0], device=token.device)
+        safe = torch.clamp_max(aux["len"], aux["tokens"].shape[-1] - 1)
+        prev = aux["tokens"][idx, safe]
+        aux["tokens"][idx, safe] = torch.where(fed, token.to(prev.dtype), prev)
+        return idx, safe
 
     # -- evaluator protocol -------------------------------------------------
 
@@ -473,11 +485,14 @@ class CachedModelEvaluator(ModelEvaluator):
 
     @staticmethod
     def _rollback_targets(sub, new_state, mask):
-        """Per-row ``(start, target, tokens)`` for a refill rollback.
+        """Per-row ``(start, target, tokens, common)`` for a refill rollback.
 
-        ``start`` is the shared prefix of the cached tokens and the new
-        path's, capped so the final prompt token is always re-decoded;
-        unmasked rows collapse to ``start == target == len`` (no-op).
+        ``common`` is the (uncapped) shared prefix of the cached tokens and
+        the new path's; ``start`` caps it so the final prompt token is
+        always re-decoded (the frontier evaluators compare against
+        ``common`` to recognise rows whose forced re-decode would only
+        regenerate logits their frontier snapshot holds).  Unmasked rows
+        collapse to ``start == target == len`` (no-op).
         """
         s_max = sub["tokens"].shape[-1]
         pos = torch.arange(s_max, device=sub["tokens"].device)
@@ -492,7 +507,7 @@ class CachedModelEvaluator(ModelEvaluator):
         target = torch.where(mask, l_new, old_len)
         tokens = torch.where(mask[:, None], new_state.tokens.to(sub["tokens"].dtype),
                              sub["tokens"])
-        return start, target, tokens
+        return start, target, tokens, common
 
     def refill_aux(self, cfg, aux, rows, new_state, mask):
         del cfg
@@ -502,7 +517,7 @@ class CachedModelEvaluator(ModelEvaluator):
         if not host_any(mask):
             return aux, hits
         sub = self._take_rows(aux, rows)
-        start, target, tokens = self._rollback_targets(sub, new_state, mask)
+        start, target, tokens, _ = self._rollback_targets(sub, new_state, mask)
         sub["tokens"], sub["len"] = tokens, start
         sub = self._catch_up(sub, target)
         return self._put_rows(aux, rows, sub), hits
@@ -560,3 +575,656 @@ class CachedModelEvaluator(ModelEvaluator):
         # Exactly the slots whose env state appended a token this tick.
         fed = (kind != FREE) & ~state.done
         return out, self._advance(aux, token, fed)
+
+
+# ---------------------------------------------------------------------------
+# PagedCachedModelEvaluator — shared block pool + per-slot page tables.
+# ---------------------------------------------------------------------------
+
+
+class PagedCachedModelEvaluator(CachedModelEvaluator):
+    """:class:`CachedModelEvaluator` over a paged KV layout
+    (:mod:`repro_torch.models.paged`).
+
+    Dense slot caches give each of the ``B·W`` slots a private ``[max_len]``
+    row, although sibling slots share their root prompt and, after
+    refills, long tree prefixes.  Here K/V live in a shared block pool
+    addressed through per-slot page tables, so a shared prefix is stored
+    once:
+
+    * :meth:`init_aux` prefills each distinct root once (one ragged forward
+      over the ``B`` roots), scatters its rows into pool pages and points
+      the tables of all ``W`` sibling slots at them (refcount ``W``);
+    * a slot about to write into a block with ``refcount > 1`` first copies
+      it to a fresh private block (copy-on-write, :meth:`_page_write`);
+    * :meth:`refill_aux` rolls back by a page-table edit: the suffix pages'
+      refcounts fall back into the free pool
+      (:func:`~repro_torch.models.release_pages`), and only the divergent
+      suffix re-decodes.
+
+    A tick's decode is ``models.paged_decode_step``, whose attention reads
+    the pool through the tables (``paged_decode_attention``).  An
+    allocation that finds the pool empty counts into ``aux['oom']``;
+    :meth:`check_exhausted` (and ``init_aux``) raise it as
+    :class:`~repro_torch.models.PagePoolExhaustedError`.
+
+    Aux layout (flat slot axis ``N``; the pools are global):
+
+    * ``tokens i32[N, S]`` / ``len i32[N]`` as the dense evaluator;
+    * ``table i32[N, max_pages]``: pool block per logical page, garbage at
+      page indices ``>= ceil(len / bs)``;
+    * ``refcount i32[P]`` / ``oom i32[]``, shared by the branches (policy
+      and reward model see the same tokens; each owns its pools);
+    * ``pol``/``rew``: ``{"k", "v": [L, P, bs, Hkv, D], "logits": [N, V]}``.
+
+    **In place:** as the dense evaluator, the hooks update the aux they
+    are given; the pools are written in place (the reference's
+    ``.at[].set`` with drop mode becomes :func:`put_where_`).
+    """
+
+    def __init__(
+        self,
+        model_cfg,
+        params,
+        *,
+        top_k: int,
+        block_size: int,
+        num_blocks: int,
+        eos_token: int = 0,
+        reward_cfg=None,
+        reward_params=None,
+        value_fn: Optional[Callable] = None,
+    ):
+        super().__init__(model_cfg, params, top_k=top_k, eos_token=eos_token,
+                         reward_cfg=reward_cfg, reward_params=reward_params,
+                         value_fn=value_fn)
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        self.block_size = block_size
+        self.num_blocks = num_blocks
+
+    def _maybe_raise(self, oom: torch.Tensor) -> None:
+        """Raise a latched pool-exhaustion count (one host sync)."""
+        from ..models import PagePoolExhaustedError
+
+        if host_any(oom > 0):
+            raise PagePoolExhaustedError(
+                f"KV block pool exhausted: {int(oom)} page allocation(s) failed "
+                f"(num_blocks={self.num_blocks}, block_size={self.block_size}); grow "
+                "num_blocks or reduce concurrent slots"
+            )
+
+    def check_exhausted(self, aux) -> None:
+        """Raise :class:`~repro_torch.models.PagePoolExhaustedError` if any
+        allocation failed since ``init_aux`` (call after a search)."""
+        self._maybe_raise(aux["oom"])
+
+    # -- aux structure helpers ---------------------------------------------
+
+    @staticmethod
+    def _take_rows(aux, rows):
+        """Rows ``rows`` of the per-slot leaves (copies); the pools, the
+        refcounts and ``oom`` are shared, not copied."""
+        def branch(b):
+            if not isinstance(b, dict):
+                return ()
+            return {"k": b["k"], "v": b["v"], "logits": b["logits"][rows]}
+
+        return {"tokens": aux["tokens"][rows], "len": aux["len"][rows],
+                "table": aux["table"][rows], "refcount": aux["refcount"],
+                "oom": aux["oom"], "pol": branch(aux["pol"]), "rew": branch(aux["rew"])}
+
+    @staticmethod
+    def _put_rows(aux, rows, sub):
+        """Write ``sub`` back into aux rows ``rows``, in place."""
+        aux["tokens"][rows] = sub["tokens"]
+        aux["len"][rows] = sub["len"]
+        aux["table"][rows] = sub["table"]
+        aux["refcount"], aux["oom"] = sub["refcount"], sub["oom"]
+        for key in ("pol", "rew"):
+            if isinstance(aux[key], dict):
+                aux[key]["k"], aux[key]["v"] = sub[key]["k"], sub[key]["v"]
+                aux[key]["logits"][rows] = sub[key]["logits"]
+        return aux
+
+    def _copy_blocks(self, branch, src, dst) -> None:
+        """Copy-on-write: pool block ``src[i]`` to ``dst[i]`` in every layer
+        where ``dst[i] < P``, in place (the reference's drop-mode copy)."""
+        p = self.num_blocks
+        src = torch.clamp(src.to(torch.int64), 0, p - 1)
+        for name in ("k", "v"):
+            pool = branch[name]
+            put_where_(pool, (dst,), pool[:, src], dst < p, lead=1)
+
+    def _page_write(self, table, refcount, oom, idx, pos, write):
+        """Resolve where each ``write`` slot's K/V row for position ``pos``
+        lands:
+
+        * ``pos % bs == 0``: the slot enters a fresh page; allocate a block;
+        * the page is started and shared (``refcount > 1``): copy-on-write,
+          allocate, copy, and decref the shared block;
+        * otherwise the slot owns the block and writes in place.
+
+        Slots that do not write never touch the pool (target block ``P``).
+        A failed allocation counts into ``oom`` and drops the write.
+        ``table`` is updated in place.  Returns ``(table, refcount, oom,
+        wb, off, copy_src, copy_dst)``: ``wb`` the write block per slot
+        (``P``: no write), ``copy_src``/``copy_dst`` the copy-on-write
+        blocks (``copy_dst == P``: no copy).
+        """
+        from ..models import alloc_blocks
+        from ..models.paged import add_at
+
+        bs = self.block_size
+        p = refcount.shape[0]
+        bi = (pos // bs).to(torch.int64)
+        off = pos % bs
+        cur = table[idx, bi]
+        cur_c = torch.clamp(cur, 0, p - 1)
+        started = off > 0
+        shared = refcount[cur_c.to(torch.int64)] > 1
+        need_new = write & (~started | shared)
+        is_cow = write & started & shared
+        blocks, refcount, n_fail = alloc_blocks(refcount, need_new)
+        got = need_new & (blocks < p)
+        oom = oom + n_fail
+        refcount = add_at(refcount, cur_c, torch.full_like(cur_c, -1), is_cow & got)
+        table[idx, bi] = torch.where(got, blocks, cur)
+        ok = write & torch.where(need_new, got, True)
+        wb = torch.where(ok, torch.clamp(table[idx, bi], 0, p - 1), p)
+        copy_src = torch.where(is_cow & got, cur_c, 0)
+        copy_dst = torch.where(is_cow & got, blocks, p)
+        return table, refcount, oom, wb, off, copy_src, copy_dst
+
+    def _advance(self, aux, token, fed):
+        """Feed one token per slot: copy-on-write and allocation
+        (:meth:`_page_write`), then one batched ``paged_decode_step`` per
+        model; only ``fed`` slots write and commit."""
+        from ..models import paged_decode_step
+
+        length = aux["len"]
+        idx, safe = self._write_tokens(aux, token, fed)
+        table, refcount, oom, wb, off, copy_src, copy_dst = self._page_write(
+            aux["table"], aux["refcount"], aux["oom"], idx, safe, fed)
+        att_len = length + (wb < self.num_blocks).to(length.dtype)
+        for key, params, cfg in self._branches():
+            b = aux[key]
+            self._copy_blocks(b, copy_src, copy_dst)
+            logits, _ = paged_decode_step(params, cfg, token, {
+                "k": b["k"], "v": b["v"], "table": table, "len": att_len, "pos": safe,
+                "write_block": wb, "write_off": off})
+            b["logits"] = torch.where(fed[:, None], logits, b["logits"]).to(b["logits"].dtype)
+        aux.update(table=table, refcount=refcount, oom=oom,
+                   len=torch.where(fed, length + 1, length))
+        return aux
+
+    # -- evaluator protocol -------------------------------------------------
+
+    def init_aux(self, root_states: State, prefix: tuple):
+        """Prefill each DISTINCT root once; its ``W = prefix[-1]`` sibling
+        slots share its pages (refcount ``W``), the last partial page
+        included: a slot's first write there copies it."""
+        from ..models import init_cache, prefill_ragged
+        from ..models.paged import add_at, num_pages
+
+        prefix = tuple(int(q) for q in prefix)
+        n = math.prod(prefix)
+        w = prefix[-1]
+        r0 = n // w
+        lead = len(prefix) - 1
+
+        def flat(x):
+            x = x.unsqueeze(lead).expand(prefix + tuple(x.shape[lead:]))
+            return x.reshape((n,) + tuple(x.shape[len(prefix):])).clone()
+
+        state = map_state(flat, root_states)
+        tokens = state.tokens.to(torch.int32)
+        lengths = state.length.to(torch.int32)
+        dev = tokens.device
+        s_max = tokens.shape[-1]
+        bs, p = self.block_size, self.num_blocks
+        mp = num_pages(s_max, bs)
+
+        root_tokens, root_len = tokens[::w], lengths[::w]
+        p_r = (root_len + bs - 1) // bs                   # pages per root
+        offsets = torch.cumsum(p_r, dim=0) - p_r          # sequential block ids
+        page_idx = torch.arange(mp, device=dev)
+        valid = page_idx[None, :] < p_r[:, None]
+        dst_raw = offsets[:, None] + page_idx[None, :]
+        got = valid & (dst_raw < p)
+        dst = torch.where(got, dst_raw, p).to(torch.int32)   # [r0, mp]
+        refcount = add_at(torch.zeros((p,), dtype=torch.int32, device=dev), dst,
+                          torch.full_like(dst, w), got)
+        aux = {"tokens": tokens, "len": lengths,
+               "table": dst.repeat_interleave(w, dim=0), "refcount": refcount,
+               "oom": (valid & ~got).sum().to(torch.int32), "pol": (), "rew": ()}
+        for key, params, cfg in self._branches():
+            logits, cache = prefill_ragged(params, cfg, root_tokens, root_len,
+                                           init_cache(cfg, r0, mp * bs, device=dev))
+
+            def to_pool(x):
+                pages = x.reshape(x.shape[0], r0 * mp, bs, *x.shape[3:])
+                pool = torch.zeros((x.shape[0], p, bs) + tuple(x.shape[3:]),
+                                   dtype=x.dtype, device=dev)
+                put_where_(pool, (dst.reshape(-1),), pages, got.reshape(-1), lead=1)
+                return pool
+
+            aux[key] = {"k": to_pool(cache["kv"]["k"]), "v": to_pool(cache["kv"]["v"]),
+                        "logits": logits.repeat_interleave(w, dim=0)}
+        self._maybe_raise(aux["oom"])
+        return aux
+
+    def refill_aux(self, cfg, aux, rows, new_state, mask):
+        """Rollback is a page-table edit; the catch-up re-decodes the
+        divergent suffix in batched ragged chunks (:meth:`_paged_catch_up`).
+
+        Suffix pages wholly past the common prefix are released; the kept
+        partial boundary page may still be shared, so the first catch-up
+        write into it copies it.
+        """
+        del cfg
+        from ..models import release_pages
+
+        hits = torch.zeros(rows.shape, dtype=torch.bool, device=rows.device)
+        if not host_any(mask):
+            return aux, hits
+        sub = self._take_rows(aux, rows)
+        start, target, tokens, _ = self._rollback_targets(sub, new_state, mask)
+        bs = self.block_size
+        lo = (start + bs - 1) // bs
+        hi = (sub["len"] + bs - 1) // bs
+        sub["refcount"] = release_pages(sub["refcount"], sub["table"], lo, hi)
+        sub["tokens"], sub["len"] = tokens, start
+        sub = self._paged_catch_up(sub, target)
+        return self._put_rows(aux, rows, sub), hits
+
+    def _paged_catch_up(self, sub, target):
+        """Chunked divergent-suffix re-decode over paged rows.
+
+        Every page the suffix will write is resolved first (copy-on-write
+        of a shared boundary page, then one fresh block per whole suffix
+        page), so all written pages are private.  The catch-up then runs
+        the dense evaluator's batched ``decode_chunk`` loop over a dense
+        gather of the rows' pages, and the written pages are scattered
+        back; pages whose allocation failed are left out (shared blocks are
+        never written) and the failure counts into ``oom``.
+        ``sub['len']`` holds each row's re-decode start.  Skipped, after
+        one host sync, when no row is behind.
+        """
+        if not host_any(sub["len"] < target):
+            return sub
+        return self._paged_catch_up_behind(sub, target)
+
+    def _paged_catch_up_behind(self, sub, target):
+        from ..models import alloc_blocks
+
+        bs, p = self.block_size, self.num_blocks
+        r, mp = sub["table"].shape
+        s_max = sub["tokens"].shape[-1]
+        dev = target.device
+        idx = torch.arange(r, device=dev)
+        start = sub["len"]
+        behind = start < target
+
+        # Boundary page: rows resuming mid-page copy shared blocks first.
+        bwrite = behind & (start % bs > 0)
+        table, refcount, oom, wb, _, copy_src, copy_dst = self._page_write(
+            sub["table"], sub["refcount"], sub["oom"], idx,
+            torch.clamp_max(start, s_max - 1), bwrite)
+        page_ok = torch.ones((r, mp), dtype=torch.bool, device=dev)
+        page_ok[idx, torch.clamp(start // bs, 0, mp - 1).to(torch.int64)] = torch.where(
+            bwrite, wb < p, True)
+        for key, _, _ in self._branches():
+            self._copy_blocks(sub[key], copy_src, copy_dst)
+
+        # The whole suffix's schedule: one fresh block per page in [lo, hi).
+        lo = (start + bs - 1) // bs
+        hi = (target + bs - 1) // bs
+        for pi in range(mp):
+            need = behind & (pi >= lo) & (pi < hi)
+            blocks, refcount, n_fail = alloc_blocks(refcount, need)
+            got = need & (blocks < p)
+            table[:, pi] = torch.where(got, blocks, table[:, pi])
+            page_ok[:, pi] = torch.where(need, got, page_ok[:, pi])
+            oom = oom + n_fail
+
+        # Dense view -> the dense evaluator's chunked catch-up -> scatter back.
+        t_clip = torch.clamp(table, 0, p - 1).to(torch.int64)
+
+        def dense(pool):
+            out = pool[:, t_clip]                          # [L, R, mp, bs, Hkv, D]
+            return out.reshape(out.shape[0], r, mp * bs, *out.shape[4:])
+
+        dsub = {"tokens": sub["tokens"], "len": sub["len"], "pol": (), "rew": ()}
+        for key, _, _ in self._branches():
+            b = sub[key]
+            dsub[key] = {"cache": {"kv": {"k": dense(b["k"]), "v": dense(b["v"])}},
+                         "logits": b["logits"]}
+        dsub = self._catch_up(dsub, target)
+
+        pages = torch.arange(mp, device=dev)
+        changed = (behind[:, None] & (pages[None, :] >= (start // bs)[:, None])
+                   & (pages[None, :] < hi[:, None]) & page_ok).reshape(-1)
+        dst = torch.where(changed, t_clip.reshape(-1), p)
+        for key, _, _ in self._branches():
+            kv = dsub[key]["cache"]["kv"]
+            for name in ("k", "v"):
+                x = kv[name]
+                put_where_(sub[key][name], (dst,),
+                           x.reshape(x.shape[0], r * mp, bs, *x.shape[3:]), changed, lead=1)
+            sub[key]["logits"] = dsub[key]["logits"]
+        sub.update(table=table, refcount=refcount, oom=oom, len=dsub["len"])
+        return sub
+
+    def aux_blocks(self, aux) -> torch.Tensor:
+        """Number of pool blocks in use (refcount > 0)."""
+        return (aux["refcount"] > 0).sum()
+
+
+# ---------------------------------------------------------------------------
+# Frontier-speculative expansion: score every candidate child in one forward.
+# ---------------------------------------------------------------------------
+
+
+class _FrontierMixin:
+    """Frontier-cache logic shared by the dense and the paged evaluator.
+
+    An EXPAND tick runs ``models.decode_frontier`` / ``paged_decode_frontier``:
+    instead of decoding only the chosen token, the slot's ``A = top_k``
+    candidate children (the top-K table :meth:`ModelEvaluator._transition`
+    decodes ranks against) are scored in one tree-batched forward over the
+    shared prefix.  The chosen candidate's logits and K/V row commit to the
+    cache, as the plain decode step would have; EXPAND rows also snapshot
+    the whole frontier in ``aux['fr']``:
+
+    * ``ptok``/``plen``: the parent path the frontier was scored from;
+    * ``cand [N, A]``: the candidate tokens;
+    * per branch ``plog`` (the parent's logits), ``clog [N, A, V]`` (every
+      candidate's next-position logits) and ``ck``/``cv [L, N, A, Hkv, D]``
+      (every candidate's own K/V entry).
+
+    **Refill hits** (``refill_aux`` of the concrete classes): WU-UCT's
+    refill mostly hands a settled slot the same parent again (a sibling
+    expansion) or one of its children, which the snapshot answers:
+
+    * *parent hit* (the path is ``ptok`` and ``len == plen``): restore
+      ``plog`` and set ``len`` to the target;
+    * *child hit* (``len == plen + 1``, last token in ``cand``): restore
+      ``clog[rank]`` and commit ``ck``/``cv[rank]`` at position ``plen``.
+
+    Hit rows skip the catch-up (no forward), and the returned ``hits``
+    mask feeds the engine's per-tree frontier-hit counter.  A refill onto a
+    path that diverges from ``ptok`` invalidates the entry.  Ticks with no
+    EXPAND row take the plain one-token advance (one host sync decides).
+    """
+
+    def _fr_init(self, aux):
+        n = aux["tokens"].shape[0]
+        a = self.top_k
+        dev = aux["tokens"].device
+        fr = {"ptok": torch.zeros_like(aux["tokens"]),
+              "plen": torch.zeros((n,), dtype=torch.int32, device=dev),
+              "valid": torch.zeros((n,), dtype=torch.bool, device=dev),
+              "cand": torch.zeros((n, a), dtype=torch.int64, device=dev),
+              "pol": (), "rew": ()}
+        for key, _, cfg in self._branches():
+            lg = aux[key]["logits"]
+            spec = (cfg.num_layers, n, a, cfg.num_kv_heads, cfg.head_dim)
+            fr[key] = {"plog": torch.zeros_like(lg),
+                       "clog": torch.zeros((n, a, lg.shape[-1]), dtype=lg.dtype, device=dev),
+                       "ck": torch.zeros(spec, dtype=cfg.dtype, device=dev),
+                       "cv": torch.zeros(spec, dtype=cfg.dtype, device=dev)}
+        return fr
+
+    def init_aux(self, root_states, prefix):
+        aux = super().init_aux(root_states, prefix)
+        aux["fr"] = self._fr_init(aux)
+        return aux
+
+    def _take_rows(self, aux, rows):
+        sub = super()._take_rows(aux, rows)
+        fr = aux["fr"]
+
+        def branch(b):
+            if not isinstance(b, dict):
+                return ()
+            return {"plog": b["plog"][rows], "clog": b["clog"][rows],
+                    "ck": b["ck"][:, rows], "cv": b["cv"][:, rows]}
+
+        sub["fr"] = {"ptok": fr["ptok"][rows], "plen": fr["plen"][rows],
+                     "valid": fr["valid"][rows], "cand": fr["cand"][rows],
+                     "pol": branch(fr["pol"]), "rew": branch(fr["rew"])}
+        return sub
+
+    def _put_rows(self, aux, rows, sub):
+        aux = super()._put_rows(aux, rows, sub)
+        fr, sfr = aux["fr"], sub["fr"]
+        for name in ("ptok", "plen", "valid", "cand"):
+            fr[name][rows] = sfr[name]
+        for key in ("pol", "rew"):
+            if isinstance(fr[key], dict):
+                for name in ("plog", "clog"):
+                    fr[key][name][rows] = sfr[key][name]
+                for name in ("ck", "cv"):
+                    fr[key][name][:, rows] = sfr[key][name]
+        return aux
+
+    @staticmethod
+    def _fr_record(fr, pre_tokens, length, cand, is_exp):
+        """Snapshot the parent path and the candidate set on EXPAND rows."""
+        exp2 = is_exp[:, None]
+        return dict(fr, ptok=torch.where(exp2, pre_tokens, fr["ptok"]),
+                    plen=torch.where(is_exp, length, fr["plen"]),
+                    valid=fr["valid"] | is_exp,
+                    cand=torch.where(exp2, cand, fr["cand"]))
+
+    @staticmethod
+    def _fr_snapshot(fb, logits, clog, spec, is_exp):
+        """The branch snapshot after a frontier forward: ``logits`` (the
+        parent's), ``clog`` and ``spec`` replace the old where ``is_exp``."""
+        e5 = is_exp[None, :, None, None, None]
+        return {"plog": torch.where(is_exp[:, None], logits, fb["plog"]),
+                "clog": torch.where(is_exp[:, None, None], clog, fb["clog"]).to(fb["clog"].dtype),
+                "ck": torch.where(e5, spec["k"], fb["ck"]).to(fb["ck"].dtype),
+                "cv": torch.where(e5, spec["v"], fb["cv"]).to(fb["cv"].dtype)}
+
+    def _frontier_hits(self, sub, tokens, new_state, common, mask):
+        """Classify each refill row against its snapshot: ``(parent_hit,
+        child_hit, crank, pmatch)``, ``crank`` the matched candidate's rank
+        (meaningful under ``child_hit``).  Both kinds need the cache to
+        still hold the parent prefix (the uncapped ``common``) and the new
+        path to match the snapshot's parent path (``pmatch``)."""
+        fr = sub["fr"]
+        r, s_max = tokens.shape
+        dev = tokens.device
+        idx = torch.arange(r, device=dev)
+        pos = torch.arange(s_max, device=dev)
+        l_new = new_state.length.to(torch.int32)
+        plen = fr["plen"]
+        cmp_len = torch.minimum(plen, l_new)
+        pmatch = ~((fr["ptok"] != tokens) & (pos[None, :] < cmp_len[:, None])).any(dim=1)
+        last = tokens[idx, torch.clamp(l_new - 1, 0, s_max - 1)]
+        is_cand = fr["cand"] == last[:, None].to(fr["cand"].dtype)
+        # First matching rank (argmax over an integer cast: the first
+        # maximum wins, as jnp.argmax over booleans).
+        crank = torch.argmax(is_cand.to(torch.int32), dim=1)
+        ok = mask & fr["valid"] & pmatch
+        parent_hit = ok & (l_new == plen) & (common >= l_new)
+        child_hit = ok & (l_new == plen + 1) & is_cand.any(dim=1) & (common >= plen)
+        return parent_hit, child_hit, crank, pmatch
+
+    def _candidates(self, aux, token):
+        """The top-K table the transition decoded ``token`` against, and
+        the fed token's rank in it (it is always one of the candidates)."""
+        from ..envs.token_env import sorted_top_k
+
+        _, cand = sorted_top_k(aux["pol"]["logits"], self.top_k)
+        rank = torch.argmax((cand == token[:, None]).to(torch.int32), dim=1)
+        return cand, rank
+
+    def tick(self, cfg, kind, act, state, rollout_done, acc, disc, steps, keys,
+             aux=()):
+        if not isinstance(aux, dict):
+            raise ValueError(
+                "frontier evaluators need their slot-aux cache (init_aux); they run "
+                "only inside the async engines — build with SearchSpec(engine='async') "
+                "/ build_searcher"
+            )
+        pol = aux["pol"]["logits"]
+        rew = aux["rew"]["logits"] if isinstance(aux["rew"], dict) else pol
+        out, token = self._transition(cfg, kind, act, state, rollout_done, acc, disc,
+                                      steps, keys, pol, rew)
+        fed = (kind != FREE) & ~state.done
+        is_exp = fed & (kind == EXPAND)
+        # Only EXPAND rows need the A-wide snapshot; most ticks are
+        # mid-rollout and take the one-token advance (the reference's
+        # lax.cond, here one host sync).
+        if host_any(is_exp):
+            return out, self._advance_frontier(aux, token, fed, is_exp)
+        return out, self._advance(aux, token, fed)
+
+
+class FrontierModelEvaluator(_FrontierMixin, CachedModelEvaluator):
+    """:class:`CachedModelEvaluator` with frontier-speculative expansion.
+
+    EXPAND ticks run ``models.decode_frontier`` (tree-batched candidate
+    scoring over the dense per-slot cache, ``tree_decode_attention``);
+    refills of the snapshot parent or of one of its candidate children are
+    answered from aux with no forward.  See :class:`_FrontierMixin`.
+    """
+
+    def _advance_frontier(self, aux, token, fed, is_exp):
+        """One tree-batched frontier forward advances every slot: the
+        chosen candidate's logits and K/V row commit (in place) as
+        :meth:`CachedModelEvaluator._advance` would have; EXPAND rows
+        snapshot the whole candidate set."""
+        from ..models import decode_frontier
+
+        length = aux["len"]
+        pre_tokens = aux["tokens"].clone()
+        idx, safe = self._write_tokens(aux, token, fed)
+        cand, rank = self._candidates(aux, token)
+        fr = self._fr_record(aux["fr"], pre_tokens, length, cand, is_exp)
+        for key, params, cfg in self._branches():
+            b = aux[key]
+            clog, spec = decode_frontier(params, cfg, cand, dict(b["cache"], len=safe))
+            kv = b["cache"]["kv"]
+            kv["k"][:, idx, safe] = spec["k"][:, idx, rank].to(kv["k"].dtype)
+            kv["v"][:, idx, safe] = spec["v"][:, idx, rank].to(kv["v"].dtype)
+            fr[key] = self._fr_snapshot(fr[key], b["logits"], clog, spec, is_exp)
+            b["logits"] = torch.where(fed[:, None], clog[idx, rank],
+                                      b["logits"]).to(b["logits"].dtype)
+        aux["len"] = torch.where(fed, length + 1, length)
+        aux["fr"] = fr
+        return aux
+
+    def refill_aux(self, cfg, aux, rows, new_state, mask):
+        del cfg
+        hits = torch.zeros(rows.shape, dtype=torch.bool, device=rows.device)
+        if not host_any(mask):
+            return aux, hits
+        sub = self._take_rows(aux, rows)
+        s_max = sub["tokens"].shape[-1]
+        idx = torch.arange(rows.shape[0], device=rows.device)
+        start, target, tokens, common = self._rollback_targets(sub, new_state, mask)
+        parent_hit, child_hit, crank, pmatch = self._frontier_hits(
+            sub, tokens, new_state, common, mask)
+        hit = parent_hit | child_hit
+        fr = sub["fr"]
+        sub["tokens"], sub["len"] = tokens, torch.where(hit, target, start)
+        cpos = torch.clamp(fr["plen"], 0, s_max - 1)
+        for key, _, _ in self._branches():
+            b, fb = sub[key], fr[key]
+            logits = torch.where(parent_hit[:, None], fb["plog"], b["logits"])
+            b["logits"] = torch.where(child_hit[:, None], fb["clog"][idx, crank],
+                                      logits).to(b["logits"].dtype)
+            kv = b["cache"]["kv"]
+            ch = child_hit[None, :, None, None]
+            for name, spec in (("k", fb["ck"]), ("v", fb["cv"])):
+                kv[name][:, idx, cpos] = torch.where(ch, spec[:, idx, crank],
+                                                     kv[name][:, idx, cpos])
+        fr["valid"] = torch.where(mask, fr["valid"] & pmatch, fr["valid"])
+        sub = self._catch_up(sub, target)
+        return self._put_rows(aux, rows, sub), hit
+
+
+class PagedFrontierModelEvaluator(_FrontierMixin, PagedCachedModelEvaluator):
+    """:class:`PagedCachedModelEvaluator` with frontier-speculative
+    expansion: candidate scoring reads the prefix straight from the pages
+    (``models.paged_decode_frontier``, ``paged_tree_decode_attention``; no
+    dense gather), and a child hit commits its snapshot K/V row through the
+    usual page bookkeeping (:meth:`_page_write`)."""
+
+    def _advance_frontier(self, aux, token, fed, is_exp):
+        """The frontier forward over the page tables; the chosen row
+        commits through copy-on-write and allocation."""
+        from ..models import paged_decode_frontier
+
+        length = aux["len"]
+        pre_tokens = aux["tokens"].clone()
+        idx, safe = self._write_tokens(aux, token, fed)
+        table, refcount, oom, wb, off, copy_src, copy_dst = self._page_write(
+            aux["table"], aux["refcount"], aux["oom"], idx, safe, fed)
+        writes = wb < self.num_blocks
+        cand, rank = self._candidates(aux, token)
+        fr = self._fr_record(aux["fr"], pre_tokens, length, cand, is_exp)
+        for key, params, cfg in self._branches():
+            b = aux[key]
+            self._copy_blocks(b, copy_src, copy_dst)
+            clog, spec = paged_decode_frontier(params, cfg, cand, {
+                "k": b["k"], "v": b["v"], "table": table, "len": safe})
+            for name in ("k", "v"):
+                put_where_(b[name], (wb, off), spec[name][:, idx, rank].to(b[name].dtype),
+                           writes, lead=1)
+            fr[key] = self._fr_snapshot(fr[key], b["logits"], clog, spec, is_exp)
+            b["logits"] = torch.where(fed[:, None], clog[idx, rank],
+                                      b["logits"]).to(b["logits"].dtype)
+        aux.update(table=table, refcount=refcount, oom=oom,
+                   len=torch.where(fed, length + 1, length), fr=fr)
+        return aux
+
+    def refill_aux(self, cfg, aux, rows, new_state, mask):
+        del cfg
+        from ..models import release_pages
+
+        hits = torch.zeros(rows.shape, dtype=torch.bool, device=rows.device)
+        if not host_any(mask):
+            return aux, hits
+        sub = self._take_rows(aux, rows)
+        s_max = sub["tokens"].shape[-1]
+        idx = torch.arange(rows.shape[0], device=rows.device)
+        start, target, tokens, common = self._rollback_targets(sub, new_state, mask)
+        parent_hit, child_hit, crank, pmatch = self._frontier_hits(
+            sub, tokens, new_state, common, mask)
+        fr = sub["fr"]
+        plen = fr["plen"]
+        bs = self.block_size
+
+        # Hit-aware release: a parent hit keeps the whole target prefix, a
+        # child hit the parent prefix (its commit lands at plen).
+        keep = torch.where(parent_hit, target, torch.where(child_hit, plen, start))
+        refcount = release_pages(sub["refcount"], sub["table"], (keep + bs - 1) // bs,
+                                 (sub["len"] + bs - 1) // bs)
+        # The child-hit commit, through the page bookkeeping; a failed
+        # allocation demotes the row to a miss.
+        cpos = torch.clamp(plen, 0, s_max - 1)
+        table, refcount, oom, wb, off, copy_src, copy_dst = self._page_write(
+            sub["table"], refcount, sub["oom"], idx, cpos, child_hit)
+        writes = wb < self.num_blocks
+        committed = child_hit & writes
+        hit = parent_hit | committed
+        sub.update(table=table, refcount=refcount, oom=oom, tokens=tokens,
+                   len=torch.where(hit, target, start))
+        for key, _, _ in self._branches():
+            b, fb = sub[key], fr[key]
+            self._copy_blocks(b, copy_src, copy_dst)
+            for name, spec in (("k", fb["ck"]), ("v", fb["cv"])):
+                put_where_(b[name], (wb, off), spec[:, idx, crank], writes, lead=1)
+            logits = torch.where(parent_hit[:, None], fb["plog"], b["logits"])
+            b["logits"] = torch.where(committed[:, None], fb["clog"][idx, crank],
+                                      logits).to(b["logits"].dtype)
+        fr["valid"] = torch.where(mask, fr["valid"] & pmatch, fr["valid"])
+        sub = self._paged_catch_up(sub, target)
+        return self._put_rows(aux, rows, sub), hit

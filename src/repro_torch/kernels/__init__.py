@@ -11,6 +11,9 @@ LAUNCHES: dict[str, int] = {
     "tree_select": 0,
     "decode_attention": 0,
     "flash_attention": 0,
+    "paged_decode_attention": 0,
+    "tree_decode_attention": 0,
+    "paged_tree_decode_attention": 0,
 }
 
 

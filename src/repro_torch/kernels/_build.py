@@ -4,9 +4,10 @@ Each ``src/repro_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library,
 which :func:`load` opens with ``ctypes``.  Every kernel has its own flags
 (:func:`nvcc_flags`: the common ones plus :data:`KERNEL_FLAGS`).
+A source may include headers of ``csrc/`` (``#include "x.cuh"``).
 Libraries go into ``build/repro_torch/`` at the root of the checkout
-(git-ignored), named by a hash of the source and that kernel's flags, so a
-rebuild happens only when either changes.  :func:`build` starts one
+(git-ignored), named by a hash of the source, the headers it includes and
+that kernel's flags, so a rebuild happens when any of them changes.  :func:`build` starts one
 ``nvcc`` per missing library, all together, and waits for all of them.
 
 Nothing here runs at import: ``nvcc`` and a CUDA device are needed only
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -31,12 +33,16 @@ COMMON_FLAGS = (
     "-Xptxas=-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# Keyed by library (``csrc/<name>.cu``).  ``tree_decode_attention`` holds
+# both tree kernels, the dense and the paged entry point.
 KERNEL_FLAGS: dict[str, tuple[str, ...]] = {
     # Exact rounding: no contraction of products and sums into FMAs.
     "tree_select": ("--fmad=false",),
     # Held to their plain versions within a tolerance: FMAs are welcome.
     "decode_attention": (),
     "flash_attention": (),
+    "paged_decode_attention": (),
+    "tree_decode_attention": (),
 }
 
 
@@ -62,12 +68,29 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> dict[Path, bytes]:
+    """``path`` and every header it includes from ``csrc/``, transitively."""
+    if path in seen or not path.exists():
+        return seen
+    text = path.read_bytes()
+    seen[path] = text
+    for header in _INCLUDE.findall(text.decode()):
+        _sources(CSRC / header, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(nvcc_flags(name)).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where library ``name`` is built: named by a hash of its source, the
+    ``csrc/`` headers it includes and its flags."""
+    files = _sources(CSRC / f"{name}.cu", {})
+    digest = hashlib.sha256()
+    for path in sorted(files):
+        digest.update(path.name.encode() + b"\0" + files[path])
+    digest.update(" ".join(nvcc_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> dict[str, Path]:

@@ -1,9 +1,11 @@
-"""Wrapper of the dense decode-attention kernel (``csrc/decode_attention.cu``).
+"""Wrappers of the decode-attention kernels: dense
+(``csrc/decode_attention.cu``), paged (``csrc/paged_decode_attention.cu``)
+and tree-batched, dense and paged (``csrc/tree_decode_attention.cu``).
 
-CPU tensors go to the plain version (:mod:`.ref`).  CUDA tensors go to the
-hand-written kernel, or the call raises: there is no fallback.  The kernel
-launches on PyTorch's current stream, and each launch adds one to
-``repro_torch.kernels.LAUNCHES["decode_attention"]``.
+CPU tensors go to the plain versions (:mod:`.ref`).  CUDA tensors go to
+the hand-written kernels, or the call raises: there is no fallback.  The
+kernels launch on PyTorch's current stream, and each launch adds one to
+its entry in ``repro_torch.kernels.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -15,22 +17,122 @@ import torch
 
 from .. import LAUNCHES
 from .. import _build
-from .ref import decode_attention_ref
+from .ref import (
+    decode_attention_ref,
+    paged_decode_attention_ref,
+    paged_tree_decode_attention_ref,
+    tree_decode_attention_ref,
+)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_C_FUNCTION = None
+_C_FUNCTIONS: dict[str, object] = {}
+# The tree kernels hold the A tail entries in one 32-key tile.
+MAX_CANDIDATES = 32
 
 
-def _launcher():
-    global _C_FUNCTION
-    if _C_FUNCTION is None:
-        fn = _build.load("decode_attention").decode_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+# ---------------------------------------------------------------------------
+# Launch plumbing shared by the wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # q, k, v, kv_len, out; B, S, Hkv, G, D
+    "decode_attention": ("decode_attention", [_P] * 5 + [_I] * 5),
+    # q, pool_k, pool_v, table, kv_len, out; B, P, bs, n_pages, Hkv, G, D
+    "paged_decode_attention": ("paged_decode_attention",
+                               [_P] * 6 + [_I] * 7),
+    # q, k, v, k_spec, v_spec, kv_len, mask, out; B, A, S, Hkv, G, D
+    "tree_decode_attention": ("tree_decode_attention", [_P] * 8 + [_I] * 6),
+    # q, pool_k, pool_v, table, k_spec, v_spec, kv_len, mask, out;
+    # B, A, P, bs, n_pages, Hkv, G, D
+    "paged_tree_decode_attention": ("tree_decode_attention",
+                                    [_P] * 9 + [_I] * 8),
+}
+
+
+def _c_function(name: str):
+    fn = _C_FUNCTIONS.get(name)
+    if fn is None:
+        library, head = _SIGNATURES[name]
+        fn = getattr(_build.load(library), f"{name}_launch")
+        fn.argtypes = head + [ctypes.c_float, _I, _I, _P]
         fn.restype = ctypes.c_int
-        _C_FUNCTION = fn
-    return _C_FUNCTION
+        _C_FUNCTIONS[name] = fn
+    return fn
+
+
+def _check(name: str, ref: torch.Tensor, **tensors) -> None:
+    """Device, dtype and contiguity of the float operands of kernel ``name``."""
+    if ref.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {ref.dtype}")
+    for arg, x in tensors.items():
+        if x.device != ref.device or x.dtype != ref.dtype:
+            raise ValueError(f"{name}: {arg} is {x.dtype} on {x.device}, expected "
+                             f"{ref.dtype} on {ref.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _lengths(name: str, kv_len, b: int, device) -> torch.Tensor:
+    lens = torch.as_tensor(kv_len, device=device)
+    if lens.dtype.is_floating_point or lens.dim() > 1 or lens.numel() not in (1, b):
+        raise ValueError(f"{name}: kv_len must be an integer [] or [{b}]")
+    return lens.to(torch.int32).reshape(-1).expand(b).contiguous()
+
+
+def _table(name: str, page_table: torch.Tensor, b: int, device) -> torch.Tensor:
+    if (page_table.dim() != 2 or page_table.shape[0] != b
+            or page_table.dtype.is_floating_point or page_table.device != device):
+        raise ValueError(f"{name}: page_table must be an integer [{b}, n_pages] on "
+                         f"{device}, got {page_table.dtype} {tuple(page_table.shape)} "
+                         f"on {page_table.device}")
+    if page_table.shape[1] == 0:
+        raise ValueError(f"{name}: page_table has no pages")
+    return page_table.to(torch.int32).contiguous()
+
+
+def _mask(name: str, tree_mask, a: int, device) -> torch.Tensor:
+    """The ``[A, A]`` tree mask as int32 on the device (identity for None)."""
+    if tree_mask is None:
+        return torch.eye(a, dtype=torch.int32, device=device)
+    mask = torch.as_tensor(tree_mask, device=device)
+    if tuple(mask.shape) != (a, a):
+        raise ValueError(f"{name}: tree_mask must be [{a}, {a}], got {tuple(mask.shape)}")
+    return mask.to(torch.int32).contiguous()
+
+
+def _on_cuda(name: str, device) -> bool:
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {device}")
+    return True
+
+
+def _heads(name: str, q_heads: int, pool_shape, q_dim: int) -> tuple[int, int]:
+    hkv, d = pool_shape[-2], pool_shape[-1]
+    if d != q_dim or hkv == 0 or q_heads % hkv:
+        raise ValueError(f"{name}: K/V {tuple(pool_shape)} do not fit {q_heads} query "
+                         f"heads of dimension {q_dim}")
+    return hkv, q_heads // hkv
+
+
+def _launch(name: str, device, *args) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    err = _c_function(name)(*args, index, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _spec_shape(name: str, k_spec, v_spec, b: int, a: int, hkv: int, d: int) -> None:
+    want = (b, a, hkv, d)
+    for arg, x in (("k_spec", k_spec), ("v_spec", v_spec)):
+        if tuple(x.shape) != want:
+            raise ValueError(f"{name}: {arg} must be {want}, got {tuple(x.shape)}")
+    if a > MAX_CANDIDATES:
+        raise ValueError(f"{name} takes at most {MAX_CANDIDATES} candidates, got {a}")
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -39,45 +141,133 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     entries of ``k_cache``/``v_cache [B, S, Hkv, D]``; ``kv_len`` is an int
     or an integer tensor ``[]``/``[B]``.  Returns ``[B, Hq, D]`` in
     ``q``'s dtype (float32 or bfloat16, float32 accumulation)."""
+    name = "decode_attention"
     device = q.device
-    if device.type == "cpu":
+    if not _on_cuda(name, device):
         return decode_attention_ref(q, k_cache, v_cache, kv_len)
-    if device.type != "cuda":
-        raise ValueError(f"decode_attention runs on CPU or CUDA tensors, got {device}")
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(f"decode_attention: q must be [B, Hq, D] and the caches "
                          f"[B, S, Hkv, D], got {tuple(q.shape)}, {tuple(k_cache.shape)}")
     b, hq, d = q.shape
-    _, s, hkv, dk = k_cache.shape
-    if k_cache.shape[0] != b or dk != d or hkv == 0 or hq % hkv:
+    s = k_cache.shape[1]
+    if k_cache.shape[0] != b:
         raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} do not fit "
                          f"q {tuple(q.shape)}")
+    hkv, group = _heads(name, hq, k_cache.shape, d)
     if tuple(v_cache.shape) != tuple(k_cache.shape):
         raise ValueError("decode_attention: k_cache and v_cache differ in shape")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"decode_attention takes float32 or bfloat16, got {q.dtype}")
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.device != device or x.dtype != q.dtype:
-            raise ValueError(f"decode_attention: {name} is {x.dtype} on {x.device}, "
-                             f"expected {q.dtype} on {device}")
-        if not x.is_contiguous():
-            raise ValueError(f"decode_attention: {name} must be contiguous")
-    lens = torch.as_tensor(kv_len, device=device)
-    if lens.dtype.is_floating_point or lens.dim() > 1 or lens.numel() not in (1, b):
-        raise ValueError(f"decode_attention: kv_len must be an integer [] or [{b}]")
-    lens = lens.to(torch.int32).reshape(-1).expand(b).contiguous()
+    _check(name, q, q=q, k_cache=k_cache, v_cache=v_cache)
+    lens = _lengths(name, kv_len, b, device)
     out = torch.empty_like(q)
     if b == 0:
         return out
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _launcher()(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), b, s, hkv, hq // hkv, d, 1.0 / math.sqrt(d),
-        _DTYPES[q.dtype],
-        device.index if device.index is not None else torch.cuda.current_device(),
-        stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
-    LAUNCHES["decode_attention"] += 1
+    _launch(name, device, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), b, s, hkv, group, d, 1.0 / math.sqrt(d),
+            _DTYPES[q.dtype])
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+                           page_table: torch.Tensor, kv_len) -> torch.Tensor:
+    """One-token GQA attention, ``q [B, Hq, D]``, over the first ``kv_len``
+    keys of each row, read from pools ``[P, bs, Hkv, D]`` through
+    ``page_table i32[B, n_pages]`` (key ``t`` at ``(table[b, t // bs],
+    t % bs)``; entries past the live pages are never read).  Returns
+    ``[B, Hq, D]`` in ``q``'s dtype."""
+    name = "paged_decode_attention"
+    device = q.device
+    if not _on_cuda(name, device):
+        return paged_decode_attention_ref(q, pool_k, pool_v, page_table, kv_len)
+    if q.dim() != 3 or pool_k.dim() != 4 or tuple(pool_v.shape) != tuple(pool_k.shape):
+        raise ValueError(f"{name}: q must be [B, Hq, D] and both pools [P, bs, Hkv, D], "
+                         f"got {tuple(q.shape)}, {tuple(pool_k.shape)}, "
+                         f"{tuple(pool_v.shape)}")
+    b, hq, d = q.shape
+    p, bs = pool_k.shape[:2]
+    hkv, group = _heads(name, hq, pool_k.shape, d)
+    _check(name, q, q=q, pool_k=pool_k, pool_v=pool_v)
+    table = _table(name, page_table, b, device)
+    lens = _lengths(name, kv_len, b, device)
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    if p == 0 or bs == 0:
+        raise ValueError(f"{name}: empty pool {tuple(pool_k.shape)}")
+    _launch(name, device, q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            table.data_ptr(), lens.data_ptr(), out.data_ptr(), b, p, bs,
+            table.shape[1], hkv, group, d, 1.0 / math.sqrt(d), _DTYPES[q.dtype])
+    return out
+
+
+def tree_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          k_spec: torch.Tensor, v_spec: torch.Tensor, kv_len,
+                          tree_mask=None) -> torch.Tensor:
+    """Tree-batched speculative decode: ``q [B, A, Hq, D]`` (A candidates
+    per row) over the row's first ``kv_len`` cache entries (``[B, S, Hkv,
+    D]``, read once for all candidates) plus the tail ``k_spec``/``v_spec
+    [B, A, Hkv, D]`` under ``tree_mask [A, A]`` (None: the identity).
+    Returns ``[B, A, Hq, D]`` in ``q``'s dtype."""
+    name = "tree_decode_attention"
+    device = q.device
+    if not _on_cuda(name, device):
+        return tree_decode_attention_ref(q, k_cache, v_cache, k_spec, v_spec, kv_len,
+                                         tree_mask)
+    if q.dim() != 4 or k_cache.dim() != 4 or tuple(v_cache.shape) != tuple(k_cache.shape):
+        raise ValueError(f"{name}: q must be [B, A, Hq, D] and both caches [B, S, Hkv, D], "
+                         f"got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    b, a, hq, d = q.shape
+    s = k_cache.shape[1]
+    if k_cache.shape[0] != b:
+        raise ValueError(f"{name}: caches {tuple(k_cache.shape)} do not fit q {tuple(q.shape)}")
+    hkv, group = _heads(name, hq, k_cache.shape, d)
+    _spec_shape(name, k_spec, v_spec, b, a, hkv, d)
+    _check(name, q, q=q, k_cache=k_cache, v_cache=v_cache, k_spec=k_spec, v_spec=v_spec)
+    lens = _lengths(name, kv_len, b, device)
+    mask = _mask(name, tree_mask, a, device)
+    out = torch.empty_like(q)
+    if b == 0 or a == 0:
+        return out
+    if s == 0:
+        raise ValueError(f"{name}: empty cache {tuple(k_cache.shape)}")
+    _launch(name, device, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_spec.data_ptr(), v_spec.data_ptr(), lens.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), b, a, s, hkv, group, d, 1.0 / math.sqrt(d),
+            _DTYPES[q.dtype])
+    return out
+
+
+def paged_tree_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
+                                pool_v: torch.Tensor, page_table: torch.Tensor,
+                                k_spec: torch.Tensor, v_spec: torch.Tensor, kv_len,
+                                tree_mask=None) -> torch.Tensor:
+    """:func:`tree_decode_attention` with the prefix read from pools
+    ``[P, bs, Hkv, D]`` through ``page_table i32[B, n_pages]``, as
+    :func:`paged_decode_attention` reads it."""
+    name = "paged_tree_decode_attention"
+    device = q.device
+    if not _on_cuda(name, device):
+        return paged_tree_decode_attention_ref(q, pool_k, pool_v, page_table, k_spec,
+                                               v_spec, kv_len, tree_mask)
+    if q.dim() != 4 or pool_k.dim() != 4 or tuple(pool_v.shape) != tuple(pool_k.shape):
+        raise ValueError(f"{name}: q must be [B, A, Hq, D] and both pools "
+                         f"[P, bs, Hkv, D], got {tuple(q.shape)}, {tuple(pool_k.shape)}, "
+                         f"{tuple(pool_v.shape)}")
+    b, a, hq, d = q.shape
+    p, bs = pool_k.shape[:2]
+    hkv, group = _heads(name, hq, pool_k.shape, d)
+    _spec_shape(name, k_spec, v_spec, b, a, hkv, d)
+    _check(name, q, q=q, pool_k=pool_k, pool_v=pool_v, k_spec=k_spec, v_spec=v_spec)
+    table = _table(name, page_table, b, device)
+    lens = _lengths(name, kv_len, b, device)
+    mask = _mask(name, tree_mask, a, device)
+    out = torch.empty_like(q)
+    if b == 0 or a == 0:
+        return out
+    if p == 0 or bs == 0:
+        raise ValueError(f"{name}: empty pool {tuple(pool_k.shape)}")
+    _launch(name, device, q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            table.data_ptr(), k_spec.data_ptr(), v_spec.data_ptr(), lens.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), b, a, p, bs, table.shape[1], hkv, group, d,
+            1.0 / math.sqrt(d), _DTYPES[q.dtype])
     return out

@@ -6,7 +6,12 @@ layouts: activations ``[B, S, d]``, attention ``[B, S, H, D]``, cache
 slices ``[B, S, Hkv, D]``.  Two attention paths reach the port's kernels:
 
 * the cache-free causal path (``forward``) runs ``flash_attention``;
-* single-token decode against a cache runs ``decode_attention``.
+* single-token decode against a cache runs ``decode_attention``, against a
+  paged cache (a block pool and a page table) ``paged_decode_attention``;
+* frontier scoring (:func:`tree_attention_block`,
+  :func:`paged_tree_attention_block`: ``A`` candidate tokens per row over a
+  read-only prefix) runs ``tree_decode_attention`` /
+  ``paged_tree_decode_attention``.
 
 On a CUDA tensor each launches its hand-written kernel, on a CPU tensor its
 plain version (``kernels/*/ref.py``); both keep ``p`` and ``p·V`` in
@@ -15,8 +20,8 @@ cache (``S > 1``) take :func:`chunked_attention`, the reference's plain
 online-softmax path, as the reference does.
 
 **In place:** :func:`attention_block` writes the new K/V into the cache
-tensors it is given and returns them; a caller that needs the old cache
-keeps a copy.
+tensors (or pools) it is given and returns them; a caller that needs the
+old cache keeps a copy.
 """
 
 from __future__ import annotations
@@ -28,6 +33,15 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode_attention.ops import decode_attention as decode_attention_kernel
+from ..kernels.decode_attention.ops import (
+    paged_decode_attention as paged_decode_attention_kernel,
+)
+from ..kernels.decode_attention.ops import (
+    paged_tree_decode_attention as paged_tree_decode_attention_kernel,
+)
+from ..kernels.decode_attention.ops import (
+    tree_decode_attention as tree_decode_attention_kernel,
+)
 from ..kernels.flash_attention.ops import flash_attention
 
 NEG_INF = -1e30
@@ -240,6 +254,37 @@ def _write_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
     vc[rows, dst] = torch.where(keep, v, vc[rows, dst])
 
 
+def put_where_(dst: torch.Tensor, index: tuple, values: torch.Tensor,
+               mask: torch.Tensor, lead: int = 0) -> None:
+    """``dst[(:,) * lead + index] = values`` for the rows where ``mask``
+    holds, **in place**; the other rows write nothing.
+
+    The port's form of the reference's drop-mode scatter
+    (``.at[idx].set(values, mode="drop")`` with an out-of-range index for
+    "no write"), which ``index_put_`` cannot express: it raises on such an
+    index.  ``index`` is a tuple of ``[N]`` index tensors (out-of-range
+    entries allowed where ``mask`` is false), ``values`` leads with
+    ``(*dst.shape[:lead], N)``; the rows that write must target distinct
+    positions.  A row that does not write repeats the write of the first
+    row that does (same position, same value), or, when no row writes,
+    writes back the current value of one in-range position: duplicates then
+    carry equal values, so the result is exact and deterministic, with no
+    host sync.
+    """
+    n = mask.shape[0]
+    if n == 0:
+        return
+    first = torch.argmax(mask.to(torch.int32))          # first writing row, or 0
+    src = torch.where(mask, torch.arange(n, device=mask.device), first)
+    dims = dst.shape[lead:lead + len(index)]
+    idx = tuple(torch.clamp(i.to(torch.int64)[src], 0, size - 1)
+                for i, size in zip(index, dims))
+    full = (slice(None),) * lead + idx
+    vals = values[(slice(None),) * lead + (src,)]
+    keep = mask[src].reshape((1,) * lead + (n,) + (1,) * (vals.dim() - lead - 1))
+    dst[full] = torch.where(keep, vals, dst[full])
+
+
 def attention_block(
     p,
     cfg,
@@ -257,9 +302,30 @@ def attention_block(
     into ``cache['k']``/``cache['v']`` in place; a single token then
     attends through ``decode_attention``, a chunk through
     :func:`chunked_attention`.
+
+    A paged cache (``"table"`` in ``cache``; single-token decode only)
+    holds pools ``k``/``v [P, bs, Hkv, D]``, the page ``table [B,
+    n_pages]``, the attend length ``len`` (it already counts the token
+    being written, where one is) and the physical write target
+    ``write_block``/``write_off`` per row, block ``P`` meaning "no write".
+    The reference drops those writes with a drop-mode scatter; here they
+    are a masked in-place write (:func:`put_where_`).  Attention reads the
+    pools through the table (``paged_decode_attention``).
     """
     q, k, v = attention_qkv(p, cfg, x, positions, rope=rope)
     b, s = x.shape[:2]
+    if cache is not None and "table" in cache:
+        if s != 1:
+            raise ValueError("a paged cache supports single-token decode only")
+        kc, vc = cache["k"], cache["v"]
+        wb, wo = cache["write_block"], cache["write_off"]
+        writes = wb < kc.shape[0]
+        put_where_(kc, (wb, wo), k[:, 0].to(kc.dtype), writes)
+        put_where_(vc, (wb, wo), v[:, 0].to(vc.dtype), writes)
+        out = paged_decode_attention_kernel(q[:, 0].contiguous(), kc, vc, cache["table"],
+                                            cache["len"])[:, None]
+        out = out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
+        return out, dict(cache, k=kc, v=vc)
     if cache is None:
         if causal and q.shape[1] == k.shape[1]:
             out = flash_attention(q, k, v, causal=True)
@@ -282,6 +348,35 @@ def attention_block(
         new_cache = {"k": kc, "v": vc, "len": new_len}
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
     return out, new_cache
+
+
+def tree_attention_block(p, cfg, x, positions, k_cache, v_cache, kv_len):
+    """Frontier attention: ``A`` candidate tokens per row over a READ-ONLY
+    dense cache.
+
+    ``x`` is ``[N, A, d]``, the A candidates of each row, all at absolute
+    position ``kv_len`` (``positions [N, A]``).  The cache is never
+    written: each candidate's own K/V is the speculative tail (identity
+    tree mask), read by ``tree_decode_attention`` with the prefix.
+    Returns ``(out [N, A, d], k_spec, v_spec)``, the tails ``[N, A, Hkv,
+    D]``, for the caller to commit the chosen candidate's row later.
+    """
+    q, k, v = attention_qkv(p, cfg, x, positions)
+    out = tree_decode_attention_kernel(q.contiguous(), k_cache, v_cache, k.contiguous(),
+                                       v.contiguous(), kv_len)
+    n, a = x.shape[:2]
+    return out.reshape(n, a, cfg.num_heads * cfg.head_dim) @ p["wo"], k, v
+
+
+def paged_tree_attention_block(p, cfg, x, positions, pool_k, pool_v, page_table, kv_len):
+    """:func:`tree_attention_block` with the prefix in pools ``[P, bs, Hkv,
+    D]`` addressed through ``page_table [N, n_pages]``; the pools are never
+    written (``paged_tree_decode_attention`` reads them in place)."""
+    q, k, v = attention_qkv(p, cfg, x, positions)
+    out = paged_tree_decode_attention_kernel(q.contiguous(), pool_k, pool_v, page_table,
+                                             k.contiguous(), v.contiguous(), kv_len)
+    n, a = x.shape[:2]
+    return out.reshape(n, a, cfg.num_heads * cfg.head_dim) @ p["wo"], k, v
 
 
 # ---------------------------------------------------------------------------

@@ -31,12 +31,14 @@ from .layers import (
     mlp_block,
     normal,
     rms_norm,
+    tree_attention_block,
 )
 
 Params = Any
 
 CALLS: dict[str, int] = {"forward": 0, "prefill_ragged": 0, "decode_chunk": 0,
-                         "decode_step": 0}
+                         "decode_step": 0, "decode_frontier": 0,
+                         "paged_decode_step": 0, "paged_decode_frontier": 0}
 
 # Families whose decode cache is pure position-indexed KV (the reference's
 # set; the port runs the dense one).
@@ -52,8 +54,8 @@ def reset_calls() -> None:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1: "
-            "MoE, then SSM/hybrid, then the VLM/enc-dec stubs)"
+            f"model family {cfg.family!r} is not ported yet (ROADMAP.md §1, queue "
+            "item 1: SSM/hybrid, then MoE and the VLM/enc-dec stubs)"
         )
 
 
@@ -263,3 +265,37 @@ def decode_step(params, cfg: ModelConfig, token, cache) -> tuple[torch.Tensor, d
     token = token.reshape(token.shape[0], 1)
     logits, cache = _step_with_cache(params, cfg, {"tokens": token}, cache)
     return logits[:, -1, :], cache
+
+
+def decode_frontier(params, cfg: ModelConfig, tokens, cache) -> tuple[torch.Tensor, dict]:
+    """Score ``A`` candidate next tokens per row in ONE forward, read-only.
+
+    ``tokens [N, A]`` are each row's candidate children, all at absolute
+    position ``cache['len']``: alternatives for the same next position, not
+    a sequence.  Each layer reads the row's prefix once for all candidates
+    (``tree_decode_attention`` with an identity mask over the speculative
+    tail: candidate ``i`` sees the prefix and its own K/V), and the cache is
+    never written.  Returns ``(logits [N, A, V], spec)`` with ``spec =
+    {"k", "v": [L, N, A, Hkv, D]}``, each candidate's own K/V entry, so the
+    caller can commit the chosen child's row without recomputing it.
+    """
+    if cfg.family not in KV_CACHE_FAMILIES:
+        raise ValueError(f"decode_frontier supports KV-cache LM families, not {cfg.family!r}")
+    _check_family(cfg)
+    CALLS["decode_frontier"] += 1
+    n, a = tokens.shape
+    x = params["embed"][tokens]
+    cur_len = torch.as_tensor(cache["len"], device=x.device).to(torch.int32)
+    positions = (cur_len[:, None] if cur_len.dim() == 1 else cur_len).expand(n, a)
+    ks, vs = [], []
+    for layer in range(cfg.num_layers):
+        bp = layer_params(params, layer)
+        h, k, v = tree_attention_block(
+            bp["attn"], cfg, rms_norm(x, bp["attn_norm"], cfg.rms_eps), positions,
+            cache["kv"]["k"][layer], cache["kv"]["v"][layer], cur_len)
+        x = x + h
+        x = x + mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps))
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return unembed(params, x), {"k": torch.stack(ks), "v": torch.stack(vs)}

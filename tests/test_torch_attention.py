@@ -1,14 +1,17 @@
 """The port's attention kernels' plain versions against the JAX package.
 
-``decode_attention_ref`` and ``flash_attention_ref`` (what the port's
-wrappers run on CPU tensors) are held against the JAX Pallas kernels in
-interpret mode and against the XLA oracles of ``repro.models.layers``,
-float32 at tiny shapes, with ragged ``kv_len`` including 0.  Tolerance:
-atol = rtol = 1e-5, for summation order (the Pallas kernels sum keys block
-by block, the oracles and the port in one einsum).  The XLA decode oracle
-gives a ``kv_len = 0`` row the mean of V (its softmax over all-masked
-scores is uniform) where the Pallas kernel and the port give zeros, so
-that row is compared with the kernel only.
+The plain versions (what the port's wrappers run on CPU tensors:
+``decode_attention_ref``, ``flash_attention_ref`` and the paged and tree
+decode versions) are held against the JAX Pallas kernels in interpret mode
+and against the XLA oracles of ``repro.models.layers``, float32 at tiny
+shapes, with ragged ``kv_len`` including 0.  Tolerance: atol = rtol =
+1e-5, for summation order (the Pallas kernels sum keys block by block, the
+oracles and the port in one einsum).  The XLA oracles give a query with
+nothing to attend (``kv_len = 0`` and no tail entry) the mean of V (a
+softmax over all-masked scores is uniform) where the Pallas kernels and
+the port give zeros, so such rows are compared with the kernels only.
+Page tables carry the sentinel ``P`` and stale ids past each row's live
+pages, and pages shared by several rows.
 
 On a CUDA machine the hand-written kernels are held against their plain
 versions (``pytest -m cuda``); those tests import no JAX.
@@ -20,7 +23,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+from repro_torch.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_ref,
+    paged_decode_attention,
+    paged_decode_attention_ref,
+    paged_tree_decode_attention,
+    paged_tree_decode_attention_ref,
+    tree_decode_attention,
+    tree_decode_attention_ref,
+)
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.models import layers
 
@@ -109,6 +121,134 @@ def test_flash_ref_non_causal_matches_pallas_kernel():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+def _paged_case(seed, b, bs, n_pages, hq, hkv, d=16):
+    """Pools, a page table and ragged lengths: rows share pages, entries
+    past each row's live pages hold the sentinel P or stale ids."""
+    rs = np.random.default_rng(seed)
+    p = b * n_pages
+    q, pk, pv = _arrays(seed, (b, hq, d), (p, bs, hkv, d), (p, bs, hkv, d))
+    table = rs.permutation(p)[: b * n_pages].reshape(b, n_pages).astype(np.int32)
+    full = n_pages * bs
+    lens = np.array([0, full, min(full, bs + 1), max(1, full - bs // 2)]
+                    + [int(x) for x in rs.integers(0, full + 1, size=b - 4)], np.int32)
+    for r in range(b):
+        live = -(-int(lens[r]) // bs)
+        table[r, live:] = np.where(np.arange(n_pages - live) % 2, p, table[0, 0])
+    if b > 2 and lens[2] > 0:
+        table[2, 0] = table[1, 0]                  # a page shared by two rows
+    return q, pk, pv, table, lens
+
+
+PAGED_CASES = [(1, 3), (3, 2), (4, 4), (16, 2)]       # (block size, pages)
+
+
+@pytest.mark.parametrize("bs,n_pages", PAGED_CASES)
+def test_paged_decode_ref_matches_pallas_kernel_and_oracle(bs, n_pages):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.decode_attention.ops import paged_decode_attention as jax_kernel
+    from repro.models.layers import paged_decode_attention as jax_oracle
+
+    q, pk, pv, table, lens = _paged_case(bs, 6, bs, n_pages, 4, 2)
+    out = paged_decode_attention(*(torch.from_numpy(x) for x in (q, pk, pv, table, lens)))
+    assert out.shape == q.shape
+    args = [jnp.asarray(x) for x in (q, pk, pv, table, lens)]
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_kernel(*args)), **TOL)
+    np.testing.assert_array_equal(out.numpy()[0], 0.0)          # kv_len = 0
+    oracle = np.asarray(jax_oracle(args[0][:, None], *args[1:]))[:, 0]
+    np.testing.assert_allclose(out.numpy()[1:], oracle[1:], **TOL)
+    # The same pages read densely give the dense decode's answer.
+    gathered = [torch.from_numpy(x[np.clip(table, 0, x.shape[0] - 1)].reshape(
+        table.shape[0], -1, 2, 16)) for x in (pk, pv)]
+    torch.testing.assert_close(out, decode_attention(torch.from_numpy(q), *gathered,
+                                                     torch.from_numpy(lens)), rtol=0, atol=0)
+
+
+TREE_MASKS = ["identity", "lower", "none"]
+
+
+def _tree_mask(name, a):
+    if name == "identity":
+        return None
+    if name == "lower":
+        return np.tril(np.ones((a, a), bool))
+    return np.zeros((a, a), bool)                   # no tail entry at all
+
+
+@pytest.mark.parametrize("a", [1, 4])
+@pytest.mark.parametrize("mask", TREE_MASKS)
+def test_tree_decode_ref_matches_pallas_kernel_and_oracle(a, mask):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.decode_attention.ops import tree_decode_attention as jax_kernel
+    from repro.models.layers import tree_decode_attention as jax_oracle
+
+    b, s, hq, hkv, d = 5, 12, 4, 2, 16
+    q, kc, vc, ks, vs = _arrays(a, (b, a, hq, d), (b, s, hkv, d), (b, s, hkv, d),
+                                (b, a, hkv, d), (b, a, hkv, d))
+    lens = np.array([0, 1, 12, 7, 5], np.int32)
+    m = _tree_mask(mask, a)
+    out = tree_decode_attention(*(torch.from_numpy(x) for x in (q, kc, vc, ks, vs, lens)),
+                                None if m is None else torch.from_numpy(m))
+    assert out.shape == q.shape
+    args = [jnp.asarray(x) for x in (q, kc, vc, ks, vs, lens)]
+    jm = None if m is None else jnp.asarray(m)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_kernel(*args, jm, block_k=4)),
+                               **TOL)
+    rows = slice(1, None) if mask == "none" else slice(None)   # row 0: nothing to attend
+    if mask == "none":
+        np.testing.assert_array_equal(out.numpy()[0], 0.0)
+    np.testing.assert_allclose(out.numpy()[rows], np.asarray(jax_oracle(*args, jm))[rows],
+                               **TOL)
+
+
+@pytest.mark.parametrize("bs,n_pages,mask", [case + (mask,) for case, mask in
+                                              zip(PAGED_CASES, ["identity", "lower"] * 2)])
+def test_paged_tree_decode_ref_matches_pallas_kernel_and_oracle(bs, n_pages, mask):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.decode_attention.ops import (
+        paged_tree_decode_attention as jax_kernel,
+    )
+    from repro.models.layers import paged_tree_decode_attention as jax_oracle
+
+    a, hq, hkv, d = 3, 4, 2, 16
+    _, pk, pv, table, lens = _paged_case(10 + bs, 6, bs, n_pages, hq, hkv)
+    q, ks, vs = _arrays(bs, (6, a, hq, d), (6, a, hkv, d), (6, a, hkv, d))
+    m = _tree_mask(mask, a)
+    tm = None if m is None else torch.from_numpy(m)
+    out = paged_tree_decode_attention(
+        *(torch.from_numpy(x) for x in (q, pk, pv, table, ks, vs, lens)), tm)
+    args = [jnp.asarray(x) for x in (q, pk, pv, table, ks, vs, lens)]
+    jm = None if m is None else jnp.asarray(m)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_kernel(*args, jm)), **TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_oracle(*args, jm)), **TOL)
+    # The paged prefix read through the table is the dense tree decode of
+    # the gathered pages.
+    gathered = [torch.from_numpy(x[np.clip(table, 0, x.shape[0] - 1)].reshape(
+        table.shape[0], -1, hkv, d)) for x in (pk, pv)]
+    dense = tree_decode_attention(torch.from_numpy(q), *gathered, torch.from_numpy(ks),
+                                  torch.from_numpy(vs), torch.from_numpy(lens), tm)
+    torch.testing.assert_close(out, dense, rtol=0, atol=0)
+
+
+def test_tree_decode_ref_is_one_softmax_over_prefix_and_tail():
+    """Direct check of the definition on one row, in float64: candidate
+    ``a`` sees the valid prefix and the tail entries its mask row allows."""
+    a, s, hq, hkv, d = 3, 6, 4, 2, 16
+    q, kc, vc, ks, vs = _arrays(5, (1, a, hq, d), (1, s, hkv, d), (1, s, hkv, d),
+                                (1, a, hkv, d), (1, a, hkv, d))
+    mask = np.tril(np.ones((a, a), bool))
+    out = tree_decode_attention(*(torch.from_numpy(x) for x in (q, kc, vc, ks, vs)), 4,
+                                torch.from_numpy(mask)).numpy()
+    for c in range(a):
+        for h in range(hq):
+            kv = h // 2
+            keys = np.concatenate([kc[0, :4, kv], ks[0, mask[c], kv]]).astype(np.float64)
+            vals = np.concatenate([vc[0, :4, kv], vs[0, mask[c], kv]]).astype(np.float64)
+            sc = keys @ q[0, c, h] / math.sqrt(d)
+            p = np.exp(sc - sc.max())
+            np.testing.assert_allclose(out[0, c, h], (p / p.sum()) @ vals, atol=1e-6,
+                                       rtol=1e-5)
+
+
 def test_wrappers_reject_other_devices():
     q = torch.zeros(2, 4, 16, device="meta")
     kv = torch.zeros(2, 8, 2, 16, device="meta")
@@ -117,6 +257,14 @@ def test_wrappers_reject_other_devices():
     q4 = torch.zeros(2, 8, 4, 16, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         flash_attention(q4, kv, kv)
+    table = torch.zeros(2, 4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        paged_decode_attention(q, kv, kv, table, 3)
+    spec = torch.zeros(2, 8, 2, 16, device="meta")
+    for fn, prefix in ((tree_decode_attention, (kv, kv)),
+                       (paged_tree_decode_attention, (kv, kv, table))):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fn(q4, *prefix, spec, spec, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -190,3 +338,89 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
                         torch.zeros(2, 8, 2, 24, device="cuda"))
     with pytest.raises(ValueError, match="kv_len"):
         decode_attention(q[:, 0].contiguous(), kv, kv, torch.tensor([1, 2, 3], device="cuda"))
+    pool = torch.zeros(6, 4, 2, 16, device="cuda")
+    table = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="page_table"):
+        paged_decode_attention(q[:, 0].contiguous(), pool, pool, table[:1], 3)
+    spec = torch.zeros(2, 33, 2, 16, device="cuda")
+    with pytest.raises(ValueError, match="at most 32"):
+        tree_decode_attention(torch.zeros(2, 33, 4, 16, device="cuda"), kv, kv, spec, spec, 3)
+    spec8 = torch.zeros(2, 8, 2, 16, device="cuda")
+    with pytest.raises(ValueError, match="tree_mask"):
+        paged_tree_decode_attention(q, pool, pool, table, spec8, spec8, 3,
+                                    torch.ones(4, 4, device="cuda"))
+
+
+def _cuda_paged_case(gen, dtype, b, bs, n_pages, hq, hkv, d, a=0):
+    """CUDA inputs: pools of b * n_pages blocks, a shuffled table whose
+    entries past each row's live pages are the sentinel or stale ids, a
+    page shared by rows 1 and 2, and lengths covering 0, a full row and a
+    length ending mid-page."""
+    p = b * n_pages
+    q_shape = (b, a, hq, d) if a else (b, hq, d)
+    q, pk, pv = _cuda_inputs(gen, dtype, q_shape, (p, bs, hkv, d), (p, bs, hkv, d))
+    table = torch.randperm(p, generator=gen, device="cuda")[: b * n_pages].reshape(
+        b, n_pages).to(torch.int32)
+    full = n_pages * bs
+    lens = torch.randint(0, full + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    lens[:3] = torch.tensor([0, full, max(1, full - bs // 2)], dtype=torch.int32)
+    pages = torch.arange(n_pages, device="cuda")[None, :]
+    dead = pages >= ((lens + bs - 1) // bs)[:, None]
+    stale = torch.where(pages % 2 == 0, p, table[0, 0])
+    table = torch.where(dead, stale.to(torch.int32), table)
+    if b > 2:
+        table[2, 0] = table[1, 0]
+    spec = _cuda_inputs(gen, dtype, (b, a, hkv, d), (b, a, hkv, d)) if a else ()
+    return q, pk, pv, table, lens, spec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_decode_kernel_matches_plain_version(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels import LAUNCHES
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for b, bs, n_pages, hq, hkv, d in [(128, 16, 10, 32, 8, 128), (7, 1, 5, 4, 2, 16),
+                                       (9, 3, 4, 8, 8, 64), (5, 4, 3, 4, 1, 64)]:
+        q, pk, pv, table, lens, _ = _cuda_paged_case(gen, dtype, b, bs, n_pages, hq, hkv, d)
+        before = LAUNCHES["paged_decode_attention"]
+        out = paged_decode_attention(q, pk, pv, table, lens)
+        torch.cuda.synchronize()
+        assert LAUNCHES["paged_decode_attention"] == before + 1
+        torch.testing.assert_close(out, paged_decode_attention_ref(q, pk, pv, table, lens),
+                                   **CUDA_TOL[dtype])
+        assert bool((out[0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", ["identity", "lower"])
+def test_cuda_tree_kernels_match_plain_versions(dtype, mask):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels import LAUNCHES
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for b, a, bs, n_pages, hq, hkv, d in [(128, 8, 16, 10, 32, 8, 128), (6, 1, 1, 7, 4, 2, 16),
+                                          (5, 4, 3, 4, 8, 8, 64), (4, 16, 4, 3, 8, 2, 64)]:
+        q, pk, pv, table, lens, (ks, vs) = _cuda_paged_case(gen, dtype, b, bs, n_pages, hq,
+                                                            hkv, d, a=a)
+        tm = None if mask == "identity" else torch.tril(
+            torch.ones(a, a, dtype=torch.bool, device="cuda"))
+        before = LAUNCHES["paged_tree_decode_attention"]
+        out = paged_tree_decode_attention(q, pk, pv, table, ks, vs, lens, tm)
+        torch.cuda.synchronize()
+        assert LAUNCHES["paged_tree_decode_attention"] == before + 1
+        ref = paged_tree_decode_attention_ref(q, pk, pv, table, ks, vs, lens, tm)
+        torch.testing.assert_close(out, ref, **CUDA_TOL[dtype])
+        # Dense prefix: the gathered pages as a cache of any length S.
+        kc = pk[table.long().clamp(0, pk.shape[0] - 1)].reshape(b, -1, hkv, d).contiguous()
+        vc = pv[table.long().clamp(0, pv.shape[0] - 1)].reshape(b, -1, hkv, d).contiguous()
+        before = LAUNCHES["tree_decode_attention"]
+        dense = tree_decode_attention(q, kc, vc, ks, vs, lens, tm)
+        torch.cuda.synchronize()
+        assert LAUNCHES["tree_decode_attention"] == before + 1
+        torch.testing.assert_close(dense, tree_decode_attention_ref(q, kc, vc, ks, vs, lens, tm),
+                                   **CUDA_TOL[dtype])

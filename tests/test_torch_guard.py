@@ -7,11 +7,11 @@
   launcher raise instead of running on the CPU;
 * selection on a GPU always goes through the kernel;
 * each kernel is built with its own nvcc flags, and the library's name
-  hashes them;
+  hashes them and the ``csrc/`` headers its source includes;
 * ``build_searcher`` refuses what the port does not run: unported algos
-  and evaluators (naming their ROADMAP item), the cached evaluator on the
-  wave engine, a model evaluator whose top-K does not match the
-  environment.
+  (naming their ROADMAP item), the cached evaluators (dense, paged,
+  frontier) on the wave engine, a model evaluator whose top-K does not
+  match the environment.
 """
 
 import ast
@@ -24,8 +24,10 @@ from repro_torch import rng
 from repro_torch.configs import get_reduced
 from repro_torch.core import (
     CachedModelEvaluator,
-    Evaluator,
+    FrontierModelEvaluator,
     ModelEvaluator,
+    PagedCachedModelEvaluator,
+    PagedFrontierModelEvaluator,
     SearchSpec,
     build_searcher,
     play_episode,
@@ -58,7 +60,8 @@ def _imports(path: Path):
 
 def test_port_files_exist():
     assert len(PORT_FILES) > 10
-    for kernel in ("tree_select", "decode_attention", "flash_attention"):
+    for kernel in ("tree_select", "decode_attention", "flash_attention",
+                   "paged_decode_attention", "tree_decode_attention"):
         assert (REPO / "src" / "repro_torch" / "csrc" / f"{kernel}.cu").exists()
 
 
@@ -132,20 +135,60 @@ def test_unported_paths_raise_not_implemented():
                                        device="cpu"))
 
 
-@pytest.mark.parametrize("name", ["PagedCachedModelEvaluator", "FrontierModelEvaluator",
-                                  "PagedFrontierModelEvaluator"])
-def test_paged_and_frontier_evaluators_raise_not_implemented(name):
-    env = make_bandit_tree(depth=3, num_actions=3)
-    unported = type(name, (Evaluator,), {})()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*attention"):
-        build_searcher(env, SearchSpec(engine="async", batch=2), evaluator=unported,
-                       device="cpu")
-
-
 def _tiny_lm():
     cfg = get_reduced("llama3-8b", vocab_size=16, num_layers=1, d_model=16, num_heads=2,
                       num_kv_heads=1, head_dim=8, d_ff=32)
     return cfg, init_params(cfg, torch.Generator().manual_seed(0))
+
+
+PAGED_KW = dict(block_size=2, num_blocks=16)
+CACHED_SUBCLASSES = {
+    "PagedCachedModelEvaluator": (PagedCachedModelEvaluator, PAGED_KW),
+    "FrontierModelEvaluator": (FrontierModelEvaluator, {}),
+    "PagedFrontierModelEvaluator": (PagedFrontierModelEvaluator, PAGED_KW),
+}
+
+
+def _cached_subclass(name):
+    cfg, params = _tiny_lm()
+    cls, kw = CACHED_SUBCLASSES[name]
+    env = make_token_env(cfg, params, torch.tensor([2, 3]), max_len=6, top_k=3, eos_token=1)
+    return env, cls(cfg, params, top_k=3, eos_token=1, **kw)
+
+
+@pytest.mark.parametrize("name", sorted(CACHED_SUBCLASSES))
+def test_paged_and_frontier_evaluators_build_on_the_async_engine(name):
+    """The paged and frontier evaluators build through ``build_searcher``
+    on the async engine (batch 0 and B) and run there."""
+    env, ev = _cached_subclass(name)
+    for batch in (0, 2):
+        spec = SearchSpec(engine="async", batch=batch, num_simulations=4, wave_size=2,
+                          max_depth=2, max_sim_steps=2, max_width=3, gamma=1.0)
+        search = build_searcher(env, spec, evaluator=ev, device="cpu")
+        n = max(batch, 1)
+        roots, keys = env.init(rng.split(rng.PRNGKey(0), n)), rng.split(rng.PRNGKey(1), n)
+        if not batch:
+            roots, keys = type(roots)(*(x[0] for x in roots)), keys[0]
+        res = search(roots, keys)
+        assert int(res.root_n.sum()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(CACHED_SUBCLASSES))
+def test_paged_and_frontier_evaluators_reject_the_wave_engine(name):
+    env, ev = _cached_subclass(name)
+    for batch in (0, 2):
+        with pytest.raises(ValueError, match="requires engine='async'"):
+            build_searcher(env, SearchSpec(batch=batch), evaluator=ev, device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(CACHED_SUBCLASSES))
+def test_paged_and_frontier_evaluators_default_to_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    env, ev = _cached_subclass(name)
+    for batch in (0, 2):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_searcher(env, SearchSpec(engine="async", batch=batch), evaluator=ev)
 
 
 def test_model_evaluators_are_checked_against_the_engine_and_env():
@@ -181,7 +224,8 @@ def test_model_entry_points_default_to_cuda():
 def test_each_kernel_has_its_own_flags_and_they_name_its_library(monkeypatch):
     flags = {name: _build.nvcc_flags(name) for name in _build.KERNEL_FLAGS}
     assert "--fmad=false" in flags["tree_select"]
-    for name in ("decode_attention", "flash_attention"):
+    for name in ("decode_attention", "flash_attention", "paged_decode_attention",
+                 "tree_decode_attention"):
         assert "--fmad=false" not in flags[name]
         assert "arch=compute_90a,code=sm_90a" in flags[name]
     before = _build.library_path("decode_attention")
@@ -189,6 +233,24 @@ def test_each_kernel_has_its_own_flags_and_they_name_its_library(monkeypatch):
     after = _build.library_path("decode_attention")
     assert after != before and after.name.startswith("libdecode_attention-")
     assert _build.library_path("tree_select").name.startswith("libtree_select-")
+
+
+def test_library_name_hashes_included_headers(monkeypatch, tmp_path):
+    """A change to a ``csrc/`` header that a source includes renames (and so
+    rebuilds) the library; nvcc is not needed to tell."""
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\nint f() { return g(); }\n')
+    (tmp_path / "shared.cuh").write_text("inline int g() { return 1; }\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setitem(_build.KERNEL_FLAGS, "k", ())
+    before = _build.library_path("k")
+    assert before == _build.library_path("k")
+    (tmp_path / "shared.cuh").write_text("inline int g() { return 2; }\n")
+    after = _build.library_path("k")
+    assert after != before and after.name.startswith("libk-")
+    monkeypatch.undo()
+    for real in ("paged_decode_attention", "tree_decode_attention"):
+        files = {p.name for p in _build._sources(_build.CSRC / f"{real}.cu", {})}
+        assert files == {f"{real}.cu", "decode_tiles.cuh"}
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

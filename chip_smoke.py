@@ -36,7 +36,8 @@ Phases (any failure raises, so the script exits non-zero):
 11. the dense frontier path: phase 7's searches with
     ``FrontierModelEvaluator``; every frontier forward goes through
     ``tree_decode_attention``, every plain step through
-    ``decode_attention``;
+    ``decode_attention``; then the same path with the parameters cut to
+    one layer, held to the cached search;
 12. the paged frontier path: ``PagedFrontierModelEvaluator``; every
     frontier forward goes through ``paged_tree_decode_attention``; then a
     warm second call under torch.profiler;
@@ -51,8 +52,11 @@ Phases 10-12 run before phase 9, while phase 7's model is loaded.  Phase
 phase 11's.  Phase 11 prints its agreement with phase 7 without holding
 it: in bf16 over 32 random layers the frontier forward, the decode step
 and the chunked catch-up round differently, and that changes most rows'
-next top-8 tables (phase 11 measures how often); phase 9.3 holds frontier
-to cached decisions in float32.  The line before
+next top-8 tables (phase 11 measures how often).  Phase 11 holds its path
+in bf16 with the parameters cut to one layer (top-8 tables kept on at
+least 90 % of rows, frontier and paged frontier actions at least 7 of 8
+equal to the cached search's), and phase 9.3 holds frontier to cached
+decisions in float32.  The line before
 the last is a JSON object with each kernel's launches on its main path
 (phase 4, 7, 8, 10, 11 or 12), error against its plain version, time,
 plain time, bound and library time; the last line is
@@ -936,19 +940,23 @@ def paged_path(torch, device, cfg, params, base):
 
 def frontier_numerics(torch, device, cfg, params):
     """Where a frontier forward's bf16 logits leave the decode step's, at
-    phase 7's width, depth and type.  Returns three shares:
+    phase 7's width and type and ``cfg``'s depth.  Returns a dict of shares:
 
-    * attention: ``tree_decode_attention`` elements that differ from
+    * ``attn``: ``tree_decode_attention`` elements that differ from
       ``decode_attention`` over the cache with each candidate's key
       appended at position ``kv_len`` (128 rows x 8 candidates, random);
-    * GEMM rows: elements of a layer's down projection over 1024 rows
+    * ``gemm``: elements of a layer's down projection over 1024 rows
       (8 candidates x 128, one call) that differ from the same rows taken
       128 at a time (the decode step's shape);
     * end to end: 128 rows of phase 7's prompt plus 8-24 random tokens,
       each row's top-8 candidates scored by ``decode_frontier`` and, one
-      column at a time, by ``decode_step``: the share of logits that
-      differ, the max difference and the share of rows whose next top-8
-      table is the same.
+      column at a time, by ``decode_step`` (as the cached search scores
+      them): the share of logits that differ (``differ``), the max
+      difference (``max_diff``) and the share of rows whose next top-8
+      table is the same (``top_same``); and the same two shares against
+      one ``decode_step`` over the cache repeated 8 times, 1024 rows, the
+      frontier's GEMM shapes (``rows_differ``, ``rows_top_same``), which
+      leaves only the attention's order of summation between the two.
     """
     from repro_torch.envs.token_env import sorted_top_k
     from repro_torch.kernels.decode_attention import decode_attention, tree_decode_attention
@@ -960,23 +968,26 @@ def frontier_numerics(torch, device, cfg, params):
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
 
+    def top_same(x, y):
+        return float((sorted_top_k(x, a)[1] == sorted_top_k(y, a)[1]).all(1).float().mean())
+
     q, kc, vc, ks, vs = (rand(n, a, hq, d), rand(n, MAX_LEN, hkv, d),
                          rand(n, MAX_LEN, hkv, d), rand(n, a, hkv, d), rand(n, a, hkv, d))
     lens = torch.randint(PROMPT_LEN, MAX_LEN - 1, (n,), generator=gen, device=device,
                          dtype=torch.int32)
     tree = tree_decode_attention(q, kc, vc, ks, vs, lens)
     rows = torch.arange(n, device=device)
-    attn_differ = 0.0
+    out = {"attn": 0.0}
     for j in range(a):
         k2, v2 = kc.clone(), vc.clone()
         k2[rows, lens.long()] = ks[:, j]
         v2[rows, lens.long()] = vs[:, j]
         dec = decode_attention(q[:, j].contiguous(), k2, v2, lens + 1)
-        attn_differ += float((dec != tree[:, j]).float().mean()) / a
+        out["attn"] += float((dec != tree[:, j]).float().mean()) / a
     w_down = params["blocks"]["mlp"]["w_down"][0]
     h = rand(n, a, w_down.shape[0])
     whole = (h.reshape(n * a, -1) @ w_down).reshape(n, a, -1)
-    gemm_differ = sum(float((whole[:, j] != h[:, j].contiguous() @ w_down).float().mean())
+    out["gemm"] = sum(float((whole[:, j] != h[:, j].contiguous() @ w_down).float().mean())
                       for j in range(a)) / a
 
     toks = torch.randint(2, cfg.vocab_size, (n, MAX_LEN), generator=gen, device=device,
@@ -988,15 +999,31 @@ def frontier_numerics(torch, device, cfg, params):
                                    init_cache(cfg, n, MAX_LEN, device=device))
     _, cand = sorted_top_k(logits, a)
     clog, _ = decode_frontier(params, cfg, cand, dict(cache, len=lens))
-    differ, top_same, max_diff = 0.0, 0.0, 0.0
+    out.update(differ=0.0, top_same=0.0, max_diff=0.0)
     for j in range(a):
         step, _ = decode_step(params, cfg, cand[:, j], {
             "kv": {k: v.clone() for k, v in cache["kv"].items()}, "len": lens})
-        differ += float((step != clog[:, j]).float().mean()) / a
-        max_diff = max(max_diff, float((step.float() - clog[:, j].float()).abs().max()))
-        top_same += float((sorted_top_k(step, a)[1] == sorted_top_k(clog[:, j], a)[1])
-                          .all(1).float().mean()) / a
-    return attn_differ, gemm_differ, differ, max_diff, top_same
+        out["differ"] += float((step != clog[:, j]).float().mean()) / a
+        out["max_diff"] = max(out["max_diff"],
+                              float((step.float() - clog[:, j].float()).abs().max()))
+        out["top_same"] += top_same(step, clog[:, j]) / a
+    repeated = {"kv": {k: v.repeat_interleave(a, dim=1) for k, v in cache["kv"].items()},
+                "len": lens.repeat_interleave(a)}
+    flat, _ = decode_step(params, cfg, cand.reshape(-1), repeated)
+    del repeated
+    out["rows_differ"] = float((flat != clog.reshape(n * a, -1)).float().mean())
+    out["rows_top_same"] = top_same(flat, clog.reshape(n * a, -1))
+    return out
+
+
+def numerics_line(num, cfg):
+    dtype = str(cfg.dtype).removeprefix("torch.")
+    return (f"frontier numerics, {dtype}, layers {cfg.num_layers}: decode_frontier vs "
+            f"decode_step logits of the same candidates, 128 rows x 8: share differing "
+            f"{num['differ']!r}, max |difference| {num['max_diff']!r}, next top-8 table "
+            f"unchanged on {num['top_same']!r} of rows; against one decode_step over 1024 "
+            f"rows (the frontier's GEMM shapes): share differing {num['rows_differ']!r}, "
+            f"top-8 unchanged on {num['rows_top_same']!r}")
 
 
 def frontier_path(torch, device, cfg, params, base):
@@ -1009,8 +1036,9 @@ def frontier_path(torch, device, cfg, params, base):
     rows), the decode step and the cached evaluator's chunked catch-up are
     three numerical paths, and their one-ulp differences change the next
     top-8 tables of most rows (measured here by :func:`frontier_numerics`).
-    Frontier against cached decisions is held in float32 (phase 9.3), and
-    phase 12 is held to this phase's actions."""
+    The frontier path's decisions are held where one bf16 layer does not
+    amplify those differences (:func:`frontier_one_layer`), and in float32
+    (phase 9.3); phase 12 is held to this phase's actions."""
     from repro_torch.core import FrontierModelEvaluator
 
     ev = FrontierModelEvaluator(cfg, params, top_k=TOP_K, eos_token=EOS)
@@ -1021,18 +1049,63 @@ def frontier_path(torch, device, cfg, params, base):
     launch_identity(launches, calls, "decode_attention", "decode_step", cfg.num_layers)
     same = int((run["res"].action.cpu() == base["action"]).sum())
     hits = run["engine"].frontier_hits(run["carry"])
-    attn, gemm, differ, max_diff, top_same = frontier_numerics(torch, device, cfg, params)
     print(guided_line(run, cfg, "frontier path") + f"; frontier hits per tree "
           f"{hits.tolist()}; model calls against phase 7's "
           f"{ {k: v for k, v in base['calls'].items() if v} }; phase 7's action on "
           f"{same}/8 trees (not held: bf16 numerics)")
+    num = frontier_numerics(torch, device, cfg, params)
     print(f"frontier numerics, bf16: tree_decode_attention vs decode_attention with the "
-          f"candidate's key appended, share of elements differing {attn!r}; down projection "
-          f"over 1024 rows vs 128 at a time, share differing {gemm!r}; decode_frontier vs "
-          f"decode_step logits of the same candidates, 128 rows x 8: share differing "
-          f"{differ!r}, max |difference| {max_diff!r}, next top-8 table unchanged on "
-          f"{top_same!r} of rows")
+          f"candidate's key appended, share of elements differing {num['attn']!r}; down "
+          f"projection over 1024 rows vs 128 at a time, share differing {num['gemm']!r}")
+    print(numerics_line(num, cfg))
+    frontier_one_layer(torch, device, cfg, params)
     return launches, {"action": run["res"].action.cpu()}
+
+
+# Phase 11's one-layer check: decode_frontier keeps decode_step's next top-8
+# table on at least this share of rows (0.957 on the H100).  A wrong
+# position, candidate or K/V row would change nearly every table.
+ONE_LAYER_TOP8_FLOOR = 0.9
+
+
+def frontier_one_layer(torch, device, cfg, params):
+    """Phase 11's path held in bf16 where the numerics allow: phase 7's
+    parameters cut to their first layer (full width), phase 7's cell.
+    ``decode_frontier`` must keep ``decode_step``'s next top-8 table on at
+    least :data:`ONE_LAYER_TOP8_FLOOR` of rows, and the frontier and paged
+    frontier searches must choose the cached search's action on at least 7
+    of 8 trees."""
+    import dataclasses
+
+    from repro_torch.core import (
+        CachedModelEvaluator,
+        FrontierModelEvaluator,
+        PagedFrontierModelEvaluator,
+        build_searcher,
+    )
+
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    num = frontier_numerics(torch, device, cfg1, params)
+    print(numerics_line(num, cfg1))
+    if num["top_same"] < ONE_LAYER_TOP8_FLOOR:
+        raise AssertionError(f"1 layer bf16: decode_frontier keeps decode_step's top-8 "
+                             f"table on {num['top_same']!r} of rows, under "
+                             f"{ONE_LAYER_TOP8_FLOOR}")
+    env, spec, roots, rngs = guided_cell(torch, device, cfg1, params)
+    kw = dict(top_k=TOP_K, eos_token=EOS)
+    base = None
+    for what, ev in (("cached", CachedModelEvaluator(cfg1, params, **kw)),
+                     ("frontier", FrontierModelEvaluator(cfg1, params, **kw)),
+                     ("paged frontier", PagedFrontierModelEvaluator(
+                         cfg1, params, **kw, block_size=BLOCK, num_blocks=POOL_BLOCKS))):
+        res = build_searcher(env, spec, evaluator=ev, device=device)(roots, rngs)
+        search_results_ok(torch, res, spec, f"1 layer bf16 {what} search")
+        if base is None:
+            base = {"action": res.action.cpu()}
+            continue
+        same = agree_actions(torch, res, base, f"1 layer bf16 {what} search", "cached")
+        print(f"full width, 1 layer, bf16, phase 7's cell: {what} search chooses the "
+              f"cached search's action on {same}/8 trees")
 
 
 def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):

@@ -1,7 +1,7 @@
-// Shared body of the port's paged and tree decode-attention kernels, for
-// Hopper (sm_90a).  Included by paged_decode_attention.cu and
-// tree_decode_attention.cu; the dense decode_attention.cu keeps its own copy
-// of the same loop.
+// Shared body of the port's decode-attention kernels, for Hopper (sm_90a).
+// Included by decode_attention.cu (dense, A = 1), paged_decode_attention.cu
+// (paged, A = 1) and tree_decode_attention.cu (dense and paged, A tail
+// entries).
 //
 // One block serves one (row b, KV head h).  It holds Q = A * G query
 // vectors: the G query heads of KV head h for each of the row's A
@@ -20,11 +20,17 @@
 // where mask[a, j] != 0.  The output is acc / max(l, 1e-20): a query with
 // nothing to attend gives zeros.
 //
-// What bounds it: device-memory bytes.  Each valid prefix K/V entry is read
-// once per (row, KV head) and used by all Q query vectors: 4 * Q flops per
-// element pair, far below the card's flops per byte at the main path's
-// Q = 8 * 4.  The design spends the reads once (the point of the TPU tree
-// kernel) and keeps q, acc and the tiles in shared memory; vectorised
+// What bounds it depends on Q.  Each valid prefix K/V entry is read once
+// per (row, KV head) and used by all Q query vectors: 4 * Q flops per K/V
+// element pair, which is 4 bytes in bf16, so Q flops per byte.  The card's
+// float32 rate outside the tensor cores is about 20 flops per byte of
+// device memory (67e12 / 3.35e12).  At A = 1 (the decode steps, Q = G = 4)
+// the kernel is bounded by device-memory bytes.  At the tree kernels' main
+// path Q = A * G = 8 * 4 = 32 it is bounded by the float32 score and p.V
+// loops, whose every FMA reads two operands from shared memory; bytes bound
+// it only once those loops move to register tiles or tensor cores.  The
+// design spends the reads once (the point of the TPU tree kernel) and keeps
+// q, acc and the tiles in shared memory; register tiling, vectorised
 // loads, split-KV and tensor cores are later work.
 
 #pragma once

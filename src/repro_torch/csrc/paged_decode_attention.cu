@@ -12,7 +12,9 @@
 // pool through the table itself.
 //
 // What bounds it: device-memory bytes, as the dense kernel: every valid K/V
-// entry is read once per (row, KV head) and used by the G query heads.
+// entry is read once per (row, KV head) and used by the G query heads (4 * G
+// flops per bf16 K/V pair: 4 flops per byte at G = 4, below the card's
+// float32 rate per byte).
 //
 // Design (decode_tiles.cuh with A = 1): one block per (row, KV head), its G
 // query heads together; 32-key tiles in shared memory whose 32 row

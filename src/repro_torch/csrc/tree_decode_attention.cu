@@ -14,12 +14,14 @@
 // written but the output.  Scores, p and p.V are float32; a query with
 // nothing to attend gives zeros.
 //
-// What bounds it: device-memory bytes.  The prefix is shared by all A
-// candidates, so it is read ONCE per (row, KV head) for all A * G query
-// vectors: that single read is the point of the TPU kernel, and A separate
-// decode passes would read it A times.  At the main path's A = 8, G = 4 the
-// 32 query vectors do 4 * 32 flops per K/V element pair, still far below
-// the card's flops per byte.
+// What bounds it: at the main path's A = 8, G = 4 the 32 query vectors do
+// 4 * 32 flops per K/V element pair (32 flops per byte of bf16 K/V), above
+// the card's float32 rate per byte of device memory (about 20), so the
+// float32 score and p.V loops in shared memory bound it, not the bytes.
+// The prefix is shared by all A candidates, so it is read ONCE per (row,
+// KV head) for all A * G query vectors: that single read is the point of
+// the TPU kernel, and A separate decode passes would read it A times.
+// Bytes bound it once those loops move to register tiles or tensor cores.
 //
 // Design (decode_tiles.cuh): one block per (row, KV head) holds all A * G
 // query vectors and their online-softmax states in shared memory, streams

@@ -248,7 +248,7 @@ def test_library_name_hashes_included_headers(monkeypatch, tmp_path):
     after = _build.library_path("k")
     assert after != before and after.name.startswith("libk-")
     monkeypatch.undo()
-    for real in ("paged_decode_attention", "tree_decode_attention"):
+    for real in ("decode_attention", "paged_decode_attention", "tree_decode_attention"):
         files = {p.name for p in _build._sources(_build.CSRC / f"{real}.cu", {})}
         assert files == {f"{real}.cu", "decode_tiles.cuh"}
 

@@ -7,15 +7,18 @@ Phases (any failure raises, so the script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); require CUDA;
 2. build the port's CUDA libraries from ``src/repro_torch/csrc`` with
-   nvcc, one process per library, all at once (six kernels in five
+   nvcc, one process per library, all at once (seven kernels in six
    libraries: ``tree_decode_attention`` holds the dense and the paged tree
    kernel);
 3. hold each kernel against its plain PyTorch version on the card (the
    attention kernels in float32 and bfloat16 over a grid of shapes and the
-   shapes phases 7-12 drive), and time kernel, plain version and one
-   PyTorch library call at the main paths' shapes (the paged and tree
-   kernels have no single library call: a gather or concatenation plus
-   SDPA is timed beside them as a two- or three-call yardstick);
+   shapes phases 7-14 drive, ``flash_attention`` also at zamba2's D=112;
+   ``ssd_scan`` with float32 and bfloat16 B/C over a grid, the driven
+   shapes, and against the sequential recurrence too), and time kernel,
+   plain version and one PyTorch library call at the main paths' shapes
+   (the paged and tree kernels have no single library call: a gather or
+   concatenation plus SDPA is timed beside them as a two- or three-call
+   yardstick; no PyTorch call computes the SSD scan);
 4. the rollout main path: ``build_searcher`` on the tap game answers 256
    searches (the paper's W=16, T=128) through the ``tree_select`` kernel;
    its launch count must cover every selection, and 8 of the trees are
@@ -41,13 +44,27 @@ Phases (any failure raises, so the script exits non-zero):
 12. the paged frontier path: ``PagedFrontierModelEvaluator``; every
     frontier forward goes through ``paged_tree_decode_attention``; then a
     warm second call under torch.profiler;
+13. the SSM main path: mamba2-2.7b at full width and depth (64 layers,
+    bf16, random parameters from a seed), phase 7's cell with
+    ``ModelEvaluator`` (one forward of all 128 slots per master tick);
+    every forward goes through ``ssd_scan`` (64 launches per forward); then
+    a warm second call under torch.profiler;
+14. the hybrid path: zamba2-7b at full width and depth (81 SSM layers and
+    14 sites of its shared attention block, bf16), phase 8's wave cell with
+    ``ModelEvaluator``; 81 ``ssd_scan`` and 14 ``flash_attention``
+    (D=112) launches per forward;
 9. agreement on the card: cached prefill vs flash forward vs decode step
    logits (full width, 2 layers, float32), the reduced model's cached and
-   paged frontier searches on the GPU against the port on the CPU, and
+   paged frontier searches on the GPU against the port on the CPU,
    (9.3) phase 7's cell at full width, 2 layers, float32: the paged,
-   frontier and paged frontier searches against the cached one.
+   frontier and paged frontier searches against the cached one, and (9.4)
+   mamba2 at full width, 2 layers, float32: ``forward`` through the kernel
+   against the same forward with the plain scan, and the reduced mamba2
+   (async) and zamba2 (wave) ``ModelEvaluator`` searches on the GPU
+   against the port on the CPU.
 
-Phases 10-12 run before phase 9, while phase 7's model is loaded.  Phase
+Phases 10-12 run before phase 9, while phase 7's model is loaded; phases
+13 and 14 after it is freed, one model at a time.  Phase
 10 must choose phase 7's action on at least 7 of 8 trees and phase 12
 phase 11's.  Phase 11 prints its agreement with phase 7 without holding
 it: in bf16 over 32 random layers the frontier forward, the decode step
@@ -58,7 +75,7 @@ least 90 % of rows, frontier and paged frontier actions at least 7 of 8
 equal to the cached search's), and phase 9.3 holds frontier to cached
 decisions in float32.  The line before
 the last is a JSON object with each kernel's launches on its main path
-(phase 4, 7, 8, 10, 11 or 12), error against its plain version, time,
+(phase 4, 7, 8, 10, 11, 12 or 13), error against its plain version, time,
 plain time, bound and library time; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -87,9 +104,9 @@ MAIN_B, MAIN_A = 256, 36      # tap game 6x6: 256 trees, 36 actions
 BANDIT_B = 1024
 KINDS = ("wu_uct", "uct", "treep", "treep_vc")
 KERNELS = ("tree_select", "decode_attention", "flash_attention", "paged_decode_attention",
-           "tree_decode_attention", "paged_tree_decode_attention")
+           "tree_decode_attention", "paged_tree_decode_attention", "ssd_scan")
 # The library (``csrc/<name>.cu``) of each kernel, and the TPU kernel it replaces.
-SOURCES = {name: name for name in KERNELS[:5]}
+SOURCES = {name: name for name in KERNELS}
 SOURCES["paged_tree_decode_attention"] = "tree_decode_attention"
 REPLACES = {
     "tree_select": "src/repro/kernels/tree_select/tree_select.py:139",
@@ -100,6 +117,7 @@ REPLACES = {
         "src/repro/kernels/decode_attention/tree_decode_attention.py:161",
     "paged_tree_decode_attention":
         "src/repro/kernels/decode_attention/tree_decode_attention.py:259",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:99",
 }
 # The model-guided paths (phases 7 and 8): llama3-8b, a 128-token prompt,
 # 160-token sequences, top-8 actions, EOS token 1.
@@ -110,8 +128,10 @@ WAVE_B, WAVE_W = 2, 4
 # Phases 10 and 12: 16-token blocks, as many as the dense caches' rows.
 BLOCK = 16
 POOL_BLOCKS = ASYNC_B * ASYNC_W * (-(-MAX_LEN // BLOCK))       # 1280
-REDUCED_MAX_LEN = 20          # phase 9.2's token sequences
+REDUCED_MAX_LEN = 20          # phase 9.2's and 9.4's token sequences
 REDUCED_BLOCK = 4
+# Phases 13 and 14: mamba2-2.7b and zamba2-7b at full depth.
+SSM_LAYERS, HYBRID_LAYERS = 64, 81
 # Child tables each kind reads (f32[B, A]) besides the validity bytes.
 TABLES_READ = {"wu_uct": 3, "uct": 2, "treep": 3, "treep_vc": 3}
 
@@ -312,7 +332,10 @@ def check_flash(torch, device, lm_shapes):
 
     gen = torch.Generator(device=device).manual_seed(12)
     shapes = [(b, s, hq, hkv, d) for b in (1, 8) for s in (1, 7, 160, 1024)
-              for hq, hkv in ((32, 8), (8, 8), (4, 1)) for d in (64, 128)] + lm_shapes
+              for hq, hkv in ((32, 8), (8, 8), (4, 1)) for d in (64, 128)]
+    # zamba2-7b's shared block: D=112 (three full 32-lane columns and a
+    # half one), MHA.
+    shapes += [(b, s, 32, 32, 112) for b in (1, 8) for s in (1, 7, 160, 1024)] + lm_shapes
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -327,8 +350,8 @@ def check_flash(torch, device, lm_shapes):
                                                  name, what))
     print(f"flash_attention matches its plain version: {len(shapes)} shapes x "
           f"(float32, bfloat16), B in (1, 8), S in (1, 7, 160, 1024), Hq/Hkv in "
-          f"(32/8, 8/8, 4/1), D in (64, 128), plus the driven shapes {lm_shapes}; "
-          f"max |kernel - plain| = {max_err!r}")
+          f"(32/8, 8/8, 4/1) with D in (64, 128) and 32/32 with D=112, plus the driven "
+          f"shapes {lm_shapes}; max |kernel - plain| = {max_err!r}")
     return max_err
 
 
@@ -363,13 +386,14 @@ def time_decode(torch, device):
             "library_ms": lib_ms}
 
 
-def time_flash(torch, device):
+def time_flash(torch, device, hq=32, hkv=8, d=128):
     """Kernel, plain version and SDPA at phase 8's forward shape: 8 rows of
-    160 tokens, 32/8 heads, D=128, bf16."""
+    160 tokens, 32/8 heads, D=128, bf16; with ``hq=hkv=32, d=112``, phase
+    14's (zamba2-7b's shared block)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 
-    b, s, hq, hkv, d = WAVE_B * WAVE_W, MAX_LEN, 32, 8, 128
+    b, s = WAVE_B * WAVE_W, MAX_LEN
     gen = torch.Generator(device=device).manual_seed(14)
     q = torch.randn((b, s, hq, d), generator=gen, device=device).to(torch.bfloat16)
     k = torch.randn((b, s, hkv, d), generator=gen, device=device).to(torch.bfloat16)
@@ -386,7 +410,7 @@ def time_flash(torch, device):
     bound_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / BF16_OPS_PER_S}
     bound_by = max(bound_s, key=bound_s.get)
     bound_ms = bound_s[bound_by] * 1e3
-    print(f"flash_attention bf16 B={b} S={s} 32/8 D=128: kernel {k_ms * 1e3!r} us, plain "
+    print(f"flash_attention bf16 B={b} S={s} {hq}/{hkv} D={d}: kernel {k_ms * 1e3!r} us, plain "
           f"{p_ms * 1e3!r} us, SDPA {lib_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us "
           f"(by {bound_by}: {nbytes} bytes, {ops} flops); |kernel - plain| {err!r}")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -649,6 +673,110 @@ def time_paged_family(torch, device):
     return fields
 
 
+# The SSD scan (phases 13, 14 and 9.4).
+
+# (b, s, h, p, n, Q): the JAX kernel tests' shapes, several chunks of 256,
+# an odd single chunk and tiny chunks (the reduced models' S=20, Q=4).
+SSD_GRID = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64, 64),
+            (2, 96, 3, 16, 8, 32), (1, 512, 4, 64, 128, 256), (1, 81, 2, 16, 8, 81),
+            (2, 20, 4, 16, 16, 4)]
+# Kernel against plain version: both float32 from the same inputs, summed
+# in other orders (32-row tiles and a warp scan of dA against the plain
+# version's einsums and cumsum), ~1e-6 on outputs of magnitude ~1-10.
+# Against the sequential recurrence: the JAX kernel tests' bar.
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)
+SSD_SEQ_TOL = dict(atol=2e-4, rtol=2e-4)
+
+
+def ssd_inputs(torch, gen, b, s, h, p, n, bc_dtype, device):
+    """The JAX kernel tests' distributions: xdt, B, C ~ 0.3 N(0, 1) (B and
+    C rounded to ``bc_dtype``), dA = -softplus(N(0, 1))."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    xdt = randn(b, s, h, p) * 0.3
+    dA = -torch.nn.functional.softplus(randn(b, s, h))
+    return xdt, dA, (randn(b, s, n) * 0.3).to(bc_dtype), (randn(b, s, n) * 0.3).to(bc_dtype)
+
+
+def ssd_err(torch, out, ref, tol, what):
+    """Max |out - ref|; raises where it exceeds atol + rtol * |ref|."""
+    diff = (out - ref).abs()
+    bad = diff > tol["atol"] + tol["rtol"] * ref.abs()
+    if bool(bad.any()) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what}: differs by up to {float(diff.max())!r} "
+                             f"({int(bad.sum())} elements out of {tol})")
+    return float(diff.max())
+
+
+def check_ssd(torch, device, driven):
+    """ssd_scan vs its plain version and vs the sequential recurrence, with
+    float32 and bfloat16 B/C, over the grid and the driven shapes; returns
+    the max error against the plain version."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    from repro_torch.models.ssm import ssd_sequential_ref
+
+    gen = torch.Generator(device=device).manual_seed(41)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    seq_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for b, s, h, p, n, q in SSD_GRID + driven:
+            args = ssd_inputs(torch, gen, b, s, h, p, n, dtype, device)
+            out = ssd_scan(*args, chunk=q)
+            sync(device)
+            what = f"ssd_scan B/C {name} (b, s, h, p, n, Q) = {(b, s, h, p, n, q)}"
+            err[name] = max(err[name], ssd_err(torch, out, ssd_scan_ref(*args, chunk=q),
+                                               SSD_TOL, what))
+            seq, _ = ssd_sequential_ref(*args)
+            seq_err = max(seq_err, ssd_err(torch, out, seq, SSD_SEQ_TOL,
+                                           what + " vs the sequential recurrence"))
+            del args, out, seq
+    print(f"ssd_scan matches its plain version (tolerance {SSD_TOL}) and the sequential "
+          f"recurrence (tolerance {SSD_SEQ_TOL}): B/C in float32 and bfloat16 over "
+          f"(b, s, h, p, n, Q) in {SSD_GRID} and the driven shapes {driven}; max |kernel - "
+          f"plain| = {err}, max |kernel - sequential| = {seq_err!r}")
+    return max(err.values())
+
+
+def ssd_bound(b, s, h, p, n, q, bc_bytes):
+    """(bound_ms, bound_by, bytes, flops) of one scan: xdt read and y
+    written in float32, dA read, B and C read once; per (row, head) and
+    chunk the causal products with xdt (Q(Q+1)P) and the decay (subtract,
+    exp, multiply on Q(Q+1)/2 entries), per row and chunk the lower
+    triangle of C.Bᵀ (Q(Q+1)N), and 2QPN per (row, head) for the state
+    term of every chunk but the first and the update of every chunk but
+    the last."""
+    nc = s // q
+    nbytes = 2 * 4 * b * s * h * p + 4 * b * s * h + 2 * bc_bytes * b * s * n
+    flops = (nc * b * h * (q * (q + 1) * p + 3 * q * (q + 1) // 2)
+             + nc * b * q * (q + 1) * n + 2 * (nc - 1) * b * h * 2 * q * p * n)
+    b_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_OPS_PER_S}
+    by = max(b_s, key=b_s.get)
+    return b_s[by] * 1e3, by, nbytes, flops
+
+
+def time_ssd(torch, device, shape):
+    """Kernel and plain version at phase 13's scan shape (mamba2-2.7b, 128
+    rows x 160 tokens, bf16 B/C); no single PyTorch call computes it."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+
+    b, s, h, p, n, q = shape
+    gen = torch.Generator(device=device).manual_seed(42)
+    args = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16, device)
+    err = ssd_err(torch, ssd_scan(*args, chunk=q), ssd_scan_ref(*args, chunk=q), SSD_TOL,
+                  "timed ssd_scan")
+    k_ms = time_ms(torch, lambda: ssd_scan(*args, chunk=q), 20)
+    p_ms = time_ms(torch, lambda: ssd_scan_ref(*args, chunk=q), 5)
+    bound_ms, bound_by, nbytes, flops = ssd_bound(b, s, h, p, n, q, 2)
+    print(f"ssd_scan (b, s, h, p, n, Q) = {shape}, bf16 B/C: kernel {k_ms * 1e3!r} us, plain "
+          f"{p_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, "
+          f"{flops} flops); |kernel - plain| {err!r}; no single PyTorch call computes it: "
+          f"library_ms is null")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def main_path(torch, device):
     """Phase 4: 256 tap-game searches through build_searcher."""
     from repro_torch import rng
@@ -766,19 +894,19 @@ def single_root(torch, device):
 # ---------------------------------------------------------------------------
 
 
-def lm_setup(torch, device, layers, dtype, seed):
-    """llama3-8b at full width with ``layers`` layers, random parameters
-    from the port's ``init_params`` on the card."""
+def lm_setup(torch, device, layers, dtype, seed, name="llama3-8b"):
+    """Model ``name`` at full width with ``layers`` layers, random
+    parameters from the port's ``init_params`` on the card."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=layers, dtype=dtype)
+    cfg = dataclasses.replace(get_config(name), num_layers=layers, dtype=dtype)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
     sync(device)
-    print(f"llama3-8b {layers} layers {dtype}: {cfg.param_count()} parameters made on "
+    print(f"{name} {layers} layers {dtype}: {cfg.param_count()} parameters made on "
           f"the card in {time.perf_counter() - t0!r} s")
     return cfg, params
 
@@ -1162,16 +1290,13 @@ def profile_call(torch, device, fn, what, top=10):
         print(f"  {dev_us * 1e-3!r} ms  {count} x  {key[:100]}")
 
 
-def uncached(torch, device, cfg, params):
-    """Phase 8: ModelEvaluator on the wave engine; every forward (the
-    environment's steps and the tick-driven rollouts) runs flash_attention
-    in each of its 32 layers."""
+def wave_search(torch, device, cfg, params):
+    """Phase 8's cell over ``cfg``/``params``: ``ModelEvaluator`` on the
+    wave engine, B=2, W=4, T=8; returns the search's result and
+    :func:`counted_run`'s counts."""
     from repro_torch import rng
     from repro_torch.core import ModelEvaluator, SearchSpec, build_searcher
     from repro_torch.envs import make_token_env
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models import CALLS, reset_calls
-    from repro_torch.sync import SYNCS, reset_syncs
 
     prompt = prompt_tokens(torch, cfg.vocab_size, PROMPT_LEN, seed=2).to(device)
     env = make_token_env(cfg, params, prompt, max_len=MAX_LEN, top_k=TOP_K, eos_token=EOS)
@@ -1182,26 +1307,65 @@ def uncached(torch, device, cfg, params):
     search = build_searcher(env, spec, evaluator=ev, device=device)
     roots = env.init(rng.split(rng.PRNGKey(0, device=device), WAVE_B))
     rngs = rng.split(rng.PRNGKey(1, device=device), WAVE_B)
-    sync(device)
+    res, wall, launches, calls, syncs, peak = counted_run(torch, device,
+                                                         lambda: search(roots, rngs))
+    search_results_ok(torch, res, spec, f"{cfg.name} wave search")
+    line = (f"ModelEvaluator, wave wu_uct B={WAVE_B} W={WAVE_W} T={spec.num_simulations}: "
+            f"{WAVE_B / wall!r} searches/s (wall {wall!r} s, first call), model calls "
+            f"{ {k: v for k, v in calls.items() if v} }, launches "
+            f"{ {k: v for k, v in launches.items() if v} }, host syncs {syncs}, peak memory "
+            f"{peak!r} GiB; actions {res.action.tolist()}")
+    return launches, calls, line
 
-    reset_launches()
-    reset_calls()
-    reset_syncs()
-    t0 = time.perf_counter()
-    res = search(roots, rngs)
-    sync(device)
-    wall = time.perf_counter() - t0
-    launches, calls, syncs = dict(LAUNCHES), dict(CALLS), SYNCS["host_any"]
 
-    fwd = calls["forward"]
-    if fwd == 0 or launches["flash_attention"] < cfg.num_layers * fwd:
-        raise AssertionError(f"flash_attention launched {launches['flash_attention']} "
-                             f"times for {fwd} forwards of {cfg.num_layers} layers")
-    search_results_ok(torch, res, spec, "uncached search")
-    print(f"uncached path: ModelEvaluator, wave wu_uct B={WAVE_B} W={WAVE_W} "
-          f"T={spec.num_simulations}: {WAVE_B / wall!r} searches/s (wall {wall!r} s, "
-          f"first call), model calls {calls}, launches {launches}, host syncs {syncs}; "
-          f"actions {res.action.tolist()}")
+def uncached(torch, device, cfg, params):
+    """Phase 8: ModelEvaluator on the wave engine; every forward (the
+    environment's steps and the tick-driven rollouts) runs flash_attention
+    in each of its 32 layers."""
+    launches, calls, line = wave_search(torch, device, cfg, params)
+    launch_identity(launches, calls, "flash_attention", "forward", cfg.num_layers)
+    print(f"uncached path: llama3-8b {cfg.num_layers} layers bf16, {line}")
+    return launches
+
+
+def ssm_path(torch, device, cfg, params):
+    """Phase 13: phase 7's cell (async wu_uct, B=8, W=16, T=64, the
+    128-token prompt, max_len 160, top-8) over mamba2-2.7b with
+    ``ModelEvaluator``: one forward of all 128 slots per master tick, 64
+    ssd_scan launches per forward; then a warm second call under
+    torch.profiler."""
+    from repro_torch.core import ModelEvaluator, build_searcher
+
+    env, spec, roots, rngs = guided_cell(torch, device, cfg, params)
+    ev = ModelEvaluator(cfg, params, top_k=TOP_K, eos_token=EOS)
+    search = build_searcher(env, spec, evaluator=ev, device=device)
+    res, wall, launches, calls, syncs, peak = counted_run(torch, device,
+                                                         lambda: search(roots, rngs))
+    launch_identity(launches, calls, "ssd_scan", "forward", cfg.num_layers)
+    search_results_ok(torch, res, spec, "SSM search")
+    print(f"SSM path: mamba2-2.7b {cfg.num_layers} layers bf16, async wu_uct B={ASYNC_B} "
+          f"W={ASYNC_W} T={spec.num_simulations} with ModelEvaluator, prompt {PROMPT_LEN}, "
+          f"max_len {MAX_LEN}, top_k {TOP_K}: {ASYNC_B / wall!r} searches/s (wall {wall!r} "
+          f"s, first call), master ticks {int(res.ticks.max())}, model calls "
+          f"{ {k: v for k, v in calls.items() if v} }, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, host syncs {syncs}, peak memory "
+          f"{peak!r} GiB; actions {res.action.tolist()}, root_n sums "
+          f"{res.root_n.sum(1).tolist()}")
+    profile_call(torch, device, lambda: search(roots, rngs), "SSM path")
+    return launches
+
+
+def hybrid_path(torch, device, cfg, params):
+    """Phase 14: phase 8's wave cell over zamba2-7b with ``ModelEvaluator``;
+    every forward launches ssd_scan in each of its 81 layers and
+    flash_attention (D=112) at each of the shared block's 14 sites."""
+    from repro_torch.models.lm import _num_attn_sites
+
+    launches, calls, line = wave_search(torch, device, cfg, params)
+    launch_identity(launches, calls, "ssd_scan", "forward", cfg.num_layers)
+    launch_identity(launches, calls, "flash_attention", "forward", _num_attn_sites(cfg))
+    print(f"hybrid path: zamba2-7b {cfg.num_layers} layers ({_num_attn_sites(cfg)} shared "
+          f"attention sites) bf16, {line}")
     return launches
 
 
@@ -1251,26 +1415,57 @@ def agreement_full_width(torch, device):
           f"tolerance {LOGIT_TOL})")
 
 
+def reduced_spec(engine="async"):
+    """Phase 9's reduced search: B=8, W=4, T=32, depth and rollouts 6."""
+    from repro_torch.core import SearchSpec
+
+    return SearchSpec(algo="wu_uct", engine=engine, batch=8, num_simulations=32,
+                      wave_size=4, max_depth=6, max_sim_steps=6, max_width=TOP_K, gamma=1.0)
+
+
+def gpu_cpu_agree(torch, device, cfg, params, spec, make_ev, what):
+    """One search of the reduced token environment (vocab 64, an 8-token
+    prompt, max_len 20) on the GPU and on the port's CPU path, same keys
+    and parameters; at least 7 of 8 actions equal.  Returns the GPU run's
+    launches and model calls."""
+    from repro_torch import rng
+    from repro_torch.core import build_searcher
+    from repro_torch.envs import make_token_env
+    from repro_torch.models.lm import tree_map
+
+    results = []
+    for dev in (device, torch.device("cpu")):
+        p = tree_map(lambda x: x.to(dev), params)
+        env = make_token_env(cfg, p, prompt_tokens(torch, 64, 8, seed=6).to(dev),
+                             max_len=REDUCED_MAX_LEN, top_k=TOP_K, eos_token=EOS)
+        roots = env.init(rng.split(rng.PRNGKey(7, device=dev), 8))
+        search = build_searcher(env, spec, evaluator=make_ev(p), device=dev)
+        results.append(counted_run(torch, device, lambda: search(
+            roots, rng.split(rng.PRNGKey(8, device=dev), 8))))
+    (gpu, _, launches, calls, _, _), (cpu, *_) = results
+    search_results_ok(torch, gpu, spec, f"{what} on the GPU")
+    same = gpu.action.cpu() == cpu.action
+    for i in np.flatnonzero(~same.numpy()):
+        print(f"{what} tree {i}: GPU action {int(gpu.action[i])}, CPU action "
+              f"{int(cpu.action[i])} (root_n GPU {gpu.root_n[i].cpu().tolist()} CPU "
+              f"{cpu.root_n[i].tolist()})")
+    if int(same.sum()) < 7:
+        raise AssertionError(f"GPU and CPU {what}es agree on {int(same.sum())} of 8")
+    print(f"{what}: GPU and CPU port agree on {int(same.sum())}/8 trees; root_n equal on "
+          f"{int((gpu.root_n.cpu() == cpu.root_n).all(1).sum())}/8")
+    return launches, calls
+
+
 def agreement_reduced(torch, device):
     """Phase 9.2: the reduced model's async search on the GPU and on the
     port's CPU path, same keys and parameters, with the KV-cached evaluator
     and with the paged frontier evaluator."""
-    from repro_torch import rng
     from repro_torch.configs import get_reduced
-    from repro_torch.core import (
-        CachedModelEvaluator,
-        PagedFrontierModelEvaluator,
-        SearchSpec,
-        build_searcher,
-    )
-    from repro_torch.envs import make_token_env
+    from repro_torch.core import CachedModelEvaluator, PagedFrontierModelEvaluator
     from repro_torch.models import init_params
-    from repro_torch.models.lm import tree_map
 
     cfg = get_reduced("llama3-8b", vocab_size=64, num_layers=2)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(4))
-    spec = SearchSpec(algo="wu_uct", engine="async", batch=8, num_simulations=32,
-                      wave_size=4, max_depth=6, max_sim_steps=6, max_width=TOP_K, gamma=1.0)
     blocks = 8 * 4 * -(-REDUCED_MAX_LEN // REDUCED_BLOCK)
     evaluators = {
         "cached": lambda p: CachedModelEvaluator(cfg, p, top_k=TOP_K, eos_token=EOS),
@@ -1278,27 +1473,62 @@ def agreement_reduced(torch, device):
             cfg, p, top_k=TOP_K, eos_token=EOS, block_size=REDUCED_BLOCK, num_blocks=blocks),
     }
     for what, make in evaluators.items():
-        results = []
-        for dev in (device, torch.device("cpu")):
-            p = tree_map(lambda x: x.to(dev), params)
-            env = make_token_env(cfg, p, prompt_tokens(torch, 64, 8, seed=6).to(dev),
-                                 max_len=REDUCED_MAX_LEN, top_k=TOP_K, eos_token=EOS)
-            roots = env.init(rng.split(rng.PRNGKey(7, device=dev), 8))
-            results.append(build_searcher(env, spec, evaluator=make(p), device=dev)(
-                roots, rng.split(rng.PRNGKey(8, device=dev), 8)))
-        gpu, cpu = results
-        search_results_ok(torch, gpu, spec, f"reduced {what} search on the GPU")
-        same = gpu.action.cpu() == cpu.action
-        for i in np.flatnonzero(~same.numpy()):
-            print(f"reduced {what} search tree {i}: GPU action {int(gpu.action[i])}, CPU "
-                  f"action {int(cpu.action[i])} (root_n GPU {gpu.root_n[i].cpu().tolist()} "
-                  f"CPU {cpu.root_n[i].tolist()})")
-        if int(same.sum()) < 7:
-            raise AssertionError(f"GPU and CPU reduced {what} searches agree on "
-                                 f"{int(same.sum())} of 8")
-        print(f"reduced llama3-8b (vocab 64, 2 layers) async {what} search: GPU and CPU "
-              f"port agree on {int(same.sum())}/8 trees; root_n equal on "
-              f"{int((gpu.root_n.cpu() == cpu.root_n).all(1).sum())}/8")
+        gpu_cpu_agree(torch, device, cfg, params, reduced_spec(), make,
+                      f"reduced llama3-8b (vocab 64, 2 layers) async {what} search")
+
+
+def agreement_ssm(torch, device):
+    """Phase 9.4: mamba2-2.7b at full width, 2 layers, float32 (no TF32):
+    ``forward`` through the ssd_scan kernel against the same forward with
+    the plain scan, one chunk (S=160, the main path's) and three (S=384,
+    Q=128); then the reduced mamba2 (async engine) and zamba2 (wave engine)
+    ``ModelEvaluator`` searches on the GPU against the port on the CPU."""
+    import repro_torch.models.ssm as ssm_module
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import ModelEvaluator
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.lm import _num_attn_sites
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg, params = lm_setup(torch, device, 2, torch.float32, seed=5, name="mamba2-2.7b")
+    gen = torch.Generator(device=device).manual_seed(8)
+    for s in (MAX_LEN, 384):
+        toks = torch.randint(2, cfg.vocab_size, (4, s), generator=gen, device=device,
+                             dtype=torch.int32)
+        reset_launches()
+        kernel, _ = forward(params, cfg, {"tokens": toks})
+        kernel_launches = LAUNCHES["ssd_scan"]
+        wrapper, ssm_module.ssd_scan = ssm_module.ssd_scan, ssd_scan_ref
+        try:
+            plain, _ = forward(params, cfg, {"tokens": toks})
+        finally:
+            ssm_module.ssd_scan = wrapper
+        if (kernel_launches, LAUNCHES["ssd_scan"]) != (2, 2):
+            raise AssertionError(f"ssd_scan launched {kernel_launches} times in the kernel "
+                                 f"forward and {LAUNCHES['ssd_scan'] - kernel_launches} in "
+                                 "the plain one: expected 2 and 0")
+        diff = float((kernel - plain).abs().max())
+        torch.testing.assert_close(kernel, plain, **LOGIT_TOL)
+        print(f"mamba2-2.7b full width, 2 layers, float32, 4 x {s} tokens: max |forward "
+              f"through ssd_scan - forward through the plain scan| = {diff!r} (logits up to "
+              f"{float(plain.abs().max())!r}; tolerance {LOGIT_TOL})")
+    del params, kernel, plain
+    torch.cuda.empty_cache()
+
+    for arch, engine in (("mamba2-2.7b", "async"), ("zamba2-7b", "wave")):
+        cfg = get_reduced(arch, vocab_size=64)
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(4))
+        launches, calls = gpu_cpu_agree(
+            torch, device, cfg, params, reduced_spec(engine),
+            lambda p: ModelEvaluator(cfg, p, top_k=TOP_K, eos_token=EOS),
+            f"reduced {arch} (vocab 64, 2 layers) {engine} ModelEvaluator search")
+        launch_identity(launches, calls, "ssd_scan", "forward", cfg.num_layers)
+        if arch == "zamba2-7b":
+            launch_identity(launches, calls, "flash_attention", "forward",
+                            _num_attn_sites(cfg))
 
 
 def agreement_frontier(torch, device):
@@ -1366,8 +1596,12 @@ def main():
     err = check_decode(torch, device, [(4, 24, 32, 8, 128),
                                        (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)])
     fields["decode_attention"] = {"max_abs_err": err, **time_decode(torch, device)}
-    err = check_flash(torch, device, [(4, 24, 32, 8, 128)])
+    # Phase 14 drives zamba2's shared block (8 rows of 160, 32/32, D=112),
+    # phase 9.4 the reduced zamba2 (32 rows of 20, 4/2 heads, D=16).
+    err = check_flash(torch, device, [(4, 24, 32, 8, 128), (WAVE_B * WAVE_W, MAX_LEN, 32, 32, 112),
+                                      (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)])
     fields["flash_attention"] = {"max_abs_err": err, **time_flash(torch, device)}
+    time_flash(torch, device, hq=32, hkv=32, d=112)
     # Phases 10-12 drive 128 slots over 10 blocks of 16 with A = 8 candidates
     # at full width; phase 9.2 32 slots over 5 blocks of 4, 4/2 heads, D=16.
     n_main, npg_main = ASYNC_B * ASYNC_W, -(-MAX_LEN // BLOCK)
@@ -1380,6 +1614,15 @@ def main():
                         (32, REDUCED_BLOCK, npg_reduced, 4, 2, 16)])
     for name, timed in time_paged_family(torch, device).items():
         fields[name] = {"max_abs_err": errs[name], **timed}
+    # The scans phases 13, 14 and 9.4 drive: mamba2 (128 slots, H=80, P=64,
+    # N=128) and zamba2 (8 rows, H=112, N=64) at 160 tokens, one chunk;
+    # mamba2 at 2 layers over 4 x 160 and 4 x 384 (three chunks of 128);
+    # the reduced models' 32 slots of 20 tokens (H=8, P=N=16, Q=4).
+    mamba2_scan = (ASYNC_B * ASYNC_W, MAX_LEN, 80, 64, 128, MAX_LEN)
+    err = check_ssd(torch, device, [mamba2_scan, (WAVE_B * WAVE_W, MAX_LEN, 112, 64, 64, MAX_LEN),
+                                    (4, MAX_LEN, 80, 64, 128, MAX_LEN), (4, 384, 80, 64, 128, 128),
+                                    (8 * 4, REDUCED_MAX_LEN, 8, 16, 16, 4)])
+    fields["ssd_scan"] = {"max_abs_err": err, **time_ssd(torch, device, mamba2_scan)}
 
     phase("4. main path")
     launches = {"tree_select": main_path(torch, device)["tree_select"]}
@@ -1412,10 +1655,25 @@ def main():
     del params
     torch.cuda.empty_cache()
 
+    phase("13. SSM main path (mamba2-2.7b, ModelEvaluator, phase 7's cell)")
+    cfg, params = lm_setup(torch, device, SSM_LAYERS, torch.bfloat16, seed=1,
+                           name="mamba2-2.7b")
+    launches["ssd_scan"] = ssm_path(torch, device, cfg, params)["ssd_scan"]
+    del params
+    torch.cuda.empty_cache()
+
+    phase("14. hybrid path (zamba2-7b, ModelEvaluator, phase 8's cell)")
+    cfg, params = lm_setup(torch, device, HYBRID_LAYERS, torch.bfloat16, seed=1,
+                           name="zamba2-7b")
+    hybrid_path(torch, device, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
     phase("9. agreement on the card")
     agreement_full_width(torch, device)
     agreement_reduced(torch, device)
     agreement_frontier(torch, device)
+    agreement_ssm(torch, device)
 
     kernels = [{
         "name": name,

@@ -1,8 +1,9 @@
 """Model registry of the port (counterpart of ``repro.configs``).
 
-Each module defines ``CONFIG`` with the published dimensions.  Only the
-dense family is ported, and with it ``llama3-8b``; the other
-architectures come with their families.
+Each module defines ``CONFIG`` with the published dimensions.  The dense,
+SSM and hybrid families are ported, and with them ``llama3-8b``,
+``mamba2-2.7b`` and ``zamba2-7b``; the other architectures come with their
+families.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from ..models.config import ModelConfig, reduced
 
 ALIASES = {
     "llama3-8b": "llama3_8b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -13,7 +13,8 @@ states, keys or mid-search tree:
   becomes the port's ``BatchedTree``, index buffers widened to ``int64``;
 * :func:`params_from_numpy` — the reference's LM parameter pytree (nested
   dicts of numpy arrays, bfloat16 ones included) becomes the port's
-  parameter dict of the same layout.
+  parameter dict of the same layout, in the model's dtype except the SSM
+  leaves the reference keeps in float32 (``A_log``, ``dt_bias``, ``D``).
 
 Every function copies its input and takes an explicit ``device``.
 """
@@ -30,6 +31,7 @@ from .envs.bandit_tree import BanditTreeState
 from .envs.tap_game import TapGameState
 from .envs.token_env import TokenEnvState
 from .models.config import ModelConfig
+from .models.ssm import FLOAT32_LEAVES
 
 STATE_TYPES = {cls.__name__: cls for cls in (TapGameState, BanditTreeState, TokenEnvState)}
 _INDEX_FIELDS = ("parent", "action", "children", "depth", "size")
@@ -84,8 +86,10 @@ def _param_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_numpy(params: Any, cfg: ModelConfig, *, device) -> dict:
     """The reference's parameter pytree (nested dicts, numpy leaves) ->
-    the port's parameter dict: same keys and shapes, leaves in
-    ``cfg.dtype`` on ``device``."""
+    the port's parameter dict: same keys and shapes, on ``device``, leaves
+    in ``cfg.dtype`` except those the reference holds in float32 whatever
+    the model's dtype (:data:`repro_torch.models.ssm.FLOAT32_LEAVES`),
+    which stay float32."""
     if not isinstance(params, dict) or "embed" not in params:
         raise TypeError("expected the reference's LM parameter dict (with 'embed')")
     embed = np.shape(params["embed"])
@@ -93,9 +97,10 @@ def params_from_numpy(params: Any, cfg: ModelConfig, *, device) -> dict:
         raise ValueError(f"embed has shape {tuple(embed)}, the config wants "
                          f"{(cfg.vocab_size, cfg.d_model)}")
 
-    def convert(tree):
+    def convert(tree, name):
         if isinstance(tree, dict):
-            return {k: convert(v) for k, v in tree.items()}
-        return _param_tensor(tree, cfg.dtype, device)
+            return {k: convert(v, k) for k, v in tree.items()}
+        dtype = torch.float32 if name in FLOAT32_LEAVES else cfg.dtype
+        return _param_tensor(tree, dtype, device)
 
-    return convert(params)
+    return convert(params, None)

@@ -203,6 +203,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       return launch_d<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 64:
       return launch_d<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 112:  // zamba2-7b: 3584 / 32 heads; lanes 16-31 own no 4th column
+      return launch_d<T, 112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 128:
       return launch_d<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     default:
@@ -213,7 +215,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q and out [B, Sq, Hq, D], k and v [B, Sk, Hkv, D], all contiguous and of
-// one type (dtype 0: float32, 1: bfloat16); D in {16, 32, 64, 128}, Hq a
+// one type (dtype 0: float32, 1: bfloat16); D in {16, 32, 64, 112, 128}, Hq a
 // multiple of Hkv.  Launches on `stream` (PyTorch's current stream).
 // Returns the cudaError_t of the launch; 0 means it was queued.
 extern "C" int flash_attention_launch(const void* q, const void* k,

@@ -14,6 +14,7 @@ LAUNCHES: dict[str, int] = {
     "paged_decode_attention": 0,
     "tree_decode_attention": 0,
     "paged_tree_decode_attention": 0,
+    "ssd_scan": 0,
 }
 
 

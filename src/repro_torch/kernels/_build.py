@@ -43,6 +43,9 @@ KERNEL_FLAGS: dict[str, tuple[str, ...]] = {
     "flash_attention": (),
     "paged_decode_attention": (),
     "tree_decode_attention": (),
+    # Accurate expf (no --use_fast_math); held to its plain version within
+    # a float32 tolerance.
+    "ssd_scan": (),
 }
 
 

@@ -18,7 +18,7 @@ from .. import _build
 from .ref import flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _C_FUNCTION = None
 
 

@@ -1,11 +1,20 @@
-"""The language model of the port, dense family (counterpart of
-``repro.models.lm``): a pre-norm GQA transformer (llama3 and its kin).
+"""The language model of the port (counterpart of ``repro.models.lm``):
+
+* ``dense``  — a pre-norm GQA transformer (llama3 and its kin);
+* ``ssm``    — a Mamba-2 stack (attention-free; mamba2-2.7b);
+* ``hybrid`` — a Mamba-2 stack with one *shared* transformer block applied
+  before the SSM block of every ``attn_every``-th layer (Zamba2-style).
 
 Parameters are a plain dict in the reference's layout — ``embed``,
-``final_norm``, ``lm_head`` and ``blocks``, whose leaves stack the layers
-on a leading ``[L]`` axis — so :func:`repro_torch.convert.params_from_numpy`
-carries the reference's parameters across leaf by leaf.  The layer loop is
-a Python loop over views of the stacked leaves.
+``final_norm``, ``lm_head``, ``blocks``, whose leaves stack the layers on
+a leading ``[L]`` axis, and the hybrid's ``shared_attn`` — so
+:func:`repro_torch.convert.params_from_numpy` carries the reference's
+parameters across leaf by leaf.  The layer loop is a Python loop over
+views of the stacked leaves.
+
+The SSM and hybrid families run the cache-free :func:`forward` only (what
+``ModelEvaluator`` and the token environment call); their recurrent decode
+cache comes with serving, so the cache-carrying functions refuse them.
 
 Caches follow the reference's contract: ``{"kv": {"k", "v": [L, N, S,
 Hkv, D]}, "len"}`` with a scalar or per-row ``len``; rows at positions
@@ -33,6 +42,7 @@ from .layers import (
     rms_norm,
     tree_attention_block,
 )
+from .ssm import init_ssm_block, ssm_block
 
 Params = Any
 
@@ -43,6 +53,8 @@ CALLS: dict[str, int] = {"forward": 0, "prefill_ragged": 0, "decode_chunk": 0,
 # Families whose decode cache is pure position-indexed KV (the reference's
 # set; the port runs the dense one).
 KV_CACHE_FAMILIES = ("dense", "moe")
+# Families the port's cache-free forward runs.
+FORWARD_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def reset_calls() -> None:
@@ -51,12 +63,20 @@ def reset_calls() -> None:
         CALLS[name] = 0
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg: ModelConfig, families=("dense",)) -> None:
+    """Refuse a family outside ``families`` (the decode-cache paths take
+    the dense family only, ``forward`` also ssm and hybrid)."""
+    if cfg.family in families:
+        return
+    if cfg.family in FORWARD_FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP.md §1, queue "
-            "item 1: SSM/hybrid, then MoE and the VLM/enc-dec stubs)"
+            f"model family {cfg.family!r} runs the cache-free forward only: its "
+            "recurrent decode cache is not ported yet (ROADMAP.md §1, with serving)"
         )
+    raise NotImplementedError(
+        f"model family {cfg.family!r} is not ported yet (ROADMAP.md §1: MoE and the "
+        "VLM/enc-dec stubs)"
+    )
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -76,31 +96,44 @@ def layer_params(params: Params, layer: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _init_transformer_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    def ones():
+        return torch.ones((cfg.d_model,), dtype=cfg.dtype, device=gen.device)
+
+    return {
+        "attn_norm": ones(),
+        "attn": init_attention(gen, cfg),
+        "mlp_norm": ones(),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype),
+    }
+
+
+def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return {
+        "norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=gen.device),
+        "ssm": init_ssm_block(gen, cfg, cfg.dtype),
+    }
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    """Random parameters of the reference's shapes (normal, std 0.02; norms
-    ones), drawn from ``gen`` on its device, layer by layer into the
+    """Random parameters of the reference's shapes and dtypes (normal, std
+    0.02; norms ones; an SSM block's ``A_log``/``dt_bias``/``D`` in
+    float32), drawn from ``gen`` on its device, layer by layer into the
     stacked ``[L, ...]`` leaves."""
-    _check_family(cfg)
+    _check_family(cfg, FORWARD_FAMILIES)
     dev = gen.device
     std = 0.02
-
-    def ones():
-        return torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev)
+    init_layer = _init_transformer_block if cfg.family == "dense" else _init_ssm_layer
 
     params: dict = {
         "embed": normal(gen, (cfg.vocab_size, cfg.d_model), std, cfg.dtype),
-        "final_norm": ones(),
+        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(gen, (cfg.d_model, cfg.vocab_size), std, cfg.dtype)
     blocks = None
     for layer in range(cfg.num_layers):
-        one = {
-            "attn_norm": ones(),
-            "attn": init_attention(gen, cfg),
-            "mlp_norm": ones(),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype),
-        }
+        one = init_layer(gen, cfg)
         if blocks is None:
             blocks = tree_map(lambda x: torch.empty((cfg.num_layers,) + tuple(x.shape),
                                                     dtype=x.dtype, device=dev), one)
@@ -110,6 +143,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
         tree_map(put, blocks, one)
     params["blocks"] = blocks
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_transformer_block(gen, cfg)
     return params
 
 
@@ -126,6 +161,18 @@ def _transformer_body(cfg, bp, x, positions, cache):
     x = x + h
     h = mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps))
     return x + h, new_cache
+
+
+def _ssm_body(cfg, bp, x):
+    h, _ = ssm_block(bp["ssm"], cfg, rms_norm(x, bp["norm"], cfg.rms_eps))
+    return x + h
+
+
+def _num_attn_sites(cfg: ModelConfig) -> int:
+    """Applications of the hybrid's shared block (14 for zamba2-7b)."""
+    if cfg.family != "hybrid" or cfg.attn_every <= 0:
+        return 0
+    return (cfg.num_layers + cfg.attn_every - 1) // cfg.attn_every
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -151,12 +198,21 @@ def _embed_inputs(params, batch) -> tuple[torch.Tensor, torch.Tensor]:
 def forward(params: Params, cfg: ModelConfig, batch,
             return_hidden: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward (no cache); causal attention goes through
-    ``flash_attention``.  Returns ``(logits | final hidden, aux_loss)``."""
-    _check_family(cfg)
+    ``flash_attention``, the SSM scan through ``ssd_scan``.  The hybrid
+    applies its shared block before the SSM block of layer ``i`` when ``i %
+    attn_every == 0``.  Returns ``(logits | final hidden, aux_loss)``."""
+    _check_family(cfg, FORWARD_FAMILIES)
     CALLS["forward"] += 1
     x, positions = _embed_inputs(params, batch)
     for layer in range(cfg.num_layers):
-        x, _ = _transformer_body(cfg, layer_params(params, layer), x, positions, None)
+        bp = layer_params(params, layer)
+        if cfg.family == "dense":
+            x, _ = _transformer_body(cfg, bp, x, positions, None)
+            continue
+        if cfg.family == "hybrid" and layer % cfg.attn_every == 0:
+            # The shared transformer block (its weights the same at every site).
+            x, _ = _transformer_body(cfg, params["shared_attn"], x, positions, None)
+        x = _ssm_body(cfg, bp, x)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:

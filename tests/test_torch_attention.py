@@ -313,7 +313,7 @@ def test_cuda_flash_kernel_matches_plain_version(dtype):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     for b, s, hq, hkv, d in [(1, 1, 32, 8, 128), (8, 160, 32, 8, 128), (1, 7, 4, 1, 64),
-                             (2, 70, 8, 8, 16)]:
+                             (2, 70, 8, 8, 16), (8, 160, 32, 32, 112)]:
         q, k, v = _cuda_inputs(gen, dtype, (b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))
         before = LAUNCHES["flash_attention"]
         out = flash_attention(q, k, v)

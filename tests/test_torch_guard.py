@@ -61,7 +61,7 @@ def _imports(path: Path):
 def test_port_files_exist():
     assert len(PORT_FILES) > 10
     for kernel in ("tree_select", "decode_attention", "flash_attention",
-                   "paged_decode_attention", "tree_decode_attention"):
+                   "paged_decode_attention", "tree_decode_attention", "ssd_scan"):
         assert (REPO / "src" / "repro_torch" / "csrc" / f"{kernel}.cu").exists()
 
 
@@ -225,9 +225,10 @@ def test_each_kernel_has_its_own_flags_and_they_name_its_library(monkeypatch):
     flags = {name: _build.nvcc_flags(name) for name in _build.KERNEL_FLAGS}
     assert "--fmad=false" in flags["tree_select"]
     for name in ("decode_attention", "flash_attention", "paged_decode_attention",
-                 "tree_decode_attention"):
+                 "tree_decode_attention", "ssd_scan"):
         assert "--fmad=false" not in flags[name]
         assert "arch=compute_90a,code=sm_90a" in flags[name]
+    assert "--use_fast_math" not in flags["ssd_scan"]     # accurate expf
     before = _build.library_path("decode_attention")
     monkeypatch.setitem(_build.KERNEL_FLAGS, "decode_attention", ("--use_fast_math",))
     after = _build.library_path("decode_attention")

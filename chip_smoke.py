@@ -9,7 +9,9 @@ Phases (any failure raises, so the script exits non-zero):
 2. build the port's CUDA libraries from ``src/repro_torch/csrc`` with
    nvcc, one process per library, all at once (seven kernels in six
    libraries: ``tree_decode_attention`` holds the dense and the paged tree
-   kernel);
+   kernel), and summarise ptxas's registers, spills and static shared
+   memory of ``flash_attention`` (bf16 on the tensor cores, float32 on the
+   CUDA cores) and ``decode_attention`` (the key-split body);
 3. hold each kernel against its plain PyTorch version on the card (the
    attention kernels in float32 and bfloat16 over a grid of shapes and the
    shapes phases 7-14 drive, ``flash_attention`` also at zamba2's D=112;
@@ -76,7 +78,8 @@ equal to the cached search's), and phase 9.3 holds frontier to cached
 decisions in float32.  The line before
 the last is a JSON object with each kernel's launches on its main path
 (phase 4, 7, 8, 10, 11, 12 or 13), error against its plain version, time,
-plain time, bound and library time; the last line is
+plain time, bound, library time and ``bound_share`` (bound / time); the
+last line is
 ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Without a CUDA device, or without the rest of the
@@ -87,6 +90,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -176,6 +180,33 @@ def select_inputs(torch, rs, b, a, device):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     return t(n_c), t(o_c), t(v_c), t(n_p), t(o_p), t(valid), t(vl_c)
+
+
+# Libraries whose kernels' ptxas resources are summarised after the build:
+# the two redesigned in this slice (bf16 flash on the tensor cores, the
+# key-split decode).
+PTXAS_SUMMARY = ("flash_attention", "decode_attention")
+
+
+def ptxas_summary(log):
+    """One line per kernel of an ``nvcc -Xptxas=-v`` log: registers, spill
+    bytes and static shared memory (the dynamic shared memory a launch asks
+    for is not in the log)."""
+    demangle = shutil.which("c++filt")
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            if demangle:
+                name = subprocess.run([demangle, name], capture_output=True, text=True,
+                                      timeout=30).stdout.strip() or name
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            used = line.split("Used", 1)[1].strip()
+            lines.append(f"  {name}: {used}; {spill}")
+            name, spill = None, ""
+    return lines
 
 
 def sync(device):
@@ -1265,12 +1296,19 @@ def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):
     return launches
 
 
+# Device-function names of the port's kernels (csrc/), whose profiled time
+# profile_call prints whether or not they are among the top entries.
+PORT_KERNEL_NAMES = ("tree_select_kernel", "split_kernel", "flash_mma_kernel",
+                     "flash_attention_kernel", "ssd_scan_kernel")
+
+
 def profile_call(torch, device, fn, what, top=10):
     """Run ``fn`` once more (warm) under torch.profiler: wall, the card's
-    busy share and the kernels that took the device time.  Only device
-    activity is traced, and the raw device events are summed by kernel
-    name: ``key_averages()`` first builds a Python event tree, which takes
-    minutes for a call that launches ~700,000 kernels."""
+    busy share, the kernels that took the device time and every kernel of
+    the port that ran.  Only device activity is traced, and the raw device
+    events are summed by kernel name: ``key_averages()`` first builds a
+    Python event tree, which takes minutes for a call that launches
+    ~700,000 kernels."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -1288,6 +1326,10 @@ def profile_call(torch, device, fn, what, top=10):
           f"{busy!r} s ({busy / wall!r} of wall), {sum(r[1] for r in rows)} device kernels")
     for dev_us, count, key in sorted(rows, reverse=True)[:top]:
         print(f"  {dev_us * 1e-3!r} ms  {count} x  {key[:100]}")
+    print("  the port's kernels:")
+    for dev_us, count, key in sorted(rows, reverse=True):
+        if any(name in key for name in PORT_KERNEL_NAMES):
+            print(f"  {dev_us * 1e-3!r} ms  {count} x  {key[:140]}")
 
 
 def wave_search(torch, device, cfg, params):
@@ -1588,6 +1630,9 @@ def main():
     print(f"built {', '.join(libraries)} in {time.perf_counter() - t0!r} s (in parallel)")
     for name, log in _build.BUILD_LOGS.items():
         print(f"nvcc {name}:\n{log.strip()}")
+    for name in PTXAS_SUMMARY:
+        print(f"ptxas {name} (registers, spills, static shared memory):")
+        print("\n".join(ptxas_summary(_build.BUILD_LOGS.get(name, ""))))
 
     phase("3. kernels against their plain versions")
     fields = {"tree_select": check_tree_select(torch, device)}
@@ -1682,6 +1727,7 @@ def main():
         "replaces": REPLACES[name],
         "launches": launches[name],
         **fields[name],
+        "bound_share": fields[name]["bound_ms"] / fields[name]["ms"],
     } for name in KERNELS]
     phase("done")
     print(json.dumps({"kernels": kernels}))

@@ -9,28 +9,35 @@
 //   out[b, i] = sum_j softmax_j(q[b, i] . k[b, j, i / G] / sqrt(D)) v[b, j, i / G]
 //
 // with G = Hq / Hkv query heads per KV head.  As in the Pallas kernel the
-// softmax runs online in float32 over tiles of keys (running max m, sum l,
-// accumulator acc), p and p.V stay in float32, and the output is
-// acc / max(l, 1e-20): a row with kv_len = 0 reads nothing and gives zeros.
+// softmax runs online in float32 (running max m, sum l, accumulator acc),
+// p and p.V stay in float32, and the output is acc / max(l, 1e-20): a row
+// with kv_len = 0 reads nothing and gives zeros.
 //
 // What bounds it: device-memory bytes.  Every valid K/V entry is read once
 // and used by G query heads, so a call moves about 2 * sum_b kv_len[b] *
 // Hkv * D elements and does 4 * G flops per element pair: at G = 4 that is
-// 4 flops per byte of bf16 K/V, below the card's float32 rate per byte.
+// 4 flops per byte of bf16 K/V, far below what the CUDA cores can do per
+// byte (about 20), so no tensor cores are needed.  What is needed is wide
+// loads with enough of them in flight: at the main path's shape (128 rows
+// x 8 KV heads, kv_len <= 160) a block has only ~160 keys, so a design
+// that loads a tile, waits, and computes pays the load latency once per
+// tile.
 //
-// Design: the shared body of decode_tiles.cuh with A = 1 over a dense
-// cache (DenseRows): one block per (row, KV head), its G query heads
-// together, so each K/V tile is read from device memory once per row, as
-// in the Pallas kernel; 32-key float32 tiles in shared memory up to the
-// row's kv_len (nothing past it is read).  At the main path's shape (128
-// rows x 8 KV heads = 1024 blocks, kv_len <= 160) there are enough blocks
-// to fill the card without splitting the keys; vectorised loads and
-// split-KV are later work.
+// Design: decode_split.cuh over a dense cache (DenseRows).  One block per
+// (row, KV head) with its G query heads together, so each K/V entry is
+// read from device memory once per row, as in the Pallas kernel.  Its 4
+// warps take the row's keys in interleaved groups, D * sizeof(T) / 16
+// lanes per key, one 16-byte load of K and of V per lane and key, four
+// warp steps of loads issued before their use (16 KB per block in flight
+// at bf16 D = 128); the per-warp states merge in 8 KB of shared memory at
+// the end, so several blocks share an SM.  D must be a multiple of 16
+// bytes' worth of elements and at most 256.
 
-#include "decode_tiles.cuh"
+#include "decode_split.cuh"
 
 // q [B, Hkv * G, D], k and v [B, S, Hkv, D], out [B, Hkv * G, D], all
-// contiguous and of one type (dtype 0: float32, 1: bfloat16); kv_len int32
+// contiguous, of one type (dtype 0: float32, 1: bfloat16) and 16-byte
+// aligned; D a multiple of 16 / sizeof(type), at most 256; kv_len int32
 // [B].  Launches on `stream` (PyTorch's current stream).  Returns the
 // cudaError_t of the launch; 0 means it was queued.
 extern "C" int decode_attention_launch(const void* q, const void* k,
@@ -46,14 +53,11 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   const decode_tiles::DenseRows rows{S};
   switch (dtype) {
     case 0:
-      return decode_tiles::launch<float, decode_tiles::DenseRows, false>(
-          q, k, v, kv_len, nullptr, nullptr, nullptr, out, rows, B, 1, Hkv, G,
-          D, scale, s);
+      return decode_split::launch<float>(q, k, v, kv_len, out, rows, B, Hkv,
+                                         G, D, scale, s);
     case 1:
-      return decode_tiles::launch<__nv_bfloat16, decode_tiles::DenseRows,
-                                  false>(q, k, v, kv_len, nullptr, nullptr,
-                                         nullptr, out, rows, B, 1, Hkv, G, D,
-                                         scale, s);
+      return decode_split::launch<__nv_bfloat16>(q, k, v, kv_len, out, rows,
+                                                 B, Hkv, G, D, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

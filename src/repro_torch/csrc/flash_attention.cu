@@ -9,30 +9,72 @@
 // for q [B, Sq, Hq, D] and k, v [B, Sk, Hkv, D], G = Hq / Hkv (query and key
 // positions both count from 0; `causal = 0` drops the j <= t mask).  As in
 // the Pallas kernel the softmax runs online in float32 (running max m, sum
-// l, accumulator acc), p and p.V stay in float32, keys in a query's future
-// are never visited, and the output is acc / max(l, 1e-20).
+// l, accumulator acc), keys in a query's future are never visited, and the
+// output is acc / max(l, 1e-20), rounded once to q's type.
 //
-// What bounds it: operations.  Causal attention over S positions does about
-// 2 * S^2 * D flops per (batch, query head) on 2 * S * D elements of K and
-// V; at S = 160 that is well above the card's flops per byte, so this
-// CUDA-core kernel (67 TFLOP/s float32 peak, not the tensor cores' 989 in
-// bf16) is bound by its arithmetic and by shared-memory traffic.
+// What bounds it: at the main path's shape (8 x 160 tokens, 32/8 heads,
+// D = 128, bf16) reading Q, K, V and writing the output takes 7.8 us at
+// 3.35 TB/s and the 1.7e9 flops of Q.K^T and P.V take 1.7 us on the bf16
+// tensor cores, so bytes bound it; on the CUDA cores (67 TFLOP/s) the same
+// flops would take 25 us, and a float32 FMA loop fed from shared memory
+// far longer.  So the bf16 kernel does its arithmetic on the tensor cores
+// and keeps the loads in flight:
 //
-// Design: one block per (batch * query head, tile of 32 queries), KV head =
-// query head / G.  Four warps own eight query rows each.  The block walks
-// tiles of 32 keys up to its causal frontier, converting them to float32 in
-// shared memory (K row-padded so the 32 lanes' reads hit 32 banks); the last
-// tile may be ragged and is masked.  For one query row a warp computes one
-// key's score per lane, updates m and l with shuffles, and accumulates p.V
-// with each lane owning D / 32 output elements in registers.  Any S and any
-// B are accepted.  Simple FMA loops first: the tensor-core (mma / wgmma)
-// and TMA version is later work.
+// * One block per (batch * KV head, tile of 64 query rows), the rows
+//   being the KV head's (position, query head) pairs: the G query heads of
+//   a KV head share every K/V tile the block loads (at G = 4 that reads
+//   K/V from L2 once per four heads instead of four times), and a causal
+//   tile spans 64 / G positions, so little work falls in the future.
+//   Each of the 4 warps owns 16 rows; at G = 1 a block has 2 warps (32
+//   positions), which spends less on the causal diagonal.  Heaviest
+//   causal tiles first.
+// * K and V tiles of 32 keys stay bf16 in shared memory, in a two-stage
+//   ring filled by 16-byte `cp.async.cg` (zero-filled past Sk), so tile
+//   k + 1 loads while tile k computes, with one barrier per tile.  Rows are
+//   padded by 16 bytes (D + 8 elements), which puts the 8 rows of every
+//   `ldmatrix` on distinct banks for each head dim here, D = 112's
+//   224-byte rows included.
+// * The warp's Q fragments are loaded once with `ldmatrix` and stay in
+//   registers.  S = Q.K^T runs on `mma.sync.m16n8k16` (bf16 in, float32
+//   accumulators): the bf16 products are exact, so S differs from the
+//   float32 plain version only in summation order.
+// * The online softmax runs on the accumulator fragments in registers,
+//   in log2 units (exp2f, accurate to 2 ulp): each thread holds two rows
+//   of each m16n8 tile, so a row's max and sum take two quad shuffles.  Tiles wholly in a row's future are skipped
+//   (per block, and per warp within the diagonal tile); the diagonal and
+//   ragged tiles are masked on fragment coordinates.
+// * P.V keeps P accurate.  Rounding p once to bf16 (as fused attention
+//   libraries do) puts about 10 % of outputs outside the bf16 bar of
+//   1e-5 + 2^-7 |ref| against the float32 plain version, because its error
+//   does not shrink with |out| (tests/test_torch_flash_numerics.py).  So p
+//   is split into hi = bf16(p) and lo = bf16(p - hi), and P.V is two `mma`
+//   per V fragment; V comes in through `ldmatrix.trans`, and the score
+//   accumulators of a pair of n8 tiles are the A fragment of the next
+//   `mma` directly, so P never goes to shared memory.
+// * The epilogue divides by max(l, 1e-20), rounds once to bf16, stages the
+//   warp's 16 rows in its own (spent) Q rows and writes 16-byte stores.
+//
+// `mma.sync` rather than `wgmma`: the work is small (a 64-row `wgmma`
+// tile leaves three query tiles per head at S = 160) and `mma.sync`
+// reaches the tensor cores without descriptor-swizzled layouts.
+//
+// float32 keeps the CUDA-core body below (one block per (batch * query
+// head, 32 queries), 32-key float32 tiles in shared memory, FMA loops).
+// The tensor cores take float32 only as TF32, whose 10-bit mantissa would
+// break the float32 bar (5e-5) that the float32 callers are held to.
+// Which body runs is fixed by the dtype; neither falls back to the other.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core body
+// ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 8;
@@ -41,13 +83,7 @@ constexpr int kBlockK = 32;                     // keys per tile: one per lane
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -173,40 +209,398 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
-             cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core body
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// W warps of 16 query rows per block: 4, or 2 where each row is its own
+// position (G = 1), so that a causal tile spans 32 positions, not 64.
+constexpr int kMmaBlockK = 32;  // keys per shared-memory tile
+constexpr int kStages = 2;      // K/V tiles in the ring
+
+// Shared memory of the bf16 kernel: the Q tile and kStages stages of K
+// and V tiles, rows of D + 8 elements.
+template <int D, int W>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(bf16) * static_cast<size_t>(D + 8) *
+         (16 * W + 2 * kStages * kMmaBlockK);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !full.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), packed as bf16x2 (x0 low).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// One block of W warps per (batch * KV head, tile of 16 * W query rows).
+// The rows of a (batch, KV head) are its Sq * G (position, query head)
+// pairs, flat row f being position f / G of query head hk * G + f % G:
+// the G query heads of a KV head share every K/V tile the block loads, and
+// a causal tile spans 16 * W / G positions.  Tile index reversed so the longest causal tiles start
+// first.
+//
+// Fragment coordinates (PTX m16n8k16): lane = 4 * g + c; a thread holds
+// rows g and g + 8 of every 16 x 8 accumulator, columns 2c and 2c + 1.
+template <int D, int W>
+__global__ void __launch_bounds__(W * 32)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
+                 int Sk, int Hq, int Hkv, int causal, float scale) {
+  constexpr int kBlockRows = 16 * W;       // query rows per block
+  constexpr int kStride = D + 8;           // elements per shared row
+  constexpr int kChunks = D / 8;           // 16-byte chunks per row
+  constexpr int kDSteps = D / 16;          // k16 steps over D (Q.K^T)
+  constexpr int kDTiles = D / 8;           // n8 tiles over D (P.V)
+  constexpr int kKTiles = kMmaBlockK / 8;  // n8 tiles over a key tile
+  constexpr int kTileElems = kMmaBlockK * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBlockRows][kStride]
+  bf16* ks = qs + kBlockRows * kStride;  // [kStages][kMmaBlockK][kStride]
+  bf16* vs = ks + kStages * kTileElems;  // [kStages][kMmaBlockK][kStride]
+
+  const int G = Hq / Hkv;
+  const int b = blockIdx.x / Hkv;
+  const int hk = blockIdx.x - b * Hkv;
+  const int n_rows = Sq * G;
+  const int f0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  // Scores in log2 units: p = 2^(s * log2(e) - m), one exp2f each.
+  const float scale2 = scale * 1.4426950408889634f;
+
+  const long long q_stride = static_cast<long long>(Hq) * D;
+  const long long kv_stride = static_cast<long long>(Hkv) * D;
+  // Flat row f of this (b, hk) lives at qb + (f / G) * q_stride + (f % G) * D.
+  const long long q_head0 =
+      (static_cast<long long>(b) * Sq * Hq + static_cast<long long>(hk) * G) * D;
+  const bf16* qb = q + q_head0;
+  const bf16* kb = k + (static_cast<long long>(b) * Sk * Hkv + hk) * D;
+  const bf16* vb = v + (static_cast<long long>(b) * Sk * Hkv + hk) * D;
+  auto row_offset = [&](int f) -> long long {
+    const int t = f / G;
+    return t * q_stride + static_cast<long long>(f - t * G) * D;
+  };
+
+  // Group 0: the Q tile (rows past Sq * G zero-filled).
+  for (int e = tid; e < kBlockRows * kChunks; e += W * 32) {
+    const int r = e / kChunks;
+    const int ch = e - r * kChunks;
+    const bool in = f0 + r < n_rows;
+    cp_async16(smem_addr(qs + r * kStride + ch * 8),
+               in ? qb + row_offset(f0 + r) + ch * 8 : qb, in);
+  }
+  cp_async_commit();
+
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = tile * kMmaBlockK;
+    bf16* kd = ks + stage * kTileElems;
+    bf16* vd = vs + stage * kTileElems;
+    for (int e = tid; e < kMmaBlockK * kChunks; e += W * 32) {
+      const int r = e / kChunks;
+      const int ch = e - r * kChunks;
+      const bool in = k0 + r < Sk;
+      const long long off = in ? (k0 + r) * kv_stride + ch * 8 : 0;
+      cp_async16(smem_addr(kd + r * kStride + ch * 8), kb + off, in);
+      cp_async16(smem_addr(vd + r * kStride + ch * 8), vb + off, in);
+    }
+  };
+
+  // Keys the block needs: causal rows stop at the block's last position.
+  const int last_pos = (min(f0 + kBlockRows, n_rows) - 1) / G;
+  const int k_end = causal ? min(Sk, last_pos + 1) : Sk;
+  const int n_tiles = (k_end + kMmaBlockK - 1) / kMmaBlockK;
+  // Groups 1 .. kStages - 1: the first tiles (empty groups past the last).
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) load_kv(t, t);
+    cp_async_commit();
+  }
+
+  // The warp's flat rows are f0 + 16 * warp + [0, 16); this thread's two
+  // are wf0 + g and wf0 + g + 8, at positions pos[0] and pos[1].  A warp
+  // with no row inside Sq * G computes nothing.
+  const int wf0 = f0 + 16 * warp;
+  const int warp_pos0 = wf0 / G;
+  const int pos[2] = {(wf0 + g) / G, (wf0 + g + 8) / G};
+  // Keys this warp can see at all.
+  const int warp_k_end =
+      wf0 >= n_rows ? 0
+      : causal      ? min(Sk, (min(wf0 + 16, n_rows) - 1) / G + 1)
+                    : Sk;
+
+  uint32_t qf[kDSteps][4];
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int i = 0; i < kDTiles; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};  // this thread's columns only; summed at the end
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // One group per tile: tile `it` is in once kStages - 2 are pending.
+    cp_async_wait<kStages - 2>();
+    // Q and tile `it` are visible to every warp, and every warp is done
+    // with tile it - 1, whose stage the next load refills.
+    __syncthreads();
+    if (it + kStages - 1 < n_tiles)
+      load_kv(it + kStages - 1, (it + kStages - 1) % kStages);
+    cp_async_commit();  // possibly empty: keeps one group per tile
+
+    if (it == 0) {
+#pragma unroll
+      for (int kd = 0; kd < kDSteps; ++kd)
+        ldsm_x4(qf[kd], smem_addr(qs + (16 * warp + (lane & 15)) * kStride +
+                                  kd * 16 + (lane >> 4) * 8));
+    }
+    const int k0 = it * kMmaBlockK;
+    // Warp-uniform: a diagonal tile may lie wholly in this warp's future.
+    if (k0 < warp_k_end) {
+      const bf16* kt = ks + (it % kStages) * kTileElems;
+      const bf16* vt = vs + (it % kStages) * kTileElems;
+      // Key n8 tiles this warp needs: those starting before warp_k_end.
+      const int live = min(kKTiles, (warp_k_end - k0 + 7) / 8);
+
+      // S = Q.K^T: ldmatrix.x4 of 16 keys x 16 dims gives the B fragments
+      // of two n8 key tiles.  The dims are the outer loop, so the pairs'
+      // accumulator chains interleave; a diagonal tile whose second half
+      // lies in the warp's future runs the first pair only.
+      float s[kKTiles][4];
+#pragma unroll
+      for (int nt = 0; nt < kKTiles; ++nt)
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+      auto scores = [&](auto pairs) {
+#pragma unroll
+        for (int kd = 0; kd < kDSteps; ++kd) {
+#pragma unroll
+          for (int np = 0; np < decltype(pairs)::value; ++np) {
+            uint32_t bk[4];
+            ldsm_x4(bk, smem_addr(kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) *
+                                           kStride +
+                                  kd * 16 + ((lane >> 3) & 1) * 8));
+            mma_bf16(s[2 * np], qf[kd], bk[0], bk[1]);
+            mma_bf16(s[2 * np + 1], qf[kd], bk[2], bk[3]);
+          }
+        }
+      };
+      static_assert(kKTiles == 4, "two pairs of n8 key tiles per tile");
+      if (live > 2)
+        scores(std::integral_constant<int, 2>{});
+      else
+        scores(std::integral_constant<int, 1>{});
+
+      // Scale and mask: the causal diagonal, keys past Sk, and the key
+      // tiles skipped above (their zero scores must not count).
+      const bool masked = k0 + kMmaBlockK > warp_k_end ||
+                          (causal && k0 + kMmaBlockK > warp_pos0 + 1);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < kKTiles; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e] * scale2;
+          if (masked) {
+            const int key = k0 + nt * 8 + 2 * c + (e & 1);
+            if (key >= warp_k_end || (causal && key > pos[e >> 1])) x = kNegInf;
+          }
+          s[nt][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      // Every row sees key 0, so after the first tile m is a real score:
+      // masked entries give p = 0, and a row whose keys in this tile are
+      // all masked keeps its m (alpha = 1).
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = exp2f(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int nt = 0; nt < kKTiles; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[nt][e] - m[e >> 1]);
+          s[nt][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kDTiles; ++i) {
+        acc[i][0] *= alpha[0];
+        acc[i][1] *= alpha[0];
+        acc[i][2] *= alpha[1];
+        acc[i][3] *= alpha[1];
+      }
+
+      // acc += P.V with P = hi + lo: the accumulators of key tiles 2kk and
+      // 2kk + 1 are the A fragment of k16 step kk; ldmatrix.trans of 16
+      // keys x 16 dims gives the B fragments of two n8 dim tiles.
+#pragma unroll
+      for (int kk = 0; kk < kKTiles / 2; ++kk) {
+        if (2 * kk >= live) break;
+        uint32_t ph[4], pl[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int dp = 0; dp < kDTiles / 2; ++dp) {
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, smem_addr(vt + (kk * 16 + (lane & 7) +
+                                            ((lane >> 3) & 1) * 8) *
+                                               kStride +
+                                      dp * 16 + (lane >> 4) * 8));
+          mma_bf16(acc[2 * dp], ph, bv[0], bv[1]);
+          mma_bf16(acc[2 * dp], pl, bv[0], bv[1]);
+          mma_bf16(acc[2 * dp + 1], ph, bv[2], bv[3]);
+          mma_bf16(acc[2 * dp + 1], pl, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+
+  // Epilogue: l summed over the quad, acc / max(l, 1e-20) rounded once,
+  // staged in the warp's own Q rows (no other warp reads them), then
+  // 16-byte stores of the rows inside Sq.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-20f);
+  }
+  bf16* stage = qs + 16 * warp * kStride;
+#pragma unroll
+  for (int i = 0; i < kDTiles; ++i) {
+    const int col = i * 8 + 2 * c;
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * kStride + col) =
+        __floats2bfloat162_rn(acc[i][0] / l[0], acc[i][1] / l[0]);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * kStride + col) =
+        __floats2bfloat162_rn(acc[i][2] / l[1], acc[i][3] / l[1]);
+  }
+  __syncwarp();
+  bf16* ob = out + q_head0;
+  for (int e = lane; e < 16 * kChunks; e += 32) {
+    const int r = e / kChunks;
+    const int ch = e - r * kChunks;
+    if (wf0 + r < n_rows)
+      *reinterpret_cast<uint4*>(ob + row_offset(wf0 + r) + ch * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * kStride + ch * 8);
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
+        flash_attention_kernel<float, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(B * Hq, (Sq + kBlockQ - 1) / kBlockQ);
-  flash_attention_kernel<T, D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, Hq, Hkv, causal,
-      scale);
+  flash_attention_kernel<float, D><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, Hq, Hkv,
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int Hq, int Hkv, int D, int causal, float scale,
-           cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch_d<T, 16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-    case 32:
-      return launch_d<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-    case 64:
-      return launch_d<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-    case 112:  // zamba2-7b: 3584 / 32 heads; lanes 16-31 own no 4th column
-      return launch_d<T, 112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-    case 128:
-      return launch_d<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+template <int D, int W>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
+                int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
+                cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D, W>();
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_mma_kernel<D, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long tiles = (static_cast<long long>(Sq) * (Hq / Hkv) + 16 * W - 1) / (16 * W);
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B * Hkv, static_cast<unsigned>(tiles));
+  flash_mma_kernel<D, W><<<grid, W * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, Hq, Hkv,
+      causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* out, int B,
+             int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
+             int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return launch_f32<D>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 1:
+      return Hq == Hkv
+          ? launch_bf16<D, 2>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s)
+          : launch_bf16<D, 4>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -214,10 +608,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// q and out [B, Sq, Hq, D], k and v [B, Sk, Hkv, D], all contiguous and of
-// one type (dtype 0: float32, 1: bfloat16); D in {16, 32, 64, 112, 128}, Hq a
-// multiple of Hkv.  Launches on `stream` (PyTorch's current stream).
-// Returns the cudaError_t of the launch; 0 means it was queued.
+// q and out [B, Sq, Hq, D], k and v [B, Sk, Hkv, D], all contiguous, of
+// one type (dtype 0: float32, 1: bfloat16) and 16-byte aligned; D in {16,
+// 32, 64, 112, 128}, Hq a multiple of Hkv.  Launches on `stream` (PyTorch's
+// current stream).  Returns the cudaError_t of the launch; 0 means it was
+// queued.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int Hq, int Hkv, int D,
@@ -229,12 +624,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal, scale, s);
-    case 1:
-      return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, D, causal,
-                                   scale, s);
+  switch (D) {
+    case 16:
+      return launch_d<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
+    case 32:
+      return launch_d<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
+    case 64:
+      return launch_d<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
+    case 112:  // zamba2-7b: 3584 / 32 heads
+      return launch_d<112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
+    case 128:
+      return launch_d<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -16,21 +16,25 @@
 // flops per bf16 K/V pair: 4 flops per byte at G = 4, below the card's
 // float32 rate per byte).
 //
-// Design (decode_tiles.cuh with A = 1): one block per (row, KV head), its G
-// query heads together; 32-key tiles in shared memory whose 32 row
-// addresses are looked up first, one lane per key, through the row's own
-// table entries.  Only pages below ceil(kv_len / bs) are looked up, and
-// each id is clamped into [0, P - 1], so the sentinel P and stale ids past
-// the live pages are never dereferenced.  A tile spans pages, so any block
-// size bs >= 1 takes the same path (the main path uses 16).
+// Design: the dense kernel's key-split body (decode_split.cuh) over the
+// pool (decode_tiles.cuh's PagedRows): one block per (row, KV head), its G
+// query heads together; the warps take the row's keys in interleaved
+// groups, each key's row address looked up through the row's own table
+// entry, then read as 16-byte chunks, one per lane.  The arithmetic, and
+// so every rounding, is the dense kernel's: a paged search makes the dense
+// search's decisions.  Only pages below ceil(kv_len / bs) are looked up,
+// and each id is clamped into [0, P - 1], so the sentinel P and stale ids
+// past the live pages are never dereferenced.  Any block size bs >= 1
+// takes the same path (the main path uses 16); D is a multiple of 16
+// bytes' worth of elements, at most 256.
 
-#include "decode_tiles.cuh"
+#include "decode_split.cuh"
 
 // q [B, Hkv * G, D], pool_k and pool_v [P, bs, Hkv, D], table int32
 // [B, n_pages], kv_len int32 [B], out [B, Hkv * G, D]; all contiguous, q,
-// pools and out of one type (dtype 0: float32, 1: bfloat16).  Launches on
-// `stream` (PyTorch's current stream).  Returns the cudaError_t of the
-// launch; 0 means it was queued.
+// pools and out of one type (dtype 0: float32, 1: bfloat16) and 16-byte
+// aligned.  Launches on `stream` (PyTorch's current stream).  Returns the
+// cudaError_t of the launch; 0 means it was queued.
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* pool_k, const void* pool_v,
     const int32_t* table, const int32_t* kv_len, void* out, int B, int P,
@@ -45,14 +49,12 @@ extern "C" int paged_decode_attention_launch(
   const decode_tiles::PagedRows rows{table, n_pages, P, bs};
   switch (dtype) {
     case 0:
-      return decode_tiles::launch<float, decode_tiles::PagedRows, false>(
-          q, pool_k, pool_v, kv_len, nullptr, nullptr, nullptr, out, rows, B,
-          1, Hkv, G, D, scale, s);
+      return decode_split::launch<float>(q, pool_k, pool_v, kv_len, out, rows,
+                                         B, Hkv, G, D, scale, s);
     case 1:
-      return decode_tiles::launch<__nv_bfloat16, decode_tiles::PagedRows,
-                                  false>(q, pool_k, pool_v, kv_len, nullptr,
-                                         nullptr, nullptr, out, rows, B, 1,
-                                         Hkv, G, D, scale, s);
+      return decode_split::launch<__nv_bfloat16>(q, pool_k, pool_v, kv_len,
+                                                 out, rows, B, Hkv, G, D,
+                                                 scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

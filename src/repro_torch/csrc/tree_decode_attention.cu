@@ -14,22 +14,24 @@
 // written but the output.  Scores, p and p.V are float32; a query with
 // nothing to attend gives zeros.
 //
-// What bounds it: at the main path's A = 8, G = 4 the 32 query vectors do
-// 4 * 32 flops per K/V element pair (32 flops per byte of bf16 K/V), above
-// the card's float32 rate per byte of device memory (about 20), so the
-// float32 score and p.V loops in shared memory bound it, not the bytes.
-// The prefix is shared by all A candidates, so it is read ONCE per (row,
-// KV head) for all A * G query vectors: that single read is the point of
-// the TPU kernel, and A separate decode passes would read it A times.
-// Bytes bound it once those loops move to register tiles or tensor cores.
+// What bounds it: the prefix, read from device memory once per (row, KV
+// head) for all A candidates (the point of the TPU kernel: A separate
+// decode passes would read it A times), 4 * A * G flops per prefix K/V
+// element pair.
 //
-// Design (decode_tiles.cuh): one block per (row, KV head) holds all A * G
-// query vectors and their online-softmax states in shared memory, streams
-// the prefix in 32-key tiles (any S and any block size; the Pallas rule
-// S % block_k == 0 is not needed), then folds the A tail entries in as one
-// more tile under the mask (A <= 32).
+// Design: the decode kernels' key-split body (decode_split.cuh) with a
+// tail, over a dense cache (DenseRows) or a pool (PagedRows): one block
+// per (row, KV head, candidate), the A candidate blocks of a (row, KV
+// head) adjacent so the prefix comes once from device memory and A - 1
+// times from L2.  Candidate a's logical keys are the row's kv_len prefix
+// keys, then the tail entries j it sees in order of j (A <= 32), so with
+// the frontier's identity mask it computes exactly what decode_attention
+// computes over the cache with entry a appended, rounding for rounding:
+// a frontier forward and the decode steps of the same candidates agree.
+// Warps split the keys, 16-byte loads; D is a multiple of 16 bytes' worth
+// of elements, at most 256.
 
-#include "decode_tiles.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -38,21 +40,26 @@ int dispatch(const void* q, const void* k, const void* v,
              const int32_t* kv_len, const void* k_spec, const void* v_spec,
              const int32_t* mask, void* out, Rows rows, int B, int A, int Hkv,
              int G, int D, float scale, int dtype, int device, void* stream) {
-  if (B <= 0 || A <= 0 || A > decode_tiles::kTile || Hkv <= 0 || G <= 0 ||
-      D <= 0)
+  if (B <= 0 || A <= 0 || A > 32 || Hkv <= 0 || G <= 0 || D <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return decode_tiles::launch<float, Rows, true>(
-          q, k, v, kv_len, k_spec, v_spec, mask, out, rows, B, A, Hkv, G, D,
-          scale, s);
-    case 1:
-      return decode_tiles::launch<__nv_bfloat16, Rows, true>(
-          q, k, v, kv_len, k_spec, v_spec, mask, out, rows, B, A, Hkv, G, D,
-          scale, s);
+    case 0: {
+      const decode_split::Tail<float> tail{static_cast<const float*>(k_spec),
+                                           static_cast<const float*>(v_spec),
+                                           mask, A};
+      return decode_split::launch<float, Rows, true>(
+          q, k, v, kv_len, out, rows, B, Hkv, G, D, scale, s, tail);
+    }
+    case 1: {
+      const decode_split::Tail<__nv_bfloat16> tail{
+          static_cast<const __nv_bfloat16*>(k_spec),
+          static_cast<const __nv_bfloat16*>(v_spec), mask, A};
+      return decode_split::launch<__nv_bfloat16, Rows, true>(
+          q, k, v, kv_len, out, rows, B, Hkv, G, D, scale, s, tail);
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -61,9 +68,10 @@ int dispatch(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q [B, A, Hkv * G, D], k_cache and v_cache [B, S, Hkv, D], k_spec and
-// v_spec [B, A, Hkv, D], out [B, A, Hkv * G, D], all contiguous and of one
-// type (dtype 0: float32, 1: bfloat16); kv_len int32 [B]; mask int32
-// [A, A] (nonzero: attend).  Returns the cudaError_t of the launch.
+// v_spec [B, A, Hkv, D], out [B, A, Hkv * G, D], all contiguous, of one
+// type (dtype 0: float32, 1: bfloat16) and 16-byte aligned; kv_len int32
+// [B]; mask int32 [A, A] (nonzero: attend).  Returns the cudaError_t of
+// the launch.
 extern "C" int tree_decode_attention_launch(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_spec, const void* v_spec, const int32_t* kv_len,

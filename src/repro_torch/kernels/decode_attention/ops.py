@@ -26,8 +26,12 @@ from .ref import (
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _C_FUNCTIONS: dict[str, object] = {}
-# The tree kernels hold the A tail entries in one 32-key tile.
+# The tree kernels find a candidate's visible tail entries with one warp
+# ballot over the A entries.
 MAX_CANDIDATES = 32
+# All four decode kernels read each key as 16-byte chunks, at most 512
+# bytes of one row (float32 rows of up to 256 elements take two per lane).
+MAX_DECODE_HEAD_DIM = 256
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +75,19 @@ def _check(name: str, ref: torch.Tensor, **tensors) -> None:
                              f"{ref.dtype} on {ref.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _chunked(name: str, d: int, **tensors) -> None:
+    """The 16-byte loads of the decode kernels: ``D`` a multiple of 16
+    bytes' worth of elements, at most 256, and every operand 16-byte
+    aligned."""
+    per_chunk = 16 // next(iter(tensors.values())).element_size()
+    if d % per_chunk or d > MAX_DECODE_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {d} must be a multiple of {per_chunk} "
+                         f"(16 bytes) and at most {MAX_DECODE_HEAD_DIM}")
+    for arg, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
 def _lengths(name: str, kv_len, b: int, device) -> torch.Tensor:
@@ -140,7 +157,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """One-token GQA attention: ``q [B, Hq, D]`` over the first ``kv_len``
     entries of ``k_cache``/``v_cache [B, S, Hkv, D]``; ``kv_len`` is an int
     or an integer tensor ``[]``/``[B]``.  Returns ``[B, Hq, D]`` in
-    ``q``'s dtype (float32 or bfloat16, float32 accumulation)."""
+    ``q``'s dtype (float32 or bfloat16, float32 accumulation).  On the card
+    ``D`` is a multiple of 16 bytes' worth of elements (8 bf16, 4 float32)
+    and at most 256, and the operands are 16-byte aligned."""
     name = "decode_attention"
     device = q.device
     if not _on_cuda(name, device):
@@ -157,6 +176,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if tuple(v_cache.shape) != tuple(k_cache.shape):
         raise ValueError("decode_attention: k_cache and v_cache differ in shape")
     _check(name, q, q=q, k_cache=k_cache, v_cache=v_cache)
+    _chunked(name, d, q=q, k_cache=k_cache, v_cache=v_cache)
     lens = _lengths(name, kv_len, b, device)
     out = torch.empty_like(q)
     if b == 0:
@@ -173,7 +193,8 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
     keys of each row, read from pools ``[P, bs, Hkv, D]`` through
     ``page_table i32[B, n_pages]`` (key ``t`` at ``(table[b, t // bs],
     t % bs)``; entries past the live pages are never read).  Returns
-    ``[B, Hq, D]`` in ``q``'s dtype."""
+    ``[B, Hq, D]`` in ``q``'s dtype, computed as :func:`decode_attention`
+    computes it; on the card ``D`` and the alignment are as there."""
     name = "paged_decode_attention"
     device = q.device
     if not _on_cuda(name, device):
@@ -186,6 +207,7 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
     p, bs = pool_k.shape[:2]
     hkv, group = _heads(name, hq, pool_k.shape, d)
     _check(name, q, q=q, pool_k=pool_k, pool_v=pool_v)
+    _chunked(name, d, q=q, pool_k=pool_k, pool_v=pool_v)
     table = _table(name, page_table, b, device)
     lens = _lengths(name, kv_len, b, device)
     out = torch.empty_like(q)
@@ -206,7 +228,10 @@ def tree_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     per row) over the row's first ``kv_len`` cache entries (``[B, S, Hkv,
     D]``, read once for all candidates) plus the tail ``k_spec``/``v_spec
     [B, A, Hkv, D]`` under ``tree_mask [A, A]`` (None: the identity).
-    Returns ``[B, A, Hq, D]`` in ``q``'s dtype."""
+    Returns ``[B, A, Hq, D]`` in ``q``'s dtype; with the identity mask,
+    candidate ``a``'s output is :func:`decode_attention`'s over the cache
+    with entry ``a`` appended, bit for bit.  On the card ``D`` and the
+    alignment are as for :func:`decode_attention`."""
     name = "tree_decode_attention"
     device = q.device
     if not _on_cuda(name, device):
@@ -223,6 +248,7 @@ def tree_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     hkv, group = _heads(name, hq, k_cache.shape, d)
     _spec_shape(name, k_spec, v_spec, b, a, hkv, d)
     _check(name, q, q=q, k_cache=k_cache, v_cache=v_cache, k_spec=k_spec, v_spec=v_spec)
+    _chunked(name, d, q=q, k_cache=k_cache, v_cache=v_cache, k_spec=k_spec, v_spec=v_spec)
     lens = _lengths(name, kv_len, b, device)
     mask = _mask(name, tree_mask, a, device)
     out = torch.empty_like(q)
@@ -258,6 +284,7 @@ def paged_tree_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     hkv, group = _heads(name, hq, pool_k.shape, d)
     _spec_shape(name, k_spec, v_spec, b, a, hkv, d)
     _check(name, q, q=q, pool_k=pool_k, pool_v=pool_v, k_spec=k_spec, v_spec=v_spec)
+    _chunked(name, d, q=q, pool_k=pool_k, pool_v=pool_v, k_spec=k_spec, v_spec=v_spec)
     table = _table(name, page_table, b, device)
     lens = _lengths(name, kv_len, b, device)
     mask = _mask(name, tree_mask, a, device)

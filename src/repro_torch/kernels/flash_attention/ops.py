@@ -39,7 +39,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA attention ``q [B, Sq, Hq, D]`` over ``k``/``v [B, Sk, Hkv, D]``
     (positions from 0; causal by default) -> ``[B, Sq, Hq, D]`` in ``q``'s
     dtype (float32 or bfloat16, float32 accumulation).  Any sequence
-    length; on the card ``D`` is one of :data:`HEAD_DIMS`."""
+    length; on the card ``D`` is one of :data:`HEAD_DIMS` and q, k, v are
+    16-byte aligned.  bf16 runs on the tensor cores, float32 on the CUDA
+    cores (see ``csrc/flash_attention.cu``)."""
     device = q.device
     if device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
@@ -64,6 +66,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"expected {q.dtype} on {device}")
         if not x.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte aligned "
+                             f"(the kernel loads 16 bytes at a time)")
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out

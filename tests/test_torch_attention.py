@@ -283,6 +283,11 @@ def _cuda_inputs(gen, dtype, *shapes):
     return [torch.randn(s, generator=gen, device="cuda").to(dtype) for s in shapes]
 
 
+# kv_len at 0, 1, around one warp step of keys (8 at bf16 D=128: 4 warps
+# x 2 keys) and past it, 33, and S: some warps see no key at all.
+DECODE_LENS = (0, 1, 7, 8, 9, 33)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decode_kernel_matches_plain_version(dtype):
@@ -291,16 +296,25 @@ def test_cuda_decode_kernel_matches_plain_version(dtype):
     from repro_torch.kernels import LAUNCHES
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for n, s, hq, hkv, d in [(1, 1, 32, 8, 128), (128, 160, 32, 8, 128),
-                             (33, 100, 4, 1, 64), (5, 40, 8, 8, 16)]:
+    cases = [(1, 1, 32, 8, 128), (128, 160, 32, 8, 128), (33, 100, 4, 1, 64),
+             (5, 40, 8, 8, 16)]
+    cases += [(len(DECODE_LENS) + 3, s, hq, hkv, d) for s in (40, 160)
+              for hq, hkv in ((32, 8), (8, 8), (32, 32), (4, 1), (12, 1))
+              for d in (16, 64, 112, 128)]
+    if dtype == torch.float32:
+        cases += [(9, 70, 8, 2, 256), (9, 70, 4, 4, 132)]   # two 16-byte chunks per lane
+    for n, s, hq, hkv, d in cases:
         q, k, v = _cuda_inputs(gen, dtype, (n, hq, d), (n, s, hkv, d), (n, s, hkv, d))
         lens = torch.randint(0, s + 1, (n,), generator=gen, device="cuda", dtype=torch.int32)
         lens[0] = 0
+        if n > len(DECODE_LENS):
+            lens[:len(DECODE_LENS) + 1] = torch.tensor([*DECODE_LENS, s], dtype=torch.int32)
         before = LAUNCHES["decode_attention"]
         out = decode_attention(q, k, v, lens)
         torch.cuda.synchronize()
         assert LAUNCHES["decode_attention"] == before + 1
-        torch.testing.assert_close(out, decode_attention_ref(q, k, v, lens), **CUDA_TOL[dtype])
+        torch.testing.assert_close(out, decode_attention_ref(q, k, v, lens), **CUDA_TOL[dtype],
+                                   msg=lambda m: f"N={n} S={s} {hq}/{hkv} D={d}: {m}")
         assert bool((out[0] == 0).all())
 
 
@@ -312,14 +326,21 @@ def test_cuda_flash_kernel_matches_plain_version(dtype):
     from repro_torch.kernels import LAUNCHES
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for b, s, hq, hkv, d in [(1, 1, 32, 8, 128), (8, 160, 32, 8, 128), (1, 7, 4, 1, 64),
-                             (2, 70, 8, 8, 16), (8, 160, 32, 32, 112)]:
+    cases = [(1, 1, 32, 8, 128, True), (8, 160, 32, 8, 128, True), (1, 7, 4, 1, 64, True),
+             (2, 70, 8, 8, 16, True), (8, 160, 32, 32, 112, True)]
+    # Around the 16-row warp slices and the 64-query / 64-key tiles.
+    cases += [(2, s, hq, hkv, d, causal) for s in (1, 15, 16, 17, 63, 64, 65, 160)
+              for hq, hkv in ((32, 8), (8, 8), (32, 32), (4, 1))
+              for d in (16, 64, 112, 128) for causal in (True, False)]
+    for b, s, hq, hkv, d, causal in cases:
         q, k, v = _cuda_inputs(gen, dtype, (b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))
         before = LAUNCHES["flash_attention"]
-        out = flash_attention(q, k, v)
+        out = flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         assert LAUNCHES["flash_attention"] == before + 1
-        torch.testing.assert_close(out, flash_attention_ref(q, k, v), **CUDA_TOL[dtype])
+        torch.testing.assert_close(
+            out, flash_attention_ref(q, k, v, causal=causal), **CUDA_TOL[dtype],
+            msg=lambda m: f"B={b} S={s} {hq}/{hkv} D={d} causal={causal}: {m}")
 
 
 @pytest.mark.cuda
@@ -338,6 +359,35 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
                         torch.zeros(2, 8, 2, 24, device="cuda"))
     with pytest.raises(ValueError, match="kv_len"):
         decode_attention(q[:, 0].contiguous(), kv, kv, torch.tensor([1, 2, 3], device="cuda"))
+    # The 16-byte loads: data_ptr() 16-byte aligned, decode D a multiple of
+    # 16 bytes' worth of elements.
+    off = torch.zeros(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(off, kv, kv)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, kv, torch.zeros(kv.numel() + 2, device="cuda")[2:].view(kv.shape))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(torch.zeros(2 * 4 * 16 + 1, device="cuda")[1:].view(2, 4, 16),
+                         kv, kv, 3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(q[:, 0].contiguous(),
+                         torch.zeros(kv.numel() + 1, device="cuda")[1:].view(kv.shape), kv, 3)
+    for dtype, d in ((torch.bfloat16, 12), (torch.float32, 6), (torch.float32, 260)):
+        with pytest.raises(ValueError, match="head_dim"):
+            decode_attention(torch.zeros(2, 4, d, dtype=dtype, device="cuda"),
+                             torch.zeros(2, 8, 2, d, dtype=dtype, device="cuda"),
+                             torch.zeros(2, 8, 2, d, dtype=dtype, device="cuda"), 3)
+    # The paged kernel runs the same key-split body.
+    pool12 = torch.zeros(6, 4, 2, 12, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode_attention(torch.zeros(2, 4, 12, dtype=torch.bfloat16, device="cuda"),
+                               pool12, pool12, torch.zeros(2, 3, dtype=torch.int32,
+                                                           device="cuda"), 3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_decode_attention(q[:, 0].contiguous(),
+                               torch.zeros(6 * 4 * 2 * 16 + 1, device="cuda")[1:].view(6, 4, 2, 16),
+                               torch.zeros(6, 4, 2, 16, device="cuda"),
+                               torch.zeros(2, 3, dtype=torch.int32, device="cuda"), 3)
     pool = torch.zeros(6, 4, 2, 16, device="cuda")
     table = torch.zeros(2, 3, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="page_table"):
@@ -424,3 +474,32 @@ def test_cuda_tree_kernels_match_plain_versions(dtype, mask):
         assert LAUNCHES["tree_decode_attention"] == before + 1
         torch.testing.assert_close(dense, tree_decode_attention_ref(q, kc, vc, ks, vs, lens, tm),
                                    **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_tree_identity_mask_is_decode_with_the_entry_appended(dtype):
+    """The four decode kernels share one body: under the identity mask,
+    candidate a of the tree kernels (dense and paged) is the dense decode
+    kernel over the cache with entry a written at kv_len, bit for bit, and
+    the paged decode kernel is the dense one on the gathered pages."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, a, bs, n_pages, hq, hkv, d = 9, 8, 4, 6, 32, 8, 128
+    q, pk, pv, table, lens, (ks, vs) = _cuda_paged_case(gen, dtype, b, bs, n_pages, hq, hkv,
+                                                        d, a=a)
+    lens = lens.clamp(max=n_pages * bs - 1)
+    kc = pk[table.long().clamp(0, pk.shape[0] - 1)].reshape(b, -1, hkv, d).contiguous()
+    vc = pv[table.long().clamp(0, pv.shape[0] - 1)].reshape(b, -1, hkv, d).contiguous()
+    dense = tree_decode_attention(q, kc, vc, ks, vs, lens)
+    paged = paged_tree_decode_attention(q, pk, pv, table, ks, vs, lens)
+    rows = torch.arange(b, device="cuda")
+    for j in range(a):
+        k2, v2 = kc.clone(), vc.clone()
+        k2[rows, lens.long()] = ks[:, j]
+        v2[rows, lens.long()] = vs[:, j]
+        step = decode_attention(q[:, j].contiguous(), k2, v2, lens + 1)
+        assert torch.equal(step, dense[:, j]) and torch.equal(step, paged[:, j])
+    assert torch.equal(paged_decode_attention(q[:, 0].contiguous(), pk, pv, table, lens),
+                       decode_attention(q[:, 0].contiguous(), kc, vc, lens))

@@ -249,9 +249,11 @@ def test_library_name_hashes_included_headers(monkeypatch, tmp_path):
     after = _build.library_path("k")
     assert after != before and after.name.startswith("libk-")
     monkeypatch.undo()
+    # The four decode kernels run the key-split body, which includes
+    # decode_tiles.cuh for its Rows policies.
     for real in ("decode_attention", "paged_decode_attention", "tree_decode_attention"):
         files = {p.name for p in _build._sources(_build.CSRC / f"{real}.cu", {})}
-        assert files == {f"{real}.cu", "decode_tiles.cuh"}
+        assert files == {f"{real}.cu", "decode_split.cuh", "decode_tiles.cuh"}
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):

@@ -11,7 +11,9 @@ Phases (any failure raises, so the script exits non-zero):
    libraries: ``tree_decode_attention`` holds the dense and the paged tree
    kernel), and summarise ptxas's registers, spills and static shared
    memory of ``flash_attention`` (bf16 on the tensor cores, float32 on the
-   CUDA cores) and ``decode_attention`` (the key-split body);
+   CUDA cores), ``decode_attention`` (the key-split body) and ``ssd_scan``
+   (bf16 B/C on the tensor cores, float32 and the state pass on the CUDA
+   cores);
 3. hold each kernel against its plain PyTorch version on the card (the
    attention kernels in float32 and bfloat16 over a grid of shapes and the
    shapes phases 7-14 drive, ``flash_attention`` also at zamba2's D=112;
@@ -20,7 +22,9 @@ Phases (any failure raises, so the script exits non-zero):
    plain version and one PyTorch library call at the main paths' shapes
    (the paged and tree kernels have no single library call: a gather or
    concatenation plus SDPA is timed beside them as a two- or three-call
-   yardstick; no PyTorch call computes the SSD scan);
+   yardstick; no PyTorch call computes the SSD scan), each kernel and
+   yardstick both paced by the host's enqueue and as device time by
+   CUDA-graph replay; ``ssd_scan`` at phase 13's and phase 14's shapes;
 4. the rollout main path: ``build_searcher`` on the tap game answers 256
    searches (the paper's W=16, T=128) through the ``tree_select`` kernel;
    its launch count must cover every selection, and 8 of the trees are
@@ -78,8 +82,9 @@ equal to the cached search's), and phase 9.3 holds frontier to cached
 decisions in float32.  The line before
 the last is a JSON object with each kernel's launches on its main path
 (phase 4, 7, 8, 10, 11, 12 or 13), error against its plain version, time,
-plain time, bound, library time and ``bound_share`` (bound / time); the
-last line is
+plain time, bound, library time and ``bound_share`` (bound / time), and
+the device times by graph replay (``device_ms``, ``library_device_ms``,
+``device_bound_share``); the last line is
 ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Without a CUDA device, or without the rest of the
@@ -183,9 +188,9 @@ def select_inputs(torch, rs, b, a, device):
 
 
 # Libraries whose kernels' ptxas resources are summarised after the build:
-# the two redesigned in this slice (bf16 flash on the tensor cores, the
-# key-split decode).
-PTXAS_SUMMARY = ("flash_attention", "decode_attention")
+# those redesigned for the H100 (bf16 flash and the bf16 SSD scan on the
+# tensor cores, the key-split decode).
+PTXAS_SUMMARY = ("flash_attention", "decode_attention", "ssd_scan")
 
 
 def ptxas_summary(log):
@@ -227,6 +232,14 @@ def time_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls=50):
+    """Device time of one ``fn()`` in ms: CUDA-graph replay of ``calls``
+    back-to-back calls, so the host's enqueue does not pace it."""
+    from repro_torch.launch.attention_sweep import graph_ms
+
+    return graph_ms(fn, calls=calls)
 
 
 def check_tree_select(torch, device):
@@ -272,6 +285,7 @@ def check_tree_select(torch, device):
         args = select_inputs(torch, np.random.default_rng(1), MAIN_B, MAIN_A, device)
         check(args, dict(kind=kind), f"{kind} timed inputs")
         k_ms = time_ms(torch, lambda: tree_select(*args, kind=kind), 2000)
+        k_dev = device_ms(lambda: tree_select(*args, kind=kind))
         p_ms = time_ms(torch, lambda: tree_select_ref(*args, kind=kind), 200)
         nbytes = (TABLES_READ[kind] * 4 + 1) * MAIN_B * MAIN_A + 2 * 4 * MAIN_B + 2 * 4 * MAIN_B
         # Per child about 12 float32 operations (denominator, two clamps,
@@ -279,13 +293,15 @@ def check_tree_select(torch, device):
         # argmax compare); per row the parent sum, clamp and log.
         ops = 12 * MAIN_B * MAIN_A + 4 * MAIN_B
         bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
-        times[kind] = (k_ms, p_ms, bound_ms, nbytes)
-        print(f"tree_select {kind} B={MAIN_B} A={MAIN_A}: kernel {k_ms * 1e3!r} us, "
-              f"plain {p_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us ({nbytes} bytes)")
+        times[kind] = (k_ms, k_dev, p_ms, bound_ms)
+        print(f"tree_select {kind} B={MAIN_B} A={MAIN_A}: kernel {k_ms * 1e3!r} us "
+              f"(device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, bound "
+              f"{bound_ms * 1e3!r} us ({nbytes} bytes)")
     print("no single PyTorch call computes tree_select: library_ms is null")
-    k_ms, p_ms, bound_ms, _ = times["wu_uct"]
+    k_ms, k_dev, p_ms, bound_ms = times["wu_uct"]
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "device_ms": k_dev, "library_device_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -406,15 +422,18 @@ def time_decode(torch, device):
     qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
     lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
     lib_ms = time_ms(torch, lib, 500)
+    k_dev = device_ms(lambda: decode_attention(q, k, v, lens))
+    lib_dev = device_ms(lib)
     valid = int(lens.sum())
     nbytes = 2 * (2 * n * hq * d + 2 * valid * hkv * d) + 4 * n
     ops = 4 * d * hq * valid
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
     print(f"decode_attention bf16 N={n} S={s} 32/8 D=128 (kv_len sum {valid}): kernel "
-          f"{k_ms * 1e3!r} us, plain {p_ms * 1e3!r} us, SDPA {lib_ms * 1e3!r} us, bound "
-          f"{bound_ms * 1e3!r} us ({nbytes} bytes, {ops} flops); |kernel - plain| {err!r}")
+          f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, SDPA "
+          f"{lib_ms * 1e3!r} us (device {lib_dev * 1e3!r} us), bound {bound_ms * 1e3!r} us "
+          f"({nbytes} bytes, {ops} flops); |kernel - plain| {err!r}")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "device_ms": k_dev, "library_device_ms": lib_dev}
 
 
 def time_flash(torch, device, hq=32, hkv=8, d=128):
@@ -436,16 +455,19 @@ def time_flash(torch, device, hq=32, hkv=8, d=128):
     qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
     lib_ms = time_ms(torch, lib, 200)
+    k_dev = device_ms(lambda: flash_attention(q, k, v))
+    lib_dev = device_ms(lib)
     nbytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
     ops = 4 * d * (s * (s + 1) // 2) * b * hq          # QK and PV over the causal half
     bound_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / BF16_OPS_PER_S}
     bound_by = max(bound_s, key=bound_s.get)
     bound_ms = bound_s[bound_by] * 1e3
-    print(f"flash_attention bf16 B={b} S={s} {hq}/{hkv} D={d}: kernel {k_ms * 1e3!r} us, plain "
-          f"{p_ms * 1e3!r} us, SDPA {lib_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us "
-          f"(by {bound_by}: {nbytes} bytes, {ops} flops); |kernel - plain| {err!r}")
+    print(f"flash_attention bf16 B={b} S={s} {hq}/{hkv} D={d}: kernel {k_ms * 1e3!r} us "
+          f"(device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, SDPA {lib_ms * 1e3!r} us "
+          f"(device {lib_dev * 1e3!r} us), bound {bound_ms * 1e3!r} us (by {bound_by}: "
+          f"{nbytes} bytes, {ops} flops); |kernel - plain| {err!r}")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "device_ms": k_dev, "library_device_ms": lib_dev}
 
 
 # The paged and tree-batched decode kernels (phases 10-12).
@@ -692,14 +714,17 @@ def time_paged_family(torch, device):
         k_ms = time_ms(torch, kern, 300)
         p_ms = time_ms(torch, plain, 30)
         l_ms = time_ms(torch, lib, 300)
+        k_dev, l_dev = device_ms(kern), device_ms(lib)
         bound_ms, bound_by = bound(nbytes, ops)
         print(f"{name} bf16 N={n}{' A=%d' % a if 'tree' in name else ''} prefix {s} "
-              f"(kv_len sum {valid}) 32/8 D=128: kernel {k_ms * 1e3!r} us, plain "
-              f"{p_ms * 1e3!r} us, {lib_what} {l_ms * 1e3!r} us (|yardstick - plain| "
-              f"{lib_err!r}), bound {bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, "
-              f"{ops} flops); |kernel - plain| {err!r}")
+              f"(kv_len sum {valid}) 32/8 D=128: kernel {k_ms * 1e3!r} us (device "
+              f"{k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, {lib_what} {l_ms * 1e3!r} us "
+              f"(device {l_dev * 1e3!r} us; |yardstick - plain| {lib_err!r}), bound "
+              f"{bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, {ops} flops); "
+              f"|kernel - plain| {err!r}")
         fields[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None}
+                        "bound_by": bound_by, "library_ms": None, "device_ms": k_dev,
+                        "library_device_ms": None}
     print("no single PyTorch call computes the paged or tree kernels: library_ms is null")
     return fields
 
@@ -707,14 +732,27 @@ def time_paged_family(torch, device):
 # The SSD scan (phases 13, 14 and 9.4).
 
 # (b, s, h, p, n, Q): the JAX kernel tests' shapes, several chunks of 256,
-# an odd single chunk and tiny chunks (the reduced models' S=20, Q=4).
+# an odd single chunk and tiny chunks (the reduced models' S=20, Q=4); Q on
+# both sides of the tensor-core body's 16-row tiles and 64-row blocks (1,
+# 15, 16, 17, 63, 64, 65, 160, 256), N in (8, 64, 128, 256), P in (16, 64,
+# 128), one and several chunks; heads that the block's group does not
+# divide (13 heads in groups of 8 at 128 rows, 7 in groups of 4 at 96 rows,
+# on an H100's 132 SMs); odd P and N (element-wise loads and stores).
 SSD_GRID = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64, 64),
             (2, 96, 3, 16, 8, 32), (1, 512, 4, 64, 128, 256), (1, 81, 2, 16, 8, 81),
-            (2, 20, 4, 16, 16, 4)]
-# Kernel against plain version: both float32 from the same inputs, summed
-# in other orders (32-row tiles and a warp scan of dA against the plain
-# version's einsums and cumsum), ~1e-6 on outputs of magnitude ~1-10.
-# Against the sequential recurrence: the JAX kernel tests' bar.
+            (2, 20, 4, 16, 16, 4),
+            (2, 8, 3, 16, 8, 1), (1, 45, 5, 64, 64, 15), (2, 32, 3, 128, 256, 16),
+            (1, 34, 9, 16, 128, 17), (1, 126, 3, 64, 8, 63), (2, 128, 2, 128, 64, 64),
+            (1, 130, 11, 64, 128, 65), (1, 320, 3, 16, 256, 160),
+            (1, 256, 5, 128, 256, 256), (128, 160, 13, 64, 128, 160),
+            (96, 256, 7, 16, 64, 128), (2, 33, 3, 18, 12, 11)]
+# Kernel against plain version: the same float32 function from the same
+# inputs.  The float32 body sums in another order (32-row tiles and a warp
+# scan of dA against the plain version's einsums and cumsum), ~1e-6 on
+# outputs of magnitude ~1-10; the bf16 body also carries the split
+# products' ~2^-17 relative error (~3e-5 at most, CPU model:
+# tests/test_torch_ssd_numerics.py).  Against the sequential recurrence:
+# the JAX kernel tests' bar.
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)
 SSD_SEQ_TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -788,9 +826,11 @@ def ssd_bound(b, s, h, p, n, q, bc_bytes):
 
 
 def time_ssd(torch, device, shape):
-    """Kernel and plain version at phase 13's scan shape (mamba2-2.7b, 128
-    rows x 160 tokens, bf16 B/C); no single PyTorch call computes it."""
+    """Kernel and plain version at a driven scan shape with bf16 B/C:
+    phase 13's (mamba2-2.7b, 128 rows x 160 tokens) or phase 14's
+    (zamba2-7b, 8 rows); no single PyTorch call computes it."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ops import heads_per_block
 
     b, s, h, p, n, q = shape
     gen = torch.Generator(device=device).manual_seed(42)
@@ -798,14 +838,17 @@ def time_ssd(torch, device, shape):
     err = ssd_err(torch, ssd_scan(*args, chunk=q), ssd_scan_ref(*args, chunk=q), SSD_TOL,
                   "timed ssd_scan")
     k_ms = time_ms(torch, lambda: ssd_scan(*args, chunk=q), 20)
+    k_dev = device_ms(lambda: ssd_scan(*args, chunk=q), calls=10)
     p_ms = time_ms(torch, lambda: ssd_scan_ref(*args, chunk=q), 5)
     bound_ms, bound_by, nbytes, flops = ssd_bound(b, s, h, p, n, q, 2)
-    print(f"ssd_scan (b, s, h, p, n, Q) = {shape}, bf16 B/C: kernel {k_ms * 1e3!r} us, plain "
-          f"{p_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, "
-          f"{flops} flops); |kernel - plain| {err!r}; no single PyTorch call computes it: "
-          f"library_ms is null")
+    print(f"ssd_scan (b, s, h, p, n, Q) = {shape}, bf16 B/C, "
+          f"{heads_per_block(b, s, h, p, n, q, device)} heads per block: kernel "
+          f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, bound "
+          f"{bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, {flops} flops); device "
+          f"bound share {bound_ms / k_dev!r}; |kernel - plain| {err!r}; no single PyTorch "
+          f"call computes it: library_ms is null")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "device_ms": k_dev, "library_device_ms": None}
 
 
 def main_path(torch, device):
@@ -1299,7 +1342,7 @@ def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):
 # Device-function names of the port's kernels (csrc/), whose profiled time
 # profile_call prints whether or not they are among the top entries.
 PORT_KERNEL_NAMES = ("tree_select_kernel", "split_kernel", "flash_mma_kernel",
-                     "flash_attention_kernel", "ssd_scan_kernel")
+                     "flash_attention_kernel", "ssd_mma_kernel", "ssd_scan_kernel")
 
 
 def profile_call(torch, device, fn, what, top=10):
@@ -1664,10 +1707,12 @@ def main():
     # mamba2 at 2 layers over 4 x 160 and 4 x 384 (three chunks of 128);
     # the reduced models' 32 slots of 20 tokens (H=8, P=N=16, Q=4).
     mamba2_scan = (ASYNC_B * ASYNC_W, MAX_LEN, 80, 64, 128, MAX_LEN)
-    err = check_ssd(torch, device, [mamba2_scan, (WAVE_B * WAVE_W, MAX_LEN, 112, 64, 64, MAX_LEN),
+    zamba2_scan = (WAVE_B * WAVE_W, MAX_LEN, 112, 64, 64, MAX_LEN)
+    err = check_ssd(torch, device, [mamba2_scan, zamba2_scan,
                                     (4, MAX_LEN, 80, 64, 128, MAX_LEN), (4, 384, 80, 64, 128, 128),
                                     (8 * 4, REDUCED_MAX_LEN, 8, 16, 16, 4)])
     fields["ssd_scan"] = {"max_abs_err": err, **time_ssd(torch, device, mamba2_scan)}
+    time_ssd(torch, device, zamba2_scan)
 
     phase("4. main path")
     launches = {"tree_select": main_path(torch, device)["tree_select"]}
@@ -1728,6 +1773,7 @@ def main():
         "launches": launches[name],
         **fields[name],
         "bound_share": fields[name]["bound_ms"] / fields[name]["ms"],
+        "device_bound_share": fields[name]["bound_ms"] / fields[name]["device_ms"],
     } for name in KERNELS]
     phase("done")
     print(json.dumps({"kernels": kernels}))

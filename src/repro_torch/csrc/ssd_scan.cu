@@ -15,52 +15,106 @@
 // or bfloat16 (one per token, shared by all heads), y [B, S, H, P] float32.
 //
 // What bounds it: at the main path's shape (mamba2-2.7b, 128 rows x 160
-// tokens, H = 80, P = 64, N = 128, one chunk of Q = 160) the work is about
-// 1.8e10 float32 flops against 856 MB of xdt, y, dA, B and C: the two
-// bounds are close (~265 us and ~255 us on the H100).  This first kernel
-// does more than that work: it recomputes C . B^T for every head (B and C
-// are shared by all heads) and whole 32 x 32 tiles on the diagonal, on the
-// CUDA cores in float32 (67 TFLOP/s), with shared-memory operands.
+// tokens, H = 80, P = 64, N = 128, one chunk of Q = 160, bf16 B and C)
+// reading xdt and writing y in float32 moves 839 MB, 255 us at 3.35 TB/s.
+// C . B^T is the same for all 80 heads (4.2e8 flops), and the causal
+// products of the scores with xdt are 2.0e10 flops: on the tensor cores
+// that is far under the byte floor, on the CUDA cores (67 TFLOP/s float32)
+// it is not.
 //
-// Design: one block of 256 threads per (batch, head) walks its chunks in
-// order; the state stays in shared memory for the whole walk ([P][N + 4]
-// floats, 33 KB at P = 64, N = 128).  A chunk does not fit in shared memory
-// at Q = 256 (a float32 [Q, N] tile of B or C alone is 128 KB), so it is
-// streamed in 32-row tiles: cum is a warp scan of dA over the chunk; for
-// each row tile i, C_i is loaded once, and for each tile j <= i the block
-// loads B_j and xdt_j, forms the 32 x 32 scores (C_i . B_j^T) * exp(cum_i -
-// cum_j) under the causal mask in shared memory, and accumulates their
-// product with xdt_j in registers; then adds exp(cum_i) C_i . h^T and writes
-// y_i.  After the chunk the state is updated, except after the last chunk,
-// where nothing reads it (the Pallas scratch dies with the grid, and the
-// wrapper returns only y); with one chunk neither the state term nor the
-// update runs.  Warp w owns tile rows w, w + 8, w + 16, w + 24; lane l owns
-// score column l and output columns l + 32k.  Any 1 <= Q <= 256 that
-// divides S, P <= 128 and N <= 256 are accepted.  Accurate expf, no fast
-// math.  Sharing C . B^T across heads, tensor cores (mma / wgmma in TF32 or
-// bf16) and TMA are later work.
+// bf16 B and C: the tensor-core body (`ssd_mma_kernel`), for the part of
+// y inside each chunk.  One block of 8 warps per (batch, chunk, tile of 64
+// chunk rows, group of up to 16 heads); the group is sized from the shape
+// so that the grid fills the card (phase 13: 16 heads, 1920 blocks;
+// zamba2's 8 rows x 112 heads: 4 heads, 672 blocks), and the last group of
+// a row takes the heads that are left.  Heaviest row tile first.
+//
+// * C . B^T once per block, for all its heads: `mma.sync.m16n8k16` bf16
+//   in, float32 out (the bf16 products are exact, so only the order of
+//   summation differs from the float32 plain version), over the causal
+//   16 x 16 tiles only, into shared memory as float32 ([64][Q + 8]: 43 KB at
+//   Q = 160).  C rows and 32-row slabs of B come in by 16-byte `cp.async`;
+//   Q, N and P are padded to the tile edges with zeros.
+// * cum for every head of the group is scanned once (a warp scan, 32 entries
+//   at a time, as the CUDA-core body does it).
+// * Then the block's two halves of 4 warps (one per 16 rows) walk alternate
+//   heads independently, each with its own barrier, so only one head's y
+//   accumulators (16 rows x P per warp, in mma fragments) are live per
+//   warp.  xdt comes in 32 rows at a time through each half's two-stage
+//   ring of 16-byte `cp.async` loads, which runs on across its heads, and is
+//   split once per half into hi = bf16(x) and lo = bf16(x - hi).  Each warp
+//   forms the scores of a slab's 16-column steps up to its diagonal,
+//   C_i . B_j * expf(cum_i - cum_j) (accurate expf, per head and element:
+//   e^{cum_i} e^{-cum_j} would overflow, cum reaches -130 in a chunk), on the
+//   fragments, splits them the same way and accumulates hi.hi + hi.lo +
+//   lo.hi on the tensor cores in float32 (`ldmatrix.trans` gives the xdt
+//   fragments).  One bf16 rounding of either operand misses the float32 bar
+//   the kernel is held to (tests/test_torch_ssd_numerics.py); the split
+//   meets it.  Tiles above the diagonal are never formed.
+// * Shared memory at phase 13's shape: 43 KB of C . B^T, 10 KB of cum, 2 x
+//   26 KB of xdt rings and splits: two blocks (16 warps) per SM.
+// * No state buffer: the block sees one chunk.  With more than one chunk a
+//   second launch, the CUDA-core body below in its state-only form (one
+//   block per (batch, head), the state in shared memory), walks the chunks
+//   in order, adds exp(cum_i) C_i . h^T to y and carries h.
+//
+// float32 B and C: the CUDA-core body (`ssd_scan_kernel`), one block of 256
+// threads per (batch, head) walking its chunks with the [P][N + 4] state in
+// shared memory (allocated only with more than one chunk); each chunk is
+// streamed in 32-row tiles, C . B^T is recomputed per head and the products
+// are float32 FMA loops.  The tensor cores take float32 only as TF32, which
+// would need a three-way split of B and C as well.  Which body runs is fixed
+// by the dtype; neither falls back to the other.
+//
+// Any 1 <= Q <= 256 that divides S, P <= 128 and N <= 256 are accepted.
+// Accurate expf, no fast math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;                      // chunk rows per tile
-constexpr int kRowsPerWarp = kTile / kWarps;   // 4
 constexpr int kMaxChunk = 256;
 constexpr int kMaxP = 128;
 constexpr int kMaxN = 256;
-constexpr int kMaxPK = kMaxP / 32;             // output columns per lane
-constexpr int kMaxNK = kMaxN / 32;             // state columns per lane
-constexpr int kStateRows = 8;                  // state rows per warp per pass
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+// Inclusive scan of cum[0, len) in place by one warp, 32 entries at a
+// time; entries [len, round32(len)) get the running total.
+__device__ __forceinline__ void warp_scan(float* cum, int len, int lane) {
+  float carry = 0.0f;
+  for (int base = 0; base < len; base += 32) {
+    const int i = base + lane;
+    float v = i < len ? cum[i] : 0.0f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    v += carry;
+    cum[i] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core body: float32 B/C, and the state pass of bf16 B/C
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;                      // chunk rows per tile
+constexpr int kRowsPerWarp = kTile / kWarps;   // 4
+constexpr int kMaxPK = kMaxP / 32;             // output columns per lane
+constexpr int kMaxNK = kMaxN / 32;             // state columns per lane
+constexpr int kStateRows = 8;                  // state rows per warp per pass
 
 // Row stride (floats) of the B, C and state tiles: N rounded up to 4 (for
 // float4 reads), plus 4 so that the 8 lanes of a float4 phase hit distinct
@@ -69,13 +123,13 @@ __host__ __device__ __forceinline__ int row_stride(int N) {
   return ((N + 3) & ~3) + 4;
 }
 
-size_t smem_bytes(int P, int N, int Q) {
+size_t smem_bytes(int P, int N, int Q, int n_chunks) {
   const size_t ns = row_stride(N);
-  return sizeof(float) * (P * ns               // state h[p][n]
-                          + 2 * kTile * ns     // C_i and B_j rows
-                          + kTile * P          // xdt_j rows
-                          + kTile * kTile      // scores
-                          + Q);                // cum
+  return sizeof(float) * ((n_chunks > 1 ? P * ns : 0)  // state h[p][n]
+                          + 2 * kTile * ns              // C_i and B_j rows
+                          + kTile * P                   // xdt_j rows
+                          + kTile * kTile               // scores
+                          + ((Q + 31) & ~31));          // cum
 }
 
 // rows [t, t + rows) of a [., N] matrix into dst[kTile][ns] as float32,
@@ -115,25 +169,41 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <typename T>
+// One block of 256 threads per (batch, head), walking the chunks in order.
+// kIntra: the whole scan (float32 B/C).  !kIntra: the state pass that
+// follows the tensor-core body (which wrote the part of y inside each
+// chunk): y += exp(cum_i) C_i . h^T from the second chunk on, and the state.
+//
+// A chunk does not fit in shared memory at Q = 256 (a float32 [Q, N] tile
+// of B or C alone is 128 KB), so it is streamed in 32-row tiles: cum is a
+// warp scan of dA over the chunk; for each row tile i, C_i is loaded once,
+// and for each tile j <= i the block loads B_j and xdt_j, forms the 32 x 32
+// scores (C_i . B_j^T) * exp(cum_i - cum_j) under the causal mask in shared
+// memory, and accumulates their product with xdt_j in registers; then adds
+// exp(cum_i) C_i . h^T and writes y_i.  After the chunk the state is
+// updated, except after the last chunk, where nothing reads it (the Pallas
+// scratch dies with the grid, and the wrapper returns only y).  Warp w owns
+// tile rows w, w + 8, w + 16, w + 24; lane l owns score column l and output
+// columns l + 32k.
+template <typename T, bool kIntra>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
                 const T* __restrict__ Bm, const T* __restrict__ Cm,
                 float* __restrict__ y, int S, int H, int P, int N, int Q) {
   extern __shared__ __align__(16) float smem[];
   const int ns = row_stride(N);
-  float* hs = smem;                    // [P][ns]      carried state
-  float* cs = hs + P * ns;             // [kTile][ns]  C rows of tile i
-  float* bs = cs + kTile * ns;         // [kTile][ns]  B rows of tile j
-  float* xs = bs + kTile * ns;         // [kTile][P]   xdt rows of tile j
-  float* ss = xs + kTile * P;          // [kTile][kTile] scores of (i, j)
-  float* cum = ss + kTile * kTile;     // [Q]
+  const int n_chunks = S / Q;
+  float* hs = smem;                                  // [P][ns]  carried state
+  float* cs = hs + (n_chunks > 1 ? P * ns : 0);      // [kTile][ns]  C rows of tile i
+  float* bs = cs + kTile * ns;                       // [kTile][ns]  B rows of tile j
+  float* xs = bs + kTile * ns;                       // [kTile][P]   xdt rows of tile j
+  float* ss = xs + kTile * P;                        // [kTile][kTile] scores of (i, j)
+  float* cum = ss + kTile * kTile;                   // [round32(Q)]
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n_chunks = S / Q;
   const int n_tiles = (Q + kTile - 1) / kTile;
   const int n_vec = (N + 3) & ~3;
   const size_t x_stride = static_cast<size_t>(H) * P;     // between tokens
@@ -152,23 +222,10 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
     for (int i = threadIdx.x; i < Q; i += kThreads)
       cum[i] = ab[static_cast<size_t>(t0 + i) * H];
     __syncthreads();
-    if (warp == 0) {  // inclusive scan, 32 entries at a time
-      float carry = 0.0f;
-      for (int base = 0; base < Q; base += 32) {
-        const int i = base + lane;
-        float v = i < Q ? cum[i] : 0.0f;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const float u = __shfl_up_sync(0xffffffffu, v, o);
-          if (lane >= o) v += u;
-        }
-        v += carry;
-        if (i < Q) cum[i] = v;
-        carry = __shfl_sync(0xffffffffu, v, 31);
-      }
-    }
+    if (warp == 0) warp_scan(cum, Q, lane);
 
-    for (int it = 0; it < n_tiles; ++it) {
+    // The state pass has nothing to add to y in the first chunk.
+    for (int it = 0; it < ((kIntra || ci > 0) ? n_tiles : 0); ++it) {
       const int r0 = it * kTile;
       __syncthreads();  // cum is written; the last tile's readers are done
       load_rows(cs, cb, t0 + r0, min(kTile, Q - r0), N, ns);
@@ -179,7 +236,7 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
 #pragma unroll
         for (int pp = 0; pp < kMaxPK; ++pp) acc[k][pp] = 0.0f;
 
-      for (int jt = 0; jt <= it; ++jt) {
+      for (int jt = 0; jt <= (kIntra ? it : -1); ++jt) {
         const int c0 = jt * kTile;
         const int nc = min(kTile, Q - c0);
         if (jt > 0) __syncthreads();  // the last (i, j) is done with bs, xs, ss
@@ -229,6 +286,7 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
           }
         }
       }
+      if (!kIntra) __syncthreads();  // C_i is in
 
       // The state term C_i . h^T (the state is zero in the first chunk).
       float inter[kRowsPerWarp][kMaxPK];
@@ -263,7 +321,7 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
 #pragma unroll
         for (int pp = 0; pp < kMaxPK; ++pp) {
           const int p = lane + 32 * pp;
-          if (p < P) yrow[p] = acc[k][pp] + inter[k][pp] * e;
+          if (p < P) yrow[p] = (kIntra ? acc[k][pp] : yrow[p]) + inter[k][pp] * e;
         }
       }
     }
@@ -273,6 +331,7 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
     // h <- exp(total) h + sum_j (exp(total - cum_j) xdt_j)^T B_j, in passes
     // of kWarps * kStateRows state rows; lane l owns columns l + 32k.
     float* w_end = ss;  // the scores tile is free here: kTile weights
+    __syncthreads();    // cum is scanned
     const float total = cum[Q - 1];
     const float keep = expf(total);
     for (int p0 = 0; p0 < P; p0 += kWarps * kStateRows) {
@@ -324,45 +383,511 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
   }
 }
 
-template <typename T>
-int launch(const float* xdt, const float* dA, const void* Bm, const void* Cm,
-           float* y, int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
-  const size_t smem = smem_bytes(P, N, Q);
+template <typename T, bool kIntra>
+int launch_scan(const float* xdt, const float* dA, const void* Bm, const void* Cm,
+                float* y, int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
+  const size_t smem = smem_bytes(P, N, Q, S / Q);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_scan_kernel<T, kIntra>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  ssd_scan_kernel<T><<<B * H, kThreads, smem, stream>>>(
+  ssd_scan_kernel<T, kIntra><<<B * H, kThreads, smem, stream>>>(
       xdt, dA, static_cast<const T*>(Bm), static_cast<const T*>(Cm), y, S, H, P,
       N, Q);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core body: bf16 B/C, the part of y inside each chunk
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kRowWarps = 4;                       // warps across a tile's rows
+constexpr int kHalves = 2;                          // warp sets walking alternate heads
+constexpr int kMmaWarps = kRowWarps * kHalves;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kHalfThreads = 32 * kRowWarps;
+constexpr int kRows = 16 * kRowWarps;   // chunk rows per block
+constexpr int kSlab = 32;               // chunk columns per B slab / xdt stage
+constexpr int kMaxGroup = 16;           // heads per block
+
+__host__ __device__ __forceinline__ int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Shared-memory layout of the tensor-core body.  `ldc` = Q rounded to 16,
+// plus 8: the float2 fragment reads of 4 rows then hit distinct banks.
+struct MmaShape {
+  int np;      // N rounded up to 16
+  int ldc;     // row stride (floats) of the C . B^T tile
+  int cum_ld;  // row stride (floats) of each head's cum
+};
+
+__host__ __device__ __forceinline__ MmaShape mma_shape(int N, int Q) {
+  return {round_up(N, 16), round_up(Q, 16) + 8, round_up(Q, 32)};
+}
+
+// Bytes of one half's xdt ring (two float32 stages) and split (hi, lo).
+template <int PT>
+__host__ __device__ constexpr int half_bytes() {
+  return sizeof(float) * 2 * kSlab * (16 * PT + 4) + sizeof(bf16) * 2 * kSlab * (16 * PT + 8);
+}
+
+template <int PT>
+size_t mma_smem_bytes(int N, int Q, int group) {
+  const MmaShape sh = mma_shape(N, Q);
+  const size_t prologue = sizeof(bf16) * (kRows + kSlab) * (sh.np + 8);
+  const size_t heads = static_cast<size_t>(kHalves) * half_bytes<PT>();
+  return sizeof(float) * (static_cast<size_t>(kRows) * sh.ldc + group * sh.cum_ld) +
+         (prologue > heads ? prologue : heads);
+}
+
+// Barrier of one half's kHalfThreads threads: ids 1 and 2 (0 is
+// __syncthreads); constant ids, so that ptxas reserves three barriers.
+__device__ __forceinline__ void half_sync(int half) {
+  static_assert(kHalves <= 2, "one named barrier per half");
+  if (half == 0)
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kHalfThreads) : "memory");
+  else
+    asm volatile("bar.sync 2, %0;\n" ::"n"(kHalfThreads) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !full.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), packed as bf16x2 (x0 low).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// Two adjacent float32 outputs of one y row: a float2 store where P is even.
+__device__ __forceinline__ void store2(float* dst, float v0, float v1, int p, int P,
+                                       bool vec) {
+  if (vec && p + 1 < P) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+  } else {
+    if (p < P) dst[0] = v0;
+    if (p + 1 < P) dst[1] = v1;
+  }
+}
+
+// rows [r_begin, r_begin + rows) of a chunk's [Q, N] bf16 matrix `src` into
+// dst[rows][np + 8]; zero at rows >= valid and columns >= N.  16-byte
+// cp.async where N % 8 == 0 and the rows are 16-byte aligned (`vec`).
+__device__ __forceinline__ void load_bc(bf16* dst, const bf16* src, int r_begin, int rows,
+                                        int valid, int N, int np, bool vec) {
+  const int chunks = np / 8;
+  const int ld = np + 8;
+  for (int e = threadIdx.x; e < rows * chunks; e += kMmaThreads) {
+    const int r = e / chunks;
+    const int n = (e - r * chunks) * 8;
+    const int row = r_begin + r;
+    bf16* d = dst + r * ld + n;
+    if (vec) {
+      const bool in = row < valid && n < N;
+      cp_async16(smem_addr(d), in ? src + static_cast<size_t>(row) * N + n : src, in);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        d[k] = (row < valid && n + k < N) ? src[static_cast<size_t>(row) * N + n + k]
+                                          : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// One block of kMmaWarps warps per (batch, chunk, tile of kRows chunk rows,
+// group of `group` heads).  Warp w owns tile rows [16 r, 16 r + 16), r = w %
+// kRowWarps; the block's warps form C . B^T together, then its kHalves
+// halves walk alternate heads independently, each with its own xdt ring and
+// barrier.  Fragment coordinates (PTX m16n8k16): lane = 4 * g + c; a thread holds
+// rows g and g + 8 of every 16 x 8 accumulator, columns 2c and 2c + 1.
+template <int PT>
+__global__ void __launch_bounds__(kMmaThreads, PT <= 4 ? 2 : 1)
+ssd_mma_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
+               const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+               float* __restrict__ y, int S, int H, int P, int N, int Q, int group,
+               int vec_x, int vec_bc) {
+  constexpr int kPp = 16 * PT;   // P padded to the mma tiles
+  constexpr int kXs = kPp + 4;   // floats per staged xdt row
+  constexpr int kXb = kPp + 8;   // bf16 per hi / lo row: ldmatrix rows on distinct banks
+  const MmaShape sh = mma_shape(N, Q);
+  const int ld_bc = sh.np + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* cbs = reinterpret_cast<float*>(smem_raw);   // [kRows][ldc] C . B^T
+  float* cum = cbs + kRows * sh.ldc;                 // [group][cum_ld]
+  unsigned char* u = reinterpret_cast<unsigned char*>(cum + group * sh.cum_ld);
+  // Before the head loop: the C tile and one slab of B.
+  bf16* cs = reinterpret_cast<bf16*>(u);             // [kRows][ld_bc]
+  bf16* bs = cs + kRows * ld_bc;                     // [kSlab][ld_bc]
+
+  const int n_tiles = (Q + kRows - 1) / kRows;
+  const int n_groups = (H + group - 1) / group;
+  const int n_chunks = S / Q;
+  int idx = blockIdx.x;
+  const int tile = n_tiles - 1 - idx % n_tiles;      // heaviest first
+  idx /= n_tiles;
+  const int h0 = (idx % n_groups) * group;
+  idx /= n_groups;
+  const int chunk = idx % n_chunks;
+  const int b = idx / n_chunks;
+
+  const int r0 = tile * kRows;
+  const int gh = min(group, H - h0);                 // heads of this block
+  const int cols = min(Q, r0 + kRows);               // chunk columns it reads
+  const int n_slabs = (cols + kSlab - 1) / kSlab;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rw = warp % kRowWarps;                   // row warp
+  const int half = warp / kRowWarps;
+  const int htid = tid % kHalfThreads;               // thread within the half
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int i0 = r0 + 16 * rw;                       // the warp's first chunk row
+  const bool live = i0 < Q;
+  const size_t tok0 = static_cast<size_t>(b) * S + static_cast<size_t>(chunk) * Q;
+  const size_t x_tok = static_cast<size_t>(H) * P;   // floats between tokens
+
+  // C . B^T for rows [r0, r0 + kRows) and columns [0, cols): C once, B in
+  // slabs of kSlab rows; the halves share each slab's 16-column pairs, and
+  // each warp forms the 16 x 16 tiles up to its diagonal.
+  const bf16* c_src = Cm + tok0 * N;
+  const bf16* b_src = Bm + tok0 * N;
+  load_bc(cs, c_src, r0, kRows, Q, N, sh.np, vec_bc);
+  load_bc(bs, b_src, 0, kSlab, cols, N, sh.np, vec_bc);
+  cp_async_commit();
+  for (int e = tid; e < cols * gh; e += kMmaThreads) {
+    const int j = e / gh;
+    const int hh = e - j * gh;
+    cum[hh * sh.cum_ld + j] = dA[(tok0 + j) * H + h0 + hh];
+  }
+  __syncthreads();
+  for (int hh = warp; hh < gh; hh += kMmaWarps) warp_scan(cum + hh * sh.cum_ld, cols, lane);
+
+  for (int s = 0; s < n_slabs; ++s) {
+    if (s > 0) {
+      __syncthreads();  // every warp is done with the last slab
+      load_bc(bs, b_src, s * kSlab, kSlab, cols, N, sh.np, vec_bc);
+      cp_async_commit();
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (!live) continue;
+#pragma unroll
+    for (int pair = half; pair < kSlab / 16; pair += kHalves) {
+      const int j0 = s * kSlab + 16 * pair;
+      if (j0 > i0) break;  // above the warp's diagonal tile
+      float acc0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float acc1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int kd = 0; kd < sh.np / 16; ++kd) {
+        uint32_t a[4], bk[4];
+        ldsm_x4(a, smem_addr(cs + (16 * rw + (lane & 15)) * ld_bc + kd * 16 +
+                             (lane >> 4) * 8));
+        ldsm_x4(bk, smem_addr(bs + (16 * pair + (lane & 7) + (lane >> 4) * 8) * ld_bc +
+                              kd * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(acc0, a, bk[0], bk[1]);
+        mma_bf16(acc1, a, bk[2], bk[3]);
+      }
+      float* ra = cbs + (16 * rw + g) * sh.ldc + j0 + 2 * c;
+      float* rb = ra + 8 * sh.ldc;
+      *reinterpret_cast<float2*>(ra) = make_float2(acc0[0], acc0[1]);
+      *reinterpret_cast<float2*>(rb) = make_float2(acc0[2], acc0[3]);
+      *reinterpret_cast<float2*>(ra + 8) = make_float2(acc1[0], acc1[1]);
+      *reinterpret_cast<float2*>(rb + 8) = make_float2(acc1[2], acc1[3]);
+    }
+  }
+
+  // Each half walks heads half, half + kHalves, ... one after another:
+  // items (head, slab) in order through its two-stage ring of xdt slabs,
+  // which runs on across heads.
+  float* xs = reinterpret_cast<float*>(u + half * half_bytes<PT>());  // [2][kSlab][kXs]
+  bf16* xh = reinterpret_cast<bf16*>(xs + 2 * kSlab * kXs);          // [kSlab][kXb]
+  bf16* xl = xh + kSlab * kXb;                                        // [kSlab][kXb]
+  auto issue_x = [&](int item, int stage) {
+    const int hh = half + kHalves * (item / n_slabs);
+    const int s = item % n_slabs;
+    const float* src = xdt + tok0 * x_tok + static_cast<size_t>(h0 + hh) * P;
+    float* dst = xs + stage * kSlab * kXs;
+    constexpr int kChunks = kPp / 4;
+    for (int e = htid; e < kSlab * kChunks; e += kHalfThreads) {
+      const int r = e / kChunks;
+      const int p = (e - r * kChunks) * 4;
+      const int j = s * kSlab + r;
+      float* d = dst + r * kXs + p;
+      if (vec_x) {
+        const bool in = j < cols && p < P;
+        cp_async16(smem_addr(d), in ? src + j * x_tok + p : src, in);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          d[k] = (j < cols && p + k < P) ? src[j * x_tok + p + k] : 0.0f;
+      }
+    }
+  };
+
+  float acc[2 * PT][4];
+  float cum_a = 0.0f, cum_b = 0.0f;   // cum of this thread's rows i0 + g, i0 + g + 8
+  const int ia = i0 + g;
+  const int ib = ia + 8;
+  const bool vec_y = (P & 1) == 0;
+  const int items = (gh - half + kHalves - 1) / kHalves * n_slabs;
+  __syncthreads();  // C . B^T is complete; the C tile and B slab are spent
+  if (items > 0) issue_x(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < items; ++it) {
+    const int hh = half + kHalves * (it / n_slabs);
+    const int s = it % n_slabs;
+    cp_async_wait_all();
+    // Stage it & 1 is in; every warp of the half is done with the last split.
+    half_sync(half);
+    if (it + 1 < items) issue_x(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    {
+      const float* src = xs + (it & 1) * kSlab * kXs;
+      constexpr int kChunks = kPp / 4;
+      for (int e = htid; e < kSlab * kChunks; e += kHalfThreads) {
+        const int r = e / kChunks;
+        const int p = (e - r * kChunks) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(src + r * kXs + p);
+        uint32_t h01, l01, h23, l23;
+        split_bf16(v.x, v.y, h01, l01);
+        split_bf16(v.z, v.w, h23, l23);
+        *reinterpret_cast<uint2*>(xh + r * kXb + p) = make_uint2(h01, h23);
+        *reinterpret_cast<uint2*>(xl + r * kXb + p) = make_uint2(l01, l23);
+      }
+    }
+    half_sync(half);
+    if (!live) continue;
+    const float* ch = cum + hh * sh.cum_ld;
+    if (s == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 2 * PT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+      cum_a = ch[ia];
+      cum_b = ch[ib];
+    }
+    // The k16 steps of this slab up to the warp's diagonal tile: all their
+    // scores first (independent expf chains), then their products.
+    auto step = [&](auto steps) {
+      constexpr int kSteps = decltype(steps)::value;
+      uint32_t sh_[kSteps][4], sl_[kSteps][4];
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const int ja = s * kSlab + 16 * kk + 2 * c;
+        const int jb = ja + 8;
+        const float* ra = cbs + (ia - r0) * sh.ldc + ja;
+        const float* rb = ra + 8 * sh.ldc;
+        const float2 cb[4] = {*reinterpret_cast<const float2*>(ra),
+                              *reinterpret_cast<const float2*>(rb),
+                              *reinterpret_cast<const float2*>(ra + 8),
+                              *reinterpret_cast<const float2*>(rb + 8)};
+        const float2 cja = *reinterpret_cast<const float2*>(ch + ja);
+        const float2 cjb = *reinterpret_cast<const float2*>(ch + jb);
+        // A fragment order: (ia, ja), (ib, ja), (ia, jb), (ib, jb).
+        const int ri[4] = {ia, ib, ia, ib};
+        const int cj[4] = {ja, ja, jb, jb};
+        const float ci[4] = {cum_a, cum_b, cum_a, cum_b};
+        const float2 cumj[4] = {cja, cja, cjb, cjb};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool in = ri[q] < Q;
+          const float s0 = (in && cj[q] <= ri[q]) ? cb[q].x * expf(ci[q] - cumj[q].x) : 0.0f;
+          const float s1 =
+              (in && cj[q] + 1 <= ri[q]) ? cb[q].y * expf(ci[q] - cumj[q].y) : 0.0f;
+          split_bf16(s0, s1, sh_[kk][q], sl_[kk][q]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const int kr = 16 * kk;  // stage row of this k16 step
+#pragma unroll
+        for (int dp = 0; dp < PT; ++dp) {
+          uint32_t bh[4], bl[4];
+          const int off = (kr + (lane & 7) + ((lane >> 3) & 1) * 8) * kXb + dp * 16 +
+                          (lane >> 4) * 8;
+          ldsm_x4_trans(bh, smem_addr(xh + off));
+          ldsm_x4_trans(bl, smem_addr(xl + off));
+          mma_bf16(acc[2 * dp], sh_[kk], bh[0], bh[1]);
+          mma_bf16(acc[2 * dp + 1], sh_[kk], bh[2], bh[3]);
+          mma_bf16(acc[2 * dp], sh_[kk], bl[0], bl[1]);
+          mma_bf16(acc[2 * dp + 1], sh_[kk], bl[2], bl[3]);
+          mma_bf16(acc[2 * dp], sl_[kk], bh[0], bh[1]);
+          mma_bf16(acc[2 * dp + 1], sl_[kk], bh[2], bh[3]);
+        }
+      }
+    };
+    static_assert(kSlab == 32, "two k16 steps per slab");
+    if (s * kSlab + 16 <= i0)
+      step(std::integral_constant<int, 2>{});
+    else if (s * kSlab <= i0)
+      step(std::integral_constant<int, 1>{});
+    if (s == n_slabs - 1) {
+      float* yh = y + tok0 * x_tok + static_cast<size_t>(h0 + hh) * P;
+#pragma unroll
+      for (int nt = 0; nt < 2 * PT; ++nt) {
+        const int p = nt * 8 + 2 * c;
+        if (ia < Q) store2(yh + ia * x_tok + p, acc[nt][0], acc[nt][1], p, P, vec_y);
+        if (ib < Q) store2(yh + ib * x_tok + p, acc[nt][2], acc[nt][3], p, P, vec_y);
+      }
+    }
+  }
+}
+
+int sm_count(int device) {
+  static int counts[64] = {0};
+  if (device < 0 || device >= 64) return 132;
+  if (counts[device] == 0 &&
+      cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    counts[device] = 132;
+  return counts[device];
+}
+
+// Heads per block of the tensor-core body: the largest of 16, 8, 4, 2 that
+// still gives at least four blocks per SM, else 1.  More heads per block
+// share C . B^T more widely; more blocks fill the card.
+int heads_per_block(int B, int S, int H, int Q, int device) {
+  const long long tiles = static_cast<long long>(B) * (S / Q) * ((Q + kRows - 1) / kRows);
+  const long long target = 4LL * sm_count(device);
+  for (int group = kMaxGroup; group > 1; group >>= 1)
+    if (group <= H && tiles * ((H + group - 1) / group) >= target) return group;
+  return 1;
+}
+
+template <int PT>
+int launch_mma_pt(const float* xdt, const float* dA, const bf16* Bm, const bf16* Cm,
+                  float* y, int B, int S, int H, int P, int N, int Q, int group,
+                  cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<PT>(N, Q, group);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ssd_mma_kernel<PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // Two blocks of 106 KB per SM at the main path's shape need the
+    // largest shared-memory carveout.
+    err = cudaFuncSetAttribute(ssd_mma_kernel<PT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks = static_cast<long long>(B) * (S / Q) *
+                           ((H + group - 1) / group) * ((Q + kRows - 1) / kRows);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_x = P % 4 == 0 && reinterpret_cast<uintptr_t>(xdt) % 16 == 0;
+  const int vec_bc = N % 8 == 0 && reinterpret_cast<uintptr_t>(Bm) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(Cm) % 16 == 0;
+  ssd_mma_kernel<PT><<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(
+      xdt, dA, Bm, Cm, y, S, H, P, N, Q, group, vec_x, vec_bc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16(const float* xdt, const float* dA, const void* Bm, const void* Cm,
+                float* y, int B, int S, int H, int P, int N, int Q, int device,
+                cudaStream_t stream) {
+  const int group = heads_per_block(B, S, H, Q, device);
+  const bf16* b = static_cast<const bf16*>(Bm);
+  const bf16* c = static_cast<const bf16*>(Cm);
+  int err;
+  if (P <= 16)
+    err = launch_mma_pt<1>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
+  else if (P <= 32)
+    err = launch_mma_pt<2>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
+  else if (P <= 64)
+    err = launch_mma_pt<4>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
+  else
+    err = launch_mma_pt<8>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
+  if (err != 0 || S == Q) return err;
+  // More than one chunk: the state pass adds exp(cum_i) C_i . h^T.
+  return launch_scan<bf16, false>(xdt, dA, Bm, Cm, y, B, S, H, P, N, Q, stream);
+}
+
+bool bad_shape(int B, int S, int H, int P, int N, int Q) {
+  return B <= 0 || S <= 0 || H <= 0 || Q < 1 || Q > kMaxChunk || S % Q != 0 || P < 1 ||
+         P > kMaxP || N < 1 || N > kMaxN || static_cast<int64_t>(B) * H > 0x7fffffff;
 }
 
 }  // namespace
 
 // xdt and y [B, S, H, P] float32, dA [B, S, H] float32, Bm and Cm [B, S, N]
 // (dtype 0: float32, 1: bfloat16), all contiguous; 1 <= Q <= 256 divides S,
-// P <= 128, N <= 256.  Launches on `stream` (PyTorch's current stream).
-// Returns the cudaError_t of the launch; 0 means it was queued.
+// P <= 128, N <= 256.  Launches on `stream` (PyTorch's current stream):
+// float32 B/C the CUDA-core body; bf16 the tensor-core body, then, with
+// more than one chunk, the state pass.  Returns the cudaError_t of the
+// launches; 0 means they were queued.
 extern "C" int ssd_scan_launch(const float* xdt, const float* dA, const void* Bm,
                                const void* Cm, float* y, int B, int S, int H,
                                int P, int N, int Q, int dtype, int device,
                                void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Q < 1 || Q > kMaxChunk || S % Q != 0 ||
-      P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
-      static_cast<int64_t>(B) * H > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, S, H, P, N, Q)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(xdt, dA, Bm, Cm, y, B, S, H, P, N, Q, s);
+      return launch_scan<float, true>(xdt, dA, Bm, Cm, y, B, S, H, P, N, Q, s);
     case 1:
-      return launch<__nv_bfloat16>(xdt, dA, Bm, Cm, y, B, S, H, P, N, Q, s);
+      return launch_bf16(xdt, dA, Bm, Cm, y, B, S, H, P, N, Q, device, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Heads per block that ssd_scan_launch gives the tensor-core body (bf16
+// B/C) at this shape on `device`; -1 for a shape it refuses.
+extern "C" int ssd_scan_heads_per_block(int B, int S, int H, int P, int N, int Q,
+                                        int device) {
+  if (bad_shape(B, S, H, P, N, Q)) return -1;
+  return heads_per_block(B, S, H, Q, device);
 }

@@ -1,9 +1,11 @@
 """Wrapper of the SSD scan kernel (``csrc/ssd_scan.cu``).
 
 CPU tensors go to the plain version (:mod:`.ref`).  CUDA tensors go to the
-hand-written kernel, or the call raises: there is no fallback.  The kernel
-launches on PyTorch's current stream, and each launch adds one to
-``repro_torch.kernels.LAUNCHES["ssd_scan"]``.
+hand-written kernel, or the call raises: there is no fallback.  The type of
+B and C picks the body: bfloat16 the tensor-core body (followed, with more
+than one chunk, by its state pass), float32 the CUDA-core body.  The kernel
+launches on PyTorch's current stream, and each call that launches it adds
+one to ``repro_torch.kernels.LAUNCHES["ssd_scan"]``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # What the kernel's shared memory and register tiles hold (csrc/ssd_scan.cu).
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 128, 256
 _C_FUNCTION = None
+_C_GROUP = None
 
 
 def _launcher():
@@ -30,6 +33,25 @@ def _launcher():
         fn.restype = ctypes.c_int
         _C_FUNCTION = fn
     return _C_FUNCTION
+
+
+def heads_per_block(b: int, s: int, h: int, p: int, n: int, chunk: int,
+                    device: torch.device) -> int:
+    """Heads that one block of the tensor-core body (bfloat16 B/C) takes at
+    this shape on the CUDA ``device``: the kernel sizes the group from the
+    shape and the card's SM count."""
+    global _C_GROUP
+    if _C_GROUP is None:
+        fn = _build.load("ssd_scan").ssd_scan_heads_per_block
+        fn.argtypes = [ctypes.c_int] * 7
+        fn.restype = ctypes.c_int
+        _C_GROUP = fn
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    group = _C_GROUP(b, s, h, p, n, check_chunk(s, chunk), index)
+    if group < 1:
+        raise ValueError(f"ssd_scan: the kernel refuses (b, s, h, p, n, chunk) = "
+                         f"{(b, s, h, p, n, chunk)}")
+    return group
 
 
 def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,

@@ -1,22 +1,25 @@
-"""Time variants of the flash- and decode-attention kernels on one GPU.
+"""Time variants of the flash- and decode-attention kernels and of the SSD
+scan on one GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.attention_sweep
+    PYTHONPATH=src python -m repro_torch.launch.attention_sweep [--only flash,decode,ssd]
 
-Each variant is the shipped source of ``csrc/flash_attention.cu`` or
-``csrc/decode_split.cuh`` with one text substitution (an ablation that
-drops a part of the work, or another block shape), built by ``nvcc`` with
-the kernel's own flags into ``build/repro_torch/sweep/`` and called
-through its C entry point.  At the main paths' shapes (phase 8's and
-phase 14's flash forwards, phase 7's decode step; bf16) it prints, per
+Each variant is the shipped source of ``csrc/flash_attention.cu``,
+``csrc/decode_split.cuh`` or ``csrc/ssd_scan.cu`` with one text
+substitution (an ablation that drops a part of the work, or another block
+shape), built by ``nvcc`` with the kernel's own flags into
+``build/repro_torch/sweep/`` and called through its C entry point.  At
+the main paths' shapes (phase 8's and phase 14's flash forwards, phase 7's
+decode step, phase 13's and phase 14's scans; bf16) it prints, per
 variant, the device time of one call, from CUDA-graph replay of 50
-back-to-back calls, and the largest difference from the plain version
-(an ablation is not meant to be right).  The shipped wrappers and SDPA
-are timed the same way beside them.  The card's name and power limit are
-printed first.
+back-to-back calls (10 for the scan), and the largest difference from
+the plain version (an ablation is not meant to be right).  The shipped
+wrappers and SDPA are timed the same way beside them.  The card's name and
+power limit are printed first.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import math
 import shutil
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from ..kernels import _build
 from ..kernels.decode_attention import decode_attention, decode_attention_ref
 from ..kernels.flash_attention import flash_attention, flash_attention_ref
+from ..kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
 SWEEP_DIR = _build.BUILD_DIR / "sweep"
 
@@ -65,6 +69,23 @@ _SHUFFLE_PER_SUM = """        for (int o = lp >> 1; o > 0; o >>= 1)
       }
     }
 """
+_SSD_LO = """          mma_bf16(acc[2 * dp], sh_[kk], bl[0], bl[1]);
+          mma_bf16(acc[2 * dp + 1], sh_[kk], bl[2], bl[3]);
+          mma_bf16(acc[2 * dp], sl_[kk], bh[0], bh[1]);
+          mma_bf16(acc[2 * dp + 1], sl_[kk], bh[2], bh[3]);
+"""
+# The scan's outputs stay live (else the compiler drops the products).
+_SSD_STORE = """        if (ia < Q) store2(yh + ia * x_tok + p, acc[nt][0], acc[nt][1], p, P, vec_y);
+        if (ib < Q) store2(yh + ib * x_tok + p, acc[nt][2], acc[nt][3], p, P, vec_y);
+"""
+_SSD_NO_STORE = """        if (acc[nt][0] == 1234.5f) yh[p] = acc[nt][1] + acc[nt][2] + acc[nt][3];
+"""
+_SSD_SPLIT = """        *reinterpret_cast<uint2*>(xh + r * kXb + p) = make_uint2(h01, h23);
+        *reinterpret_cast<uint2*>(xl + r * kXb + p) = make_uint2(l01, l23);
+"""
+_SSD_REFILL = """    if (it + 1 < items) issue_x(it + 1, (it + 1) & 1);
+"""
+_SSD_EXP = [("expf(ci[q] - cumj[q].x)", "1.0f"), ("expf(ci[q] - cumj[q].y)", "1.0f")]
 
 # name -> (library, edited file, [(old, new), ...])
 VARIANTS = {
@@ -88,12 +109,29 @@ VARIANTS = {
                         [("constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")]),
     "decode shuffle loop per sum": ("decode_attention", "decode_split.cuh",
                                     [(_SHUFFLE, _SHUFFLE_PER_SUM)]),
+    "ssd shipped": ("ssd_scan", "ssd_scan.cu", []),
+    "ssd without expf": ("ssd_scan", "ssd_scan.cu", _SSD_EXP),
+    "ssd hi.hi only (no lo mma)": ("ssd_scan", "ssd_scan.cu", [(_SSD_LO, "")]),
+    "ssd without y stores": ("ssd_scan", "ssd_scan.cu", [(_SSD_STORE, _SSD_NO_STORE)]),
+    "ssd without xdt split": ("ssd_scan", "ssd_scan.cu", [(_SSD_SPLIT, "")]),
+    "ssd without xdt refills": ("ssd_scan", "ssd_scan.cu", [(_SSD_REFILL, "")]),
+    "ssd heads per block up to 8": ("ssd_scan", "ssd_scan.cu",
+                                    [("kMaxGroup = 16;", "kMaxGroup = 8;")]),
+    "ssd 80-row tiles, up to 8 heads": ("ssd_scan", "ssd_scan.cu",
+                                        [("kRowWarps = 4;", "kRowWarps = 5;"),
+                                         ("kMaxGroup = 16;", "kMaxGroup = 8;")]),
+    "ssd one set of 4 warps (no halves)": ("ssd_scan", "ssd_scan.cu",
+                                           [("kHalves = 2;", "kHalves = 1;")]),
+    "ssd 2 row warps (32-row tiles)": ("ssd_scan", "ssd_scan.cu",
+                                       [("kRowWarps = 4;", "kRowWarps = 2;")]),
 }
 
 
-def _build_variants():
+def _build_variants(kinds):
     procs = {}
     for name, (library, edited, subs) in VARIANTS.items():
+        if name.split()[0] not in kinds:
+            continue
         where = SWEEP_DIR / name.replace(" ", "_").replace("/", "").replace(".", "")
         shutil.rmtree(where, ignore_errors=True)
         shutil.copytree(_build.CSRC, where)
@@ -207,7 +245,36 @@ def _decode(libs, device, n=128, s=160, hq=32, hkv=8, d=128):
         _report(name, graph_ms(call), out, ref)
 
 
-def main() -> None:
+def _ssd(libs, device, b, h, p, n, s=160):
+    """Phase 13's (b=128, h=80, n=128) or phase 14's (b=8, h=112, n=64)
+    scan: one chunk of 160 tokens, P=64, bf16 B/C."""
+    gen = torch.Generator(device=device).manual_seed(42)
+    xdt = torch.randn((b, s, h, p), generator=gen, device=device) * 0.3
+    dA = -F.softplus(torch.randn((b, s, h), generator=gen, device=device))
+    bm, cm = ((torch.randn((b, s, n), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+              for _ in range(2))
+    ref = ssd_scan_ref(xdt, dA, bm, cm, chunk=s)
+    print(f"-- ssd_scan bf16 B/C (b, s, h, p, n, Q) = {(b, s, h, p, n, s)}")
+    _report("wrapper", graph_ms(lambda: ssd_scan(xdt, dA, bm, cm, chunk=s), calls=10),
+            ssd_scan(xdt, dA, bm, cm, chunk=s), ref)
+    out = torch.empty_like(xdt)
+    for name, lib in libs.items():
+        if not name.startswith("ssd"):
+            continue
+        fn = lib.ssd_scan_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        call = lambda: _ok(fn(xdt.data_ptr(), dA.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                              out.data_ptr(), b, s, h, p, n, s, 1, device.index,
+                              torch.cuda.current_stream().cuda_stream))
+        _report(name, graph_ms(call, calls=10), out, ref)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default="flash,decode,ssd",
+                        help="comma-separated kernels to sweep: flash, decode, ssd")
+    kinds = set(parser.parse_args(argv).only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("attention_sweep needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -215,11 +282,16 @@ def main() -> None:
                           check=True).stdout.strip()
     print(f"card: {card}")
     device = torch.device("cuda", 0)
-    libs = _build_variants()
+    libs = _build_variants(kinds)
     for _ in range(2):          # two rounds: the spread between them is the noise
-        _flash(libs, device, 32, 8, 128)
-        _flash(libs, device, 32, 32, 112)
-        _decode(libs, device)
+        if "flash" in kinds:
+            _flash(libs, device, 32, 8, 128)
+            _flash(libs, device, 32, 32, 112)
+        if "decode" in kinds:
+            _decode(libs, device)
+        if "ssd" in kinds:
+            _ssd(libs, device, 128, 80, 64, 128)
+            _ssd(libs, device, 8, 112, 64, 64)
 
 
 if __name__ == "__main__":

@@ -368,8 +368,21 @@ def test_recurrent_families_refuse_the_decode_cache(arch):
 # ---------------------------------------------------------------------------
 
 # float32 on both sides from the same inputs; the kernel sums in another
-# order (tile by tile, a warp scan for cum) than the plain version's einsums.
+# order (tile by tile, a warp scan for cum) than the plain version's einsums,
+# and with bf16 B/C it also carries the split products' ~2^-17 relative error
+# (tests/test_torch_ssd_numerics.py models it: at most ~3.5e-5).
 CUDA_TOL = dict(rtol=1e-4, atol=1e-4)
+# SSD_SHAPES and several chunks of 256; Q on both sides of the tensor-core
+# body's 16-row tiles and 64-row blocks (1, 15, 16, 17, 63, 64, 65, 160,
+# 256) with N in (8, 64, 128, 256) and P in (16, 64, 128), one and several
+# chunks; odd P and N (element-wise loads and stores); and two shapes whose
+# heads the block's group does not divide on an H100 (REMAINDER_SHAPES).
+REMAINDER_SHAPES = [(128, 160, 13, 64, 128, 160), (96, 256, 7, 16, 64, 128)]
+CUDA_SHAPES = SSD_SHAPES + [
+    (1, 512, 4, 64, 128, 256), (2, 8, 3, 16, 8, 1), (1, 45, 5, 64, 64, 15),
+    (2, 32, 3, 128, 256, 16), (1, 34, 9, 16, 128, 17), (1, 126, 3, 64, 8, 63),
+    (2, 128, 2, 128, 64, 64), (1, 130, 11, 64, 128, 65), (1, 320, 3, 16, 256, 160),
+    (1, 256, 5, 128, 256, 256), (2, 33, 3, 18, 12, 11)] + REMAINDER_SHAPES
 
 
 @pytest.mark.cuda
@@ -378,8 +391,9 @@ def test_cuda_ssd_scan_kernel_matches_plain_version(bc_dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ssd_scan.ops import heads_per_block
 
-    for b, s, h, p, n, chunk in SSD_SHAPES + [(1, 512, 4, 64, 128, 256)]:
+    for b, s, h, p, n, chunk in CUDA_SHAPES:
         xdt, dA, bm, cm = (x.cuda() for x in _t(*_ssd_inputs(s, b, s, h, p, n)))
         bm, cm = bm.to(bc_dtype), cm.to(bc_dtype)
         before = LAUNCHES["ssd_scan"]
@@ -388,7 +402,12 @@ def test_cuda_ssd_scan_kernel_matches_plain_version(bc_dtype):
         assert LAUNCHES["ssd_scan"] == before + 1
         torch.testing.assert_close(out, ssd_scan_ref(xdt, dA, bm, cm, chunk=chunk),
                                    **CUDA_TOL)
+        torch.testing.assert_close(out, ssm.ssd_sequential_ref(xdt, dA, bm, cm)[0], **SEQ_TOL)
+    for b, s, h, p, n, chunk in REMAINDER_SHAPES:
+        assert h % heads_per_block(b, s, h, p, n, chunk, xdt.device) != 0
     with pytest.raises(ValueError, match="does not divide"):
         ssd_scan(xdt[:, :20], dA[:, :20], bm[:, :20], cm[:, :20], chunk=8)
     with pytest.raises(TypeError, match="float32"):
         ssd_scan(xdt.double(), dA, bm, cm, chunk=chunk)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_scan(xdt, dA, bm.half(), cm.half(), chunk=chunk)

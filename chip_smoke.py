@@ -11,12 +11,15 @@ Phases (any failure raises, so the script exits non-zero):
    libraries: ``tree_decode_attention`` holds the dense and the paged tree
    kernel), and summarise ptxas's registers, spills and static shared
    memory of ``flash_attention`` (bf16 on the tensor cores, float32 on the
-   CUDA cores), ``decode_attention`` (the key-split body) and ``ssd_scan``
-   (bf16 B/C on the tensor cores, float32 and the state pass on the CUDA
-   cores);
+   CUDA cores), ``decode_attention`` (the key-split body),
+   ``tree_decode_attention`` (the body over a shared-memory copy of the
+   prefix) and ``ssd_scan`` (bf16 B/C on the tensor cores, float32 and the
+   state pass on the CUDA cores);
 3. hold each kernel against its plain PyTorch version on the card (the
    attention kernels in float32 and bfloat16 over a grid of shapes and the
-   shapes phases 7-14 drive, ``flash_attention`` also at zamba2's D=112;
+   shapes phases 7-14 drive, ``flash_attention`` also at zamba2's D=112,
+   the tree kernels also with prefixes longer than their shared-memory
+   copy and A=32;
    ``ssd_scan`` with float32 and bfloat16 B/C over a grid, the driven
    shapes, and against the sequential recurrence too), and time kernel,
    plain version and one PyTorch library call at the main paths' shapes
@@ -45,8 +48,10 @@ Phases (any failure raises, so the script exits non-zero):
 11. the dense frontier path: phase 7's searches with
     ``FrontierModelEvaluator``; every frontier forward goes through
     ``tree_decode_attention``, every plain step through
-    ``decode_attention``; then the same path with the parameters cut to
-    one layer, held to the cached search;
+    ``decode_attention``; ``tree_decode_attention`` must equal
+    ``decode_attention`` with each candidate's entry appended, bit for bit;
+    then the same path with the parameters cut to one layer, held to the
+    cached search;
 12. the paged frontier path: ``PagedFrontierModelEvaluator``; every
     frontier forward goes through ``paged_tree_decode_attention``; then a
     warm second call under torch.profiler;
@@ -189,8 +194,8 @@ def select_inputs(torch, rs, b, a, device):
 
 # Libraries whose kernels' ptxas resources are summarised after the build:
 # those redesigned for the H100 (bf16 flash and the bf16 SSD scan on the
-# tensor cores, the key-split decode).
-PTXAS_SUMMARY = ("flash_attention", "decode_attention", "ssd_scan")
+# tensor cores, the key-split decode, the tree kernels over a staged prefix).
+PTXAS_SUMMARY = ("flash_attention", "decode_attention", "tree_decode_attention", "ssd_scan")
 
 
 def ptxas_summary(log):
@@ -574,9 +579,11 @@ def check_paged_decode(torch, device, lm_shapes):
 
 def check_tree(torch, device, dense_shapes, paged_shapes):
     """tree_decode_attention (dense prefix) and paged_tree_decode_attention
-    vs their plain versions: A in (1, 4, 8, 16), the identity and a
-    lower-triangular tree mask, float32 and bfloat16, plus the driven
-    shapes.  Returns the max errors of both."""
+    vs their plain versions: A in (1, 4, 8, 16, 32), the identity and a
+    lower-triangular tree mask, float32 and bfloat16, prefixes of 512 and
+    1024 keys (past the kernels' shared-memory copy of 178 bf16 or 84
+    float32 keys at D=128, G=4, A=8: keys from shared and from device
+    memory), plus the driven shapes.  Returns the max errors of both."""
     from repro_torch.kernels.decode_attention import (
         paged_tree_decode_attention,
         paged_tree_decode_attention_ref,
@@ -587,7 +594,8 @@ def check_tree(torch, device, dense_shapes, paged_shapes):
     gen = torch.Generator(device=device).manual_seed(22)
     grid = [(n, a, bs, npg, hq, hkv, d) for n in (1, 128) for a in (1, 4, 8)
             for bs, npg in ((1, 37), (3, 11), (16, 10)) for hq, hkv in ((32, 8), (4, 1))
-            for d in (64, 128)] + [(7, 16, 4, 9, 8, 2, 64)]
+            for d in (64, 128)] + [(7, 16, 4, 9, 8, 2, 64), (5, 32, 4, 6, 8, 2, 64),
+                                   (4, 8, 16, 32, 32, 8, 128), (4, 8, 16, 64, 32, 8, 128)]
     dense_grid = [(n, a, s, hq, hkv, d) for n, a, bs, npg, hq, hkv, d in grid
                   for s in (bs * npg, 1)] + dense_shapes
     err = {name: {"float32": 0.0, "bfloat16": 0.0}
@@ -623,9 +631,10 @@ def check_tree(torch, device, dense_shapes, paged_shapes):
                 e = err["tree_decode_attention"]
                 e[name] = max(e[name], attention_err(torch, out, ref, name, what))
     print(f"tree_decode_attention and paged_tree_decode_attention match their plain "
-          f"versions: A in (1, 4, 8, 16), identity and lower-triangular masks, float32 and "
-          f"bfloat16, N in (1, 128), bs in (1, 3, 16), dense S in (1, bs * pages), Hq/Hkv "
-          f"in (32/8, 4/1, 8/2), D in (64, 128), lengths covering 0, plus the driven shapes "
+          f"versions: A in (1, 4, 8, 16, 32), identity and lower-triangular masks, float32 "
+          f"and bfloat16, N in (1, 128), bs in (1, 3, 16), dense S in (1, bs * pages), "
+          f"prefixes up to 512 and 1024 keys, Hq/Hkv in (32/8, 4/1, 8/2), D in (64, 128), "
+          f"lengths covering 0, plus the driven shapes "
           f"{dense_shapes} (dense) and {paged_shapes} (paged); max |kernel - plain| = {err}")
     for name, by_type in err.items():
         check_f32(by_type, name)
@@ -1257,8 +1266,13 @@ def frontier_path(torch, device, cfg, params, base):
           f"{same}/8 trees (not held: bf16 numerics)")
     num = frontier_numerics(torch, device, cfg, params)
     print(f"frontier numerics, bf16: tree_decode_attention vs decode_attention with the "
-          f"candidate's key appended, share of elements differing {num['attn']!r}; down "
-          f"projection over 1024 rows vs 128 at a time, share differing {num['gemm']!r}")
+          f"candidate's key appended, share of elements differing {num['attn']!r} (held "
+          f"at 0.0); down projection over 1024 rows vs 128 at a time, share differing "
+          f"{num['gemm']!r}")
+    if num["attn"] != 0.0:
+        raise AssertionError(f"tree_decode_attention differs from decode_attention with "
+                             f"the candidate's key appended on {num['attn']!r} of elements: "
+                             f"the four decode kernels must round alike")
     print(numerics_line(num, cfg))
     frontier_one_layer(torch, device, cfg, params)
     return launches, {"action": run["res"].action.cpu()}
@@ -1341,8 +1355,9 @@ def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):
 
 # Device-function names of the port's kernels (csrc/), whose profiled time
 # profile_call prints whether or not they are among the top entries.
-PORT_KERNEL_NAMES = ("tree_select_kernel", "split_kernel", "flash_mma_kernel",
-                     "flash_attention_kernel", "ssd_mma_kernel", "ssd_scan_kernel")
+PORT_KERNEL_NAMES = ("tree_select_kernel", "split_kernel", "tree_kernel",
+                     "flash_mma_kernel", "flash_attention_kernel", "ssd_mma_kernel",
+                     "ssd_scan_kernel")
 
 
 def profile_call(torch, device, fn, what, top=10):

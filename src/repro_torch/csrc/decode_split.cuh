@@ -2,28 +2,33 @@
 // for Hopper (sm_90a): the body of all four decode-attention kernels.
 // decode_attention.cu and paged_decode_attention.cu run it for one query
 // token per row over a dense cache (DenseRows) or a block pool
-// (PagedRows); tree_decode_attention.cu adds A speculative tail entries
-// per row (Tail).  Written over the `Rows` policies of decode_tiles.cuh,
-// the kernels compute the same arithmetic and differ only in addresses.
+// (PagedRows); tree_decode_attention.cu runs it once per candidate, with A
+// speculative tail entries per row (Tail), over a copy of the row's prefix
+// in shared memory (Staged).  Written over the `Rows` policies of
+// decode_tiles.cuh, the kernels compute the same arithmetic and differ
+// only in where a key's bytes come from.
 //
-// One block serves one (row b, KV head h, candidate a) and up to GT of its
-// G query heads (blockIdx.y picks which GT; at G <= 8 one block holds them
-// all, so each K/V entry is read once per row and candidate).  Its warps
-// take the row's first kv_len[b] keys in interleaved groups.  Within a
-// warp, L = D * sizeof(T) / 16 lanes cover one key, each lane one 16-byte
-// chunk of it (two at float32 D > 128), so 32 / L' keys (L' = L rounded up
-// to a power of two) are in flight per warp step; each lane holds its
-// chunk of the GT queries as float32 registers.  Per step a lane issues
-// one 16-byte load of K and one of V per key, kUnroll steps ahead of their
-// use; the dot partials are summed over the key's lanes with log2 L'
-// shuffles, all kUnroll * GT sums of a level at once (a loop per sum
-// would chain the shuffles' latencies).  Each lane group keeps its own
-// online-softmax state (running max m, sum l, float32 acc of its chunk)
-// for the GT queries, in log2 units (exp2f, accurate to 2 ulp), one
-// update per kUnroll keys; the groups of a warp merge by shuffles, the
-// warps in shared memory (each rescaled by 2^(m_w - m)), and the output
-// is acc / max(l, 1e-20): a row with kv_len = 0 reads nothing and gives
-// zeros.  Nothing past kv_len is read.
+// split_body serves one (row b, KV head h, candidate a) and up to GT of
+// its G query heads with one group of kWarps warps.  The decode kernels
+// run one group per block: one block per (row, KV head) and query group
+// (blockIdx.y picks which GT; at G <= 8 one block holds them all, so each
+// K/V entry is read once per row); the tree kernel runs several groups
+// per block over a row's candidates (see tree_decode_attention.cu).  The
+// group's warps take the candidate's keys in interleaved groups.  Within
+// a warp, L = D * sizeof(T) / 16 lanes cover one key, each lane one
+// 16-byte chunk of it (two at float32 D > 128), so 32 / L' keys (L' = L
+// rounded up to a power of two) are in flight per warp step; each lane
+// holds its chunk of the GT queries as float32 registers.  Per step a
+// lane issues one 16-byte load of K and one of V per key, kUnroll steps
+// ahead of their use; the dot partials are summed over the key's lanes
+// with log2 L' shuffles, all kUnroll * GT sums of a level at once (a loop
+// per sum would chain the shuffles' latencies).  Each lane group keeps
+// its own online-softmax state (running max m, sum l, float32 acc of its
+// chunk) for the GT queries, in log2 units (exp2f, accurate to 2 ulp),
+// one update per kUnroll keys; the groups of a warp merge by shuffles,
+// the warps in shared memory (each rescaled by 2^(m_w - m)), and the
+// output is acc / max(l, 1e-20): a row with kv_len = 0 reads nothing and
+// gives zeros.  Nothing past kv_len is read.
 
 #pragma once
 
@@ -77,8 +82,8 @@ __device__ __forceinline__ uint4 narrow(const float (&f)[8]) {
 
 // The speculative tail of a tree-decode step: A candidates per row, q and
 // out [B, A, Hq, D], entries k/v [B, A, Hkv, D], candidate a seeing entry
-// j where mask[a, j] != 0 (A <= 32).  A plain decode step has A = 1 and no
-// entries.
+// j where mask[a, j] != 0 (A <= 32; a null mask: the identity).  A plain
+// decode step has A = 1 and no entries.
 template <typename T>
 struct Tail {
   const T* k;
@@ -87,60 +92,246 @@ struct Tail {
   int A;
 };
 
-// Dynamic shared memory of one block: each warp's acc [GT][D], m and l.
+// Keys a tree kernel has copied into shared memory, K rows at shared
+// address k and V rows at v ([rows][D] each): the row's first n prefix
+// keys (rows 0 .. n - 1), the A tail entries (rows tail .. tail + A - 1)
+// and a row of zeros (row zero).  The prefix lands in `chunks` chunks of
+// `chunk` keys, the tail with the first; chunk c has landed once phase 0
+// of the mbarrier at bars + 8 c has completed.  The decode kernels stage
+// nothing.
+struct Staged {
+  uint32_t k, v, bars;
+  int n, chunk, chunks, tail, zero;
+};
+
+__device__ __forceinline__ uint4 load16_shared(uint32_t addr) {
+  uint4 x;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
+               : "r"(addr));
+  return x;
+}
+
+// 2^x for x >= -126 (a normal result): the MUFU.EX2 that exp2f runs on
+// such x, without exp2f's scaling of smaller x.
+__device__ __forceinline__ float ex2_normal(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Wait until phase 0 of the mbarrier at shared address `bar` completes.
+__device__ __forceinline__ void wait_landed(uint32_t bar) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+}
+
+// Where a step's K and V chunks come from: fetch(u, i, is_v) is chunk i
+// (of NC) of the key of warp step u, K or V.  Prefetched: loaded before
+// the step (the decode kernels, from device memory).
+template <int U, int NC>
+struct Prefetched {
+  uint4 k[U][NC], v[U][NC];
+  __device__ __forceinline__ uint4 operator()(int u, int i, bool is_v) const {
+    return is_v ? v[u][i] : k[u][i];
+  }
+};
+
+// Staged rows ([row][D] for K and for V), read from shared memory at use:
+// row_at[u] is the address of step u's key's K row, its V row v_off
+// further, chunk[i] the lane's chunk i in the row.  A lane past the key's
+// L chunks reads chunk 0 instead: its q is zero, so its partial score is
+// +0, as from a zero chunk, and its acc is never stored.
+template <int U, int NC>
+struct RowsShared {
+  uint32_t row_at[U];
+  uint32_t v_off;
+  uint32_t chunk[NC];
+  __device__ __forceinline__ uint4 operator()(int u, int i, bool is_v) const {
+    return load16_shared(row_at[u] + chunk[i] + (is_v ? v_off : 0u));
+  }
+};
+
+// Any key, read at use: staged (element offset off in the copy at shared
+// addresses sk, sv), else from ks/vs + off (the prefix or the tail).
+template <typename T, int U, int NC>
+struct AtUse {
+  const T* ks[U];
+  const T* vs[U];
+  long long off[U];
+  bool valid[U], staged[U], live[NC];
+  uint32_t sk, sv;
+  int sub, lp;
+  __device__ __forceinline__ uint4 operator()(int u, int i, bool is_v) const {
+    constexpr int E = 16 / sizeof(T);
+    if (!valid[u] || !live[i]) return make_uint4(0u, 0u, 0u, 0u);
+    const long long c = off[u] + (sub + i * lp) * E;
+    if (staged[u])
+      return load16_shared((is_v ? sv : sk) + static_cast<uint32_t>(c * sizeof(T)));
+    return load16((is_v ? vs[u] : ks[u]) + c);
+  }
+};
+
+// One step of U warp steps: the scores of the U keys whose K and V chunks
+// fetch returns, one online-softmax update of (m, l, acc), acc += p.V.
+template <typename T, int GT, int NC, class Fetch>
+__device__ __forceinline__ void key_step(
+    const Fetch& fetch, const bool (&valid)[kUnroll / NC],
+    const float (&qf)[GT][NC][16 / sizeof(T)], float (&m)[GT], float (&l)[GT],
+    float (&acc)[GT][NC][16 / sizeof(T)], int lp, float scale2) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int U = kUnroll / NC;
+  // Scores of the U keys for every query: the dot partials of this
+  // lane's chunk, then summed over the key's lanes, the shuffle level
+  // outermost so the U * GT shuffles of a level are independent.
+  float s[U][GT];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float kf[NC][E];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) widen(fetch(u, i, false), kf[i]);
+#pragma unroll
+    for (int j = 0; j < GT; ++j) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot = fmaf(qf[j][i][e], kf[i][e], dot);
+      s[u][j] = dot;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    if (o < lp) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < GT; ++j)
+          s[u][j] += __shfl_xor_sync(0xffffffffu, s[u][j], o);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int j = 0; j < GT; ++j)
+      s[u][j] = valid[u] ? s[u][j] * scale2 : kNegInf;
+
+  // One online-softmax update for the U keys, then acc += p.V.
+  float p[U][GT], a[GT], m_new[GT];
+  bool quick = true;
+#pragma unroll
+  for (int j = 0; j < GT; ++j) {
+    m_new[j] = m[j];
+    float lo = s[0][j];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      m_new[j] = fmaxf(m_new[j], s[u][j]);
+      lo = fminf(lo, s[u][j]);
+    }
+    quick = quick && lo - m_new[j] >= -126.0f;
+    a[j] = exp2f(m[j] - m_new[j]);
+  }
+  // exp2f(x) is MUFU.EX2 of x where x >= -126 (it scales smaller x
+  // first): one vote lets the warp take that instruction alone.
+  if (__all_sync(0xffffffffu, quick)) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < GT; ++j)
+        p[u][j] = valid[u] ? ex2_normal(s[u][j] - m_new[j]) : 0.0f;
+  } else {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < GT; ++j)
+        p[u][j] = valid[u] ? exp2f(s[u][j] - m_new[j]) : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < GT; ++j) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) sum += p[u][j];
+    l[j] = l[j] * a[j] + sum;
+    m[j] = m_new[j];
+  }
+  // acc = acc * a + sum_u p_u v_u, the rescale folded into the first FMA.
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    float vf[NC][E];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) widen(fetch(u, i, true), vf[i]);
+#pragma unroll
+    for (int j = 0; j < GT; ++j)
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          acc[j][i][e] = u == 0 ? fmaf(acc[j][i][e], a[j], p[u][j] * vf[i][e])
+                                : fmaf(p[u][j], vf[i][e], acc[j][i][e]);
+  }
+}
+
+// The whole block (the decode kernels: one group per block).
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+// Dynamic shared memory of one group's merge: each warp's acc [GT][D], m
+// and l.
 inline size_t smem_bytes(int GT, int D) {
   return sizeof(float) * static_cast<size_t>(kWarps) * GT * (D + 2);
 }
 
-// q [B, A, Hkv * G, D] and out alike; prefix K/V rows from `rows`.  L =
-// D / E chunks per key, lp_log2 = log2 of the lanes per key (the power of
-// two >= L / NC).  blockIdx.x = (b * Hkv + h) * A + a: the A candidates of
-// a (row, KV head) read its prefix back to back, the second time on from
-// L2.  blockIdx.y = query group.  With kTail, candidate a's logical keys
-// are the row's len prefix keys, then the tail entries it sees in order
-// of j: with the identity mask, exactly the keys of a plain step over the
-// prefix with entry a appended, in the same order and arithmetic.
-template <typename T, int GT, int NC, class Rows, bool kTail>
-__global__ void __launch_bounds__(kWarps * 32)
-split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int32_t* __restrict__ kv_len,
-             T* __restrict__ out, Rows rows, Tail<T> tail, int Hkv, int G,
-             int D, int L, int lp_log2, float scale) {
+// One (row b, KV head h, candidate a) and queries g0 .. g0 + ng - 1 of the
+// head's G, on one group of kWarps warps: tid is the thread's index in the
+// group, smem the group's merge buffer (smem_bytes), sync a barrier of the
+// group's threads.  q [B, A, Hkv * G, D] and out alike (A = tail.A, 1 for
+// a decode step); an inactive group (active false) reads no q and writes
+// no output.  Logical keys: the row's len prefix keys, keys t < st.n from
+// shared memory (kStaged), the others through `rows`; then, with kTail,
+// the n_visible tail entries `visible` lists, in order of j.  With the
+// identity mask, candidate a's keys are exactly those of a plain step over
+// the prefix with entry a appended, in the same order and arithmetic:
+// where a key's bytes come from never changes a rounding.  The key loop
+// runs to n_bound >= the candidate's key count, the same in every warp
+// (ptxas keeps the shuffles free of divergence handling only where every
+// loop bound around them is provably uniform); a step with no valid key
+// changes nothing (its p are 0 and its loaded V chunks 0, so a = 1 and
+// every FMA adds a zero).  L = D / E chunks per key, lp_log2 = log2 of the
+// lanes per key (the power of two >= L / NC).
+template <typename T, int GT, int NC, class Rows, bool kTail, bool kStaged,
+          class Sync>
+__device__ __forceinline__ void split_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, const Rows& rows, const Tail<T>& tail,
+    const Staged& st, int& landed, const unsigned char* visible,
+    int n_visible, int n_bound, bool active, int b, int h, int a, int len,
+    int Hkv, int G, int g0, int ng, int D, int L, int lp_log2, float scale,
+    int tid, float* smem, Sync sync) {
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int U = kUnroll / NC;
-  extern __shared__ float smem[];
   float* acc_s = smem;                      // [kWarps][GT][D]
   float* m_s = acc_s + kWarps * GT * D;     // [kWarps][GT]
   float* l_s = m_s + kWarps * GT;           // [kWarps][GT]
-  __shared__ int visible[32];               // tail entries, in order
 
   const int A = tail.A;
-  const int bh = blockIdx.x / A;
-  const int a = blockIdx.x - bh * A;
-  const int b = bh / Hkv;
-  const int h = bh - b * Hkv;
-  const int g0 = blockIdx.y * GT;
-  const int ng = min(GT, G - g0);
   const int Hq = Hkv * G;
-  const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int lp = 1 << lp_log2;       // lanes per key
   const int kps = 32 >> lp_log2;     // keys per warp step
   const int kg = lane >> lp_log2;    // this lane's key in the step
   const int sub = lane & (lp - 1);   // its chunk (and sub + lp)
-  const int len = max(0, min(kv_len[b], rows.limit()));
   // Scores in log2 units: p = 2^(s * log2(e) - m), one exp2f each.
   const float scale2 = scale * 1.4426950408889634f;
-
-  int n_keys = len;
-  if (kTail) {
-    const bool sees = lane < A && tail.mask[a * A + lane] != 0;
-    const unsigned seen = __ballot_sync(0xffffffffu, sees);
-    if (warp == 0 && sees) visible[__popc(seen & ((1u << lane) - 1u))] = lane;
-    n_keys += __popc(seen);
-    __syncthreads();
-  }
+  const int n_keys = len + (kTail ? n_visible : 0);
 
   // q row of query (g0 + j): q[b, a, h * G + g0 + j, :].
   const long long q_row =
@@ -156,7 +347,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (j < ng && live[i])
+      if (active && j < ng && live[i])
         x = load16(q + q_row + static_cast<long long>(j) * D + (sub + i * lp) * E);
       widen(x, qf[j][i]);
     }
@@ -174,100 +365,85 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int per_iter = kWarps * kps * U;
-  for (int base = 0; base < n_keys; base += per_iter) {
-    // Issue every load of the U steps before any is used.
-    uint4 kc[U][NC], vc[U][NC];
-    bool valid[U];
+  int base = 0;
+  if (kStaged) {
+    // Steps read from shared memory at use: all of them when the whole
+    // prefix is staged, else those whose keys are all staged.  A key's row
+    // is its prefix row, then the row of the tail entry it is (rows after
+    // the prefix), then, past the candidate's keys, the zero row, which
+    // reads as the zero chunks of an invalid key.
+    const int n_shared = st.n == len ? n_bound : st.n - st.n % per_iter;
+    RowsShared<U, NC> rows_at;
+    rows_at.v_off = st.v - st.k;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) rows_at.chunk[i] = live[i] ? (sub + i * lp) * 16 : 0;
+    const uint32_t row_bytes = D * sizeof(T);
+    for (; base < n_shared; base += per_iter) {
+      // The staged chunks this step reads must have landed (the tail
+      // lands with chunk 0).
+      const int need = min(base + per_iter, st.n);
+      while (landed == 0 || landed * st.chunk < need)
+        wait_landed(st.bars + 8u * landed++);
+      bool valid[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = base + (u * kWarps + warp) * kps + kg;
+        valid[u] = t < n_keys;
+        const int row = t < len ? t : valid[u] ? st.tail + visible[t - len] : st.zero;
+        rows_at.row_at[u] = st.k + row * row_bytes;
+      }
+      key_step<T, GT, NC>(rows_at, valid, qf, m, l, acc, lp, scale2);
+    }
+  }
+  // The other steps: keys from shared memory, device memory or the tail.
+  for (; base < n_bound; base += per_iter) {
+    if (kStaged) {
+      const int need = min(base + per_iter, st.n);
+      while (landed * st.chunk < need) wait_landed(st.bars + 8u * landed++);
+    }
+    AtUse<T, U, NC> at;
+    at.sk = st.k;
+    at.sv = st.v;
+    at.sub = sub;
+    at.lp = lp;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) at.live[i] = live[i];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = base + (u * kWarps + warp) * kps + kg;
-      valid[u] = t < n_keys;
-      const T* ks = k;
-      const T* vs = v;
-      long long off = 0;
-      if (valid[u]) {
+      at.valid[u] = t < n_keys;
+      at.staged[u] = kStaged && t < st.n;
+      at.ks[u] = k;
+      at.vs[u] = v;
+      at.off[u] = 0;
+      if (at.staged[u]) {
+        at.off[u] = static_cast<long long>(t) * D;
+      } else if (at.valid[u]) {
         if (!kTail || t < len) {
-          off = rows.offset(b, h, t, Hkv, D);
+          at.off[u] = rows.offset(b, h, t, Hkv, D);
         } else {
-          ks = tail.k;
-          vs = tail.v;
-          off = ((static_cast<long long>(b) * A + visible[t - len]) * Hkv + h) *
-                static_cast<long long>(D);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        kc[u][i] = vc[u][i] = make_uint4(0u, 0u, 0u, 0u);
-        if (valid[u] && live[i]) {
-          kc[u][i] = load16(ks + off + (sub + i * lp) * E);
-          vc[u][i] = load16(vs + off + (sub + i * lp) * E);
+          at.ks[u] = tail.k;
+          at.vs[u] = tail.v;
+          at.off[u] = ((static_cast<long long>(b) * A + visible[t - len]) * Hkv + h) *
+                      static_cast<long long>(D);
         }
       }
     }
-
-    // Scores of the U keys for every query: the dot partials of this
-    // lane's chunk, then summed over the key's lanes, the shuffle level
-    // outermost so the U * GT shuffles of a level are independent.
-    float s[U][GT];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float kf[NC][E];
-#pragma unroll
-      for (int i = 0; i < NC; ++i) widen(kc[u][i], kf[i]);
-#pragma unroll
-      for (int j = 0; j < GT; ++j) {
-        float dot = 0.0f;
-#pragma unroll
-        for (int i = 0; i < NC; ++i)
-#pragma unroll
-          for (int e = 0; e < E; ++e) dot = fmaf(qf[j][i][e], kf[i][e], dot);
-        s[u][j] = dot;
-      }
-    }
-    for (int o = lp >> 1; o > 0; o >>= 1) {
+    if (kStaged) {
+      // Rare steps (the prefix's end, the tail, keys past the copy): each
+      // chunk fetched at its use.
+      key_step<T, GT, NC>(at, at.valid, qf, m, l, acc, lp, scale2);
+    } else {
+      // Issue every load of the U steps before any is used.
+      Prefetched<U, NC> pre;
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int j = 0; j < GT; ++j)
-          s[u][j] += __shfl_xor_sync(0xffffffffu, s[u][j], o);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int j = 0; j < GT; ++j)
-        s[u][j] = valid[u] ? s[u][j] * scale2 : kNegInf;
-
-    // One online-softmax update for the U keys, then acc += p.V.
-    float p[U][GT], a[GT];
-#pragma unroll
-    for (int j = 0; j < GT; ++j) {
-      float m_new = m[j];
-#pragma unroll
-      for (int u = 0; u < U; ++u) m_new = fmaxf(m_new, s[u][j]);
-      a[j] = exp2f(m[j] - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        p[u][j] = valid[u] ? exp2f(s[u][j] - m_new) : 0.0f;
-        sum += p[u][j];
-      }
-      l[j] = l[j] * a[j] + sum;
-      m[j] = m_new;
-    }
-    // acc = acc * a + sum_u p_u v_u, the rescale folded into the first FMA.
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      float vf[NC][E];
-#pragma unroll
-      for (int i = 0; i < NC; ++i) widen(vc[u][i], vf[i]);
-#pragma unroll
-      for (int j = 0; j < GT; ++j)
-#pragma unroll
-        for (int i = 0; i < NC; ++i)
-#pragma unroll
-          for (int e = 0; e < E; ++e)
-            acc[j][i][e] = u == 0 ? fmaf(acc[j][i][e], a[j], p[u][j] * vf[i][e])
-                                  : fmaf(p[u][j], vf[i][e], acc[j][i][e]);
+        for (int i = 0; i < NC; ++i) {
+          pre.k[u][i] = at(u, i, false);
+          pre.v[u][i] = at(u, i, true);
+        }
+      key_step<T, GT, NC>(pre, at.valid, qf, m, l, acc, lp, scale2);
     }
   }
 
@@ -311,10 +487,10 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  __syncthreads();
+  sync();
 
   // One thread per (query, chunk): merge the warps, divide, 16-byte store.
-  for (int idx = tid; idx < ng * L; idx += kWarps * 32) {
+  for (int idx = active ? tid : ng * L; idx < ng * L; idx += kWarps * 32) {
     const int j = idx / L;
     const int ch = idx - j * L;
     float mt = kNegInf;
@@ -340,65 +516,84 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Launch split_kernel on `stream`: B * Hkv * A x ceil(G / GT) blocks.
-// Returns the cudaError_t of the launch (0: queued).
-template <typename T, int GT, int NC, class Rows, bool kTail>
-int launch_gt(const void* q, const void* k, const void* v,
-              const int32_t* kv_len, void* out, Rows rows, Tail<T> tail,
-              int B, int Hkv, int G, int D, int L, int lp_log2, float scale,
-              cudaStream_t stream) {
-  const dim3 grid(B * Hkv * tail.A, (G + GT - 1) / GT);
-  split_kernel<T, GT, NC, Rows, kTail>
-      <<<grid, kWarps * 32, smem_bytes(GT, D), stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), kv_len, static_cast<T*>(out), rows, tail,
-          Hkv, G, D, L, lp_log2, scale);
-  return static_cast<int>(cudaGetLastError());
+// The decode kernels: q and out [B, Hkv * G, D], keys from `rows`.  One
+// block of kWarps warps per (row, KV head) = blockIdx.x and query group =
+// blockIdx.y.
+template <typename T, int GT, int NC, class Rows>
+__global__ void __launch_bounds__(kWarps * 32)
+split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const int32_t* __restrict__ kv_len,
+             T* __restrict__ out, Rows rows, int Hkv, int G, int D, int L,
+             int lp_log2, float scale) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x / Hkv;
+  const int h = blockIdx.x - b * Hkv;
+  const int g0 = blockIdx.y * GT;
+  const int len = max(0, min(kv_len[b], rows.limit()));
+  int landed = 0;
+  split_body<T, GT, NC, Rows, false, false>(
+      q, k, v, out, rows, Tail<T>{nullptr, nullptr, nullptr, 1}, Staged{},
+      landed, nullptr, 0, len, true, b, h, 0, len, Hkv, G, g0,
+      min(GT, G - g0), D, L, lp_log2, scale, threadIdx.x, smem, BlockSync{});
 }
 
-// The smallest GT of {1, 2, 4, 8} that holds G (8 for G > 8).
-template <typename T, int NC, class Rows, bool kTail>
-int launch_g(const void* q, const void* k, const void* v,
-             const int32_t* kv_len, void* out, Rows rows, Tail<T> tail, int B,
-             int Hkv, int G, int D, int L, int lp_log2, float scale,
-             cudaStream_t stream) {
-  if (G <= 1)
-    return launch_gt<T, 1, NC, Rows, kTail>(q, k, v, kv_len, out, rows, tail,
-                                            B, Hkv, G, D, L, lp_log2, scale,
-                                            stream);
-  if (G <= 2)
-    return launch_gt<T, 2, NC, Rows, kTail>(q, k, v, kv_len, out, rows, tail,
-                                            B, Hkv, G, D, L, lp_log2, scale,
-                                            stream);
-  if (G <= 4)
-    return launch_gt<T, 4, NC, Rows, kTail>(q, k, v, kv_len, out, rows, tail,
-                                            B, Hkv, G, D, L, lp_log2, scale,
-                                            stream);
-  return launch_gt<T, 8, NC, Rows, kTail>(q, k, v, kv_len, out, rows, tail, B,
-                                          Hkv, G, D, L, lp_log2, scale,
-                                          stream);
+// The body's shape for D and G: calls f.run<GT, NC>(L, lp_log2) with GT
+// the smallest of {1, 2, 4, 8} that holds G (8 for G > 8), NC = 2 chunks
+// per lane for float32 D > 128 (else 1), L = D / E chunks per key.  D
+// must be a multiple of 16 / sizeof(T) and at most 256, and every pointer
+// 16-byte aligned (the wrappers check both).  Returns f's cudaError_t.
+template <int NC, class F>
+int with_gt(int G, const F& f, int L, int lp_log2) {
+  if (G <= 1) return f.template run<1, NC>(L, lp_log2);
+  if (G <= 2) return f.template run<2, NC>(L, lp_log2);
+  if (G <= 4) return f.template run<4, NC>(L, lp_log2);
+  return f.template run<8, NC>(L, lp_log2);
 }
 
-// D must be a multiple of 16 / sizeof(T) and at most 256, and every
-// pointer 16-byte aligned (the wrappers check both); kTail: 1 <= A <= 32.
-template <typename T, class Rows, bool kTail = false>
-int launch(const void* q, const void* k, const void* v, const int32_t* kv_len,
-           void* out, Rows rows, int B, int Hkv, int G, int D, float scale,
-           cudaStream_t stream, Tail<T> tail = Tail<T>{nullptr, nullptr, nullptr, 1}) {
+template <typename T, class F>
+int with_shape(int G, int D, const F& f) {
   constexpr int E = 16 / sizeof(T);
-  if (D <= 0 || D % E != 0 || D > 256 || G <= 0 || tail.A < 1 || tail.A > 32 ||
-      (!kTail && tail.A != 1))
+  if (D <= 0 || D % E != 0 || D > 256 || G <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int L = D / E;
   constexpr int NC = sizeof(T) == 4 ? 2 : 1;  // float32 D > 128: two chunks
   if (NC == 1 || L <= 32) {
     int lp_log2 = 0;
     while ((1 << lp_log2) < L) ++lp_log2;
-    return launch_g<T, 1, Rows, kTail>(q, k, v, kv_len, out, rows, tail, B,
-                                       Hkv, G, D, L, lp_log2, scale, stream);
+    return with_gt<1>(G, f, L, lp_log2);
   }
-  return launch_g<T, NC, Rows, kTail>(q, k, v, kv_len, out, rows, tail, B, Hkv,
-                                      G, D, L, 5, scale, stream);
+  return with_gt<NC>(G, f, L, 5);
+}
+
+template <typename T, class Rows>
+struct DecodeLaunch {
+  const void *q, *k, *v;
+  const int32_t* kv_len;
+  void* out;
+  Rows rows;
+  int B, Hkv, G, D;
+  float scale;
+  cudaStream_t stream;
+
+  template <int GT, int NC>
+  int run(int L, int lp_log2) const {
+    const dim3 grid(B * Hkv, (G + GT - 1) / GT);
+    split_kernel<T, GT, NC, Rows><<<grid, kWarps * 32, smem_bytes(GT, D), stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), kv_len, static_cast<T*>(out), rows, Hkv, G,
+        D, L, lp_log2, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// A decode step on `stream`: B * Hkv x ceil(G / GT) blocks.  Returns the
+// cudaError_t of the launch (0: queued).
+template <typename T, class Rows>
+int launch(const void* q, const void* k, const void* v, const int32_t* kv_len,
+           void* out, Rows rows, int B, int Hkv, int G, int D, float scale,
+           cudaStream_t stream) {
+  return with_shape<T>(G, D, DecodeLaunch<T, Rows>{q, k, v, kv_len, out, rows,
+                                                   B, Hkv, G, D, scale, stream});
 }
 
 }  // namespace decode_split

@@ -4,7 +4,9 @@
 // tree-decode steps over a dense cache), PagedRows a [P, bs, Hkv, D] block
 // pool through the row's page table (their paged twins).  Only the
 // addresses differ between the dense and the paged kernels, never the
-// arithmetic.
+// arithmetic.  The tree kernels, which copy a row's prefix into shared
+// memory once, look its page ids up once (`page`, into a list of ids())
+// and address the copy's keys through that list (`staged_offset`).
 
 #pragma once
 
@@ -20,11 +22,19 @@ constexpr float kNegInf = -1e30f;
 // [B, S, Hkv, D].
 struct DenseRows {
   int S;
-  __device__ __forceinline__ int limit() const { return S; }
+  __host__ __device__ __forceinline__ int limit() const { return S; }
   __device__ __forceinline__ long long offset(int b, int h, int t, int Hkv,
                                               int D) const {
     return ((static_cast<long long>(b) * S + t) * Hkv + h) *
            static_cast<long long>(D);
+  }
+  // Page ids a copy of a row's first n keys needs: none.
+  __host__ __device__ __forceinline__ int ids(int) const { return 0; }
+  __device__ __forceinline__ int page(int, int) const { return 0; }
+  __device__ __forceinline__ long long staged_offset(const int*, int b, int h,
+                                                     int t, int Hkv,
+                                                     int D) const {
+    return offset(b, h, t, Hkv, D);
   }
 };
 
@@ -37,15 +47,32 @@ struct DenseRows {
 struct PagedRows {
   const int32_t* table;
   int n_pages, P, bs;
-  __device__ __forceinline__ int limit() const { return n_pages * bs; }
-  __device__ __forceinline__ long long offset(int b, int h, int t, int Hkv,
-                                              int D) const {
-    const int page = t / bs;
-    const int off = t - page * bs;
-    int blk = table[static_cast<long long>(b) * n_pages + page];
-    blk = min(max(blk, 0), P - 1);
+  __host__ __device__ __forceinline__ int limit() const { return n_pages * bs; }
+  // Block id of page i of row b, clamped into [0, P - 1].
+  __device__ __forceinline__ int page(int b, int i) const {
+    const int blk = table[static_cast<long long>(b) * n_pages + i];
+    return min(max(blk, 0), P - 1);
+  }
+  __device__ __forceinline__ long long at(int blk, int off, int h, int Hkv,
+                                          int D) const {
     return ((static_cast<long long>(blk) * bs + off) * Hkv + h) *
            static_cast<long long>(D);
+  }
+  __device__ __forceinline__ long long offset(int b, int h, int t, int Hkv,
+                                              int D) const {
+    const int page_i = t / bs;
+    return at(this->page(b, page_i), t - page_i * bs, h, Hkv, D);
+  }
+  // The first n keys of a row span ceil(n / bs) pages; `id` holds their
+  // block ids, looked up by page().
+  __host__ __device__ __forceinline__ int ids(int n) const {
+    return (n + bs - 1) / bs;
+  }
+  __device__ __forceinline__ long long staged_offset(const int* id, int, int h,
+                                                     int t, int Hkv,
+                                                     int D) const {
+    const int page_i = t / bs;
+    return at(id[page_i], t - page_i * bs, h, Hkv, D);
   }
 };
 

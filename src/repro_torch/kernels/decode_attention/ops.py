@@ -108,14 +108,17 @@ def _table(name: str, page_table: torch.Tensor, b: int, device) -> torch.Tensor:
     return page_table.to(torch.int32).contiguous()
 
 
-def _mask(name: str, tree_mask, a: int, device) -> torch.Tensor:
-    """The ``[A, A]`` tree mask as int32 on the device (identity for None)."""
+def _mask(name: str, tree_mask, a: int, device) -> tuple[torch.Tensor | None, int]:
+    """The ``[A, A]`` tree mask as int32 on the device and its address; for
+    None (the identity) no tensor and a null address, which the kernels
+    read as the identity."""
     if tree_mask is None:
-        return torch.eye(a, dtype=torch.int32, device=device)
+        return None, 0
     mask = torch.as_tensor(tree_mask, device=device)
     if tuple(mask.shape) != (a, a):
         raise ValueError(f"{name}: tree_mask must be [{a}, {a}], got {tuple(mask.shape)}")
-    return mask.to(torch.int32).contiguous()
+    mask = mask.to(torch.int32).contiguous()
+    return mask, mask.data_ptr()
 
 
 def _on_cuda(name: str, device) -> bool:
@@ -250,14 +253,14 @@ def tree_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     _check(name, q, q=q, k_cache=k_cache, v_cache=v_cache, k_spec=k_spec, v_spec=v_spec)
     _chunked(name, d, q=q, k_cache=k_cache, v_cache=v_cache, k_spec=k_spec, v_spec=v_spec)
     lens = _lengths(name, kv_len, b, device)
-    mask = _mask(name, tree_mask, a, device)
+    mask, mask_ptr = _mask(name, tree_mask, a, device)  # mask lives until the launch
     out = torch.empty_like(q)
     if b == 0 or a == 0:
         return out
     if s == 0:
         raise ValueError(f"{name}: empty cache {tuple(k_cache.shape)}")
     _launch(name, device, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_spec.data_ptr(), v_spec.data_ptr(), lens.data_ptr(), mask.data_ptr(),
+            k_spec.data_ptr(), v_spec.data_ptr(), lens.data_ptr(), mask_ptr,
             out.data_ptr(), b, a, s, hkv, group, d, 1.0 / math.sqrt(d),
             _DTYPES[q.dtype])
     return out
@@ -287,7 +290,7 @@ def paged_tree_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     _chunked(name, d, q=q, pool_k=pool_k, pool_v=pool_v, k_spec=k_spec, v_spec=v_spec)
     table = _table(name, page_table, b, device)
     lens = _lengths(name, kv_len, b, device)
-    mask = _mask(name, tree_mask, a, device)
+    mask, mask_ptr = _mask(name, tree_mask, a, device)  # mask lives until the launch
     out = torch.empty_like(q)
     if b == 0 or a == 0:
         return out
@@ -295,6 +298,6 @@ def paged_tree_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
         raise ValueError(f"{name}: empty pool {tuple(pool_k.shape)}")
     _launch(name, device, q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             table.data_ptr(), k_spec.data_ptr(), v_spec.data_ptr(), lens.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), b, a, p, bs, table.shape[1], hkv, group, d,
+            mask_ptr, out.data_ptr(), b, a, p, bs, table.shape[1], hkv, group, d,
             1.0 / math.sqrt(d), _DTYPES[q.dtype])
     return out

@@ -1,35 +1,51 @@
-"""Time variants of the flash- and decode-attention kernels and of the SSD
-scan on one GPU.
+"""Time variants of the flash-, decode- and tree-decode-attention kernels
+and of the SSD scan on one GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.attention_sweep [--only flash,decode,ssd]
+    PYTHONPATH=src python -m repro_torch.launch.attention_sweep [--only flash,decode,tree,ssd]
 
 Each variant is the shipped source of ``csrc/flash_attention.cu``,
-``csrc/decode_split.cuh`` or ``csrc/ssd_scan.cu`` with one text
-substitution (an ablation that drops a part of the work, or another block
-shape), built by ``nvcc`` with the kernel's own flags into
-``build/repro_torch/sweep/`` and called through its C entry point.  At
-the main paths' shapes (phase 8's and phase 14's flash forwards, phase 7's
-decode step, phase 13's and phase 14's scans; bf16) it prints, per
-variant, the device time of one call, from CUDA-graph replay of 50
-back-to-back calls (10 for the scan), and the largest difference from
-the plain version (an ablation is not meant to be right).  The shipped
-wrappers and SDPA are timed the same way beside them.  The card's name and
-power limit are printed first.
+``csrc/decode_split.cuh``, ``csrc/tree_decode_attention.cu`` or
+``csrc/ssd_scan.cu`` with one text substitution (an ablation that drops a
+part of the work, or another block shape), built by ``nvcc`` with the
+kernel's own flags into ``build/repro_torch/sweep/`` and called through
+its C entry point.  At the main paths' shapes (phase 8's and phase 14's
+flash forwards, phase 7's decode step, phase 11's and 12's frontier
+forwards through both tree entry points, phase 13's and phase 14's scans;
+bf16) it prints, per variant, the device time of one call, from
+CUDA-graph replay of 50 back-to-back calls (10 for the scan), and the
+largest difference from the plain version (an ablation is not meant to be
+right).  The shipped wrappers and SDPA (for the tree kernels: a
+concatenation of prefix and tail, a gather of the pages first when paged,
+and masked SDPA) are timed the same way beside them.  For the decode and
+tree kinds it also prints, from ``cuobjdump -sass`` of the shipped
+library, the instructions of the bf16 G=4 kernel's hottest loop (the one
+with the most FFMA) by opcode.  The card's name and power limit are
+printed first.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import math
+import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import _build
-from ..kernels.decode_attention import decode_attention, decode_attention_ref
+from ..kernels.decode_attention import (
+    decode_attention,
+    decode_attention_ref,
+    paged_tree_decode_attention,
+    paged_tree_decode_attention_ref,
+    tree_decode_attention,
+    tree_decode_attention_ref,
+)
 from ..kernels.flash_attention import flash_attention, flash_attention_ref
 from ..kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
@@ -52,22 +68,25 @@ _WARPS = """      return Hq == Hkv
           ? launch_bf16<D, 2>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s)
           : launch_bf16<D, 4>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);"""
 _WARPS_SWAPPED = _WARPS.replace("Hq == Hkv", "Hq != Hkv")
-_SHUFFLE = """        s[u][j] = dot;
-      }
+_SHUFFLE = """      s[u][j] = dot;
     }
-    for (int o = lp >> 1; o > 0; o >>= 1) {
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    if (o < lp) {
 #pragma unroll
       for (int u = 0; u < U; ++u)
 #pragma unroll
         for (int j = 0; j < GT; ++j)
           s[u][j] += __shfl_xor_sync(0xffffffffu, s[u][j], o);
     }
+  }
 """
-_SHUFFLE_PER_SUM = """        for (int o = lp >> 1; o > 0; o >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        s[u][j] = dot;
-      }
+_SHUFFLE_PER_SUM = """      for (int o = lp >> 1; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      s[u][j] = dot;
     }
+  }
 """
 _SSD_LO = """          mma_bf16(acc[2 * dp], sh_[kk], bl[0], bl[1]);
           mma_bf16(acc[2 * dp + 1], sh_[kk], bl[2], bl[3]);
@@ -86,6 +105,12 @@ _SSD_SPLIT = """        *reinterpret_cast<uint2*>(xh + r * kXb + p) = make_uint2
 _SSD_REFILL = """    if (it + 1 < items) issue_x(it + 1, (it + 1) & 1);
 """
 _SSD_EXP = [("expf(ci[q] - cumj[q].x)", "1.0f"), ("expf(ci[q] - cumj[q].y)", "1.0f")]
+
+# The warp vote that lets p = 2^x run as MUFU.EX2 alone (exact).
+_VOTE = "  if (__all_sync(0xffffffffu, quick)) {"
+_GROUPS = "constexpr int kGroups = 2;"
+_CANDIDATES = "constexpr int kCandidates = 32;"
+_OVERLAP = "constexpr bool kOverlap = true;"
 
 # name -> (library, edited file, [(old, new), ...])
 VARIANTS = {
@@ -109,6 +134,19 @@ VARIANTS = {
                         [("constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")]),
     "decode shuffle loop per sum": ("decode_attention", "decode_split.cuh",
                                     [(_SHUFFLE, _SHUFFLE_PER_SUM)]),
+    "decode exp2f without the vote": ("decode_attention", "decode_split.cuh",
+                                      [(_VOTE, "  if (false) {")]),
+    "tree shipped": ("tree_decode_attention", "tree_decode_attention.cu", []),
+    "tree 1 candidate group per block": ("tree_decode_attention", "tree_decode_attention.cu",
+                                         [(_GROUPS, _GROUPS.replace("2", "1"))]),
+    "tree 4 candidate groups per block": ("tree_decode_attention", "tree_decode_attention.cu",
+                                          [(_GROUPS, _GROUPS.replace("2", "4"))]),
+    "tree 4 candidates per block": ("tree_decode_attention", "tree_decode_attention.cu",
+                                    [(_CANDIDATES, _CANDIDATES.replace("32", "4"))]),
+    "tree staging without overlap": ("tree_decode_attention", "tree_decode_attention.cu",
+                                     [(_OVERLAP, _OVERLAP.replace("true", "false"))]),
+    "tree exp2f without the vote": ("tree_decode_attention", "decode_split.cuh",
+                                    [(_VOTE, "  if (false) {")]),
     "ssd shipped": ("ssd_scan", "ssd_scan.cu", []),
     "ssd without expf": ("ssd_scan", "ssd_scan.cu", _SSD_EXP),
     "ssd hi.hi only (no lo mma)": ("ssd_scan", "ssd_scan.cu", [(_SSD_LO, "")]),
@@ -128,7 +166,8 @@ VARIANTS = {
 
 
 def _build_variants(kinds):
-    procs = {}
+    # Every substitution is checked before any nvcc starts.
+    jobs = {}
     for name, (library, edited, subs) in VARIANTS.items():
         if name.split()[0] not in kinds:
             continue
@@ -141,17 +180,23 @@ def _build_variants(kinds):
                 raise RuntimeError(f"{name}: the source no longer holds {old!r}")
             text = text.replace(old, new)
         (where / edited).write_text(text)
+        jobs[name] = (library, where)
+    procs = {}
+    for name, (library, where) in jobs.items():
         lib = where / f"lib{library}.so"
         cmd = [_build._nvcc(), *_build.nvcc_flags(library), "-o", str(lib),
                str(where / f"{library}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), lib)
-    libs = {}
+    libs, failed = {}, []
     for name, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        libs[name] = ctypes.CDLL(str(lib))
+            failed.append(f"nvcc failed for {name}:\n{log}")
+        else:
+            libs[name] = ctypes.CDLL(str(lib))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return libs
 
 
@@ -245,6 +290,108 @@ def _decode(libs, device, n=128, s=160, hq=32, hkv=8, d=128):
         _report(name, graph_ms(call), out, ref)
 
 
+def _tree_entry(lib, name, n_ptrs, n_ints):
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _tree(libs, device, n=128, a=8, s=160, bs=16, hq=32, hkv=8, d=128):
+    """Phase 11's and 12's frontier forward: 128 rows x 8 candidates, the
+    identity mask, a 160-key prefix (lengths 129-160), dense and as 10
+    pages of 16 from a shuffled 1280-block pool."""
+    gen = torch.Generator(device=device).manual_seed(15)
+    npg = s // bs
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    q, ks, vs = rand(n, a, hq, d), rand(n, a, hkv, d), rand(n, a, hkv, d)
+    pk, pv = rand(n * npg, bs, hkv, d), rand(n * npg, bs, hkv, d)
+    table = torch.randperm(n * npg, generator=gen, device=device).reshape(n, npg)
+    table = table.to(torch.int32)
+    kc, vc = (x[table.long()].reshape(n, s, hkv, d) for x in (pk, pv))
+    lens = torch.randint(129, s + 1, (n,), generator=gen, device=device, dtype=torch.int32)
+    mask = torch.eye(a, dtype=torch.int32, device=device)
+    pos = torch.arange(s, device=device)
+    sdpa_mask = torch.cat([(pos[None, :] < lens[:, None])[:, None, :].expand(n, a, s),
+                           mask.bool()[None].expand(n, a, a)], dim=-1)[:, None]
+
+    def sdpa(k_, v_):
+        kf = torch.cat([k_, ks], dim=1).transpose(1, 2)
+        vf = torch.cat([v_, vs], dim=1).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kf, vf, attn_mask=sdpa_mask,
+                                              enable_gqa=True).transpose(1, 2)
+
+    ref = tree_decode_attention_ref(q, kc, vc, ks, vs, lens)
+    paged_ref = paged_tree_decode_attention_ref(q, pk, pv, table, ks, vs, lens)
+    print(f"-- tree_decode_attention bf16 N={n} A={a} S={s} {hq}/{hkv} D={d}, kv_len "
+          f"129..{s}, identity mask; paged: {npg} pages of {bs}")
+    _report("dense wrapper", graph_ms(lambda: tree_decode_attention(q, kc, vc, ks, vs, lens)),
+            tree_decode_attention(q, kc, vc, ks, vs, lens), ref)
+    _report("paged wrapper",
+            graph_ms(lambda: paged_tree_decode_attention(q, pk, pv, table, ks, vs, lens)),
+            paged_tree_decode_attention(q, pk, pv, table, ks, vs, lens), paged_ref)
+    _report("concat + masked SDPA", graph_ms(lambda: sdpa(kc, vc)), sdpa(kc, vc), ref)
+    gathered = lambda: sdpa(pk[table.long()].reshape(n, s, hkv, d),
+                            pv[table.long()].reshape(n, s, hkv, d))
+    _report("gather + concat + masked SDPA", graph_ms(gathered), gathered(), paged_ref)
+    out = torch.empty_like(q)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for name, lib in libs.items():
+        if not name.startswith("tree"):
+            continue
+        dense = _tree_entry(lib, "tree_decode_attention", 8, 6)
+        paged = _tree_entry(lib, "paged_tree_decode_attention", 9, 8)
+        call = lambda: _ok(dense(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), ks.data_ptr(),
+                                 vs.data_ptr(), lens.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                                 n, a, s, hkv, hq // hkv, d, 1.0 / math.sqrt(d), 1,
+                                 device.index, stream()))
+        _report(f"{name}, dense", graph_ms(call), out, ref)
+        call = lambda: _ok(paged(q.data_ptr(), pk.data_ptr(), pv.data_ptr(), table.data_ptr(),
+                                 ks.data_ptr(), vs.data_ptr(), lens.data_ptr(), mask.data_ptr(),
+                                 out.data_ptr(), n, a, n * npg, bs, npg, hkv, hq // hkv, d,
+                                 1.0 / math.sqrt(d), 1, device.index, stream()))
+        _report(f"{name}, paged", graph_ms(call), out, paged_ref)
+
+
+# Mangled-name pieces of the bf16, GT=4, dense instance of each kernel
+# (the driven shape's).
+_HOT_KERNELS = {
+    "decode_attention": "split_kernelI13__nv_bfloat16Li4ELi1EN12decode_tiles9DenseRows",
+    "tree_decode_attention": "tree_kernelI13__nv_bfloat16Li4ELi1EN12decode_tiles9DenseRows",
+}
+_SASS_LINE = re.compile(r"\s+/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)[^;]*;")
+
+
+def _sass_mix(library):
+    """The key loop of the bf16 G=4 kernel of ``library`` (the shortest
+    loop with the 256 FFMA of a step's scores and p.V, 8 keys x 4 queries
+    a warp): its instruction count and the counts by opcode, from
+    ``cuobjdump -sass``."""
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(library))],
+                          capture_output=True, text=True, check=True).stdout
+    body = next(f for f in re.split(r"\n\s+Function : ", sass)
+                if _HOT_KERNELS[library] in f.split("\n", 1)[0])
+    ins = [(int(m.group(1), 16), m.group(2)) for m in _SASS_LINE.finditer(body)]
+    loops = []
+    for addr, op in ins:
+        if op == "BRA":
+            line = body[body.index(f"/*{addr:04x}*/"):].split(";", 1)[0]
+            target = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)|0x([0-9a-f]+))", line)
+            if target and target.group(1) and int(target.group(1), 16) < addr:
+                seg = [o for a, o in ins if int(target.group(1), 16) <= a <= addr]
+                if collections.Counter(seg)["FFMA"] >= 256:
+                    loops.append(seg)
+    seg = min(loops, key=len)
+    mix = collections.Counter(seg).most_common()
+    print(f"{library} bf16 G=4: key loop {len(seg)} instructions per pass: "
+          + ", ".join(f"{op} {n}" for op, n in mix))
+
+
 def _ssd(libs, device, b, h, p, n, s=160):
     """Phase 13's (b=128, h=80, n=128) or phase 14's (b=8, h=112, n=64)
     scan: one chunk of 160 tokens, P=64, bf16 B/C."""
@@ -272,8 +419,8 @@ def _ssd(libs, device, b, h, p, n, s=160):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="flash,decode,ssd",
-                        help="comma-separated kernels to sweep: flash, decode, ssd")
+    parser.add_argument("--only", default="flash,decode,tree,ssd",
+                        help="comma-separated kernels to sweep: flash, decode, tree, ssd")
     kinds = set(parser.parse_args(argv).only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("attention_sweep needs a CUDA device")
@@ -283,12 +430,18 @@ def main(argv=None) -> None:
     print(f"card: {card}")
     device = torch.device("cuda", 0)
     libs = _build_variants(kinds)
+    for library in ("decode_attention", "tree_decode_attention"):
+        if library.split("_")[0] in kinds:
+            _build.build([library])
+            _sass_mix(library)
     for _ in range(2):          # two rounds: the spread between them is the noise
         if "flash" in kinds:
             _flash(libs, device, 32, 8, 128)
             _flash(libs, device, 32, 32, 112)
         if "decode" in kinds:
             _decode(libs, device)
+        if "tree" in kinds:
+            _tree(libs, device)
         if "ssd" in kinds:
             _ssd(libs, device, 128, 80, 64, 128)
             _ssd(libs, device, 8, 112, 64, 64)

@@ -453,8 +453,11 @@ def test_cuda_tree_kernels_match_plain_versions(dtype, mask):
     from repro_torch.kernels import LAUNCHES
 
     gen = torch.Generator(device="cuda").manual_seed(3)
+    # The driven shape, small ones, a 1024-key prefix (past the tree kernels'
+    # shared-memory copy: keys from shared and from device memory) and A=32.
     for b, a, bs, n_pages, hq, hkv, d in [(128, 8, 16, 10, 32, 8, 128), (6, 1, 1, 7, 4, 2, 16),
-                                          (5, 4, 3, 4, 8, 8, 64), (4, 16, 4, 3, 8, 2, 64)]:
+                                          (5, 4, 3, 4, 8, 8, 64), (4, 16, 4, 3, 8, 2, 64),
+                                          (4, 8, 16, 64, 32, 8, 128), (5, 32, 4, 6, 8, 2, 64)]:
         q, pk, pv, table, lens, (ks, vs) = _cuda_paged_case(gen, dtype, b, bs, n_pages, hq,
                                                             hkv, d, a=a)
         tm = None if mask == "identity" else torch.tril(
@@ -476,20 +479,50 @@ def test_cuda_tree_kernels_match_plain_versions(dtype, mask):
                                    **CUDA_TOL[dtype])
 
 
+# (rows, A, block size, pages, Hq, Hkv, D, lengths): the tree kernels copy
+# a row's first 178 keys (bf16 D=128, G=4, A=8; 84 at float32) into shared
+# memory and read the rest from device memory.  None: random lengths below
+# the pages' capacity.
+IDENTITY_CASES = {
+    "small": (9, 8, 4, 6, 32, 8, 128, None),
+    "phase 11": (128, 8, 16, 10, 32, 8, 128, "129-159"),
+    "every residue mod 32": (33, 8, 4, 16, 32, 8, 128, "residues"),
+    "prefix past the copy": (6, 8, 16, 64, 32, 8, 128,
+                             [1023, 178, 179, 84, 85, 600]),
+    "D=64": (9, 8, 4, 10, 8, 2, 64, None),
+    "D=256": (7, 4, 8, 8, 8, 2, 256, None),
+    "two query groups": (5, 4, 4, 8, 24, 2, 64, None),
+    "A=1": (9, 1, 4, 10, 32, 8, 128, None),
+    "A=32": (5, 32, 4, 10, 8, 2, 64, None),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_tree_identity_mask_is_decode_with_the_entry_appended(dtype):
+@pytest.mark.parametrize("case", list(IDENTITY_CASES))
+def test_cuda_tree_identity_mask_is_decode_with_the_entry_appended(dtype, case):
     """The four decode kernels share one body: under the identity mask,
     candidate a of the tree kernels (dense and paged) is the dense decode
     kernel over the cache with entry a written at kv_len, bit for bit, and
-    the paged decode kernel is the dense one on the gathered pages."""
+    the paged decode kernel is the dense one on the gathered pages; at
+    the driven shape, at every length residue of the 32-key steps, with
+    the prefix past the shared-memory copy, D=64 and 256 (two chunks a
+    lane at float32), two query groups, A=1 and A=32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(4)
-    b, a, bs, n_pages, hq, hkv, d = 9, 8, 4, 6, 32, 8, 128
+    b, a, bs, n_pages, hq, hkv, d, lengths = IDENTITY_CASES[case]
     q, pk, pv, table, lens, (ks, vs) = _cuda_paged_case(gen, dtype, b, bs, n_pages, hq, hkv,
                                                         d, a=a)
-    lens = lens.clamp(max=n_pages * bs - 1)
+    full = n_pages * bs
+    if lengths == "129-159":
+        lens = torch.randint(129, full, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    elif lengths == "residues":
+        lens = torch.tensor([0] + [r + 32 * (r % 2) for r in range(32)], dtype=torch.int32,
+                            device="cuda")
+    elif lengths is not None:
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    lens = lens.clamp(max=full - 1)
     kc = pk[table.long().clamp(0, pk.shape[0] - 1)].reshape(b, -1, hkv, d).contiguous()
     vc = pv[table.long().clamp(0, pv.shape[0] - 1)].reshape(b, -1, hkv, d).contiguous()
     dense = tree_decode_attention(q, kc, vc, ks, vs, lens)
@@ -500,6 +533,6 @@ def test_cuda_tree_identity_mask_is_decode_with_the_entry_appended(dtype):
         k2[rows, lens.long()] = ks[:, j]
         v2[rows, lens.long()] = vs[:, j]
         step = decode_attention(q[:, j].contiguous(), k2, v2, lens + 1)
-        assert torch.equal(step, dense[:, j]) and torch.equal(step, paged[:, j])
+        assert torch.equal(step, dense[:, j]) and torch.equal(step, paged[:, j]), j
     assert torch.equal(paged_decode_attention(q[:, 0].contiguous(), pk, pv, table, lens),
                        decode_attention(q[:, 0].contiguous(), kc, vc, lens))

@@ -7,15 +7,20 @@ Phases (any failure raises, so the script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); require CUDA;
 2. build the port's CUDA libraries from ``src/repro_torch/csrc`` with
-   nvcc, one process per library, all at once (seven kernels in six
-   libraries: ``tree_decode_attention`` holds the dense and the paged tree
-   kernel), and summarise ptxas's registers, spills and static shared
-   memory of ``flash_attention`` (bf16 on the tensor cores, float32 on the
+   nvcc, one process per library, all at once (eight kernels in six
+   libraries: ``tree_select`` holds the walk and the per-level kernel,
+   ``tree_decode_attention`` the dense and the paged tree kernel), and
+   summarise ptxas's registers, spills and static shared memory of
+   ``tree_select``, ``flash_attention`` (bf16 on the tensor cores, float32 on the
    CUDA cores), ``decode_attention`` (the key-split body),
    ``tree_decode_attention`` (the body over a shared-memory copy of the
    prefix) and ``ssd_scan`` (bf16 B/C on the tensor cores, float32 and the
    state pass on the CUDA cores);
 3. hold each kernel against its plain PyTorch version on the card (the
+   tree walk ``tree_descend``, bit for bit, on trees the port grows on the
+   card: phase 4's tap cell at B=256 and B=1 and phase 5's bandit tree at
+   B=1024, two waves and a pending third selection, four kinds; the
+   per-level ``tree_select`` bit for bit on adversarial tables; the
    attention kernels in float32 and bfloat16 over a grid of shapes and the
    shapes phases 7-14 drive, ``flash_attention`` also at zamba2's D=112,
    the tree kernels also with prefixes longer than their shared-memory
@@ -28,10 +33,15 @@ Phases (any failure raises, so the script exits non-zero):
    yardstick; no PyTorch call computes the SSD scan), each kernel and
    yardstick both paced by the host's enqueue and as device time by
    CUDA-graph replay; ``ssd_scan`` at phase 13's and phase 14's shapes;
+   the walk on phase 4's forest as it stands at each of the call's eight
+   waves, beside the plain lockstep loop, with its byte bound counted from
+   the paths walked and a latency floor from a pointer chase in L2 (the
+   kernels line takes the mean per walk over the waves);
 4. the rollout main path: ``build_searcher`` on the tap game answers 256
-   searches (the paper's W=16, T=128) through the ``tree_select`` kernel;
-   its launch count must cover every selection, and 8 of the trees are
-   re-searched by the port on the CPU with the same keys;
+   searches (the paper's W=16, T=128), each traversal one launch of the
+   ``tree_descend`` kernel: exactly 128 walks and no per-level
+   ``tree_select`` launch; the host syncs are printed, and 8 of the trees
+   are re-searched by the port on the CPU with the same keys;
 5. the bandit tree at B=1024 for the four algos, against the exact optimum;
 6. the single-root path: ``batch=0`` and two moves of ``play_episode``;
 7. the model-guided main path: llama3-8b at full width and depth (bf16,
@@ -86,7 +96,9 @@ least 90 % of rows, frontier and paged frontier actions at least 7 of 8
 equal to the cached search's), and phase 9.3 holds frontier to cached
 decisions in float32.  The line before
 the last is a JSON object with each kernel's launches on its main path
-(phase 4, 7, 8, 10, 11, 12 or 13), error against its plain version, time,
+(phase 4, 7, 8, 10, 11, 12 or 13; the ``tree_select`` row reports the
+walk that replaced its per-level launches on the main path, and the
+per-level kernel under ``level_*`` keys), error against its plain version, time,
 plain time, bound, library time and ``bound_share`` (bound / time), and
 the device times by graph replay (``device_ms``, ``library_device_ms``,
 ``device_bound_share``); the last line is
@@ -146,6 +158,12 @@ REDUCED_MAX_LEN = 20          # phase 9.2's and 9.4's token sequences
 REDUCED_BLOCK = 4
 # Phases 13 and 14: mamba2-2.7b and zamba2-7b at full depth.
 SSM_LAYERS, HYBRID_LAYERS = 64, 81
+# Phase 4's and phase 5's search settings besides algo and batch (phase 3
+# walks their trees).
+MAIN_SPEC = dict(num_simulations=128, wave_size=16, max_depth=10, max_width=5,
+                 max_sim_steps=20)
+BANDIT_SPEC = dict(num_simulations=128, wave_size=16, max_depth=6, max_sim_steps=6,
+                   max_width=4, gamma=1.0)
 # Child tables each kind reads (f32[B, A]) besides the validity bytes.
 TABLES_READ = {"wu_uct": 3, "uct": 2, "treep": 3, "treep_vc": 3}
 
@@ -193,9 +211,11 @@ def select_inputs(torch, rs, b, a, device):
 
 
 # Libraries whose kernels' ptxas resources are summarised after the build:
-# those redesigned for the H100 (bf16 flash and the bf16 SSD scan on the
-# tensor cores, the key-split decode, the tree kernels over a staged prefix).
-PTXAS_SUMMARY = ("flash_attention", "decode_attention", "tree_decode_attention", "ssd_scan")
+# those redesigned for the H100 (the tree walk, bf16 flash and the bf16 SSD
+# scan on the tensor cores, the key-split decode, the tree kernels over a
+# staged prefix).
+PTXAS_SUMMARY = ("tree_select", "flash_attention", "decode_attention", "tree_decode_attention",
+                 "ssd_scan")
 
 
 def ptxas_summary(log):
@@ -304,9 +324,91 @@ def check_tree_select(torch, device):
               f"{bound_ms * 1e3!r} us ({nbytes} bytes)")
     print("no single PyTorch call computes tree_select: library_ms is null")
     k_ms, k_dev, p_ms, bound_ms = times["wu_uct"]
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "device_ms": k_dev, "library_device_ms": None}
+    return {"max_abs_err": max_err, "level_ms": k_ms, "level_device_ms": k_dev,
+            "level_plain_ms": p_ms, "level_bound_ms": bound_ms}
+
+
+def check_tree_descend(torch, device):
+    """The walk (``tree_descend``) against its plain version, bit for bit, on
+    trees the port grows on the card: phase 4's tap cell at B=256 and B=1
+    and phase 5's bandit tree at B=1024, each after two waves and a third
+    selection whose expansions are pending, for the four kinds (UCT walks
+    the wu_uct forest: its one simulation per wave grows no tree).
+
+    Then the walk is timed on phase 4's wu_uct forest as it stands at each
+    of the call's eight waves (after w = 0..7 waves, the next selection
+    pending), beside the plain lockstep loop, with its bound counted from
+    the paths it took and its latency floor from a pointer chase in L2.
+    Phase 4's 128 walks are 16 per wave, so the kernels line gets the mean
+    per walk over the eight waves."""
+    from repro_torch import rng
+    from repro_torch.core import SearchSpec
+    from repro_torch.core.batched_search import mid_search_trees, walk_inputs
+    from repro_torch.envs import make_bandit_tree, make_tap_game
+    from repro_torch.kernels.tree_select import tree_descend, tree_descend_ref
+    from repro_torch.launch.walk_cost import chase_ns, floor_loads, walk_work
+
+    tap = make_tap_game(6, 4, goal_count=10, step_budget=20)
+    cases = [("tap", tap, MAIN_SPEC, MAIN_B), ("bandit", make_bandit_tree(6, 4), BANDIT_SPEC,
+                                               BANDIT_B), ("tap", tap, MAIN_SPEC, 1)]
+    walks = 0
+    for name, env, fields, b in cases:
+        for kind in KINDS:
+            spec = SearchSpec(algo=kind, batch=b, **fields)
+            grown_by = spec._replace(algo="wu_uct" if kind == "uct" else kind)
+            roots = env.init(rng.split(rng.PRNGKey(0, device=device), b))
+            tree = mid_search_trees(env, grown_by.config, roots,
+                                    rng.split(rng.PRNGKey(1, device=device), b), waves=2)[-1]
+            tensors, params = walk_inputs(tree, spec.config)
+            for seed in (2, 3, 4):
+                keys = rng.split(rng.PRNGKey(seed, device=device), b)
+                stops = tree_descend(*tensors, keys, **params)
+                sync(device)
+                if not torch.equal(stops, tree_descend_ref(*tensors, keys, **params)):
+                    raise AssertionError(f"tree_descend differs from its plain version: "
+                                         f"{name} B={b} {kind} keys {seed}")
+                walks += 1
+    print(f"tree_descend equals its plain version bit for bit: {walks} walks (tap B={MAIN_B}, "
+          f"bandit B={BANDIT_B}, tap B=1; 4 kinds; 3 key sets)")
+
+    spec = SearchSpec(algo="wu_uct", batch=MAIN_B, **MAIN_SPEC)
+    waves = spec.num_simulations // spec.wave_size
+    roots = tap.init(rng.split(rng.PRNGKey(0, device=device), MAIN_B))
+    trees = mid_search_trees(tap, spec.config, roots,
+                             rng.split(rng.PRNGKey(1, device=device), MAIN_B), waves - 1)
+    keys = rng.split(rng.PRNGKey(2, device=device), MAIN_B)
+    l2_ns = chase_ns(4 << 20)
+    rows = []
+    for w, tree in enumerate(trees):
+        tensors, params = walk_inputs(tree, spec.config)
+        walk = lambda: tree_descend(*tensors, keys, **params)
+        plain = lambda: tree_descend_ref(*tensors, keys, **params)
+        stops = walk()
+        sync(device)
+        if not torch.equal(stops, plain()):
+            raise AssertionError(f"tree_descend differs from its plain version at wave {w + 1}")
+        k_ms, k_dev, p_ms = time_ms(torch, walk, 500), device_ms(walk), time_ms(torch, plain, 20)
+        work = walk_work(tree, stops, "wu_uct")
+        byte_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
+        op_ms = work["ops"] / FP32_OPS_PER_S * 1e3
+        loads = floor_loads(work["max_levels"])
+        floor_ms = loads * l2_ns * 1e-6
+        rows.append((k_ms, k_dev, p_ms, byte_ms, op_ms, floor_ms))
+        print(f"tree_descend wu_uct, phase 4's forest at wave {w + 1} of {waves} (tap "
+              f"B={MAIN_B}, A={MAIN_A}): kernel {k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), "
+              f"plain lockstep loop {p_ms * 1e3!r} us; levels max {work['max_levels']} mean "
+              f"{work['mean_levels']!r}; bound {max(byte_ms, op_ms) * 1e3!r} us "
+              f"({work['bytes']} bytes; {work['ops']} operations take {op_ms * 1e3!r} us); "
+              f"latency floor {loads} loads x L2 = {floor_ms * 1e3!r} us")
+    k_ms, k_dev, p_ms, byte_ms, op_ms, floor_ms = (sum(col) / len(rows) for col in zip(*rows))
+    print(f"tree_descend wu_uct, mean per walk over phase 4's {waves} waves: kernel "
+          f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), plain lockstep loop "
+          f"{p_ms * 1e3!r} us, bound {max(byte_ms, op_ms) * 1e3!r} us, latency floor "
+          f"{floor_ms * 1e3!r} us; dependent-load latency (pointer chase, 4 MB, in L2) "
+          f"{l2_ns!r} ns")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations", "library_ms": None,
+            "device_ms": k_dev, "library_device_ms": None, "latency_floor_ms": floor_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -870,9 +972,7 @@ def main_path(torch, device):
     from repro_torch.sync import SYNCS, reset_syncs
 
     env = make_tap_game(6, 4, goal_count=10, step_budget=20)
-    spec = SearchSpec(algo="wu_uct", engine="wave", batch=MAIN_B,
-                      num_simulations=128, wave_size=16, max_depth=10,
-                      max_width=5, max_sim_steps=20)
+    spec = SearchSpec(algo="wu_uct", engine="wave", batch=MAIN_B, **MAIN_SPEC)
     search = build_searcher(env, spec, device=device)
     roots = env.init(rng.split(rng.PRNGKey(0, device=device), MAIN_B))
     rngs = rng.split(rng.PRNGKey(1, device=device), MAIN_B)
@@ -887,9 +987,12 @@ def main_path(torch, device):
     launches = dict(LAUNCHES)
     syncs = SYNCS["host_any"]
 
-    if launches["tree_select"] < spec.num_simulations:
-        raise AssertionError(f"tree_select launched {launches['tree_select']} times, "
-                             f"fewer than the {spec.num_simulations} selections")
+    # One walk per selection (W slots in each of T / W waves), no per-level
+    # selection launch.
+    if (launches["tree_descend"], launches["tree_select"]) != (spec.num_simulations, 0):
+        raise AssertionError(f"tree_descend launched {launches['tree_descend']} times and "
+                             f"tree_select {launches['tree_select']}, expected "
+                             f"{spec.num_simulations} and 0")
     if bool(res.overflowed.any()):
         raise AssertionError("a tree overflowed its capacity")
     tried = res.root_n > 0
@@ -915,8 +1018,8 @@ def main_path(torch, device):
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"main path: tap 6x6 wu_uct B={MAIN_B} T=128 W=16 on {name}: "
           f"{MAIN_B / wall!r} searches/s (wall {wall!r} s, first call), "
-          f"tree_select launches {launches['tree_select']} "
-          f"({launches['tree_select'] / MAIN_B!r} per search), host syncs {syncs}; "
+          f"tree_descend launches {launches['tree_descend']}, tree_select launches "
+          f"{launches['tree_select']}, host syncs {syncs}; "
           f"CPU re-search agrees on {int(same.sum())}/8 trees")
     return launches
 
@@ -934,9 +1037,7 @@ def bandit(torch, device):
     rngs = rng.split(rng.PRNGKey(1, device=device), b)
     shares = {}
     for algo in KINDS:
-        spec = SearchSpec(algo=algo, batch=b, num_simulations=128, wave_size=16,
-                          max_depth=depth, max_sim_steps=depth, max_width=actions,
-                          gamma=1.0)
+        spec = SearchSpec(algo=algo, batch=b, **BANDIT_SPEC)
         t0 = time.perf_counter()
         res = build_searcher(env, spec, device=device)(roots, rngs)
         sync(device)
@@ -1355,9 +1456,9 @@ def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):
 
 # Device-function names of the port's kernels (csrc/), whose profiled time
 # profile_call prints whether or not they are among the top entries.
-PORT_KERNEL_NAMES = ("tree_select_kernel", "split_kernel", "tree_kernel",
-                     "flash_mma_kernel", "flash_attention_kernel", "ssd_mma_kernel",
-                     "ssd_scan_kernel")
+PORT_KERNEL_NAMES = ("tree_select_kernel", "tree_descend_kernel", "split_kernel",
+                     "tree_kernel", "flash_mma_kernel", "flash_attention_kernel",
+                     "ssd_mma_kernel", "ssd_scan_kernel")
 
 
 def profile_call(torch, device, fn, what, top=10):
@@ -1694,6 +1795,7 @@ def main():
 
     phase("3. kernels against their plain versions")
     fields = {"tree_select": check_tree_select(torch, device)}
+    fields["tree_select"].update(check_tree_descend(torch, device))
     # Driven shapes beyond the grids: phase 9.1 (4 rows, 24 positions, full
     # width) and phase 9.2 (the reduced model's 8 x 4 slots, 4/2 heads, D=16).
     err = check_decode(torch, device, [(4, 24, 32, 8, 128),
@@ -1730,7 +1832,9 @@ def main():
     time_ssd(torch, device, zamba2_scan)
 
     phase("4. main path")
-    launches = {"tree_select": main_path(torch, device)["tree_select"]}
+    got = main_path(torch, device)
+    launches = {"tree_select": got["tree_descend"]}
+    fields["tree_select"]["level_launches"] = got["tree_select"]
 
     phase("5. bandit tree")
     bandit(torch, device)

@@ -8,5 +8,6 @@ the caller asks for the CPU; the hand-written kernels live in
 Ported so far: the rollout-evaluated wave engine (single-root and batched)
 behind ``repro_torch.core.build_searcher``, the tap game and bandit tree
 environments, a bit-exact twin of the ``jax.random`` functions they use,
-and the ``tree_select`` kernel.
+and the ``tree_select`` kernels (one level, and ``tree_descend``, the whole
+walk from the root in one launch).
 """

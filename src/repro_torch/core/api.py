@@ -124,17 +124,17 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
     subclasses need ``engine='async'``, and a model evaluator's ``top_k``
     must equal ``env.num_actions``.
 
-    Selection on a GPU always runs the ``tree_select`` kernel, and on the
-    CPU always its plain version, so ``spec.use_kernel=False`` is accepted
-    only with a CPU device.
+    Selection on a GPU always runs the ``tree_descend`` kernel (one launch
+    walks every tree), and on the CPU always its plain version, so
+    ``spec.use_kernel=False`` is accepted only with a CPU device.
     """
     cfg = as_search_config(spec)
     if spec.batch < 0:
         raise ValueError(f"batch must be >= 0, got {spec.batch}")
     if spec.algo not in PORTED_ALGOS:
         raise NotImplementedError(
-            f"algo {spec.algo!r} is not ported yet (ROADMAP.md §1, queue "
-            "item 4: core/baselines.py, run_leafp/run_rootp)"
+            f"algo {spec.algo!r} is not ported yet (ROADMAP.md §1, item 2: "
+            "core/baselines.py, run_leafp/run_rootp)"
         )
     name = type(evaluator).__name__
     if evaluator is not None and not isinstance(evaluator, Evaluator):
@@ -151,7 +151,7 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
                          "engine carries no slot cache; use ModelEvaluator)")
     on_gpu = torch.device("cuda" if device is None else device).type == "cuda"
     if not spec.use_kernel and on_gpu:
-        raise ValueError("use_kernel=False would bypass the tree_select kernel on "
+        raise ValueError("use_kernel=False would bypass the tree_descend kernel on "
                          "the GPU; the plain version runs only on the CPU")
     dev = resolve_device(device)
     if spec.engine == "async":

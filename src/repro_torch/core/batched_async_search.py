@@ -6,8 +6,8 @@ rollouts settle at different ticks and a freed slot is refilled at once.
 ``B`` trees × ``W`` async slots advance one master tick at a time:
 
 * **refill** fills each tree's FREE slots, slot ``j`` of all ``B`` trees
-  together, selecting through the ``tree_select`` kernel
-  (:func:`~repro_torch.core.batched_search.traverse_batched`); the
+  together, each column's traversal one launch of the ``tree_descend``
+  kernel (:func:`~repro_torch.core.batched_search.traverse_batched`); the
   evaluator's slot caches re-sync through ``refill_aux``;
 * **tick** advances every busy slot by one environment step as one flat
   ``[B·W]`` batch — with a model evaluator, one batched model call per
@@ -21,16 +21,16 @@ and slots are updated **in place** (:mod:`repro_torch.core.batched_tree`).
 
 Host syncs (:data:`repro_torch.sync.SYNCS`): one per master tick for the
 loop condition, one per slot column for "does any tree refill here", the
-traversal's and path walks' per-level syncs for the columns that do, and
-the evaluator's own (the cached evaluators' catch-up loops, the frontier
-evaluators' "any EXPAND row" per tick).
+path walks' per-level syncs for the columns that do (and, on the CPU, the
+traversal's), and the evaluator's own (the cached evaluators' catch-up
+loops, the frontier evaluators' "any EXPAND row" per tick).
 
 The carry counts, per tree, the refills a frontier evaluator answered from
 its snapshot (:meth:`BatchedAsyncEngine.frontier_hits`).
 
 The serving surface of the reference engine (``admit``/``evict``, the
 request ring, ``serve_segment``) and the trace mode (``AsyncTickTrace``)
-are not ported yet (ROADMAP.md §1, queue items 2 and 3).
+are not ported yet (ROADMAP.md §1, items 1, 3 and 4).
 """
 
 from __future__ import annotations
@@ -136,8 +136,7 @@ class BatchedAsyncEngine:
     def _refill(self, tree, slots: _BatchedAsyncSlots, rngs, t_launch, t_done, aux,
                 fr_hits):
         """Fill each tree's FREE slots with fresh selections — slot ``j``
-        of all ``B`` trees at once, one ``[B, A]`` kernel call per
-        traversal level."""
+        of all ``B`` trees at once, one ``tree_descend`` call per column."""
         B, W, T, cfg = self.B, self.W, self.T, self.cfg
         dev = rngs.device
         bidx = torch.arange(B, device=dev)

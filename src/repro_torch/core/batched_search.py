@@ -2,17 +2,20 @@
 (counterpart of ``repro.core.batched_search``).
 
 * the forest is a :class:`repro_torch.core.batched_tree.BatchedTree`;
-* per traversal level, the child statistics of all ``B`` current nodes are
-  gathered into dense ``[B, A]`` tables and scored by **one** call of the
-  ``tree_select`` kernel (the hand-written CUDA kernel on a GPU);
+* a traversal is **one** call of ``tree_descend``: on a GPU one launch of
+  the hand-written kernel walks every tree from its root to its stop node,
+  the coin's threefry draws and the child scoring of every level included;
+  on the CPU its plain version walks all ``B`` trees in lockstep, one
+  ``[B, A]`` scoring per level, as the reference's ``while_loop`` does;
 * random streams are carried per tree and split exactly as the reference
   splits them (:mod:`repro_torch.rng`), so with the same keys this engine
   makes the reference's decisions, up to float32 ``log`` differences at
   near-ties.
 
-Host syncs: the traversal asks the device once per level whether any tree
-is still walking; the path walks once per level plus once; rollouts once
-per step; the flood fill of the tap game once per four dilations.
+Host syncs: on the CPU the traversal asks once per level whether any tree
+is still walking (on a GPU it asks nothing); the path walks once per level
+plus once; rollouts once per step; the flood fill of the tap game once per
+four dilations.
 """
 
 from __future__ import annotations
@@ -23,8 +26,7 @@ import torch
 
 from .. import rng
 from ..envs.base import Environment, map_state, where_state
-from ..kernels.tree_select.ops import tree_select
-from ..sync import host_any
+from ..kernels.tree_select.ops import tree_descend, tree_select
 from . import batched_tree as btree
 from .batched_tree import BatchedTree, init_batched_tree
 from .evaluators import Evaluator, RolloutEvaluator
@@ -60,39 +62,48 @@ def batched_select(tree: BatchedTree, nodes: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Selection — all B trees traverse in lockstep; one kernel call per level.
+# Selection — one descent per traversal: a single kernel launch on a GPU.
 # ---------------------------------------------------------------------------
+
+
+def walk_inputs(tree: BatchedTree, cfg: SearchConfig):
+    """``(tensors, params)`` of ``tree_descend`` for ``tree`` under the
+    search config ``cfg``; the keys come between them."""
+    pol = cfg.policy
+    tensors = (tree.children, tree.N, tree.O, tree.V, tree.VL, tree.pending,
+               tree.terminal, tree.depth)
+    params = dict(width=min(cfg.max_width, tree.num_actions), max_depth=cfg.max_depth,
+                  expand_coin=cfg.expand_coin, kind=pol.kind, beta=pol.beta,
+                  r_vl=pol.r_vl, n_vl=pol.n_vl)
+    return tensors, params
 
 
 def traverse_batched(tree: BatchedTree, rngs: torch.Tensor,
                      cfg: SearchConfig) -> torch.Tensor:
     """Walk every tree from its root by the configured tree policy;
     returns the stop node of each tree (``i64[B]``)."""
-    width = min(cfg.max_width, tree.num_actions)
-    b = torch.arange(tree.batch_size, device=rngs.device)
-    nodes = torch.zeros((tree.batch_size,), dtype=torch.int64, device=rngs.device)
-    stopped = torch.zeros((tree.batch_size,), dtype=torch.bool, device=rngs.device)
-    while True:  # every tree is active at the start: the body runs once
-        active = ~stopped
-        new_rng, k_coin = _split_each(rngs, 2)
-        rngs = torch.where(active[:, None], new_rng, rngs)
+    tensors, params = walk_inputs(tree, cfg)
+    return tree_descend(*tensors, rngs, **params)
 
-        kids = tree.children[b, nodes]                       # [B, A]
-        n_tried = (kids >= 0).sum(dim=1)
-        is_leaf = n_tried == 0
-        at_depth = tree.depth[b, nodes] >= cfg.max_depth
-        is_term = tree.terminal[b, nodes]
-        not_full = n_tried < width
-        coin = rng.uniform(k_coin) < cfg.expand_coin
-        stop = is_leaf | at_depth | is_term | (not_full & coin)
 
-        best, any_valid = batched_select(tree, nodes, cfg.policy)
-        stop = stop | ~any_valid
-        nxt = torch.where(stop, nodes, kids.gather(1, best[:, None])[:, 0])
-        nodes = torch.where(active, nxt, nodes)
-        stopped = stopped | stop
-        if not host_any(~stopped):
-            return nodes
+def mid_search_trees(env: Environment, cfg: SearchConfig, root_states: State,
+                     rngs: torch.Tensor, waves: int) -> list[BatchedTree]:
+    """The forests a batched wave search walks, as test and timing inputs of
+    :func:`traverse_batched`: for ``w = 0 .. waves``, a copy of the forest
+    after ``w`` waves and the selection phase of the next, whose
+    expansions stay pending (visits, in-flight counts, pending children)."""
+    tree = init_batched_tree(root_states, cfg.num_simulations + cfg.wave_size + 1,
+                             env.num_actions)
+    out = []
+    for w in range(waves + 1):
+        rngs, k_sel, k_sim = _split_each(rngs, 3)
+        tree, slots, _ = _phase1_select(tree, k_sel, cfg)
+        out.append(tree._replace(states=map_state(torch.clone, tree.states), **{
+            f: getattr(tree, f).clone() for f in tree._fields if f != "states"}))
+        if w < waves:
+            out_w = _phase2_work(env, cfg, tree, slots, k_sim)
+            tree = _phase3_settle(tree, cfg, slots, *out_w)
+    return out
 
 
 def _expansion_actions(tree: BatchedTree, nodes: torch.Tensor, rngs: torch.Tensor,

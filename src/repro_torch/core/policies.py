@@ -1,9 +1,11 @@
 """Tree (node-selection) policies (counterpart of ``repro.core.policies``).
 
 The four selection rules of the paper — ``uct`` (eq. 2), ``wu_uct``
-(eq. 4), ``treep`` (V − VL) and ``treep_vc`` (eq. 7) — are scored by the
-``tree_select`` kernel (:mod:`repro_torch.kernels.tree_select`); this
-module holds their configuration and the gather that feeds the kernel.
+(eq. 4), ``treep`` (V − VL) and ``treep_vc`` (eq. 7) — are scored inside
+the ``tree_descend`` kernel, which walks each tree from root to stop node
+in one launch, and by the per-level ``tree_select`` kernel
+(:mod:`repro_torch.kernels.tree_select`); this module holds their
+configuration and the gather that feeds the per-level kernel.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..kernels.tree_select.ref import children_tables
 
 
 class PolicyConfig(NamedTuple):
@@ -30,15 +34,5 @@ def gather_children_tables(tree, nodes: torch.Tensor):
     Returns ``(n_c, o_c, v_c, vl_c, n_p, o_p, valid)`` with shapes
     ``[B, A] × 4, [B] × 2, [B, A]``.
     """
-    b = torch.arange(nodes.shape[0], device=nodes.device)
-    kids = tree.children[b, nodes]                   # i64[B, A]
-    safe = kids.clamp_min(0)
-    b2 = b[:, None]
-    valid = (kids >= 0) & ~tree.pending[b2, safe]
-    n_c = tree.N[b2, safe]
-    o_c = tree.O[b2, safe]
-    v_c = tree.V[b2, safe]
-    vl_c = tree.VL[b2, safe]
-    n_p = tree.N[b, nodes]
-    o_p = tree.O[b, nodes]
-    return n_c, o_c, v_c, vl_c, n_p, o_p, valid
+    return children_tables(tree.children, tree.N, tree.O, tree.V, tree.VL,
+                           tree.pending, nodes)

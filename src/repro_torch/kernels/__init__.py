@@ -9,6 +9,7 @@ from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {
     "tree_select": 0,
+    "tree_descend": 0,
     "decode_attention": 0,
     "flash_attention": 0,
     "paged_decode_attention": 0,

@@ -1,9 +1,11 @@
-"""Wrapper of the batched tree-selection kernel (``csrc/tree_select.cu``).
+"""Wrappers of the tree-selection kernels (``csrc/tree_select.cu``).
 
-CPU tensors go to the plain version (:mod:`.ref`).  CUDA tensors go to the
-hand-written kernel, or the call raises: there is no fallback.  The kernel
-launches on PyTorch's current stream, and each launch adds one to
-``repro_torch.kernels.LAUNCHES["tree_select"]``.
+:func:`tree_select` scores one level of ``B`` rows; :func:`tree_descend`
+walks ``B`` trees from the root to their stop nodes in one launch.  CPU
+tensors go to the plain versions (:mod:`.ref`).  CUDA tensors go to the
+hand-written kernels, or the call raises: there is no fallback.  The
+kernels launch on PyTorch's current stream, and each launch adds one to
+``repro_torch.kernels.LAUNCHES["tree_select"]`` or ``["tree_descend"]``.
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ import torch
 
 from .. import LAUNCHES
 from .. import _build
-from .ref import KINDS, tree_select_ref
+from .ref import KINDS, tree_descend_ref, tree_select_ref
 
 _C_FUNCTION = None
+_C_DESCEND = None
 
 
 def _launcher():
@@ -33,15 +36,34 @@ def _launcher():
     return _C_FUNCTION
 
 
-def _check(name, x, shape, dtype, device):
+def _descend_launcher():
+    global _C_DESCEND
+    if _C_DESCEND is None:
+        fn = _build.load("tree_select").tree_descend_launch
+        fn.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+            ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _C_DESCEND = fn
+    return _C_DESCEND
+
+
+def _check(name, x, shape, dtype, device, fn="tree_select"):
     if x.device != device:
-        raise ValueError(f"tree_select: {name} is on {x.device}, expected {device}")
+        raise ValueError(f"{fn}: {name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
-        raise TypeError(f"tree_select: {name} has dtype {x.dtype}, expected {dtype}")
+        raise TypeError(f"{fn}: {name} has dtype {x.dtype}, expected {dtype}")
     if tuple(x.shape) != shape:
-        raise ValueError(f"tree_select: {name} has shape {tuple(x.shape)}, expected {shape}")
+        raise ValueError(f"{fn}: {name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
-        raise ValueError(f"tree_select: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _device_index(device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def tree_select(n_c, o_c, v_c, n_p, o_p, valid, vl_c=None, *,
@@ -84,11 +106,65 @@ def tree_select(n_c, o_c, v_c, n_p, o_p, valid, vl_c=None, *,
         vl_c.data_ptr() if vl_c is not None else None,
         n_p.data_ptr(), o_p.data_ptr(), valid.data_ptr(),
         act.data_ptr(), best.data_ptr(),
-        b, a, KINDS.index(kind), beta, r_vl, n_vl,
-        device.index if device.index is not None else torch.cuda.current_device(),
-        stream,
+        b, a, KINDS.index(kind), beta, r_vl, n_vl, _device_index(device), stream,
     )
     if err != 0:
         raise RuntimeError(f"tree_select kernel launch failed: cudaError {err}")
     LAUNCHES["tree_select"] += 1
     return act, best
+
+
+def tree_descend(children, N, O, V, VL, pending, terminal, depth, rngs, *,
+                 width: int, max_depth: int, expand_coin: float = 0.5,
+                 kind: str = "wu_uct", beta: float = 1.0, r_vl: float = 1.0,
+                 n_vl: float = 1.0) -> torch.Tensor:
+    """Stop node ``i64[B]`` of each of ``B`` trees, walked from the root.
+
+    ``children i64[B, M, A]``; ``N, O, V, VL f32[B, M]``; ``pending,
+    terminal bool[B, M]``; ``depth i64[B, M]``; ``rngs`` the rows' keys
+    ``i64[B, 2]`` (rows may be strided, words contiguous).  ``width`` is
+    ``min(max_width, A)``.  On a GPU one launch walks every tree to its
+    end; its stop nodes equal :func:`.ref.tree_descend_ref`'s bit for bit.
+    """
+    if kind not in KINDS:
+        raise ValueError(f"unknown policy kind: {kind!r}; expected one of {KINDS}")
+    params = dict(width=width, max_depth=max_depth, expand_coin=expand_coin,
+                  kind=kind, beta=beta, r_vl=r_vl, n_vl=n_vl)
+    device = children.device
+    if device.type == "cpu":
+        return tree_descend_ref(children, N, O, V, VL, pending, terminal, depth, rngs,
+                                **params)
+    if device.type != "cuda":
+        raise ValueError(f"tree_descend runs on CPU or CUDA tensors, got {device}")
+    if children.dim() != 3:
+        raise ValueError(f"tree_descend: children must be [B, M, A], got "
+                         f"{tuple(children.shape)}")
+    b, m, a = children.shape
+    _check("children", children, (b, m, a), torch.int64, device, "tree_descend")
+    for name, x in (("N", N), ("O", O), ("V", V), ("VL", VL)):
+        _check(name, x, (b, m), torch.float32, device, "tree_descend")
+    for name, x in (("pending", pending), ("terminal", terminal)):
+        _check(name, x, (b, m), torch.bool, device, "tree_descend")
+    _check("depth", depth, (b, m), torch.int64, device, "tree_descend")
+    if rngs.device != device or rngs.dtype != torch.int64 or tuple(rngs.shape) != (b, 2):
+        raise ValueError(f"tree_descend: rngs must be int64 [{b}, 2] on {device}, got "
+                         f"{rngs.dtype} {tuple(rngs.shape)} on {rngs.device}")
+    if rngs.stride(1) != 1:
+        raise ValueError("tree_descend: the two words of a key must be adjacent")
+
+    out = torch.empty((b,), dtype=torch.int64, device=device)
+    if b == 0:
+        return out
+    if m == 0 or a == 0:
+        raise ValueError("tree_descend: trees need a root and at least one action")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _descend_launcher()(
+        children.data_ptr(), N.data_ptr(), O.data_ptr(), V.data_ptr(), VL.data_ptr(),
+        pending.data_ptr(), terminal.data_ptr(), depth.data_ptr(), rngs.data_ptr(),
+        out.data_ptr(), b, m, a, rngs.stride(0), width, max_depth, expand_coin,
+        KINDS.index(kind), beta, r_vl, n_vl, _device_index(device), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"tree_descend kernel launch failed: cudaError {err}")
+    LAUNCHES["tree_descend"] += 1
+    return out

@@ -7,9 +7,9 @@ Episode play (one search per move):
   PYTHONPATH=src python -m repro_torch.launch.search --env tap --algo wu_uct \
       --workers 16 --simulations 128 --episodes 2
 
-Batched multi-root mode (B independent searches in lockstep through the
-tree_select kernel; reports searches/s of the second call, and the card's
-name):
+Batched multi-root mode (B independent searches in lockstep, each
+traversal one launch of the tree_descend kernel; reports searches/s of the
+second call, and the card's name):
   PYTHONPATH=src python -m repro_torch.launch.search --env tap --batch 256 \
       --workers 16 --simulations 128
 
@@ -80,7 +80,7 @@ def _print_profile(prof, wall: float, device: torch.device) -> None:
     launches = sum(r[1] for r in rows)
     print(f"profile on {_device_name(device)}: wall {wall!r} s, device busy {busy!r} s "
           f"({busy / wall!r} of wall), {launches} device kernels, "
-          f"tree_select launches {LAUNCHES['tree_select']}, host syncs {SYNCS['host_any']}")
+          f"tree_descend launches {LAUNCHES['tree_descend']}, host syncs {SYNCS['host_any']}")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {dev_us * 1e-3!r} ms  {count} x  {key[:90]}")
 
@@ -144,9 +144,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         acts = res.action.cpu().numpy()
         cfg = spec.config
         print(f"{args.algo}[{args.engine}] B={B} W={cfg.wave_size} T={cfg.num_simulations} "
-              f"on {_device_name(device)}: {B / dt:.1f} searches/s  wall={dt:.2f}s  "
+              f"on {_device_name(device)}: {B / dt!r} searches/s  wall={dt!r}s  "
               f"actions={acts[:min(B, 16)].tolist()}{'…' if B > 16 else ''}  "
-              f"overflowed={bool(res.overflowed.any())}")
+              f"overflowed={bool(res.overflowed.any())}  "
+              f"tree_descend launches {LAUNCHES['tree_descend']}, "
+              f"host syncs {SYNCS['host_any']}")
         return
 
     rets, steps = [], []

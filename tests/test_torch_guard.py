@@ -267,8 +267,8 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
 
 @pytest.mark.cuda
 def test_cuda_search_matches_cpu_search():
-    """The GPU path (kernel, int64 threefry on the card) makes the CPU
-    path's decisions on the bandit tree, where every draw is exact."""
+    """The GPU path (the walk kernel, int64 threefry on the card) makes the
+    CPU path's decisions on the bandit tree, where every draw is exact."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import LAUNCHES
@@ -278,9 +278,10 @@ def test_cuda_search_matches_cpu_search():
                       max_sim_steps=4, max_width=4, gamma=0.9)
     roots = env.init(rng.split(rng.PRNGKey(0), 8))
     rngs = rng.split(rng.PRNGKey(1), 8)
-    before = LAUNCHES["tree_select"]
+    before = LAUNCHES["tree_descend"]
     gpu = build_searcher(env, spec)(roots, rngs)
-    assert LAUNCHES["tree_select"] >= before + spec.num_simulations
+    # One walk per selection: W slots in each of T / W waves.
+    assert LAUNCHES["tree_descend"] == before + spec.num_simulations
     cpu = build_searcher(env, spec, device="cpu")(roots, rngs)
     for field in ("action", "root_n", "tree_size", "overflowed"):
         assert torch.equal(getattr(gpu, field).cpu(), getattr(cpu, field)), field

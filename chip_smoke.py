@@ -74,6 +74,26 @@ Phases (any failure raises, so the script exits non-zero):
     14 sites of its shared attention block, bf16), phase 8's wave cell with
     ``ModelEvaluator``; 81 ``ssd_scan`` and 14 ``flash_attention``
     (D=112) launches per forward;
+15. the paper's baselines: LeafP and RootP (K = 16) on 16 single roots of
+    phase 4's tap game (T=128, W=16, width 5): exactly T/W and T/K
+    ``tree_descend`` launches per search and no ``tree_select``, 8 roots
+    re-searched on the CPU (at least 7 of 8 actions equal); on 64 single
+    roots of phase 5's bandit tree, the optimal-action share beside phase
+    5's (RootP above chance); wu_uct on the random MDP at B=256 (8 trees
+    against the CPU);
+16. trace mode: phase 5's bandit tree on the async engine (B=256, W=16)
+    traced for the reference's bound of 1026 ticks, O conservation on
+    every tick and tree and O = 0 at the end, checked on the host; the
+    reduced llama (2 layers, float32) with the cached and paged evaluators:
+    every busy slot's cache depth equals its prefix, the pool's working set
+    stays within its blocks;
+17. host-paced serving, while llama3-8b is loaded (after phase 12):
+    ``SearchService(fused=False)`` in phase 7's cell drains 24 ragged
+    prompts arriving in three bursts of 8, dense then paged (phase 10's
+    pool): one valid action each, 32 decode-kernel launches per decode
+    step, every page free after the paged drain; one warm burst under the
+    profiler; the mid-run admissions against a fresh batch are printed;
+    17.2 (after phase 9) holds them at 2 float32 layers (7 of 8);
 9. agreement on the card: cached prefill vs flash forward vs decode step
    logits (full width, 2 layers, float32), the reduced model's cached and
    paged frontier searches on the GPU against the port on the CPU,
@@ -84,8 +104,9 @@ Phases (any failure raises, so the script exits non-zero):
    (async) and zamba2 (wave) ``ModelEvaluator`` searches on the GPU
    against the port on the CPU.
 
-Phases 10-12 run before phase 9, while phase 7's model is loaded; phases
-13 and 14 after it is freed, one model at a time.  Phase
+Phases 15 and 16 run after phase 6; phases 10-12 and 17 before phase 9,
+while phase 7's model is loaded; phases 13 and 14 after it is freed, one
+model at a time; 17.2 last.  Phase
 10 must choose phase 7's action on at least 7 of 8 trees and phase 12
 phase 11's.  Phase 11 prints its agreement with phase 7 without holding
 it: in bf16 over 32 random layers the frontier forward, the decode step
@@ -128,6 +149,7 @@ FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 MAIN_B, MAIN_A = 256, 36      # tap game 6x6: 256 trees, 36 actions
 BANDIT_B = 1024
+TRACE_B = 256                 # phase 16's traced bandit forest
 KINDS = ("wu_uct", "uct", "treep", "treep_vc")
 KERNELS = ("tree_select", "decode_attention", "flash_attention", "paged_decode_attention",
            "tree_decode_attention", "paged_tree_decode_attention", "ssd_scan")
@@ -1048,6 +1070,7 @@ def bandit(torch, device):
     print(f"bandit optimum: action {best_action}, Q_root {q_root.tolist()}")
     if not shares["wu_uct"] > 1.0 / actions:
         raise AssertionError(f"wu_uct optimal share {shares['wu_uct']} is not above chance")
+    return shares
 
 
 def single_root(torch, device):
@@ -1774,6 +1797,422 @@ def agreement_frontier(torch, device):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The paper's baselines, trace mode and host-paced serving (phases 15-17)
+# ---------------------------------------------------------------------------
+
+BASELINE_ROOTS = 16           # phase 15's single tap-game roots per baseline
+BASELINE_BANDIT_ROOTS = 64    # phase 15's single bandit roots per baseline
+MDP_B = 256                   # phase 15's random-MDP batch (launcher's --env mdp)
+SERVE_R, SERVE_BURST = 24, 8  # phase 17: requests, arriving in bursts of 8
+PARITY_R = 16                 # phase 17.2: two bursts; the second is compared
+
+
+def search_each(torch, device, search, roots, keys, n, per_search):
+    """``n`` single-root searches; each must launch exactly ``per_search``
+    walks and no per-level ``tree_select``.  Returns (results, wall,
+    syncs)."""
+    from repro_torch.envs.base import map_state
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.sync import SYNCS, reset_syncs
+
+    sync(device)
+    reset_syncs()
+    out = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        reset_launches()
+        out.append(search(map_state(lambda x: x[i], roots), keys[i]))
+        got = (LAUNCHES["tree_descend"], LAUNCHES["tree_select"])
+        if got != (per_search, 0):
+            raise AssertionError(f"search {i} launched tree_descend {got[0]} times and "
+                                 f"tree_select {got[1]}, expected {per_search} and 0")
+    sync(device)
+    return out, time.perf_counter() - t0, SYNCS["host_any"]
+
+
+def single_results_ok(torch, results, spec, actions, what):
+    for i, res in enumerate(results):
+        tried = res.root_n > 0
+        ok = (bool(torch.isfinite(res.root_n).all()) and bool(torch.isfinite(res.root_v[tried]).all())
+              and 0 <= int(res.action) < actions and 0 < float(res.root_n.sum()) <= spec.num_simulations
+              and not bool(res.overflowed))
+        if not ok:
+            raise AssertionError(f"{what} root {i}: action {int(res.action)}, root_n "
+                                 f"{res.root_n.tolist()}, root_v {res.root_v.tolist()}")
+
+
+def baselines(torch, device, bandit_shares):
+    """Phase 15: LeafP and RootP (K = W = 16) on phase 4's tap game and
+    phase 5's bandit tree, one root per search; wu_uct on the random MDP
+    at B = 256."""
+    from repro_torch import rng
+    from repro_torch.core import SearchSpec, build_searcher
+    from repro_torch.envs import make_bandit_tree, make_random_mdp, make_tap_game, solve_bandit_tree
+    from repro_torch.envs.base import map_state
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.sync import SYNCS, reset_syncs
+
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    env = make_tap_game(6, 4, goal_count=10, step_budget=20)
+    roots = env.init(rng.split(rng.PRNGKey(20, device=device), BASELINE_ROOTS))
+    keys = rng.split(rng.PRNGKey(21, device=device), BASELINE_ROOTS)
+    launches = {}
+    for algo in ("leafp", "rootp"):
+        spec = SearchSpec(algo=algo, **MAIN_SPEC)
+        # LeafP walks once a round (T / W rounds), RootP once a wave of its
+        # K = W trees (T / K waves).
+        per = spec.num_simulations // spec.wave_size
+        res, wall, syncs = search_each(torch, device, build_searcher(env, spec, device=device),
+                                       roots, keys, BASELINE_ROOTS, per)
+        single_results_ok(torch, res, spec, MAIN_A, f"{algo} tap")
+        cpu = build_searcher(env, spec, device="cpu")
+        same = 0
+        for i in range(8):
+            c = cpu(map_state(lambda x: x[i].cpu(), roots), keys[i].cpu())
+            if int(c.action) == int(res[i].action):
+                same += 1
+            else:
+                print(f"{algo} tap root {i}: GPU action {int(res[i].action)}, CPU action "
+                      f"{int(c.action)} (root_n GPU {res[i].root_n.tolist()} CPU "
+                      f"{c.root_n.tolist()})")
+        if same < 7:
+            raise AssertionError(f"{algo}: GPU and CPU actions agree on {same} of 8 roots")
+        launches[algo] = per
+        print(f"{algo} tap 6x6 T={spec.num_simulations} W=K={spec.wave_size} width 5 on {name}: "
+              f"{BASELINE_ROOTS} single-root searches, {BASELINE_ROOTS / wall!r} searches/s "
+              f"(wall {wall!r} s), tree_descend launches {per} per search, tree_select 0, "
+              f"host syncs {syncs / BASELINE_ROOTS!r} per search; CPU re-search agrees on "
+              f"{same}/8 roots")
+
+    depth, actions = 6, 4
+    env = make_bandit_tree(depth=depth, num_actions=actions)
+    _, best, _ = solve_bandit_tree(depth, actions, seed=0)
+    roots = env.init(rng.split(rng.PRNGKey(0, device=device), BASELINE_BANDIT_ROOTS))
+    keys = rng.split(rng.PRNGKey(1, device=device), BASELINE_BANDIT_ROOTS)
+    shares = dict(bandit_shares)
+    for algo in ("leafp", "rootp"):
+        spec = SearchSpec(algo=algo, **BANDIT_SPEC)
+        res, wall, _ = search_each(torch, device, build_searcher(env, spec, device=device),
+                                   roots, keys, BASELINE_BANDIT_ROOTS,
+                                   spec.num_simulations // spec.wave_size)
+        single_results_ok(torch, res, spec, actions, f"{algo} bandit")
+        shares[algo] = sum(int(r.action) == best for r in res) / BASELINE_BANDIT_ROOTS
+        print(f"bandit d={depth} A={actions} {algo}: {BASELINE_BANDIT_ROOTS} single roots, "
+              f"optimal-action share {shares[algo]!r} ({BASELINE_BANDIT_ROOTS / wall!r} "
+              f"searches/s)")
+    print(f"bandit optimal-action shares (phase 5: B={BANDIT_B} batched; phase 15: "
+          f"{BASELINE_BANDIT_ROOTS} single roots): {shares}")
+    if not shares["rootp"] > 1.0 / actions:
+        raise AssertionError(f"rootp optimal share {shares['rootp']} is not above chance")
+
+    env = make_random_mdp(num_states=32, num_actions=4, horizon=16)
+    spec = SearchSpec(algo="wu_uct", batch=MDP_B, num_simulations=128, wave_size=16,
+                      max_depth=10, max_width=4, max_sim_steps=20, gamma=0.99)
+    roots = env.init(rng.split(rng.PRNGKey(0, device=device), MDP_B))
+    rngs = rng.split(rng.PRNGKey(1, device=device), MDP_B)
+    search = build_searcher(env, spec, device=device)
+    sync(device)
+    reset_launches()
+    reset_syncs()
+    t0 = time.perf_counter()
+    res = search(roots, rngs)
+    sync(device)
+    wall = time.perf_counter() - t0
+    walks, syncs = LAUNCHES["tree_descend"], SYNCS["host_any"]
+    if (walks, LAUNCHES["tree_select"]) != (spec.num_simulations, 0):
+        raise AssertionError(f"mdp: tree_descend {walks}, tree_select "
+                             f"{LAUNCHES['tree_select']}")
+    tried = res.root_n > 0
+    if not (bool(torch.isfinite(res.root_v[tried]).all()) and bool((res.action >= 0).all())
+            and bool((res.action < 4).all()) and not bool(res.overflowed.any())):
+        raise AssertionError("mdp: non-finite or out-of-range search results")
+    cpu = build_searcher(env, spec._replace(batch=8), device="cpu")(
+        map_state(lambda x: x[:8].cpu(), roots), rngs[:8].cpu())
+    same = res.action[:8].cpu() == cpu.action
+    if int(same.sum()) < 7:
+        raise AssertionError(f"mdp: GPU and CPU actions agree on {int(same.sum())} of 8")
+    print(f"random MDP (32 states, 4 actions, horizon 16) wu_uct B={MDP_B} T=128 W=16 on "
+          f"{name}: {MDP_B / wall!r} searches/s (wall {wall!r} s, first call), tree_descend "
+          f"launches {walks}, host syncs {syncs}; CPU re-search "
+          f"agrees on {int(same.sum())}/8 trees, root_n equal on "
+          f"{int((res.root_n[:8].cpu() == cpu.root_n).all(1).sum())}/8")
+    return launches
+
+
+def check_o_conservation(trace, T):
+    """The reference's O-conservation check on a ``[K, B, ...]`` trace,
+    on the host: at every tick, each node's ``O`` equals the busy slots
+    whose charged node's root path passes through it, and ``O`` is zero at
+    the end.  Returns the busy slot-ticks walked."""
+    O, parent = trace.O.cpu().numpy(), trace.parent.cpu().numpy()
+    kind, sim_node = trace.kind.cpu().numpy(), trace.sim_node.cpu().numpy()
+    if not (trace.t_done[-1] == T).all():
+        raise AssertionError("trace bound too small: not every tree settled")
+    counts = np.zeros(O.shape, np.float32)
+    kk, bb, ww = np.nonzero(kind != 0)             # FREE == 0
+    walked = kk.size
+    n = sim_node[kk, bb, ww]
+    while n.size:
+        np.add.at(counts, (kk, bb, n), 1.0)
+        n = parent[kk, bb, n]
+        live = n >= 0
+        kk, bb, n = kk[live], bb[live], n[live]
+    bad = np.argwhere((O != counts).any(-1))
+    if bad.size:
+        k, b = bad[0]
+        raise AssertionError(f"O != busy-slot subtree count at tick {k}, tree {b} "
+                             f"({len(bad)} (tick, tree) pairs)")
+    if (O[-1] != 0).any():
+        raise AssertionError("O mass left at termination")
+    return walked
+
+
+def trace_phase(torch, device):
+    """Phase 16: trace mode on the card.  Phase 5's bandit tree on the async
+    engine (B = 256, W = 16) for the reference's trace bound, with O
+    conservation checked on the host; then the reduced llama (2 layers,
+    float32) with the cached and the paged evaluator, cache depth against
+    each busy slot's prefix and the pool's working set."""
+    import dataclasses
+
+    from repro_torch import rng
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import CachedModelEvaluator, PagedCachedModelEvaluator, SearchSpec
+    from repro_torch.core.batched_async_search import run_async_search_batched
+    from repro_torch.envs import make_bandit_tree, make_token_env
+    from repro_torch.models import init_params
+
+    env = make_bandit_tree(depth=6, num_actions=4)
+    spec = SearchSpec(algo="wu_uct", engine="async", batch=TRACE_B, **BANDIT_SPEC)
+    cfg = spec.config
+    # The reference's _trace_bound (tests/test_async_invariants.py).
+    ticks = cfg.num_simulations * (cfg.max_sim_steps + 2) + 2
+    roots = env.init(rng.split(rng.PRNGKey(0, device=device), TRACE_B))
+    rngs = rng.split(rng.PRNGKey(1, device=device), TRACE_B)
+    sync(device)
+    t0 = time.perf_counter()
+    res, trace = run_async_search_batched(env, cfg, roots, rngs, trace_ticks=ticks)
+    sync(device)
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    walked = check_o_conservation(trace, cfg.num_simulations)
+    alive = trace.alive.cpu().numpy()
+    print(f"trace: bandit d=6 A=4 async wu_uct B={TRACE_B} W={cfg.wave_size} "
+          f"T={cfg.num_simulations}, {ticks} ticks traced "
+          f"in {wall!r} s ({int(alive.any(1).sum())} with a live tree; {int(res.ticks.max())} "
+          f"ticks for the slowest tree); O conservation held on all {ticks} x {TRACE_B} "
+          f"(tick, tree) pairs ({walked} busy slot-ticks walked, {time.perf_counter() - t1!r} "
+          f"s on the host); O == 0 at the end; max busy slots {int(trace.busy_slots.max())}")
+
+    lm = dataclasses.replace(get_reduced("llama3-8b", vocab_size=64, num_layers=2),
+                             dtype=torch.float32)
+    params = init_params(lm, torch.Generator(device=device).manual_seed(4))
+    env = make_token_env(lm, params, prompt_tokens(torch, 64, 8, seed=6).to(device),
+                         max_len=REDUCED_MAX_LEN, top_k=TOP_K, eos_token=EOS)
+    spec = reduced_spec()
+    cfg = spec.config
+    ticks = cfg.num_simulations * (cfg.max_sim_steps + 2) + 2
+    roots = env.init(rng.split(rng.PRNGKey(7, device=device), spec.batch))
+    rngs = rng.split(rng.PRNGKey(8, device=device), spec.batch)
+    blocks = spec.batch * spec.wave_size * -(-REDUCED_MAX_LEN // REDUCED_BLOCK)
+    kw = dict(top_k=TOP_K, eos_token=EOS)
+    for what, ev in (("cached", CachedModelEvaluator(lm, params, **kw)),
+                     ("paged", PagedCachedModelEvaluator(lm, params, block_size=REDUCED_BLOCK,
+                                                         num_blocks=blocks, **kw))):
+        t0 = time.perf_counter()
+        _, tr = run_async_search_batched(env, cfg, roots, rngs, trace_ticks=ticks, evaluator=ev)
+        sync(device)
+        wall = time.perf_counter() - t0
+        alive = tr.alive.cpu().numpy()
+        if not alive.any() or alive[-1].any():
+            raise AssertionError(f"{what} trace: alive {alive.any()} at all, {alive[-1].any()} "
+                                 "at the end")
+        busy = (tr.kind.cpu().numpy() != 0) & alive[..., None]
+        cache_len, state_len = tr.cache_len.cpu().numpy(), tr.state_len.cpu().numpy()
+        if not busy.any() or not np.array_equal(cache_len[busy], state_len[busy]):
+            raise AssertionError(f"{what} trace: cache_len differs from state_len on "
+                                 f"{int((cache_len[busy] != state_len[busy]).sum())} busy "
+                                 "slot-ticks")
+        line = (f"trace: reduced llama3-8b (2 layers, float32) {what} async search B=8 W=4 "
+                f"T=32, {ticks} ticks in {wall!r} s: cache_len == state_len on all "
+                f"{int(busy.sum())} busy slot-ticks of live trees")
+        if what == "paged":
+            used = tr.blocks_in_use.cpu().numpy()
+            if not 0 < used.max() <= blocks:
+                raise AssertionError(f"paged trace: blocks in use up to {used.max()} of {blocks}")
+            line += f"; blocks in use at most {int(used.max())} of {blocks}"
+        print(line)
+    del params
+
+
+def dtype_name(cfg):
+    return str(cfg.dtype).replace("torch.", "")
+
+
+def serve_prompts(torch, vocab, n):
+    """``n`` ragged prompts (64 to 128 tokens) from a seed."""
+    lengths = np.random.default_rng(9).integers(64, PROMPT_LEN + 1, size=n)
+    return [prompt_tokens(torch, vocab, int(m), seed=100 + i).tolist()
+            for i, m in enumerate(lengths)]
+
+
+def serve_stream(torch, device, svc, prompts, keys):
+    """Submit ``prompts`` in bursts of ``SERVE_BURST`` (one poll round after
+    each) and poll until every request has finished.  Returns (results,
+    latencies in s, wall, launches, model calls, host syncs, stats delta)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import CALLS, reset_calls
+    from repro_torch.sync import SYNCS, reset_syncs
+
+    svc.poll()            # builds the engine (placeholder rows, evicted)
+    before = dataclasses_dict(svc.stats)
+    sync(device)
+    reset_launches()
+    reset_calls()
+    reset_syncs()
+    submitted, finished = {}, {}
+    t0 = time.perf_counter()
+
+    def stamp(fresh):
+        now = time.perf_counter()
+        for rid in fresh:
+            finished[rid] = now
+
+    for start in range(0, len(prompts), SERVE_BURST):
+        for i in range(start, min(start + SERVE_BURST, len(prompts))):
+            submitted[svc.submit(prompts[i], key=keys[i])] = time.perf_counter()
+        stamp(svc.poll())
+    while svc.stats.completed < svc.stats.submitted:
+        stamp(svc.poll())
+    sync(device)
+    wall = time.perf_counter() - t0
+    stats = {k: v - before[k] for k, v in dataclasses_dict(svc.stats).items()}
+    stats["slot_idle_frac"] = 1.0 - stats["busy_tree_ticks"] / max(1, stats["ticks"] * svc.spec.batch)
+    lat = np.asarray([finished[r] - submitted[r] for r in sorted(submitted)])
+    return (svc.results, lat, wall, dict(LAUNCHES), dict(CALLS), SYNCS["host_any"], stats)
+
+
+def dataclasses_dict(stats):
+    import dataclasses
+
+    return {k: v for k, v in dataclasses.asdict(stats).items() if k != "batch"}
+
+
+def fresh_batch(torch, device, svc, prompts, keys):
+    """The one-shot search of ``prompts`` (one per row) with ``keys``,
+    through the service's own searcher: what a fresh batch gives them."""
+    from repro_torch.envs import TokenEnvState
+
+    tokens = torch.zeros((len(prompts), svc.max_len), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = torch.tensor(p, dtype=torch.int32)
+    roots = TokenEnvState(tokens.to(device), torch.tensor([len(p) for p in prompts],
+                                                          dtype=torch.int32, device=device),
+                          torch.zeros((len(prompts),), dtype=torch.bool, device=device))
+    return svc._search(roots, keys)
+
+
+def admission_parity(torch, device, svc, results, prompts, keys, lo):
+    """How many of requests ``lo .. lo + B - 1`` (admitted mid-run into
+    recycled rows) chose what a fresh one-shot batch of them chooses."""
+    b = svc.spec.batch
+    fresh = fresh_batch(torch, device, svc, prompts[lo:lo + b], keys[lo:lo + b])
+    return sum(int(results[lo + i].action) == int(fresh.action[i]) for i in range(b))
+
+
+def serving_path(torch, device, cfg, params):
+    """Phase 17: host-paced SearchService over llama3-8b (phase 7's cell:
+    B = 8 rows, W = 16, T = 64, top-8), dense and then paged (phase 10's
+    pool); 24 ragged prompts in three bursts of 8."""
+    from repro_torch import rng
+    from repro_torch.serving import SearchService
+
+    _, spec, _, _ = guided_cell(torch, device, cfg, params)
+    prompts = serve_prompts(torch, cfg.vocab_size, SERVE_R)
+    keys = rng.split(rng.PRNGKey(12, device=device), SERVE_R)
+    launches = {}
+    for paged in (False, True):
+        what = "paged" if paged else "dense"
+        svc = SearchService(cfg, params, spec, top_k=TOP_K, max_len=MAX_LEN, eos_token=EOS,
+                            paged=paged, block_size=BLOCK,
+                            num_blocks=POOL_BLOCKS if paged else None, fused=False,
+                            device=device)
+        results, lat, wall, got, calls, syncs, stats = serve_stream(
+            torch, device, svc, prompts, keys)
+        if stats["completed"] != stats["submitted"] or len(results) != SERVE_R:
+            raise AssertionError(f"serving {what}: {stats}")
+        bad = [r for r, res in results.items() if not 0 <= int(res.action) < TOP_K]
+        if bad:
+            raise AssertionError(f"serving {what}: requests {bad} have no valid action")
+        kernel = "paged_decode_attention" if paged else "decode_attention"
+        launch_identity(got, calls, kernel, "paged_decode_step" if paged else "decode_step",
+                        cfg.num_layers)
+        launches[kernel] = got[kernel]
+        line = (f"serving {what}: llama3-8b {cfg.num_layers} layers {dtype_name(cfg)}, SearchService "
+                f"(host-paced) B={spec.batch} W={spec.wave_size} T={spec.num_simulations} "
+                f"top-{TOP_K}, {SERVE_R} ragged prompts ({min(map(len, prompts))}-"
+                f"{max(map(len, prompts))} tokens) in bursts of {SERVE_BURST}: "
+                f"{SERVE_R / wall!r} requests/s (wall {wall!r} s), latency p50 "
+                f"{float(np.percentile(lat, 50))!r} s p90 {float(np.percentile(lat, 90))!r} s, "
+                f"host rounds {stats['host_rounds']}, master ticks {stats['ticks']}, "
+                f"slot_idle_frac {stats['slot_idle_frac']!r}, host syncs {syncs}, model calls "
+                f"{ {k: v for k, v in calls.items() if v} }, {kernel} launches {got[kernel]}")
+        if paged:
+            aux = svc._carry[7]
+            held = int((aux["refcount"] != 0).sum())
+            free = svc.evaluator.num_blocks - int((aux["refcount"] > 0).sum())
+            if held or int(aux["oom"]) or free != svc.evaluator.num_blocks:
+                raise AssertionError(f"serving paged: {held} pages still held, oom "
+                                     f"{int(aux['oom'])}, {free} free of {POOL_BLOCKS}")
+            line += f"; after the drain {free} of {POOL_BLOCKS} blocks free, 0 leaked"
+        print(line)
+        same = admission_parity(torch, device, svc, results, prompts, keys, SERVE_BURST)
+        if not paged:
+            # One burst again, warm, under the profiler: the card's busy share.
+            profile_call(torch, device, lambda: serve_stream(
+                torch, device, svc, prompts[:SERVE_BURST], keys[:SERVE_BURST]),
+                f"serving {what}, one burst of {SERVE_BURST} requests")
+        print(f"serving {what}, {dtype_name(cfg)} {cfg.num_layers} layers: requests admitted "
+              f"mid-run choose a fresh one-shot batch's action on {same}/8 (printed, not held: "
+              "a bf16 prefill over R rows and one over B·W rows round differently, ROADMAP.md "
+              "§3)")
+        del svc
+        torch.cuda.empty_cache()
+    return launches
+
+
+def admission_parity_f32(torch, device):
+    """Phase 17.2: at full width, 2 layers, float32 (no TF32), requests
+    admitted mid-run into recycled rows choose a fresh one-shot batch's
+    action on at least 7 of 8, dense and paged."""
+    from repro_torch import rng
+    from repro_torch.serving import SearchService
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg, params = lm_setup(torch, device, 2, torch.float32, seed=1)
+    _, spec, _, _ = guided_cell(torch, device, cfg, params)
+    prompts = serve_prompts(torch, cfg.vocab_size, PARITY_R)
+    keys = rng.split(rng.PRNGKey(12, device=device), PARITY_R)
+    for paged in (False, True):
+        svc = SearchService(cfg, params, spec, top_k=TOP_K, max_len=MAX_LEN, eos_token=EOS,
+                            paged=paged, block_size=BLOCK,
+                            num_blocks=POOL_BLOCKS if paged else None, fused=False,
+                            device=device)
+        results, _, wall, *_ = serve_stream(torch, device, svc, prompts, keys)
+        same = admission_parity(torch, device, svc, results, prompts, keys, SERVE_BURST)
+        what = "paged" if paged else "dense"
+        if same < 7:
+            raise AssertionError(f"{what}: mid-run admissions agree with a fresh batch on "
+                                 f"{same} of 8")
+        print(f"full width, 2 layers, float32, serving {what}: {PARITY_R} requests in "
+              f"{wall!r} s; requests admitted mid-run choose a fresh one-shot batch's action "
+              f"on {same}/8")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -1837,10 +2276,16 @@ def main():
     fields["tree_select"]["level_launches"] = got["tree_select"]
 
     phase("5. bandit tree")
-    bandit(torch, device)
+    shares = bandit(torch, device)
 
     phase("6. single root")
     single_root(torch, device)
+
+    phase("15. the paper's baselines (LeafP, RootP) and the random MDP")
+    baselines(torch, device, shares)
+
+    phase("16. trace mode (AsyncTickTrace) on the card")
+    trace_phase(torch, device)
 
     phase("7. model-guided main path (KV-cached async search)")
     cfg, params = lm_setup(torch, device, LM_LAYERS, torch.bfloat16, seed=1)
@@ -1861,6 +2306,9 @@ def main():
     phase("12. paged frontier path (PagedFrontierModelEvaluator, phase 7's cell)")
     got = paged_frontier_path(torch, device, cfg, params, base, dense_frontier)
     launches["paged_tree_decode_attention"] = got["paged_tree_decode_attention"]
+
+    phase("17. host-paced serving (SearchService, phase 7's cell)")
+    serving_path(torch, device, cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -1883,6 +2331,9 @@ def main():
     agreement_reduced(torch, device)
     agreement_frontier(torch, device)
     agreement_ssm(torch, device)
+
+    phase("17.2 mid-run admission against a fresh batch (float32, 2 layers)")
+    admission_parity_f32(torch, device)
 
     kernels = [{
         "name": name,

@@ -7,7 +7,8 @@ states, keys or mid-search tree:
   ``jax.random.key_data``, or a legacy ``PRNGKey`` array, holds) becomes
   the port's ``int64`` key tensor;
 * :func:`state_from_numpy` — a root-state ``NamedTuple`` of arrays
-  (``TapGameState``, ``BanditTreeState``, ``TokenEnvState``) becomes the
+  (``TapGameState``, ``BanditTreeState``, ``TokenEnvState``,
+  ``RandomMDPState``) becomes the
   port's state class of the same name;
 * :func:`tree_from_numpy` — a whole ``BatchedTree`` (its fields as numpy)
   becomes the port's ``BatchedTree``, index buffers widened to ``int64``;
@@ -28,12 +29,14 @@ import torch
 
 from .core.batched_tree import BatchedTree
 from .envs.bandit_tree import BanditTreeState
+from .envs.random_mdp import RandomMDPState
 from .envs.tap_game import TapGameState
 from .envs.token_env import TokenEnvState
 from .models.config import ModelConfig
 from .models.ssm import FLOAT32_LEAVES
 
-STATE_TYPES = {cls.__name__: cls for cls in (TapGameState, BanditTreeState, TokenEnvState)}
+STATE_TYPES = {cls.__name__: cls for cls in (TapGameState, BanditTreeState, TokenEnvState,
+                                             RandomMDPState)}
 _INDEX_FIELDS = ("parent", "action", "children", "depth", "size")
 
 

@@ -5,14 +5,15 @@
 returns a plain callable (PyTorch runs eagerly: there is no ``jit``) that
 runs on CUDA unless the caller asks for another device.
 
-Ported: the wave and the async engine, single-root (``batch=0``) and
-batched (``batch=B``), for the algos ``wu_uct``, ``uct``, ``treep`` and
-``treep_vc``; leaves evaluated by environment rollouts
+Every algo of the reference runs: ``wu_uct``, ``uct``, ``treep`` and
+``treep_vc`` on the wave and the async engine, single-root (``batch=0``)
+and batched (``batch=B``); the baselines ``leafp`` and ``rootp``
+(:mod:`repro_torch.core.baselines`) single-root on the wave engine, as in
+the reference.  Leaves are evaluated by environment rollouts
 (:class:`RolloutEvaluator`, the default), an LM forward per tick
 (:class:`ModelEvaluator`) or a KV-cached decode step per tick
 (:class:`CachedModelEvaluator` and its paged and frontier subclasses,
-async engine only).  The rest raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+async engine only).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from ..envs.base import Environment, map_state
 from .async_search import run_async_search
+from .baselines import run_leafp, run_rootp
 from .batched_async_search import run_async_search_batched
 from .batched_search import run_search_batched
 from .evaluators import CachedModelEvaluator, Evaluator, ModelEvaluator
@@ -34,7 +36,6 @@ State = Any
 
 ALGOS = ("wu_uct", "uct", "treep", "treep_vc", "leafp", "rootp")
 ENGINES = ("wave", "async")
-PORTED_ALGOS = ("wu_uct", "uct", "treep", "treep_vc")
 
 
 class SearchSpec(NamedTuple):
@@ -119,6 +120,9 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
     * ``batch  > 0`` — ``search(root_states, rngs) -> SearchResult`` with a
       leading ``[B]`` axis on every field (``rngs`` is ``[B, 2]``).
 
+    ``leafp`` and ``rootp`` take the wave engine with ``batch == 0`` only
+    (``ValueError`` otherwise, as in the reference).
+
     ``evaluator`` plugs the leaf evaluation (default: environment
     rollouts); :class:`CachedModelEvaluator` and its paged and frontier
     subclasses need ``engine='async'``, and a model evaluator's ``top_k``
@@ -131,11 +135,6 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
     cfg = as_search_config(spec)
     if spec.batch < 0:
         raise ValueError(f"batch must be >= 0, got {spec.batch}")
-    if spec.algo not in PORTED_ALGOS:
-        raise NotImplementedError(
-            f"algo {spec.algo!r} is not ported yet (ROADMAP.md §1, item 2: "
-            "core/baselines.py, run_leafp/run_rootp)"
-        )
     name = type(evaluator).__name__
     if evaluator is not None and not isinstance(evaluator, Evaluator):
         raise TypeError(f"evaluator must be a repro_torch Evaluator, got {name}")
@@ -149,6 +148,12 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
         # engine evaluates whole rollouts per slot without it.
         raise ValueError("CachedModelEvaluator requires engine='async' (the wave "
                          "engine carries no slot cache; use ModelEvaluator)")
+    if spec.algo in ("leafp", "rootp"):
+        if spec.engine == "async":
+            raise ValueError(f"engine='async' supports wave-engine algos, not {spec.algo!r}")
+        if spec.batch > 0:
+            raise ValueError(f"batch > 0 supports wave-engine algos, not {spec.algo!r} "
+                             "(rootp is itself a K-tree batched committee)")
     on_gpu = torch.device("cuda" if device is None else device).type == "cuda"
     if not spec.use_kernel and on_gpu:
         raise ValueError("use_kernel=False would bypass the tree_descend kernel on "
@@ -156,8 +161,10 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
     dev = resolve_device(device)
     if spec.engine == "async":
         run = run_async_search_batched if spec.batch > 0 else run_async_search
+    elif spec.batch > 0:
+        run = run_search_batched
     else:
-        run = run_search_batched if spec.batch > 0 else run_search
+        run = {"leafp": run_leafp, "rootp": run_rootp}.get(spec.algo, run_search)
     fn = functools.partial(run, env, cfg, evaluator=evaluator)
 
     def search(root_states: State, rngs: torch.Tensor) -> SearchResult:
@@ -165,3 +172,19 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
                   torch.as_tensor(rngs, device=dev))
 
     return search
+
+
+def make_config(algorithm: str, **kw) -> SearchConfig:
+    """Config builder over :class:`SearchSpec`, as the reference's.
+
+    ``kw`` takes the flattened spec fields (``beta=...``, ``r_vl=...``,
+    search budgets); explicit ``policy=`` / ``stat_mode=`` overrides win.
+    """
+    policy = kw.pop("policy", None)
+    stat_mode = kw.pop("stat_mode", None)
+    cfg = as_search_config(SearchSpec(algo=algorithm, **kw))
+    if policy is not None:
+        cfg = cfg._replace(policy=policy)
+    if stat_mode is not None:
+        cfg = cfg._replace(stat_mode=stat_mode)
+    return cfg

@@ -28,9 +28,11 @@ loops, the frontier evaluators' "any EXPAND row" per tick).
 The carry counts, per tree, the refills a frontier evaluator answered from
 its snapshot (:meth:`BatchedAsyncEngine.frontier_hits`).
 
-The serving surface of the reference engine (``admit``/``evict``, the
-request ring, ``serve_segment``) and the trace mode (``AsyncTickTrace``)
-are not ported yet (ROADMAP.md §1, items 1, 3 and 4).
+Trace mode (``run(..., trace_ticks=K)``) runs exactly ``K`` ticks and
+snapshots each (:class:`~repro_torch.core.async_search.AsyncTickTrace`).
+Host-paced serving rests on :meth:`BatchedAsyncEngine.admit` and
+:meth:`~BatchedAsyncEngine.evict`; the reference's device-resident request
+ring (``serve_segment``) is not ported yet (ROADMAP.md §1, item 4).
 """
 
 from __future__ import annotations
@@ -272,23 +274,77 @@ class BatchedAsyncEngine:
             fr_hits,
         )
 
-    def init_carry(self, root_states: State, rngs: torch.Tensor) -> Carry:
+    def init_carry(self, root_states: State, rngs: torch.Tensor,
+                   active: Optional[torch.Tensor] = None) -> Carry:
         """The master-loop carry for ``B`` root states (leaves lead with
-        ``[B]``) and key data ``rngs [B, 2]``."""
+        ``[B]``) and key data ``rngs [B, 2]``.
+
+        ``active`` (``bool[B]``, optional) marks rows that carry a real
+        request; the others are born settled (``t_launch == t_done == T``),
+        so :meth:`step` freezes them until :meth:`admit` splices a request
+        in.  A caller with idle paged rows evicts them (:meth:`evict`), so their
+        placeholder prefill pages return to the pool.
+        """
         B = self.B
         dev = rngs.device
 
         def zeros(dtype):
             return torch.zeros((B,), dtype=dtype, device=dev)
 
+        start = zeros(torch.int64)
+        if active is not None:
+            start = torch.where(torch.as_tensor(active, device=dev), 0, self.T).to(torch.int64)
         return (
             init_batched_tree(root_states, self.capacity, self.env.num_actions),
             self._slot_rows0(root_states, B), rngs.clone(),
-            zeros(torch.int64), zeros(torch.int64), zeros(torch.int64),
+            start, start.clone(), zeros(torch.int64),
             zeros(torch.float32),
             self.evaluator.init_aux(root_states, (B, self.W)),
             zeros(torch.int64),
         )
+
+    # ------------------------------------------------------------------
+    # Request lifecycle (the serving layer's surface)
+    # ------------------------------------------------------------------
+    def admit(self, carry: Carry, rows, root_states: State, rngs: torch.Tensor) -> Carry:
+        """Splice fresh requests into settled rows, between ticks.
+
+        ``rows`` (``i64[R]``, distinct, settled or idle); ``root_states``
+        leaves lead with ``[R]``; ``rngs`` is key data ``[R, 2]``.  The rows'
+        trees, slot pools, RNG lanes and counters are reset and their
+        evaluator slot caches re-seeded (``Evaluator.admit_aux``); other
+        rows' searches go on untouched.  Writes the carry in place.
+        """
+        tree, slots, rng_, t_launch, t_done, ticks, max_o, aux, fr_hits = carry
+        dev = rng_.device
+        rows = torch.as_tensor(rows, device=dev).to(torch.int64)
+
+        def put(buf, new):
+            if isinstance(buf, tuple):
+                for b, n in zip(buf, new):
+                    b[rows] = n.to(b.dtype)
+            else:
+                buf[rows] = new.to(buf.dtype)
+
+        for buf, new in zip(tree, init_batched_tree(root_states, self.capacity,
+                                                    self.env.num_actions)):
+            put(buf, new)
+        for buf, new in zip(slots, self._slot_rows0(root_states, rows.shape[0])):
+            put(buf, new)
+        rng_[rows] = rngs.to(device=dev, dtype=rng_.dtype)
+        for counter in (t_launch, t_done, ticks, max_o, fr_hits):
+            counter[rows] = 0
+        aux = self.evaluator.admit_aux(self.cfg, aux, rows, root_states, self.W)
+        return (tree, slots, rng_, t_launch, t_done, ticks, max_o, aux, fr_hits)
+
+    def evict(self, carry: Carry, rows) -> Carry:
+        """Release settled rows' evaluator-side resources without admitting:
+        paged evaluators return the rows' pages to the pool; the others
+        hold nothing to release.  Tree, slots and keys stay, so
+        :meth:`result` stays readable until the row is re-admitted."""
+        rows = torch.as_tensor(rows, device=carry[4].device).to(torch.int64)
+        aux = self.evaluator.evict_aux(carry[7], rows, self.W)
+        return carry[:7] + (aux,) + carry[8:]
 
     def run_segment(self, carry: Carry, num_ticks: int):
         """Up to ``num_ticks`` master ticks; stops early when all settled.
@@ -322,23 +378,46 @@ class BatchedAsyncEngine:
             ticks=carry[5],
         )
 
-    def run(self, root_states: State, rngs: torch.Tensor) -> SearchResult:
-        """Run every tree of one batch of roots to its budget."""
+    def run(self, root_states: State, rngs: torch.Tensor, trace_ticks: int = 0):
+        """Run every tree of one batch of roots to its budget.
+
+        With ``trace_ticks > 0`` runs exactly that many master ticks (frozen
+        ticks after every tree has settled included, as the reference's
+        fixed-length scan; no loop-condition sync) and returns
+        ``(SearchResult, AsyncTickTrace)`` with a ``[K, B, ...]`` trace:
+        each snapshot taken after the tick, ``alive`` at its entry.
+        """
         carry = self.init_carry(root_states, rngs)
+        if trace_ticks > 0:
+            from .async_search import stack_ticks, tick_snapshot
+
+            ev = self.evaluator
+            snaps = []
+            for _ in range(trace_ticks):
+                alive = self.alive(carry)
+                carry = self.step(carry)
+                cache_len = ev.aux_len(carry[7])
+                if cache_len is not None:
+                    cache_len = cache_len.reshape(self.B, self.W)
+                snaps.append(tick_snapshot(carry, alive, cache_len, ev.aux_blocks(carry[7]),
+                                           frontier_hits=carry[8]))
+            return self.result(carry), stack_ticks(snaps)
         while host_any(self.alive(carry)):
             carry = self.step(carry)
         return self.result(carry)
 
 
 def run_async_search_batched(env: Environment, cfg: SearchConfig, root_states: State,
-                             rngs: torch.Tensor,
-                             evaluator: Optional[Evaluator] = None) -> SearchResult:
+                             rngs: torch.Tensor, trace_ticks: int = 0,
+                             evaluator: Optional[Evaluator] = None):
     """Run ``B`` independent async-slot searches; every field of the
     returned :class:`SearchResult` carries a leading ``[B]`` axis.
 
     ``root_states`` leaves lead with ``[B]``; ``rngs`` is key data
     ``[B, 2]``.  With :class:`~repro_torch.core.evaluators.CachedModelEvaluator`
-    every master tick is one batched ``decode_step`` over all slots.
+    every master tick is one batched ``decode_step`` over all slots.  With
+    ``trace_ticks > 0`` returns ``(SearchResult, AsyncTickTrace)``
+    (:meth:`BatchedAsyncEngine.run`).
     """
     engine = BatchedAsyncEngine(env, cfg, rngs.shape[0], evaluator=evaluator)
-    return engine.run(root_states, rngs)
+    return engine.run(root_states, rngs, trace_ticks)

@@ -24,7 +24,8 @@ import torch
 
 from ..envs.base import map_state, where_state
 from ..sync import host_any
-from .tree import NO_NODE
+
+NO_NODE = -1
 
 State = Any
 

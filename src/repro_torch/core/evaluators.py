@@ -25,8 +25,10 @@ per tick against per-slot KV caches), :class:`PagedCachedModelEvaluator`
 frontier-speculative :class:`FrontierModelEvaluator` and
 :class:`PagedFrontierModelEvaluator` (an EXPAND tick scores every
 candidate child in one forward; refills onto the snapshot parent or one
-of its children need no forward).  The serving hooks (``admit_aux``,
-``evict_aux``, the ring hooks) come with serving.
+of its children need no forward).  The serving hooks ``admit_aux`` and
+``evict_aux`` re-seed and release the rows of the host-paced search
+service; the device ring's hooks are not ported yet (ROADMAP.md §1,
+item 4).
 """
 
 from __future__ import annotations
@@ -63,6 +65,13 @@ def slot_accounting(gamma, kind, nxt, state, r, done, rollout_done, acc, disc,
     return new_state, r, done, acc, disc, steps, rollout_done
 
 
+def _flat_slot_rows(rows: torch.Tensor, w: int) -> torch.Tensor:
+    """Flat aux rows ``[R·w]`` of tree rows ``rows``' ``w`` sibling slots
+    (slot ``j`` of tree ``b`` lives at flat aux row ``b·w + j``)."""
+    rows = rows.to(torch.int64)
+    return (rows[:, None] * w + torch.arange(w, device=rows.device)[None, :]).reshape(-1)
+
+
 class Evaluator:
     """Protocol for environment/model evaluation inside a search engine.
 
@@ -78,8 +87,15 @@ class Evaluator:
       ``rows`` with the freshly assigned ``new_state`` where ``mask``
       holds; returns ``(aux, hits)``, ``hits`` marking the rows a frontier
       cache answered (all false for the other evaluators);
-    * ``aux_len(aux)`` / ``aux_last_logits(aux)``: per-slot cache depth and
-      last logits, ``None`` where the evaluator keeps none.
+    * ``aux_len(aux)`` / ``aux_last_logits(aux)`` / ``aux_blocks(aux)``:
+      per-slot cache depth, last logits and the pool blocks in use, ``None``
+      where the evaluator keeps none;
+    * ``admit_aux(cfg, aux, rows, root_states, w)`` re-seeds the slots of
+      freshly admitted tree rows ``rows`` (``i64[R]``; flat aux rows
+      ``b·w .. b·w + w - 1``) from their root states (leaves lead with
+      ``[R]``), and ``evict_aux(aux, rows, w)`` releases what settled tree
+      rows hold: the serving layer's half of continuous batching.
+      Stateless evaluators and the uncached model need neither.
     """
 
     env: Optional[Environment] = None
@@ -91,6 +107,18 @@ class Evaluator:
     def refill_aux(self, cfg, aux, rows, new_state, mask):
         del cfg, new_state, mask
         return aux, torch.zeros(rows.shape, dtype=torch.bool, device=rows.device)
+
+    def admit_aux(self, cfg, aux, rows, root_states, w):
+        del cfg, rows, root_states, w
+        return aux
+
+    def evict_aux(self, aux, rows, w):
+        del rows, w
+        return aux
+
+    def aux_blocks(self, aux) -> Optional[torch.Tensor]:
+        del aux
+        return None
 
     def aux_len(self, aux) -> Optional[torch.Tensor]:
         del aux
@@ -522,6 +550,30 @@ class CachedModelEvaluator(ModelEvaluator):
         sub = self._catch_up(sub, target)
         return self._put_rows(aux, rows, sub), hits
 
+    def admit_aux(self, cfg, aux, rows, root_states, w):
+        """Mid-stream admission, in place: one ragged prefill over the ``R``
+        admitted roots (:func:`repro_torch.serving.admission.ragged_prefill`),
+        fanned out to each row's ``w`` sibling slots along the cache's slot
+        axis."""
+        del cfg
+        from ..models.lm import tree_map
+        from ..serving.admission import ragged_prefill, splice_dense_slots
+
+        flat = _flat_slot_rows(rows, w)
+        tokens = root_states.tokens.to(torch.int32)
+        lengths = root_states.length.to(torch.int32)
+        aux["tokens"][flat] = tokens.repeat_interleave(w, dim=0)
+        aux["len"][flat] = lengths.repeat_interleave(w, dim=0)
+        for key, params, mcfg in self._branches():
+            b = aux[key]
+            logits, cache = ragged_prefill(params, mcfg, tokens, lengths,
+                                           aux["tokens"].shape[-1])
+            cache.pop("len")
+            splice_dense_slots(b["cache"], flat,
+                               tree_map(lambda x: x.repeat_interleave(w, dim=1), cache))
+            b["logits"][flat] = logits.repeat_interleave(w, dim=0).to(b["logits"].dtype)
+        return aux
+
     def _catch_up(self, sub, target):
         """Re-decode each row's divergent suffix in batched ragged chunks:
         one ``decode_chunk`` advances every behind row by up to
@@ -918,6 +970,73 @@ class PagedCachedModelEvaluator(CachedModelEvaluator):
         sub.update(table=table, refcount=refcount, oom=oom, len=dsub["len"])
         return sub
 
+    def admit_aux(self, cfg, aux, rows, root_states, w):
+        """Mid-stream admission, in place: page release, re-prefill, table
+        splice.
+
+        The rows' slots first return what they still hold to the pool (an
+        evicted row's ``len`` is 0, so nothing is released twice).  Each
+        admitted root then prefills once, its rows scatter into freshly
+        allocated pool pages
+        (:func:`repro_torch.serving.admission.splice_pool_pages`), and the
+        ``w`` sibling slots' tables point at the same pages with refcount
+        ``w``, the layout ``init_aux`` builds.  Exhaustion raises
+        :class:`~repro_torch.models.PagePoolExhaustedError`.
+        """
+        del cfg
+        from ..models import alloc_blocks, release_pages
+        from ..models.paged import add_at
+        from ..serving.admission import ragged_prefill, splice_pool_pages
+
+        flat = _flat_slot_rows(rows, w)
+        tokens = root_states.tokens.to(torch.int32)
+        lengths = root_states.length.to(torch.int32)
+        r = tokens.shape[0]
+        bs, p = self.block_size, self.num_blocks
+        mp = aux["table"].shape[1]
+        hi = (aux["len"][flat] + bs - 1) // bs
+        refcount = release_pages(aux["refcount"], aux["table"][flat], torch.zeros_like(hi), hi)
+
+        # One block per root page (refcount 1 from alloc_blocks), then the
+        # other w - 1 sharers.
+        p_r = (lengths + bs - 1) // bs
+        dst = torch.full((r, mp), p, dtype=torch.int32, device=tokens.device)
+        oom = aux["oom"]
+        for pi in range(mp):
+            need = pi < p_r
+            blocks, refcount, n_fail = alloc_blocks(refcount, need)
+            dst[:, pi] = torch.where(need & (blocks < p), blocks, p)
+            oom = oom + n_fail
+        refcount = add_at(refcount, dst, torch.full_like(dst, w - 1), dst < p)
+
+        aux["tokens"][flat] = tokens.repeat_interleave(w, dim=0)
+        aux["len"][flat] = lengths.repeat_interleave(w, dim=0)
+        aux["table"][flat] = dst.repeat_interleave(w, dim=0)
+        aux.update(refcount=refcount, oom=oom)
+        for key, params, mcfg in self._branches():
+            b = aux[key]
+            logits, cache = ragged_prefill(params, mcfg, tokens, lengths, mp * bs)
+            splice_pool_pages(b["k"], b["v"], cache["kv"]["k"], cache["kv"]["v"], dst)
+            b["logits"][flat] = logits.repeat_interleave(w, dim=0).to(b["logits"].dtype)
+        self._maybe_raise(aux["oom"])
+        return aux
+
+    def evict_aux(self, aux, rows, w):
+        """Return settled rows' pages to the pool, in place: tables drop to
+        the sentinel and ``len`` to 0, so the rows' frozen FREE slots never
+        read a released block and a later :meth:`admit_aux` releases
+        nothing twice."""
+        from ..models import release_pages
+
+        flat = _flat_slot_rows(rows, w)
+        bs = self.block_size
+        hi = (aux["len"][flat] + bs - 1) // bs
+        aux["refcount"] = release_pages(aux["refcount"], aux["table"][flat],
+                                        torch.zeros_like(hi), hi)
+        aux["table"][flat] = self.num_blocks
+        aux["len"][flat] = 0
+        return aux
+
     def aux_blocks(self, aux) -> torch.Tensor:
         """Number of pool blocks in use (refcount > 0)."""
         return (aux["refcount"] > 0).sum()
@@ -1009,6 +1128,18 @@ class _FrontierMixin:
                     fr[key][name][rows] = sfr[key][name]
                 for name in ("ck", "cv"):
                     fr[key][name][:, rows] = sfr[key][name]
+        return aux
+
+    def admit_aux(self, cfg, aux, rows, root_states, w):
+        """Admission invalidates the rows' frontier snapshots: they were
+        taken in the previous request's tree."""
+        aux = super().admit_aux(cfg, aux, rows, root_states, w)
+        aux["fr"]["valid"][_flat_slot_rows(rows, w)] = False
+        return aux
+
+    def evict_aux(self, aux, rows, w):
+        aux = super().evict_aux(aux, rows, w)
+        aux["fr"]["valid"][_flat_slot_rows(rows, w)] = False
         return aux
 
     @staticmethod

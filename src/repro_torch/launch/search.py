@@ -1,4 +1,5 @@
-"""Search launcher of the port: WU-UCT (or a ported baseline) on the GPU.
+"""Search launcher of the port: WU-UCT or one of the paper's baselines on
+the GPU.
 
 Everything goes through ``repro_torch.core.build_searcher``; the flags map
 onto ``SearchSpec`` fields as in ``repro.launch.search``.
@@ -12,6 +13,12 @@ traversal one launch of the tree_descend kernel; reports searches/s of the
 second call, and the card's name):
   PYTHONPATH=src python -m repro_torch.launch.search --env tap --batch 256 \
       --workers 16 --simulations 128
+
+The baselines LeafP and RootP search one root at a time (``--batch`` with
+them raises ``build_searcher``'s ``ValueError``); ``--env mdp`` is the
+random tabular MDP (32 states, 4 actions, horizon 16):
+  PYTHONPATH=src python -m repro_torch.launch.search --env mdp --algo rootp \
+      --workers 16 --simulations 128 --episodes 1
 
 ``--engine async`` runs the async-slot engine (the paper's master–worker
 interleaving) instead of the wave engine, in either mode:
@@ -39,7 +46,7 @@ import torch
 from repro_torch import rng
 from repro_torch.core import SearchSpec, build_searcher, play_episode
 from repro_torch.core.api import resolve_device
-from repro_torch.envs import make_bandit_tree, make_tap_game
+from repro_torch.envs import make_bandit_tree, make_random_mdp, make_tap_game
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.sync import SYNCS, reset_syncs
 
@@ -51,6 +58,7 @@ def make_env(name: str):
         "tap_hard": lambda: make_tap_game(grid_size=7, num_colors=5,
                                           goal_count=14, step_budget=30),
         "bandit": lambda: make_bandit_tree(depth=6, num_actions=4),
+        "mdp": lambda: make_random_mdp(num_states=32, num_actions=4, horizon=16),
     }[name]()
 
 
@@ -87,9 +95,9 @@ def _print_profile(prof, wall: float, device: torch.device) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--env", default="tap", choices=["tap", "tap_hard", "bandit"])
+    ap.add_argument("--env", default="tap", choices=["tap", "tap_hard", "bandit", "mdp"])
     ap.add_argument("--algo", default="wu_uct",
-                    choices=["wu_uct", "uct", "treep", "treep_vc"])
+                    choices=["wu_uct", "uct", "treep", "treep_vc", "leafp", "rootp"])
     ap.add_argument("--engine", default="wave", choices=["wave", "async"])
     ap.add_argument("--workers", type=int, default=16)
     ap.add_argument("--simulations", type=int, default=128)

@@ -19,12 +19,18 @@ Leading axes of a key act as a batch axis (the port's form of ``vmap``):
 ``uniform(keys[B, 2], (A,))`` draws ``[B, A]``, row ``b`` equal to
 ``jax.random.uniform(keys[b], (A,))``.  Each sampler runs a few hundred
 small tensor ops, so on a GPU every draw costs that many launches.
+
+``normal``, ``gamma``/``loggamma`` and ``dirichlet`` follow JAX's float32
+algorithms step for step (XLA's ``erf_inv`` polynomial, Marsaglia–Tsang
+rejection with one key split per element); they differ from JAX only
+where PyTorch's ``log``/``log1p``/``exp`` round an ulp away from XLA's
+(measured in ``tests/test_torch_random_mdp.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -189,3 +195,139 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
             )
         g = gumbel(key, (logits.shape[-1],))
     return torch.argmax(g + logits, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Normal, gamma and Dirichlet draws (``jax.random.normal`` / ``gamma`` /
+# ``loggamma`` / ``dirichlet`` in float32).
+# ---------------------------------------------------------------------------
+
+# XLA's float32 erf_inv: Giles' polynomials in w = -log1p(-x^2), one for
+# w < 5 (evaluated at w - 2.5) and one beyond (at sqrt(w) - 3).
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+                 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+_THIRD_F32 = float(np.float32(1.0 / 3.0))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA's fused multiply-add:
+    the float64 product of two float32 values is exact."""
+    b = b.double() if isinstance(b, torch.Tensor) else float(b)
+    c = c.double() if isinstance(c, torch.Tensor) else float(c)
+    return (a.double() * b + c).float()
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (XLA's and CUDA's ``sqrtf``)."""
+    return torch.sqrt(x.double()).float()
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``: the same polynomial, evaluated in the same
+    order with fused multiply-adds (not ``torch.erfinv``)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, _sqrt(w) - 3.0)
+    p = torch.where(small, float(np.float32(_ERFINV_SMALL[0])),
+                    float(np.float32(_ERFINV_LARGE[0])))
+    for lo, hi in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        coef = torch.where(small, float(np.float32(lo)), float(np.float32(hi)))
+        p = _fma(p, w, coef)
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.normal`` (float32): ``sqrt(2) * erf_inv(u)`` with ``u``
+    uniform over ``[nextafter(-1, 0), 1)``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return _SQRT2_F32 * erf_inv(uniform(key, shape, minval=lo, maxval=1.0))
+
+
+def _gamma_flat(keys: torch.Tensor, alpha: torch.Tensor, log_space: bool) -> torch.Tensor:
+    """Marsaglia–Tsang for ``N`` elements, element ``i`` drawing from
+    ``keys[i]`` as JAX's ``_gamma_one`` does.
+
+    JAX runs one rejection loop per element; here all elements loop
+    together, and an element that has accepted stops drawing (its key,
+    ``X``, ``V`` and ``U`` are frozen).  Every loop trip costs one host
+    sync.
+    """
+    from .sync import host_any
+
+    boost = alpha >= 1.0
+    a = torch.where(boost, alpha, alpha + 1.0)
+    d = a - _THIRD_F32
+    c = _THIRD_F32 / _sqrt(d)
+    ks = split(keys)
+    key, subkey = ks[:, 0], ks[:, 1]
+
+    def rejected(X, V, U):
+        squeeze = U >= _fma(-0.0331 * torch.ones_like(X), X * X, 1.0)
+        rhs = _fma(d, (1.0 - V) + torch.log(V), X * 0.5)
+        return squeeze & (torch.log(U) >= rhs)
+
+    X = torch.zeros_like(alpha)
+    V = torch.ones_like(alpha)
+    U = torch.full_like(alpha, 2.0)
+    active = rejected(X, V, U)
+    while host_any(active):
+        k3 = split(key, 3)
+        # Inner loop: redraw x until v = 1 + x c is positive.
+        k, x = k3[:, 1], torch.zeros_like(alpha)
+        v = torch.full_like(alpha, -1.0)
+        inner = active.clone()
+        while host_any(inner):
+            k2 = split(k)
+            xn = normal(k2[:, 1])
+            vn = _fma(xn, c, 1.0)
+            x, v = torch.where(inner, xn, x), torch.where(inner, vn, v)
+            k = torch.where(inner[:, None], k2[:, 0], k)
+            inner = inner & (v <= 0.0)
+        un = uniform(k3[:, 2])
+        key = torch.where(active[:, None], k3[:, 0], key)
+        X = torch.where(active, x * x, X)
+        V = torch.where(active, (v * v) * v, V)
+        U = torch.where(active, un, U)
+        active = active & rejected(X, V, U)
+    if log_space:
+        log_samples = torch.log1p(-uniform(subkey))      # -exponential(subkey)
+        log_boost = torch.where(boost | (log_samples == 0.0), 0.0,
+                                log_samples * (1.0 / alpha))
+        return (torch.log(d) + torch.log(V)) + log_boost
+    samples = 1.0 - uniform(subkey)
+    pw = torch.where(boost, 1.0, torch.pow(samples, 1.0 / alpha))
+    return (d * V) * pw
+
+
+def _gamma(key: torch.Tensor, alpha, shape, log_space: bool) -> torch.Tensor:
+    if key.shape != (2,):
+        raise ValueError(f"gamma draws from one key [2], got {tuple(key.shape)}")
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=key.device)
+    shape = tuple(alpha.shape) if shape is None else tuple(shape)
+    alpha = torch.broadcast_to(alpha, shape).reshape(-1)
+    keys = split(key, alpha.numel())       # one key per element, as _gamma_impl
+    return _gamma_flat(keys, alpha, log_space).reshape(shape)
+
+
+def gamma(key: torch.Tensor, a, shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``jax.random.gamma`` (float32) for shape parameters ``a``."""
+    return _gamma(key, a, shape, log_space=False)
+
+
+def loggamma(key: torch.Tensor, a, shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``jax.random.loggamma`` (float32): the log of a gamma draw, formed in
+    log space."""
+    return _gamma(key, a, shape, log_space=True)
+
+
+def dirichlet(key: torch.Tensor, alpha, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.dirichlet`` (float32): the softmax of ``loggamma`` draws
+    of shape ``shape + alpha.shape[-1:]``."""
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=key.device)
+    logs = loggamma(key, alpha, tuple(shape) + tuple(alpha.shape[-1:]))
+    e = torch.exp(logs - logs.max(dim=-1, keepdim=True).values)
+    return e / e.sum(dim=-1, keepdim=True)

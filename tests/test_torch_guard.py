@@ -8,10 +8,11 @@
 * selection on a GPU always goes through the kernel;
 * each kernel is built with its own nvcc flags, and the library's name
   hashes them and the ``csrc/`` headers its source includes;
-* ``build_searcher`` refuses what the port does not run: unported algos
-  (naming their ROADMAP item), the cached evaluators (dense, paged,
-  frontier) on the wave engine, a model evaluator whose top-K does not
-  match the environment.
+* ``build_searcher`` takes all six algos and refuses what the reference
+  refuses (LeafP and RootP on the async engine or batched, unknown algos),
+  the cached evaluators (dense, paged, frontier) on the wave engine and a
+  model evaluator whose top-K does not match the environment; the search
+  service refuses the unported device ring (``fused=True``).
 """
 
 import ast
@@ -60,6 +61,11 @@ def _imports(path: Path):
 
 def test_port_files_exist():
     assert len(PORT_FILES) > 10
+    port = REPO / "src" / "repro_torch"
+    for path in (port / "serving" / "search_service.py", port / "serving" / "admission.py",
+                 port / "envs" / "random_mdp.py", port / "configs" / "wu_uct_paper.py",
+                 port / "core" / "baselines.py"):
+        assert path in PORT_FILES, path
     for kernel in ("tree_select", "decode_attention", "flash_attention",
                    "paged_decode_attention", "tree_decode_attention", "ssd_scan"):
         assert (REPO / "src" / "repro_torch" / "csrc" / f"{kernel}.cu").exists()
@@ -123,16 +129,33 @@ def test_launcher_defaults_to_cuda():
 
 
 def test_unported_paths_raise_not_implemented():
+    """What stays refused: LeafP and RootP on the async engine or batched
+    (the reference's ``ValueError``), unknown algos, and the search
+    service's device ring (``fused=True``, ROADMAP.md §1 item 4).  All six
+    algos build on the CPU."""
+    from repro_torch.serving import SearchService
+
     env = make_bandit_tree(depth=3, num_actions=3)
-    for spec in (SearchSpec(algo="leafp"), SearchSpec(algo="rootp"),
-                 SearchSpec(algo="rootp", engine="async")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_searcher(env, spec, device="cpu")
+    for algo in ("leafp", "rootp"):
+        with pytest.raises(ValueError, match="engine='async' supports wave-engine algos"):
+            build_searcher(env, SearchSpec(algo=algo, engine="async"), device="cpu")
+        for engine in ("wave", "async"):
+            with pytest.raises(ValueError, match="supports wave-engine algos"):
+                build_searcher(env, SearchSpec(algo=algo, engine=engine, batch=2),
+                               device="cpu")
     with pytest.raises(ValueError, match="unknown algo"):
         build_searcher(env, SearchSpec(algo="mcts"), device="cpu")
+    for algo in ("wu_uct", "uct", "treep", "treep_vc", "leafp", "rootp"):
+        assert callable(build_searcher(env, SearchSpec(algo=algo), device="cpu"))
     for batch in (0, 2):
         assert callable(build_searcher(env, SearchSpec(engine="async", batch=batch),
                                        device="cpu"))
+    cfg, params = _tiny_lm()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
+        SearchService(cfg, params, SearchSpec(engine="async", batch=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
+        SearchService(cfg, params, SearchSpec(engine="async", batch=2), device="cpu",
+                      fused=True)
 
 
 def _tiny_lm():
@@ -219,6 +242,10 @@ def test_model_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_search.main(["--env", "bandit", "--engine", "async", "--batch", "2",
                             "--simulations", "4", "--workers", "2"])
+    from repro_torch.serving import SearchService
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SearchService(cfg, params, SearchSpec(engine="async", batch=2), fused=False)
 
 
 def test_each_kernel_has_its_own_flags_and_they_name_its_library(monkeypatch):

@@ -26,7 +26,9 @@ Phases (any failure raises, so the script exits non-zero):
    the tree kernels also with prefixes longer than their shared-memory
    copy and A=32;
    ``ssd_scan`` with float32 and bfloat16 B/C over a grid, the driven
-   shapes, and against the sequential recurrence too), and time kernel,
+   shapes, and against the sequential recurrence too, and its final state
+   (``return_state``) over the grid and phase 20's prefill shapes, timed
+   at mamba2's and zamba2's), and time kernel,
    plain version and one PyTorch library call at the main paths' shapes
    (the paged and tree kernels have no single library call: a gather or
    concatenation plus SDPA is timed beside them as a two- or three-call
@@ -77,7 +79,7 @@ Phases (any failure raises, so the script exits non-zero):
 15. the paper's baselines: LeafP and RootP (K = 16) on 16 single roots of
     phase 4's tap game (T=128, W=16, width 5): exactly T/W and T/K
     ``tree_descend`` launches per search and no ``tree_select``, 8 roots
-    re-searched on the CPU (at least 7 of 8 actions equal); on 64 single
+    re-searched on the CPU (at least 7 of 8 actions equal); on 32 single
     roots of phase 5's bandit tree, the optimal-action share beside phase
     5's (RootP above chance); wu_uct on the random MDP at B=256 (8 trees
     against the CPU);
@@ -88,12 +90,30 @@ Phases (any failure raises, so the script exits non-zero):
     every busy slot's cache depth equals its prefix, the pool's working set
     stays within its blocks;
 17. host-paced serving, while llama3-8b is loaded (after phase 12):
-    ``SearchService(fused=False)`` in phase 7's cell drains 24 ragged
-    prompts arriving in three bursts of 8, dense then paged (phase 10's
+    ``SearchService(fused=False)`` in phase 7's cell drains 16 ragged
+    prompts arriving in two bursts of 8, dense then paged (phase 10's
     pool): one valid action each, 32 decode-kernel launches per decode
     step, every page free after the paged drain; one warm burst under the
     profiler; the mid-run admissions against a fresh batch are printed;
     17.2 (after phase 9) holds them at 2 float32 layers (7 of 8);
+18. fused ring serving, after phase 17: the default ``SearchService()``
+    (its request ring) drains phase 17's prompts, dense then paged: the
+    same checks, the ring empty and its tables at the sentinel after each
+    drain, the actions against phase 17's printed; 18.2 (with 17.2) holds
+    fused = host-paced at 2 float32 layers in the four evaluator modes
+    (dense, paged, frontier, paged frontier: action, root_n and ticks
+    equal, root_v within 1e-6);
+19. LM serving: ``ServingEngine`` over llama3-8b at full width and depth,
+    8 slots, 16 ragged prompts, at most 32 new tokens, greedy, dense then
+    paged: 32 decode-kernel launches per decode step, every request done,
+    no block in use after; 19.2 (after 18.2) at 2 float32 layers, at least
+    15 of 16 requests equal greedy decoding through ``forward``;
+20. recurrent serving: ``ServingEngine`` over mamba2-2.7b (after phase 13)
+    and zamba2-7b (after 14), 8 slots, 8 prompts, 16 new tokens: one
+    ``ssd_scan`` (with its final state) per layer and prompt prefilled,
+    none in a decode step, 14 ``decode_attention`` launches per zamba2
+    decode step; 20.2 (last) at 2 float32 layers, ``prefill`` and 3 decode
+    steps against ``forward``'s logits;
 9. agreement on the card: cached prefill vs flash forward vs decode step
    logits (full width, 2 layers, float32), the reduced model's cached and
    paged frontier searches on the GPU against the port on the CPU,
@@ -104,9 +124,10 @@ Phases (any failure raises, so the script exits non-zero):
    (async) and zamba2 (wave) ``ModelEvaluator`` searches on the GPU
    against the port on the CPU.
 
-Phases 15 and 16 run after phase 6; phases 10-12 and 17 before phase 9,
-while phase 7's model is loaded; phases 13 and 14 after it is freed, one
-model at a time; 17.2 last.  Phase
+Phases 15 and 16 run after phase 6; phases 10-12 and 17-19 before phase
+9, while phase 7's model is loaded; phases 13 and 14, each followed by its
+phase 20, after it is freed, one model at a time; 17.2 with 18.2, then
+19.2 and 20.2 last.  Phase
 10 must choose phase 7's action on at least 7 of 8 trees and phase 12
 phase 11's.  Phase 11 prints its agreement with phase 7 without holding
 it: in bf16 over 32 random layers the frontier forward, the decode step
@@ -941,18 +962,21 @@ def check_ssd(torch, device, driven):
     return max(err.values())
 
 
-def ssd_bound(b, s, h, p, n, q, bc_bytes):
+def ssd_bound(b, s, h, p, n, q, bc_bytes, state=False):
     """(bound_ms, bound_by, bytes, flops) of one scan: xdt read and y
     written in float32, dA read, B and C read once; per (row, head) and
     chunk the causal products with xdt (Q(Q+1)P) and the decay (subtract,
     exp, multiply on Q(Q+1)/2 entries), per row and chunk the lower
     triangle of C.Bᵀ (Q(Q+1)N), and 2QPN per (row, head) for the state
     term of every chunk but the first and the update of every chunk but
-    the last."""
+    the last.  With ``state`` (``return_state``) the last chunk's update
+    too, and the final state written in float32."""
     nc = s // q
-    nbytes = 2 * 4 * b * s * h * p + 4 * b * s * h + 2 * bc_bytes * b * s * n
+    updates = nc if state else nc - 1
+    nbytes = (2 * 4 * b * s * h * p + 4 * b * s * h + 2 * bc_bytes * b * s * n
+              + (4 * b * h * p * n if state else 0))
     flops = (nc * b * h * (q * (q + 1) * p + 3 * q * (q + 1) // 2)
-             + nc * b * q * (q + 1) * n + 2 * (nc - 1) * b * h * 2 * q * p * n)
+             + nc * b * q * (q + 1) * n + (nc - 1 + updates) * b * h * 2 * q * p * n)
     b_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_OPS_PER_S}
     by = max(b_s, key=b_s.get)
     return b_s[by] * 1e3, by, nbytes, flops
@@ -982,6 +1006,78 @@ def time_ssd(torch, device, shape):
           f"call computes it: library_ms is null")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "device_ms": k_dev, "library_device_ms": None}
+
+
+# ssd_scan's final state (return_state): the prefills phase 20 drives
+# (mamba2-2.7b's and zamba2-7b's heads, one prompt of 128 tokens, one
+# chunk) and phase 20.2's (2 rows of 128, and of 300 padded to 512: two
+# chunks of 256).
+SSD_STATE_DRIVEN = [(1, 128, 80, 64, 128, 128), (1, 128, 112, 64, 64, 128),
+                    (2, 128, 80, 64, 128, 128), (2, 512, 80, 64, 128, 256),
+                    (2, 512, 112, 64, 64, 256)]
+
+
+def check_ssd_state(torch, device, driven):
+    """ssd_scan(return_state=True) against its plain version and the
+    sequential recurrence's final state, with float32 and bfloat16 B/C,
+    over the grid (one and several chunks) and ``driven``; its ``y`` must
+    be the one the scan returns without the state, bit for bit.  Returns
+    the max state error against the plain version."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    from repro_torch.models.ssm import ssd_sequential_ref
+
+    gen = torch.Generator(device=device).manual_seed(43)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    seq_err = 0.0
+    chunks = set()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for b, s, h, p, n, q in SSD_GRID + driven:
+            args = ssd_inputs(torch, gen, b, s, h, p, n, dtype, device)
+            y, state = ssd_scan(*args, chunk=q, return_state=True)
+            y0 = ssd_scan(*args, chunk=q)
+            sync(device)
+            what = f"ssd_scan state, B/C {name} (b, s, h, p, n, Q) = {(b, s, h, p, n, q)}"
+            if tuple(state.shape) != (b, h, p, n) or not torch.equal(y, y0):
+                raise AssertionError(f"{what}: state {tuple(state.shape)}, y with the state "
+                                     "differs from y without it")
+            _, ref_state = ssd_scan_ref(*args, chunk=q, return_state=True)
+            err[name] = max(err[name], ssd_err(torch, state, ref_state, SSD_TOL, what))
+            _, seq_state = ssd_sequential_ref(*args)
+            seq_err = max(seq_err, ssd_err(torch, state, seq_state, SSD_SEQ_TOL,
+                                           what + " vs the sequential recurrence"))
+            chunks.add(s // q)
+            del args, y, y0, state, ref_state, seq_state
+    if 1 not in chunks or max(chunks) < 2:
+        raise AssertionError(f"the state check saw chunk counts {sorted(chunks)}")
+    print(f"ssd_scan(return_state=True): the final state matches the plain version's "
+          f"(tolerance {SSD_TOL}) and the sequential recurrence's (tolerance {SSD_SEQ_TOL}), "
+          f"y equal to the stateless scan's bit for bit; B/C in float32 and bfloat16, "
+          f"{sorted(chunks)} chunks, the grid and {driven}; max |state - plain| = {err}, "
+          f"max |state - sequential| = {seq_err!r}")
+    return max(err.values())
+
+
+def time_ssd_state(torch, device, shape):
+    """ssd_scan(return_state=True) at a prefill shape with bf16 B/C (the
+    models' type): kernel, plain version and bound with the state's bytes
+    and last update counted."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+
+    b, s, h, p, n, q = shape
+    gen = torch.Generator(device=device).manual_seed(44)
+    args = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16, device)
+    k_ms = time_ms(torch, lambda: ssd_scan(*args, chunk=q, return_state=True), 20)
+    k_dev = device_ms(lambda: ssd_scan(*args, chunk=q, return_state=True), calls=10)
+    y_dev = device_ms(lambda: ssd_scan(*args, chunk=q), calls=10)
+    p_ms = time_ms(torch, lambda: ssd_scan_ref(*args, chunk=q, return_state=True), 5)
+    bound_ms, bound_by, nbytes, flops = ssd_bound(b, s, h, p, n, q, 2, state=True)
+    print(f"ssd_scan return_state (b, s, h, p, n, Q) = {shape}, bf16 B/C: kernel "
+          f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us; without the state {y_dev * 1e3!r} "
+          f"us), plain {p_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us (by {bound_by}: "
+          f"{nbytes} bytes, {flops} flops); device bound share {bound_ms / k_dev!r}")
+    return {"shape": list(shape), "ms": k_ms, "device_ms": k_dev, "stateless_device_ms": y_dev,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def main_path(torch, device):
@@ -1802,9 +1898,11 @@ def agreement_frontier(torch, device):
 # ---------------------------------------------------------------------------
 
 BASELINE_ROOTS = 16           # phase 15's single tap-game roots per baseline
-BASELINE_BANDIT_ROOTS = 64    # phase 15's single bandit roots per baseline
+# Phases 15 and 17-19 were cut (from 64 bandit roots and 24 requests) to
+# keep the whole run within 900 s on a slow host; the requests come first.
+BASELINE_BANDIT_ROOTS = 32    # phase 15's single bandit roots per baseline
 MDP_B = 256                   # phase 15's random-MDP batch (launcher's --env mdp)
-SERVE_R, SERVE_BURST = 24, 8  # phase 17: requests, arriving in bursts of 8
+SERVE_R, SERVE_BURST = 16, 8  # phases 17-19: requests, arriving in bursts of 8
 PARITY_R = 16                 # phase 17.2: two bursts; the second is compared
 
 
@@ -2121,22 +2219,27 @@ def admission_parity(torch, device, svc, results, prompts, keys, lo):
     return sum(int(results[lo + i].action) == int(fresh.action[i]) for i in range(b))
 
 
-def serving_path(torch, device, cfg, params):
-    """Phase 17: host-paced SearchService over llama3-8b (phase 7's cell:
-    B = 8 rows, W = 16, T = 64, top-8), dense and then paged (phase 10's
-    pool); 24 ragged prompts in three bursts of 8."""
+def serving_path(torch, device, cfg, params, fused=False, host_paced=None):
+    """Phase 17 (``fused=False``) and phase 18 (the fused request ring):
+    SearchService over llama3-8b (phase 7's cell: B = 8 rows, W = 16,
+    T = 64, top-8), dense and then paged (phase 10's pool); 16 ragged
+    prompts in two bursts of 8.  Phase 18 also holds the ring empty after
+    each drain and prints its actions' agreement with phase 17's
+    (``host_paced``, what this returns for phase 17).  Returns (launches,
+    actions by request per mode)."""
     from repro_torch import rng
     from repro_torch.serving import SearchService
 
     _, spec, _, _ = guided_cell(torch, device, cfg, params)
     prompts = serve_prompts(torch, cfg.vocab_size, SERVE_R)
     keys = rng.split(rng.PRNGKey(12, device=device), SERVE_R)
-    launches = {}
+    launches, actions = {}, {}
+    pacing = "fused ring" if fused else "host-paced"
     for paged in (False, True):
         what = "paged" if paged else "dense"
         svc = SearchService(cfg, params, spec, top_k=TOP_K, max_len=MAX_LEN, eos_token=EOS,
                             paged=paged, block_size=BLOCK,
-                            num_blocks=POOL_BLOCKS if paged else None, fused=False,
+                            num_blocks=POOL_BLOCKS if paged else None, fused=fused,
                             device=device)
         results, lat, wall, got, calls, syncs, stats = serve_stream(
             torch, device, svc, prompts, keys)
@@ -2149,8 +2252,9 @@ def serving_path(torch, device, cfg, params):
         launch_identity(got, calls, kernel, "paged_decode_step" if paged else "decode_step",
                         cfg.num_layers)
         launches[kernel] = got[kernel]
+        actions[what] = {r: int(res.action) for r, res in results.items()}
         line = (f"serving {what}: llama3-8b {cfg.num_layers} layers {dtype_name(cfg)}, SearchService "
-                f"(host-paced) B={spec.batch} W={spec.wave_size} T={spec.num_simulations} "
+                f"({pacing}) B={spec.batch} W={spec.wave_size} T={spec.num_simulations} "
                 f"top-{TOP_K}, {SERVE_R} ragged prompts ({min(map(len, prompts))}-"
                 f"{max(map(len, prompts))} tokens) in bursts of {SERVE_BURST}: "
                 f"{SERVE_R / wall!r} requests/s (wall {wall!r} s), latency p50 "
@@ -2158,6 +2262,16 @@ def serving_path(torch, device, cfg, params):
                 f"host rounds {stats['host_rounds']}, master ticks {stats['ticks']}, "
                 f"slot_idle_frac {stats['slot_idle_frac']!r}, host syncs {syncs}, model calls "
                 f"{ {k: v for k, v in calls.items() if v} }, {kernel} launches {got[kernel]}")
+        if fused:
+            ring = svc._ring
+            line += (f", ring_occupancy {stats['ring_occupancy_sum'] / stats['host_rounds']!r}, "
+                     f"ring capacity {svc.ring_capacity}, ticks per segment "
+                     f"{svc.ticks_per_segment}")
+            sentinel = (not paged or bool((ring.aux["table"] == svc.evaluator.num_blocks).all())
+                        and bool((ring.aux["len"] == 0).all()))
+            if int(ring.count) != 0 or not sentinel:
+                raise AssertionError(f"serving {what} (fused ring): ring count "
+                                     f"{int(ring.count)}, tables at the sentinel: {sentinel}")
         if paged:
             aux = svc._carry[7]
             held = int((aux["refcount"] != 0).sum())
@@ -2167,6 +2281,14 @@ def serving_path(torch, device, cfg, params):
                                      f"{int(aux['oom'])}, {free} free of {POOL_BLOCKS}")
             line += f"; after the drain {free} of {POOL_BLOCKS} blocks free, 0 leaked"
         print(line)
+        if fused:
+            same = sum(actions[what][r] == host_paced[what][r] for r in host_paced[what])
+            print(f"serving {what}, {dtype_name(cfg)} {cfg.num_layers} layers: the fused ring "
+                  f"chooses phase 17's host-paced action on {same}/{SERVE_R} requests (printed, "
+                  "not held: phase 18.2 holds them equal in float32)")
+            del svc
+            torch.cuda.empty_cache()
+            continue
         same = admission_parity(torch, device, svc, results, prompts, keys, SERVE_BURST)
         if not paged:
             # One burst again, warm, under the profiler: the card's busy share.
@@ -2179,14 +2301,19 @@ def serving_path(torch, device, cfg, params):
               "§3)")
         del svc
         torch.cuda.empty_cache()
-    return launches
+    return launches, actions
 
 
-def admission_parity_f32(torch, device):
-    """Phase 17.2: at full width, 2 layers, float32 (no TF32), requests
+def serving_parity_f32(torch, device):
+    """Phases 17.2 and 18.2, at full width, 2 layers, float32 (no TF32),
+    16 requests in two bursts, host-paced and then fused in each of the
+    four evaluator modes.  17.2 (dense and paged host-paced): requests
     admitted mid-run into recycled rows choose a fresh one-shot batch's
-    action on at least 7 of 8, dense and paged."""
+    action on at least 7 of 8.  18.2: the fused ring serves every request
+    as host-paced serving does: action, root visit counts and ticks equal,
+    root values within 1e-6 (tests/test_serving_continuous.py's bar)."""
     from repro_torch import rng
+    from repro_torch.core import FrontierModelEvaluator, PagedFrontierModelEvaluator
     from repro_torch.serving import SearchService
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2195,22 +2322,224 @@ def admission_parity_f32(torch, device):
     _, spec, _, _ = guided_cell(torch, device, cfg, params)
     prompts = serve_prompts(torch, cfg.vocab_size, PARITY_R)
     keys = rng.split(rng.PRNGKey(12, device=device), PARITY_R)
-    for paged in (False, True):
-        svc = SearchService(cfg, params, spec, top_k=TOP_K, max_len=MAX_LEN, eos_token=EOS,
-                            paged=paged, block_size=BLOCK,
-                            num_blocks=POOL_BLOCKS if paged else None, fused=False,
-                            device=device)
-        results, _, wall, *_ = serve_stream(torch, device, svc, prompts, keys)
-        same = admission_parity(torch, device, svc, results, prompts, keys, SERVE_BURST)
-        what = "paged" if paged else "dense"
-        if same < 7:
-            raise AssertionError(f"{what}: mid-run admissions agree with a fresh batch on "
-                                 f"{same} of 8")
-        print(f"full width, 2 layers, float32, serving {what}: {PARITY_R} requests in "
-              f"{wall!r} s; requests admitted mid-run choose a fresh one-shot batch's action "
-              f"on {same}/8")
+    evaluators = {
+        "dense": lambda: None, "paged": lambda: None,
+        "frontier": lambda: FrontierModelEvaluator(cfg, params, top_k=TOP_K, eos_token=EOS),
+        "paged frontier": lambda: PagedFrontierModelEvaluator(
+            cfg, params, top_k=TOP_K, eos_token=EOS, block_size=BLOCK,
+            num_blocks=POOL_BLOCKS)}
+    for mode, make in evaluators.items():
+        rows = {}
+        for fused in (False, True):
+            svc = SearchService(cfg, params, spec, top_k=TOP_K, max_len=MAX_LEN,
+                                eos_token=EOS, paged="paged" in mode, block_size=BLOCK,
+                                num_blocks=POOL_BLOCKS if "paged" in mode else None,
+                                evaluator=make(), fused=fused, device=device)
+            results, _, wall, _, _, syncs, stats = serve_stream(torch, device, svc, prompts,
+                                                                keys)
+            rows[fused] = (results, wall, syncs, stats)
+            if not fused and mode in ("dense", "paged"):
+                same = admission_parity(torch, device, svc, results, prompts, keys,
+                                        SERVE_BURST)
+                if same < 7:
+                    raise AssertionError(f"{mode}: mid-run admissions agree with a fresh "
+                                         f"batch on {same} of 8")
+                print(f"(17.2) full width, 2 layers, float32, serving {mode}: {PARITY_R} "
+                      f"requests in {wall!r} s; requests admitted mid-run choose a fresh "
+                      f"one-shot batch's action on {same}/8")
+            del svc
+        (host, h_wall, h_syncs, h_stats), (ring, f_wall, f_syncs, f_stats) = rows[False], rows[True]
+        v_diff = 0.0
+        for r in range(PARITY_R):
+            a, b = ring[r], host[r]
+            v_diff = max(v_diff, float((a.root_v - b.root_v).abs().max()))
+            if (int(a.action) != int(b.action) or not torch.equal(a.root_n, b.root_n)
+                    or int(a.ticks) != int(b.ticks)):
+                raise AssertionError(f"{mode}: request {r} fused (action {int(a.action)}, "
+                                     f"root_n {a.root_n.tolist()}, ticks {int(a.ticks)}) "
+                                     f"differs from host-paced ({int(b.action)}, "
+                                     f"{b.root_n.tolist()}, {int(b.ticks)})")
+        if v_diff > 1e-6:
+            raise AssertionError(f"{mode}: root values differ by up to {v_diff!r} (bar 1e-6)")
+        print(f"(18.2) full width, 2 layers, float32, {mode}: the fused ring equals host-paced "
+              f"serving on {PARITY_R}/{PARITY_R} requests (action, root_n, ticks; max "
+              f"|root_v diff| {v_diff!r}); host-paced {h_wall!r} s, {h_stats['host_rounds']} "
+              f"host rounds, {h_syncs} host syncs; fused {f_wall!r} s, {f_stats['host_rounds']} "
+              f"host rounds, {f_syncs} host syncs")
     del params
     torch.cuda.empty_cache()
+
+
+# Phases 19 and 20: ServingEngine's cells.
+ENGINE_SLOTS, ENGINE_NEW = 8, 32     # phase 19: 8 slots, 32 new tokens at most
+RECURRENT_R, RECURRENT_NEW = 8, 16   # phase 20: 8 prompts, 16 new tokens
+
+
+def engine_run(torch, device, cfg, params, prompts, paged, new_tokens):
+    """One ``ServingEngine.run`` (greedy, EOS 1, ``max_len`` 160) counted:
+    (outputs, wall, launches, calls, syncs, peak GiB, engine)."""
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    engine = ServingEngine(cfg, params, ServeConfig(
+        batch_slots=ENGINE_SLOTS, max_len=MAX_LEN, eos_token=EOS, paged=paged,
+        block_size=BLOCK, max_new_tokens=new_tokens), device=device)
+    out, wall, launches, calls, syncs, peak = counted_run(
+        torch, device, lambda: engine.run(prompts, max_ticks=10 ** 6))
+    if len(out) != len(prompts) or engine.active.any() or not all(
+            0 < len(o) <= new_tokens for o in out):
+        raise AssertionError(f"ServingEngine: {len(out)} outputs of lengths "
+                             f"{[len(o) for o in out]} for {len(prompts)} requests")
+    return out, wall, launches, calls, syncs, peak, engine
+
+
+def lm_serving(torch, device, cfg, params):
+    """Phase 19: ServingEngine over llama3-8b at full width and depth, 8
+    slots, 16 ragged prompts of 64-128 tokens, 32 new tokens at most,
+    greedy: dense, then paged (16-token blocks, the dense equivalent)."""
+    prompts = serve_prompts(torch, cfg.vocab_size, SERVE_R)
+    launches = {}
+    for paged in (False, True):
+        out, wall, got, calls, syncs, peak, engine = engine_run(
+            torch, device, cfg, params, prompts, paged, ENGINE_NEW)
+        kernel = "paged_decode_attention" if paged else "decode_attention"
+        launch_identity(got, calls, kernel, "paged_decode_step" if paged else "decode_step",
+                        cfg.num_layers)
+        launches[kernel] = got[kernel]
+        tokens = sum(len(o) for o in out)
+        line = (f"ServingEngine {'paged' if paged else 'dense'}: llama3-8b {cfg.num_layers} "
+                f"layers {dtype_name(cfg)}, {ENGINE_SLOTS} slots, {SERVE_R} prompts "
+                f"({min(map(len, prompts))}-{max(map(len, prompts))} tokens), up to "
+                f"{ENGINE_NEW} new tokens: {tokens} tokens in {wall!r} s = {tokens / wall!r} "
+                f"tokens/s, {SERVE_R / wall!r} requests/s; model calls "
+                f"{ {k: v for k, v in calls.items() if v} }, {kernel} launches {got[kernel]}, "
+                f"host syncs {syncs}, peak memory {peak!r} GiB")
+        if paged:
+            used = engine.blocks_in_use()
+            if used:
+                raise AssertionError(f"ServingEngine paged: {used} blocks in use after the run")
+            line += f"; 0 of {engine.num_blocks} blocks in use after the run"
+        print(line)
+        del engine
+        torch.cuda.empty_cache()
+    return launches
+
+
+def greedy_by_forward(torch, device, cfg, params, prompts, new_tokens):
+    """What ServingEngine's greedy rules give each prompt, computed by the
+    cache-free ``forward`` (``flash_attention``) over the whole sequence at
+    every step; all prompts at once, right-padded."""
+    from repro_torch.models import logits_at
+
+    outs = [[] for _ in prompts]
+    live = list(range(len(prompts)))
+    while live:
+        seqs = [prompts[i] + outs[i] for i in live]
+        width = max(map(len, seqs))
+        tokens = torch.zeros((len(live), width), dtype=torch.int32)
+        for k, seq in enumerate(seqs):
+            tokens[k, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
+        pos = torch.tensor([len(seq) - 1 for seq in seqs], device=device)
+        nxt = torch.argmax(logits_at(params, cfg, tokens.to(device), pos), dim=-1).tolist()
+        for i, t in zip(list(live), nxt):
+            outs[i].append(int(t))
+            if len(outs[i]) > 1 and (t == EOS or len(prompts[i]) + len(outs[i]) - 1
+                                     >= MAX_LEN - 1 or len(outs[i]) >= new_tokens):
+                live.remove(i)
+    return outs
+
+
+def lm_serving_parity_f32(torch, device):
+    """Phase 19.2: at full width, 2 layers, float32 (no TF32), each
+    request's tokens through ServingEngine equal greedy decoding through the
+    cache-free forward on all requests but one, dense and paged."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cfg, params = lm_setup(torch, device, 2, torch.float32, seed=1)
+    prompts = serve_prompts(torch, cfg.vocab_size, SERVE_R)
+    want = greedy_by_forward(torch, device, cfg, params, prompts, ENGINE_NEW)
+    for paged in (False, True):
+        out, wall, *_ = engine_run(torch, device, cfg, params, prompts, paged, ENGINE_NEW)
+        same = sum(a == b for a, b in zip(out, want))
+        what = "paged" if paged else "dense"
+        if same < SERVE_R - 1:
+            raise AssertionError(f"ServingEngine {what}: {same} of {SERVE_R} requests equal "
+                                 "greedy decoding through forward")
+        print(f"full width, 2 layers, float32, ServingEngine {what}: {same}/{SERVE_R} "
+              f"requests equal greedy decoding through the cache-free forward "
+              f"({sum(map(len, out))} tokens, {wall!r} s)")
+    del params
+    torch.cuda.empty_cache()
+
+
+def recurrent_serving(torch, device, cfg, params):
+    """Phase 20: ServingEngine over mamba2-2.7b or zamba2-7b at full width
+    and depth (bf16), 8 slots, 8 prompts of 64-128 tokens, 16 new tokens:
+    each prompt prefilled once (one ssd_scan with its final state per
+    layer), the decode steps on the recurrent cache (no ssd_scan; zamba2's
+    shared block through decode_attention at its 14 sites)."""
+    from repro_torch.models.lm import _num_attn_sites
+
+    prompts = serve_prompts(torch, cfg.vocab_size, RECURRENT_R)
+    out, wall, got, calls, syncs, peak, engine = engine_run(
+        torch, device, cfg, params, prompts, False, RECURRENT_NEW)
+    if calls["prefill"] != RECURRENT_R or got["ssd_scan"] != cfg.num_layers * RECURRENT_R:
+        raise AssertionError(f"ssd_scan launched {got['ssd_scan']} times for "
+                             f"{calls['prefill']} prefills of {cfg.num_layers} layers "
+                             f"({RECURRENT_R} prompts)")
+    sites = _num_attn_sites(cfg)
+    if sites:
+        launch_identity(got, calls, "decode_attention", "decode_step", sites)
+    slot_bytes = sum(x.numel() * x.element_size() for part in ("ssm", "kv")
+                     for x in engine.cache.get(part, {}).values()) / ENGINE_SLOTS
+    tokens = sum(len(o) for o in out)
+    print(f"ServingEngine {cfg.name}: {cfg.num_layers} layers {dtype_name(cfg)}, "
+          f"{ENGINE_SLOTS} slots, {RECURRENT_R} prompts ({min(map(len, prompts))}-"
+          f"{max(map(len, prompts))} tokens), {RECURRENT_NEW} new tokens: {tokens} tokens in "
+          f"{wall!r} s = {tokens / wall!r} tokens/s; cache {slot_bytes / 2 ** 20!r} MiB per "
+          f"slot (conv windows and states{' and the shared block KV' if sites else ''}), "
+          f"peak memory {peak!r} GiB; model calls {({k: v for k, v in calls.items() if v})}, "
+          f"launches {({k: v for k, v in got.items() if v})}, host syncs {syncs}")
+    del engine
+    torch.cuda.empty_cache()
+    return got
+
+
+def agreement_recurrent_cache(torch, device):
+    """Phase 20.2: mamba2-2.7b and zamba2-7b at full width, 2 layers,
+    float32 (no TF32): ``prefill`` (through ssd_scan with its final state)
+    and 3 ``decode_step`` calls against the cache-free forward's logits,
+    prompts of 128 tokens (one chunk) and 300 (padded to two chunks)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import decode_step, forward, init_cache, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    for name in ("mamba2-2.7b", "zamba2-7b"):
+        cfg, params = lm_setup(torch, device, 2, torch.float32, seed=5, name=name)
+        gen = torch.Generator(device=device).manual_seed(9)
+        for s in (128, 300):
+            toks = torch.randint(2, cfg.vocab_size, (2, s + 3), generator=gen, device=device,
+                                 dtype=torch.int32)
+            full, _ = forward(params, cfg, {"tokens": toks})
+            reset_launches()
+            logits, cache = prefill(params, cfg, {"tokens": toks[:, :s]},
+                                    init_cache(cfg, 2, s + 8, device=device))
+            if LAUNCHES["ssd_scan"] != cfg.num_layers:
+                raise AssertionError(f"{name}: prefill launched ssd_scan "
+                                     f"{LAUNCHES['ssd_scan']} times for {cfg.num_layers} layers")
+            diffs = [float((logits - full[:, s - 1]).abs().max())]
+            torch.testing.assert_close(logits, full[:, s - 1], **LOGIT_TOL)
+            for t in range(s, s + 3):
+                logits, cache = decode_step(params, cfg, toks[:, t], cache)
+                torch.testing.assert_close(logits, full[:, t], **LOGIT_TOL)
+                diffs.append(float((logits - full[:, t]).abs().max()))
+            if LAUNCHES["ssd_scan"] != cfg.num_layers:
+                raise AssertionError(f"{name}: a decode step launched ssd_scan")
+            print(f"{name} full width, 2 layers, float32, 2 x {s} prompt tokens: max |prefill "
+                  f"and decode step logits - forward's| = {diffs!r} (logits up to "
+                  f"{float(full.abs().max())!r}; tolerance {LOGIT_TOL})")
+        del params, full, cache
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -2269,6 +2598,10 @@ def main():
                                     (8 * 4, REDUCED_MAX_LEN, 8, 16, 16, 4)])
     fields["ssd_scan"] = {"max_abs_err": err, **time_ssd(torch, device, mamba2_scan)}
     time_ssd(torch, device, zamba2_scan)
+    fields["ssd_scan"]["return_state_max_abs_err"] = check_ssd_state(torch, device,
+                                                                     SSD_STATE_DRIVEN)
+    fields["ssd_scan"]["return_state"] = [time_ssd_state(torch, device, shape)
+                                          for shape in SSD_STATE_DRIVEN[:2]]
 
     phase("4. main path")
     got = main_path(torch, device)
@@ -2308,7 +2641,13 @@ def main():
     launches["paged_tree_decode_attention"] = got["paged_tree_decode_attention"]
 
     phase("17. host-paced serving (SearchService, phase 7's cell)")
-    serving_path(torch, device, cfg, params)
+    _, host_paced = serving_path(torch, device, cfg, params)
+
+    phase("18. fused ring serving (SearchService, phase 7's cell)")
+    serving_path(torch, device, cfg, params, fused=True, host_paced=host_paced)
+
+    phase("19. LM serving (ServingEngine, llama3-8b)")
+    lm_serving(torch, device, cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -2316,6 +2655,9 @@ def main():
     cfg, params = lm_setup(torch, device, SSM_LAYERS, torch.bfloat16, seed=1,
                            name="mamba2-2.7b")
     launches["ssd_scan"] = ssm_path(torch, device, cfg, params)["ssd_scan"]
+
+    phase("20. recurrent serving (ServingEngine, mamba2-2.7b)")
+    recurrent_serving(torch, device, cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -2323,6 +2665,9 @@ def main():
     cfg, params = lm_setup(torch, device, HYBRID_LAYERS, torch.bfloat16, seed=1,
                            name="zamba2-7b")
     hybrid_path(torch, device, cfg, params)
+
+    phase("20. recurrent serving (ServingEngine, zamba2-7b)")
+    recurrent_serving(torch, device, cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -2332,8 +2677,15 @@ def main():
     agreement_frontier(torch, device)
     agreement_ssm(torch, device)
 
-    phase("17.2 mid-run admission against a fresh batch (float32, 2 layers)")
-    admission_parity_f32(torch, device)
+    phase("17.2 and 18.2 mid-run admission against a fresh batch, the fused ring against "
+          "host-paced serving (float32, 2 layers)")
+    serving_parity_f32(torch, device)
+
+    phase("19.2 ServingEngine against greedy forward decoding (float32, 2 layers)")
+    lm_serving_parity_f32(torch, device)
+
+    phase("20.2 recurrent prefill and decode against forward (float32, 2 layers)")
+    agreement_recurrent_cache(torch, device)
 
     kernels = [{
         "name": name,

@@ -30,19 +30,31 @@ its snapshot (:meth:`BatchedAsyncEngine.frontier_hits`).
 
 Trace mode (``run(..., trace_ticks=K)``) runs exactly ``K`` ticks and
 snapshots each (:class:`~repro_torch.core.async_search.AsyncTickTrace`).
-Host-paced serving rests on :meth:`BatchedAsyncEngine.admit` and
-:meth:`~BatchedAsyncEngine.evict`; the reference's device-resident request
-ring (``serve_segment``) is not ported yet (ROADMAP.md §1, item 4).
+
+Serving rests on two surfaces.  Host-paced: :meth:`BatchedAsyncEngine.admit`
+and :meth:`~BatchedAsyncEngine.evict` between segments of
+:meth:`~BatchedAsyncEngine.run_segment`.  Fused: a :class:`RequestRing` of
+requests staged on the device ahead of time (:meth:`~BatchedAsyncEngine
+.stage`, which also pre-prefills their caches), drained by
+:meth:`~BatchedAsyncEngine.serve_segment`, whose tick loop harvests settled
+rows into a :class:`Completions` buffer and re-seeds them from the ring
+head without returning to the caller.  The reference runs that loop as
+one ``lax.while_loop``; here it is a Python loop whose one host sync per
+tick fetches the loop condition and the round's gate together (the rows
+settled, the rows holding a request, the ring's count), so it pays no
+sync per tick beyond ``run_segment``'s.  Harvest and admission then touch
+only the rows concerned, by index.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..envs.base import Environment, map_state
-from ..sync import host_any
+from ..sync import host_any, host_read
 from . import batched_tree as btree
 from .batched_search import (
     _expansion_actions,
@@ -72,6 +84,42 @@ class _BatchedAsyncSlots(NamedTuple):
 # The loop carry, the reference's: (tree, slots, rng[B, 2], t_launch[B],
 # t_done[B], ticks[B], max_o[B], aux, frontier_hits[B]).
 Carry = tuple
+
+
+class RequestRing(NamedTuple):
+    """Staging buffer of pre-prefilled requests on the device: a
+    fixed-capacity circular queue that :meth:`BatchedAsyncEngine.stage`
+    fills between segments and :meth:`BatchedAsyncEngine.serve_segment`
+    drains into rows as they settle.  ``aux`` holds the evaluator's staged
+    resources (dense: prefilled KV rows and root logits; paged: a page
+    table whose pool pages are written and held at refcount 1 by the ring).
+    """
+
+    req_id: torch.Tensor   # i64[C]  caller-assigned id, -1 = empty slot
+    states: State          # [C, ...] root states
+    rng: torch.Tensor      # [C, 2]  key data per request
+    head: torch.Tensor     # i64[]   index of the oldest staged request
+    count: torch.Tensor    # i64[]   staged requests not yet admitted
+    aux: Any               # evaluator staging (Evaluator.init_ring_aux)
+
+
+class Completions(NamedTuple):
+    """What one :meth:`BatchedAsyncEngine.serve_segment` harvested: rows
+    ``[0, count)`` are the :class:`SearchResult` snapshots of finished
+    requests, taken at the tick their tree settled, with the ``req_id``
+    they were staged under.  Capacity ``B + ring capacity``: everything in
+    flight and everything staged can finish within one segment.  ``count``
+    is known on the host (the harvest is decided there)."""
+
+    req_id: torch.Tensor      # i64[C_out]
+    action: torch.Tensor      # [C_out]
+    root_n: torch.Tensor      # f32[C_out, A]
+    root_v: torch.Tensor      # f32[C_out, A]
+    tree_size: torch.Tensor   # [C_out]
+    max_o: torch.Tensor       # f32[C_out]
+    overflowed: torch.Tensor  # bool[C_out]
+    ticks: torch.Tensor       # [C_out]
+    count: int
 
 
 class BatchedAsyncEngine:
@@ -306,18 +354,11 @@ class BatchedAsyncEngine:
     # ------------------------------------------------------------------
     # Request lifecycle (the serving layer's surface)
     # ------------------------------------------------------------------
-    def admit(self, carry: Carry, rows, root_states: State, rngs: torch.Tensor) -> Carry:
-        """Splice fresh requests into settled rows, between ticks.
-
-        ``rows`` (``i64[R]``, distinct, settled or idle); ``root_states``
-        leaves lead with ``[R]``; ``rngs`` is key data ``[R, 2]``.  The rows'
-        trees, slot pools, RNG lanes and counters are reset and their
-        evaluator slot caches re-seeded (``Evaluator.admit_aux``); other
-        rows' searches go on untouched.  Writes the carry in place.
-        """
-        tree, slots, rng_, t_launch, t_done, ticks, max_o, aux, fr_hits = carry
-        dev = rng_.device
-        rows = torch.as_tensor(rows, device=dev).to(torch.int64)
+    def _reset_rows(self, carry: Carry, rows: torch.Tensor, root_states: State,
+                    rngs: torch.Tensor) -> None:
+        """Fresh trees, slot pools, RNG lanes and zero counters for tree
+        rows ``rows``, in place; the evaluator aux is the caller's."""
+        tree, slots, rng_, t_launch, t_done, ticks, max_o, _, fr_hits = carry
 
         def put(buf, new):
             if isinstance(buf, tuple):
@@ -331,11 +372,23 @@ class BatchedAsyncEngine:
             put(buf, new)
         for buf, new in zip(slots, self._slot_rows0(root_states, rows.shape[0])):
             put(buf, new)
-        rng_[rows] = rngs.to(device=dev, dtype=rng_.dtype)
+        rng_[rows] = rngs.to(device=rng_.device, dtype=rng_.dtype)
         for counter in (t_launch, t_done, ticks, max_o, fr_hits):
             counter[rows] = 0
-        aux = self.evaluator.admit_aux(self.cfg, aux, rows, root_states, self.W)
-        return (tree, slots, rng_, t_launch, t_done, ticks, max_o, aux, fr_hits)
+
+    def admit(self, carry: Carry, rows, root_states: State, rngs: torch.Tensor) -> Carry:
+        """Splice fresh requests into settled rows, between ticks.
+
+        ``rows`` (``i64[R]``, distinct, settled or idle); ``root_states``
+        leaves lead with ``[R]``; ``rngs`` is key data ``[R, 2]``.  The rows'
+        trees, slot pools, RNG lanes and counters are reset and their
+        evaluator slot caches re-seeded (``Evaluator.admit_aux``); other
+        rows' searches go on untouched.  Writes the carry in place.
+        """
+        rows = torch.as_tensor(rows, device=carry[4].device).to(torch.int64)
+        self._reset_rows(carry, rows, root_states, rngs)
+        aux = self.evaluator.admit_aux(self.cfg, carry[7], rows, root_states, self.W)
+        return carry[:7] + (aux,) + carry[8:]
 
     def evict(self, carry: Carry, rows) -> Carry:
         """Release settled rows' evaluator-side resources without admitting:
@@ -356,6 +409,148 @@ class BatchedAsyncEngine:
             carry = self.step(carry)
             t += 1
         return carry, t, int(busy)
+
+    # ------------------------------------------------------------------
+    # The request ring (the fused serving round)
+    # ------------------------------------------------------------------
+    def init_ring(self, proto_root_states: State, capacity: int) -> RequestRing:
+        """An empty :class:`RequestRing` of ``capacity`` requests;
+        ``proto_root_states`` (leaves leading with any batch axis) gives
+        the root states' shapes, types and device."""
+        cap = int(capacity)
+        if cap < 1:
+            raise ValueError(f"ring capacity must be >= 1, got {capacity}")
+        dev = proto_root_states[0].device
+        states = map_state(lambda x: torch.zeros((cap,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                                 device=dev), proto_root_states)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return RequestRing(
+            req_id=torch.full((cap,), -1, dtype=torch.int64, device=dev), states=states,
+            rng=torch.zeros((cap, 2), dtype=torch.int64, device=dev), head=zero,
+            count=zero.clone(),
+            aux=self.evaluator.init_ring_aux(self.cfg, proto_root_states, cap))
+
+    def stage(self, carry: Carry, ring: RequestRing, root_states: State, rngs: torch.Tensor,
+              req_ids) -> tuple[Carry, RequestRing]:
+        """Stage ``R`` requests at the ring's tail, between segments.
+
+        The evaluator's ``stage_ring_aux`` pre-prefills them into the
+        ring's staging buffers; paged evaluators allocate their pool pages
+        now, from the live carry's refcounts, which is why the carry is
+        threaded through.  The caller guarantees ``count + R <= capacity``.
+        Writes the ring's buffers in place.
+        """
+        dev = ring.req_id.device
+        cap = ring.req_id.shape[0]
+        req_ids = torch.as_tensor(req_ids, device=dev).to(torch.int64)
+        r = req_ids.shape[0]
+        slots = (ring.head + ring.count + torch.arange(r, device=dev)) % cap
+        for buf, x in zip(ring.states, root_states):
+            buf[slots] = x.to(buf.dtype)
+        aux, ring_aux = self.evaluator.stage_ring_aux(self.cfg, carry[7], ring.aux, slots,
+                                                      root_states)
+        ring.req_id[slots] = req_ids
+        ring.rng[slots] = rngs.to(device=dev, dtype=ring.rng.dtype)
+        return carry[:7] + (aux,) + carry[8:], ring._replace(count=ring.count + r,
+                                                             aux=ring_aux)
+
+    def _admit_from_ring(self, carry: Carry, ring: RequestRing, row_req: torch.Tensor,
+                         rows: torch.Tensor, slot: torch.Tensor):
+        """Re-seed tree rows ``rows`` from ring slots ``slot`` (the in-loop
+        counterpart of :meth:`admit`: the staged caches are spliced by
+        ``admit_aux_from_ring``, no prefill)."""
+        roots = map_state(lambda x: x[slot], ring.states)
+        self._reset_rows(carry, rows, roots, ring.rng[slot])
+        aux, ring_aux = self.evaluator.admit_aux_from_ring(self.cfg, carry[7], ring.aux, slot,
+                                                           rows, self.W)
+        row_req[rows] = ring.req_id[slot]
+        return carry[:7] + (aux,) + carry[8:], ring._replace(aux=ring_aux), row_req
+
+    def _gate(self, carry: Carry, ring: RequestRing, row_req: torch.Tensor):
+        """One host sync: ``(settled bool[B], occupied bool[B], ring
+        count)``, the loop condition and the round's gate together."""
+        g = host_read(torch.cat([self.settled(carry).to(torch.int64),
+                                 (row_req >= 0).to(torch.int64), ring.count.reshape(1)]))
+        return g[:self.B] > 0, g[self.B:2 * self.B] > 0, int(g[-1])
+
+    def _serve_round(self, carry: Carry, ring: RequestRing, row_req: torch.Tensor,
+                     comp: Completions, settled, occupied, count: int):
+        """One harvest + admission round, decided on the host from the
+        gate: settled rows holding a request append their result snapshot
+        to ``comp`` (in row order) and release their evaluator resources
+        (``evict_aux_to_ring``); then as many settled rows as the ring holds
+        requests, in row order, are re-seeded from the ring head.  Only the
+        rows concerned are touched.  Returns ``(carry, ring, row_req, comp,
+        admitted)``."""
+        dev = row_req.device
+        done = np.flatnonzero(settled & occupied)
+        if done.size:
+            rows = torch.from_numpy(done).to(dev)
+            dst = torch.arange(comp.count, comp.count + done.size, device=dev)
+            res = self.result(carry)
+            comp.req_id[dst] = row_req[rows]
+            for name in Completions._fields[1:-1]:
+                buf = getattr(comp, name)
+                buf[dst] = getattr(res, name)[rows].to(buf.dtype)
+            comp = comp._replace(count=comp.count + done.size)
+            aux = self.evaluator.evict_aux_to_ring(carry[7], rows, self.W)
+            carry = carry[:7] + (aux,) + carry[8:]
+            row_req[rows] = -1
+        admit = np.flatnonzero(settled)[:count]
+        if admit.size:
+            cap = ring.req_id.shape[0]
+            slot = (ring.head + torch.arange(admit.size, device=dev)) % cap
+            carry, ring, row_req = self._admit_from_ring(
+                carry, ring, row_req, torch.from_numpy(admit).to(dev), slot)
+            ring = ring._replace(head=(ring.head + admit.size) % cap,
+                                 count=ring.count - admit.size)
+        return carry, ring, row_req, comp, int(admit.size)
+
+    def serve_segment(self, carry: Carry, ring: RequestRing, row_req: torch.Tensor,
+                      num_ticks: int):
+        """Up to ``num_ticks`` master ticks with harvest and ring admission
+        inside the loop: the fused poll round.
+
+        ``row_req`` (``i64[B]``) is the request id each row serves (``-1``:
+        idle), updated in place.  Each tick first runs a harvest/admission
+        round when a settled row holds a request or a settled row can take
+        a staged one, then one frozen-masked master tick; a last round after
+        the loop harvests the rows that settled on the last tick.  The loop
+        ends early once every row is idle and the ring is empty.  Returns
+        ``(carry, ring, row_req, completions, ticks_run, busy_tree_ticks)``.
+        """
+        dev = row_req.device
+        proto = self.result(carry)
+
+        def buf(x):
+            return torch.zeros((self.B + ring.req_id.shape[0],) + tuple(x.shape[1:]),
+                               dtype=x.dtype, device=dev)
+
+        comp = Completions(
+            req_id=torch.full((self.B + ring.req_id.shape[0],), -1, dtype=torch.int64,
+                              device=dev),
+            action=buf(proto.action), root_n=buf(proto.root_n), root_v=buf(proto.root_v),
+            tree_size=buf(proto.tree_size), max_o=buf(proto.max_o),
+            overflowed=buf(proto.overflowed), ticks=buf(proto.ticks), count=0)
+
+        def round_(carry, ring, row_req, comp, gate):
+            settled, occupied, count = gate
+            if (settled & occupied).any() or (count > 0 and settled.any()):
+                return self._serve_round(carry, ring, row_req, comp, settled, occupied, count)
+            return carry, ring, row_req, comp, 0
+
+        t = busy = 0
+        gate = self._gate(carry, ring, row_req)
+        while t < num_ticks and (not gate[0].all() or gate[2] > 0):
+            carry, ring, row_req, comp, admitted = round_(carry, ring, row_req, comp, gate)
+            busy += int((~gate[0]).sum()) + admitted
+            carry = self.step(carry)
+            t += 1
+            gate = self._gate(carry, ring, row_req)
+        # The rows that settled on the last tick, without a masked tick for
+        # them (admission here also primes the next segment's first tick).
+        carry, ring, row_req, comp, _ = round_(carry, ring, row_req, comp, gate)
+        return carry, ring, row_req, comp, t, busy
 
     def frontier_hits(self, carry: Carry) -> torch.Tensor:
         """i64[B] — refills answered from a frontier snapshot, per tree

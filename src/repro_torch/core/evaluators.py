@@ -27,8 +27,8 @@ frontier-speculative :class:`FrontierModelEvaluator` and
 candidate child in one forward; refills onto the snapshot parent or one
 of its children need no forward).  The serving hooks ``admit_aux`` and
 ``evict_aux`` re-seed and release the rows of the host-paced search
-service; the device ring's hooks are not ported yet (ROADMAP.md §1,
-item 4).
+service; ``init_ring_aux``, ``stage_ring_aux``, ``admit_aux_from_ring``
+and ``evict_aux_to_ring`` do the same for its fused request ring.
 """
 
 from __future__ import annotations
@@ -95,7 +95,19 @@ class Evaluator:
       ``b·w .. b·w + w - 1``) from their root states (leaves lead with
       ``[R]``), and ``evict_aux(aux, rows, w)`` releases what settled tree
       rows hold: the serving layer's half of continuous batching.
-      Stateless evaluators and the uncached model need neither.
+      Stateless evaluators and the uncached model need neither;
+    * the request ring's hooks (``BatchedAsyncEngine.serve_segment``) split
+      ``admit_aux`` at the prefill: ``init_ring_aux(cfg, proto_root_states,
+      capacity)`` builds empty per-request staging buffers;
+      ``stage_ring_aux(cfg, aux, ring_aux, slots, root_states)`` prefills
+      requests into ring slots ``slots`` between segments (paged: pool
+      pages allocated from ``aux``'s refcounts and held by the ring) and
+      returns ``(aux, ring_aux)``; ``admit_aux_from_ring(cfg, aux,
+      ring_aux, slot, rows, w)`` splices staged slots ``slot`` into tree
+      rows ``rows`` inside the tick loop and returns ``(aux, ring_aux)``;
+      ``evict_aux_to_ring(aux, rows, w)`` releases settled rows there and
+      never raises (a paged pool latches ``oom``).  Evaluators without
+      per-request resources stage nothing.
     """
 
     env: Optional[Environment] = None
@@ -115,6 +127,23 @@ class Evaluator:
     def evict_aux(self, aux, rows, w):
         del rows, w
         return aux
+
+    def init_ring_aux(self, cfg, proto_root_states, capacity: int):
+        del cfg, proto_root_states, capacity
+        return ()
+
+    def stage_ring_aux(self, cfg, aux, ring_aux, slots, root_states):
+        del cfg, slots, root_states
+        return aux, ring_aux
+
+    def admit_aux_from_ring(self, cfg, aux, ring_aux, slot, rows, w):
+        del cfg, slot, rows, w
+        return aux, ring_aux
+
+    def evict_aux_to_ring(self, aux, rows, w):
+        """The in-loop eviction: by row index, as :meth:`evict_aux` already
+        is (neither raises)."""
+        return self.evict_aux(aux, rows, w)
 
     def aux_blocks(self, aux) -> Optional[torch.Tensor]:
         del aux
@@ -574,6 +603,68 @@ class CachedModelEvaluator(ModelEvaluator):
             b["logits"][flat] = logits.repeat_interleave(w, dim=0).to(b["logits"].dtype)
         return aux
 
+    def init_ring_aux(self, cfg, proto_root_states, capacity: int):
+        """Per-request staging for the request ring: one prefilled cache
+        row and the root logits per staged request, spliced into all ``w``
+        sibling slots at admission."""
+        del cfg
+        from ..models import init_cache
+
+        c = int(capacity)
+        s_max = proto_root_states.tokens.shape[-1]
+        dev = proto_root_states.tokens.device
+        ring = {"tokens": torch.zeros((c, s_max), dtype=torch.int32, device=dev),
+                "len": torch.zeros((c,), dtype=torch.int32, device=dev), "pol": (), "rew": ()}
+        for key, _, mcfg in self._branches():
+            cache = init_cache(mcfg, c, s_max, device=dev)
+            cache.pop("len")
+            ring[key] = {"cache": cache, "logits": torch.zeros((c, mcfg.vocab_size),
+                                                               dtype=torch.float32, device=dev)}
+        return ring
+
+    def stage_ring_aux(self, cfg, aux, ring_aux, slots, root_states):
+        """Prefill the staged requests now, between segments, so that
+        admission in the tick loop is a copy: ``admit_aux`` split at the
+        prefill."""
+        del cfg
+        from ..models.lm import tree_map
+        from ..serving.admission import ragged_prefill
+
+        tokens = root_states.tokens.to(torch.int32)
+        lengths = root_states.length.to(torch.int32)
+        ring_aux["tokens"][slots] = tokens
+        ring_aux["len"][slots] = lengths
+        for key, params, mcfg in self._branches():
+            rb = ring_aux[key]
+            logits, cache = ragged_prefill(params, mcfg, tokens, lengths,
+                                           ring_aux["tokens"].shape[-1])
+            cache.pop("len")
+
+            def put(buf, x):
+                buf[:, slots] = x.to(buf.dtype)
+
+            tree_map(put, rb["cache"], cache)
+            rb["logits"][slots] = logits.to(rb["logits"].dtype)
+        return aux, ring_aux
+
+    def admit_aux_from_ring(self, cfg, aux, ring_aux, slot, rows, w):
+        """In-loop admission: copy the staged rows ``slot`` into the ``w``
+        sibling slots of tree rows ``rows`` (an index copy of those rows
+        only)."""
+        del cfg
+        from ..models.lm import tree_map
+        from ..serving.admission import splice_dense_slots
+
+        flat = _flat_slot_rows(rows, w)
+        src = slot.repeat_interleave(w)
+        aux["tokens"][flat] = ring_aux["tokens"][src]
+        aux["len"][flat] = ring_aux["len"][src]
+        for key, _, _ in self._branches():
+            b, rb = aux[key], ring_aux[key]
+            splice_dense_slots(b["cache"], flat, tree_map(lambda x: x[:, src], rb["cache"]))
+            b["logits"][flat] = rb["logits"][src].to(b["logits"].dtype)
+        return aux, ring_aux
+
     def _catch_up(self, sub, target):
         """Re-decode each row's divergent suffix in batched ragged chunks:
         one ``decode_chunk`` advances every behind row by up to
@@ -984,14 +1075,13 @@ class PagedCachedModelEvaluator(CachedModelEvaluator):
         :class:`~repro_torch.models.PagePoolExhaustedError`.
         """
         del cfg
-        from ..models import alloc_blocks, release_pages
+        from ..models import release_pages
         from ..models.paged import add_at
         from ..serving.admission import ragged_prefill, splice_pool_pages
 
         flat = _flat_slot_rows(rows, w)
         tokens = root_states.tokens.to(torch.int32)
         lengths = root_states.length.to(torch.int32)
-        r = tokens.shape[0]
         bs, p = self.block_size, self.num_blocks
         mp = aux["table"].shape[1]
         hi = (aux["len"][flat] + bs - 1) // bs
@@ -999,14 +1089,7 @@ class PagedCachedModelEvaluator(CachedModelEvaluator):
 
         # One block per root page (refcount 1 from alloc_blocks), then the
         # other w - 1 sharers.
-        p_r = (lengths + bs - 1) // bs
-        dst = torch.full((r, mp), p, dtype=torch.int32, device=tokens.device)
-        oom = aux["oom"]
-        for pi in range(mp):
-            need = pi < p_r
-            blocks, refcount, n_fail = alloc_blocks(refcount, need)
-            dst[:, pi] = torch.where(need & (blocks < p), blocks, p)
-            oom = oom + n_fail
+        dst, refcount, oom = self._alloc_prompt_pages(refcount, aux["oom"], lengths, mp)
         refcount = add_at(refcount, dst, torch.full_like(dst, w - 1), dst < p)
 
         aux["tokens"][flat] = tokens.repeat_interleave(w, dim=0)
@@ -1020,6 +1103,100 @@ class PagedCachedModelEvaluator(CachedModelEvaluator):
             b["logits"][flat] = logits.repeat_interleave(w, dim=0).to(b["logits"].dtype)
         self._maybe_raise(aux["oom"])
         return aux
+
+    def _alloc_prompt_pages(self, refcount, oom, lengths, mp: int):
+        """One fresh block (refcount 1) per page of each prompt of
+        ``lengths``: ``(dst i32[R, mp], refcount, oom)``, ``dst`` the block
+        per logical page (the sentinel ``P`` past a prompt's pages or where
+        the pool ran out; failures count into ``oom``)."""
+        from ..models import alloc_blocks
+
+        p = self.num_blocks
+        p_r = (lengths + self.block_size - 1) // self.block_size
+        dst = torch.full((lengths.shape[0], mp), p, dtype=torch.int32, device=lengths.device)
+        for pi in range(mp):
+            need = pi < p_r
+            blocks, refcount, n_fail = alloc_blocks(refcount, need)
+            dst[:, pi] = torch.where(need & (blocks < p), blocks, p)
+            oom = oom + n_fail
+        return dst, refcount, oom
+
+    def init_ring_aux(self, cfg, proto_root_states, capacity: int):
+        """Ring staging of the paged evaluator: tokens, a page table and the
+        root logits per staged request.  The K/V themselves are not staged:
+        a staged request's pages already live in the shared pool (written
+        by :meth:`stage_ring_aux`, held at refcount 1 by the ring), so
+        admission is a table splice and a refcount fan-out."""
+        del cfg
+        from ..models.paged import num_pages
+
+        c = int(capacity)
+        s_max = proto_root_states.tokens.shape[-1]
+        dev = proto_root_states.tokens.device
+        ring = {"tokens": torch.zeros((c, s_max), dtype=torch.int32, device=dev),
+                "len": torch.zeros((c,), dtype=torch.int32, device=dev),
+                "table": torch.full((c, num_pages(s_max, self.block_size)), self.num_blocks,
+                                    dtype=torch.int32, device=dev),
+                "pol": (), "rew": ()}
+        for key, _, mcfg in self._branches():
+            ring[key] = {"logits": torch.zeros((c, mcfg.vocab_size), dtype=torch.float32,
+                                               device=dev)}
+        return ring
+
+    def stage_ring_aux(self, cfg, aux, ring_aux, slots, root_states):
+        """Allocate and prefill the staged requests' pool pages now.
+
+        The pages come from the live refcounts (the service budgets against
+        them before staging), are written by one ragged prefill and stay at
+        refcount 1, owned by the ring, until admission hands them to a row.
+        Exhaustion latches ``oom`` (the caller raises it after the segment);
+        ring slots outside the staged window hold no pages (admission clears
+        them), so nothing is released here.
+        """
+        del cfg
+        from ..serving.admission import ragged_prefill, splice_pool_pages
+
+        tokens = root_states.tokens.to(torch.int32)
+        lengths = root_states.length.to(torch.int32)
+        mp = ring_aux["table"].shape[1]
+        dst, refcount, oom = self._alloc_prompt_pages(aux["refcount"], aux["oom"], lengths, mp)
+        ring_aux["tokens"][slots] = tokens
+        ring_aux["len"][slots] = lengths
+        ring_aux["table"][slots] = dst
+        aux.update(refcount=refcount, oom=oom)
+        for key, params, mcfg in self._branches():
+            b = aux[key]
+            logits, cache = ragged_prefill(params, mcfg, tokens, lengths, mp * self.block_size)
+            splice_pool_pages(b["k"], b["v"], cache["kv"]["k"], cache["kv"]["v"], dst)
+            ring_aux[key]["logits"][slots] = logits.to(ring_aux[key]["logits"].dtype)
+        return aux, ring_aux
+
+    def admit_aux_from_ring(self, cfg, aux, ring_aux, slot, rows, w):
+        """In-loop paged admission: a table splice and a refcount fan-out.
+
+        The target rows were evicted first (the round harvests before it
+        admits), so nothing is released.  The ring's one reference to each
+        page passes to the first sibling slot and the fan-out adds the other
+        ``w - 1``, the layout :meth:`admit_aux` builds; the consumed ring
+        slots drop to the sentinel, so no page is released twice.
+        """
+        del cfg
+        from ..models.paged import add_at
+
+        flat = _flat_slot_rows(rows, w)
+        src = slot.repeat_interleave(w)
+        p = self.num_blocks
+        dst = ring_aux["table"][slot]                                 # [R, mp]
+        aux["refcount"] = add_at(aux["refcount"], dst, torch.full_like(dst, w - 1), dst < p)
+        aux["tokens"][flat] = ring_aux["tokens"][src]
+        aux["len"][flat] = ring_aux["len"][src]
+        aux["table"][flat] = ring_aux["table"][src]
+        for key, _, _ in self._branches():
+            b = aux[key]
+            b["logits"][flat] = ring_aux[key]["logits"][src].to(b["logits"].dtype)
+        ring_aux["table"][slot] = p
+        ring_aux["len"][slot] = 0
+        return aux, ring_aux
 
     def evict_aux(self, aux, rows, w):
         """Return settled rows' pages to the pool, in place: tables drop to
@@ -1141,6 +1318,14 @@ class _FrontierMixin:
         aux = super().evict_aux(aux, rows, w)
         aux["fr"]["valid"][_flat_slot_rows(rows, w)] = False
         return aux
+
+    def admit_aux_from_ring(self, cfg, aux, ring_aux, slot, rows, w):
+        """In-loop admission invalidates the rows' snapshots too; a frontier
+        snapshot is per slot, not per request, so staging has nothing to
+        add."""
+        aux, ring_aux = super().admit_aux_from_ring(cfg, aux, ring_aux, slot, rows, w)
+        aux["fr"]["valid"][_flat_slot_rows(rows, w)] = False
+        return aux, ring_aux
 
     @staticmethod
     def _fr_record(fr, pre_tokens, length, cand, is_exp):

@@ -13,6 +13,9 @@
 //
 // xdt [B, S, H, P] and dA [B, S, H] are float32, B and C [B, S, N] float32
 // or bfloat16 (one per token, shared by all heads), y [B, S, H, P] float32.
+// Given an output hout [B, H, P, N] (float32), the scan also writes the
+// state after the last chunk there: the prefill that starts a decode cache
+// needs it.
 //
 // What bounds it: at the main path's shape (mamba2-2.7b, 128 rows x 160
 // tokens, H = 80, P = 64, N = 128, one chunk of Q = 160, bf16 B and C)
@@ -53,14 +56,16 @@
 //   meets it.  Tiles above the diagonal are never formed.
 // * Shared memory at phase 13's shape: 43 KB of C . B^T, 10 KB of cum, 2 x
 //   26 KB of xdt rings and splits: two blocks (16 warps) per SM.
-// * No state buffer: the block sees one chunk.  With more than one chunk a
-//   second launch, the CUDA-core body below in its state-only form (one
-//   block per (batch, head), the state in shared memory), walks the chunks
-//   in order, adds exp(cum_i) C_i . h^T to y and carries h.
+// * No state buffer: the block sees one chunk.  With more than one chunk,
+//   or when the final state is asked for, a second launch, the CUDA-core
+//   body below in its state-only form (one block per (batch, head), the
+//   state in shared memory), walks the chunks in order, adds exp(cum_i)
+//   C_i . h^T to y from the second chunk on and carries h.
 //
 // float32 B and C: the CUDA-core body (`ssd_scan_kernel`), one block of 256
 // threads per (batch, head) walking its chunks with the [P][N + 4] state in
-// shared memory (allocated only with more than one chunk); each chunk is
+// shared memory (allocated only with more than one chunk or a final state
+// to write); each chunk is
 // streamed in 32-row tiles, C . B^T is recomputed per head and the products
 // are float32 FMA loops.  The tensor cores take float32 only as TF32, which
 // would need a three-way split of B and C as well.  Which body runs is fixed
@@ -123,9 +128,9 @@ __host__ __device__ __forceinline__ int row_stride(int N) {
   return ((N + 3) & ~3) + 4;
 }
 
-size_t smem_bytes(int P, int N, int Q, int n_chunks) {
+size_t smem_bytes(int P, int N, int Q, bool state) {
   const size_t ns = row_stride(N);
-  return sizeof(float) * ((n_chunks > 1 ? P * ns : 0)  // state h[p][n]
+  return sizeof(float) * ((state ? P * ns : 0)          // state h[p][n]
                           + 2 * kTile * ns              // C_i and B_j rows
                           + kTile * P                   // xdt_j rows
                           + kTile * kTile               // scores
@@ -181,20 +186,23 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 // scores (C_i . B_j^T) * exp(cum_i - cum_j) under the causal mask in shared
 // memory, and accumulates their product with xdt_j in registers; then adds
 // exp(cum_i) C_i . h^T and writes y_i.  After the chunk the state is
-// updated, except after the last chunk, where nothing reads it (the Pallas
-// scratch dies with the grid, and the wrapper returns only y).  Warp w owns
+// updated; after the last chunk only when `hout` is given, which then
+// receives it (the Pallas kernel keeps its state in scratch that dies with
+// the grid).  Warp w owns
 // tile rows w, w + 8, w + 16, w + 24; lane l owns score column l and output
 // columns l + 32k.
 template <typename T, bool kIntra>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
                 const T* __restrict__ Bm, const T* __restrict__ Cm,
-                float* __restrict__ y, int S, int H, int P, int N, int Q) {
+                float* __restrict__ y, float* __restrict__ hout, int S, int H, int P,
+                int N, int Q) {
   extern __shared__ __align__(16) float smem[];
   const int ns = row_stride(N);
   const int n_chunks = S / Q;
+  const bool state = n_chunks > 1 || hout != nullptr;
   float* hs = smem;                                  // [P][ns]  carried state
-  float* cs = hs + (n_chunks > 1 ? P * ns : 0);      // [kTile][ns]  C rows of tile i
+  float* cs = hs + (state ? P * ns : 0);             // [kTile][ns]  C rows of tile i
   float* bs = cs + kTile * ns;                       // [kTile][ns]  B rows of tile j
   float* xs = bs + kTile * ns;                       // [kTile][P]   xdt rows of tile j
   float* ss = xs + kTile * P;                        // [kTile][kTile] scores of (i, j)
@@ -213,7 +221,7 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
   const T* bb = Bm + static_cast<size_t>(b) * S * N;
   const T* cb = Cm + static_cast<size_t>(b) * S * N;
 
-  if (n_chunks > 1)
+  if (state)
     for (int e = threadIdx.x; e < P * ns; e += kThreads) hs[e] = 0.0f;
 
   for (int ci = 0; ci < n_chunks; ++ci) {
@@ -326,7 +334,8 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
       }
     }
 
-    if (ci == n_chunks - 1) break;  // nothing reads the last chunk's state
+    const bool last = ci == n_chunks - 1;
+    if (last && hout == nullptr) break;  // nothing reads the last chunk's state
 
     // h <- exp(total) h + sum_j (exp(total - cum_j) xdt_j)^T B_j, in passes
     // of kWarps * kStateRows state rows; lane l owns columns l + 32k.
@@ -376,7 +385,10 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
 #pragma unroll
         for (int kn = 0; kn < kMaxNK; ++kn) {
           const int n = lane + 32 * kn;
-          if (n < N) hs[p * ns + n] = hs[p * ns + n] * keep + sacc[m][kn];
+          if (n >= N) continue;
+          const float hn = hs[p * ns + n] * keep + sacc[m][kn];
+          hs[p * ns + n] = hn;
+          if (last) hout[(static_cast<size_t>(blockIdx.x) * P + p) * N + n] = hn;
         }
       }
     }
@@ -385,8 +397,9 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
 
 template <typename T, bool kIntra>
 int launch_scan(const float* xdt, const float* dA, const void* Bm, const void* Cm,
-                float* y, int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
-  const size_t smem = smem_bytes(P, N, Q, S / Q);
+                float* y, float* hout, int B, int S, int H, int P, int N, int Q,
+                cudaStream_t stream) {
+  const size_t smem = smem_bytes(P, N, Q, S / Q > 1 || hout != nullptr);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         ssd_scan_kernel<T, kIntra>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -394,8 +407,8 @@ int launch_scan(const float* xdt, const float* dA, const void* Bm, const void* C
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   ssd_scan_kernel<T, kIntra><<<B * H, kThreads, smem, stream>>>(
-      xdt, dA, static_cast<const T*>(Bm), static_cast<const T*>(Cm), y, S, H, P,
-      N, Q);
+      xdt, dA, static_cast<const T*>(Bm), static_cast<const T*>(Cm), y, hout, S, H,
+      P, N, Q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -834,8 +847,8 @@ int launch_mma_pt(const float* xdt, const float* dA, const bf16* Bm, const bf16*
 }
 
 int launch_bf16(const float* xdt, const float* dA, const void* Bm, const void* Cm,
-                float* y, int B, int S, int H, int P, int N, int Q, int device,
-                cudaStream_t stream) {
+                float* y, float* hout, int B, int S, int H, int P, int N, int Q,
+                int device, cudaStream_t stream) {
   const int group = heads_per_block(B, S, H, Q, device);
   const bf16* b = static_cast<const bf16*>(Bm);
   const bf16* c = static_cast<const bf16*>(Cm);
@@ -848,9 +861,10 @@ int launch_bf16(const float* xdt, const float* dA, const void* Bm, const void* C
     err = launch_mma_pt<4>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
   else
     err = launch_mma_pt<8>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
-  if (err != 0 || S == Q) return err;
-  // More than one chunk: the state pass adds exp(cum_i) C_i . h^T.
-  return launch_scan<bf16, false>(xdt, dA, Bm, Cm, y, B, S, H, P, N, Q, stream);
+  if (err != 0 || (S == Q && hout == nullptr)) return err;
+  // More than one chunk: the state pass adds exp(cum_i) C_i . h^T; it also
+  // writes the final state when asked.
+  return launch_scan<bf16, false>(xdt, dA, Bm, Cm, y, hout, B, S, H, P, N, Q, stream);
 }
 
 bool bad_shape(int B, int S, int H, int P, int N, int Q) {
@@ -862,13 +876,14 @@ bool bad_shape(int B, int S, int H, int P, int N, int Q) {
 
 // xdt and y [B, S, H, P] float32, dA [B, S, H] float32, Bm and Cm [B, S, N]
 // (dtype 0: float32, 1: bfloat16), all contiguous; 1 <= Q <= 256 divides S,
-// P <= 128, N <= 256.  Launches on `stream` (PyTorch's current stream):
-// float32 B/C the CUDA-core body; bf16 the tensor-core body, then, with
-// more than one chunk, the state pass.  Returns the cudaError_t of the
-// launches; 0 means they were queued.
+// P <= 128, N <= 256.  hout [B, H, P, N] float32 receives the final state,
+// or is null.  Launches on `stream` (PyTorch's current stream): float32 B/C
+// the CUDA-core body; bf16 the tensor-core body, then, with more than one
+// chunk or a final state to write, the state pass.  Returns the cudaError_t
+// of the launches; 0 means they were queued.
 extern "C" int ssd_scan_launch(const float* xdt, const float* dA, const void* Bm,
-                               const void* Cm, float* y, int B, int S, int H,
-                               int P, int N, int Q, int dtype, int device,
+                               const void* Cm, float* y, float* hout, int B, int S,
+                               int H, int P, int N, int Q, int dtype, int device,
                                void* stream) {
   if (bad_shape(B, S, H, P, N, Q)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -876,9 +891,9 @@ extern "C" int ssd_scan_launch(const float* xdt, const float* dA, const void* Bm
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_scan<float, true>(xdt, dA, Bm, Cm, y, B, S, H, P, N, Q, s);
+      return launch_scan<float, true>(xdt, dA, Bm, Cm, y, hout, B, S, H, P, N, Q, s);
     case 1:
-      return launch_bf16(xdt, dA, Bm, Cm, y, B, S, H, P, N, Q, device, s);
+      return launch_bf16(xdt, dA, Bm, Cm, y, hout, B, S, H, P, N, Q, device, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

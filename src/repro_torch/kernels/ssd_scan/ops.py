@@ -3,7 +3,9 @@
 CPU tensors go to the plain version (:mod:`.ref`).  CUDA tensors go to the
 hand-written kernel, or the call raises: there is no fallback.  The type of
 B and C picks the body: bfloat16 the tensor-core body (followed, with more
-than one chunk, by its state pass), float32 the CUDA-core body.  The kernel
+than one chunk or with ``return_state``, by its state pass), float32 the
+CUDA-core body.  With ``return_state`` the kernel also writes the state
+after the last chunk, which a cache-producing prefill needs.  The kernel
 launches on PyTorch's current stream, and each call that launches it adds
 one to ``repro_torch.kernels.LAUNCHES["ssd_scan"]``.
 """
@@ -29,7 +31,7 @@ def _launcher():
     global _C_FUNCTION
     if _C_FUNCTION is None:
         fn = _build.load("ssd_scan").ssd_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _C_FUNCTION = fn
     return _C_FUNCTION
@@ -55,16 +57,18 @@ def heads_per_block(b: int, s: int, h: int, p: int, n: int, chunk: int,
 
 
 def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
-             *, chunk: int = 256) -> torch.Tensor:
+             *, chunk: int = 256, return_state: bool = False):
     """The chunked SSD scan: ``xdt [B, S, H, P]`` and ``dA [B, S, H]`` in
     float32, ``Bmat``/``Cmat [B, S, N]`` (one type, float32 or bfloat16,
-    shared by all heads) -> ``y [B, S, H, P]`` in float32.  The chunk is
+    shared by all heads) -> ``y [B, S, H, P]`` in float32, or with
+    ``return_state`` ``(y, h_final [B, H, P, N])`` in float32, the state
+    after the last chunk from a zero initial state.  The chunk is
     ``min(chunk, S)`` and must divide ``S``; on the card it is at most
     :data:`MAX_CHUNK`, ``P`` at most :data:`MAX_HEAD_DIM` and ``N`` at most
     :data:`MAX_STATE`."""
     device = xdt.device
     if device.type == "cpu":
-        return ssd_scan_ref(xdt, dA, Bmat, Cmat, chunk=chunk)
+        return ssd_scan_ref(xdt, dA, Bmat, Cmat, chunk=chunk, return_state=return_state)
     if device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CPU or CUDA tensors, got {device}")
     if xdt.dim() != 4 or dA.dim() != 3 or Bmat.dim() != 3:
@@ -92,11 +96,14 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torc
         if not x.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous")
     y = torch.empty_like(xdt)
+    h_final = (torch.empty((b, h, p, n), dtype=torch.float32, device=device)
+               if return_state else None)
     if b * h == 0:
-        return y
+        return (y, h_final) if return_state else y
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _launcher()(
         xdt.data_ptr(), dA.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), y.data_ptr(),
+        h_final.data_ptr() if return_state else None,
         b, s, h, p, n, q, _DTYPES[Bmat.dtype],
         device.index if device.index is not None else torch.cuda.current_device(),
         stream,
@@ -104,4 +111,4 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torc
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     LAUNCHES["ssd_scan"] += 1
-    return y
+    return (y, h_final) if return_state else y

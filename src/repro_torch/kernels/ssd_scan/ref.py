@@ -31,9 +31,11 @@ def check_chunk(s: int, chunk: int) -> int:
 
 
 def ssd_scan_ref(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
-                 Cmat: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+                 Cmat: torch.Tensor, *, chunk: int = 256, return_state: bool = False):
     """``xdt [B, S, H, P]``, ``dA [B, S, H]``, ``Bmat``/``Cmat [B, S, N]``
-    (shared by all heads) -> ``y [B, S, H, P]`` in float32."""
+    (shared by all heads) -> ``y [B, S, H, P]`` in float32, or with
+    ``return_state`` ``(y, h_final [B, H, P, N])``: the state after the last
+    chunk, as ``repro.models.ssm.ssd_chunked`` returns it."""
     b, s, h, p = xdt.shape
     n = Bmat.shape[-1]
     q = check_chunk(s, chunk)
@@ -55,4 +57,5 @@ def ssd_scan_ref(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
         w_end = torch.exp(total[:, None, :] - cum)                      # [B, Q, H]
         s_chunk = torch.einsum("bqhp,bqn->bhpn", xc * w_end[..., None], bc)
         state = state * torch.exp(total)[..., None, None] + s_chunk
-    return torch.cat(ys, dim=1)
+    y = torch.cat(ys, dim=1)
+    return (y, state) if return_state else y

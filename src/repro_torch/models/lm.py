@@ -12,15 +12,22 @@ a leading ``[L]`` axis, and the hybrid's ``shared_attn`` — so
 parameters across leaf by leaf.  The layer loop is a Python loop over
 views of the stacked leaves.
 
-The SSM and hybrid families run the cache-free :func:`forward` only (what
-``ModelEvaluator`` and the token environment call); their recurrent decode
-cache comes with serving, so the cache-carrying functions refuse them.
+Caches follow the reference's contract (:func:`init_cache`):
 
-Caches follow the reference's contract: ``{"kv": {"k", "v": [L, N, S,
-Hkv, D]}, "len"}`` with a scalar or per-row ``len``; rows at positions
-``>= len`` are garbage until written.  The cache-carrying functions write
-the new K/V into the cache they are given, **in place**, and return it
-with the new ``len``.
+* dense: ``{"kv": {"k", "v": [L, N, S, Hkv, D]}, "len"}`` with a scalar or
+  per-row ``len``; rows at positions ``>= len`` are garbage until written;
+* ssm: ``{"ssm": {"conv": [L, N, K-1, d_inner + 2N], "state": [L, N, H, P,
+  N] float32}, "len"}``, the recurrent state of every Mamba-2 block;
+* hybrid: the ssm cache plus ``"kv"`` with one ``[sites, N, S, Hkv, D]``
+  slot per application of the shared attention block.
+
+The cache-carrying functions write the new K/V and states into the cache
+they are given, **in place**, and return it with the new ``len``; a
+prefill of more than one token replaces the conv windows with ones in the
+model's dtype, as the reference's returns them.  Only the KV families
+(:data:`KV_CACHE_FAMILIES`) take the ragged prefill, the chunked catch-up
+and the frontier: a recurrent state has no per-position validity to roll
+back.
 
 :data:`CALLS` counts the calls of each model function, so a run can relate
 kernel launches to model calls.
@@ -42,19 +49,19 @@ from .layers import (
     rms_norm,
     tree_attention_block,
 )
-from .ssm import init_ssm_block, ssm_block
+from .ssm import init_ssm_block, init_ssm_cache, ssm_block
 
 Params = Any
 
-CALLS: dict[str, int] = {"forward": 0, "prefill_ragged": 0, "decode_chunk": 0,
+CALLS: dict[str, int] = {"forward": 0, "prefill": 0, "prefill_ragged": 0, "decode_chunk": 0,
                          "decode_step": 0, "decode_frontier": 0,
                          "paged_decode_step": 0, "paged_decode_frontier": 0}
 
 # Families whose decode cache is pure position-indexed KV (the reference's
 # set; the port runs the dense one).
 KV_CACHE_FAMILIES = ("dense", "moe")
-# Families the port's cache-free forward runs.
-FORWARD_FAMILIES = ("dense", "ssm", "hybrid")
+# Families the port runs: forward, prefill and decode.
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def reset_calls() -> None:
@@ -63,16 +70,10 @@ def reset_calls() -> None:
         CALLS[name] = 0
 
 
-def _check_family(cfg: ModelConfig, families=("dense",)) -> None:
-    """Refuse a family outside ``families`` (the decode-cache paths take
-    the dense family only, ``forward`` also ssm and hybrid)."""
-    if cfg.family in families:
+def _check_family(cfg: ModelConfig) -> None:
+    """Refuse a family the port does not run yet."""
+    if cfg.family in PORTED_FAMILIES:
         return
-    if cfg.family in FORWARD_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} runs the cache-free forward only: its "
-            "recurrent decode cache is not ported yet (ROADMAP.md §1, with serving)"
-        )
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (ROADMAP.md §1: MoE and the "
         "VLM/enc-dec stubs)"
@@ -120,7 +121,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     0.02; norms ones; an SSM block's ``A_log``/``dt_bias``/``D`` in
     float32), drawn from ``gen`` on its device, layer by layer into the
     stacked ``[L, ...]`` leaves."""
-    _check_family(cfg, FORWARD_FAMILIES)
+    _check_family(cfg)
     dev = gen.device
     std = 0.02
     init_layer = _init_transformer_block if cfg.family == "dense" else _init_ssm_layer
@@ -163,9 +164,10 @@ def _transformer_body(cfg, bp, x, positions, cache):
     return x + h, new_cache
 
 
-def _ssm_body(cfg, bp, x):
-    h, _ = ssm_block(bp["ssm"], cfg, rms_norm(x, bp["norm"], cfg.rms_eps))
-    return x + h
+def _ssm_body(cfg, bp, x, cache=None, return_cache=False):
+    h, new_cache = ssm_block(bp["ssm"], cfg, rms_norm(x, bp["norm"], cfg.rms_eps),
+                             cache=cache, return_cache=return_cache)
+    return x + h, new_cache
 
 
 def _num_attn_sites(cfg: ModelConfig) -> int:
@@ -201,7 +203,7 @@ def forward(params: Params, cfg: ModelConfig, batch,
     ``flash_attention``, the SSM scan through ``ssd_scan``.  The hybrid
     applies its shared block before the SSM block of layer ``i`` when ``i %
     attn_every == 0``.  Returns ``(logits | final hidden, aux_loss)``."""
-    _check_family(cfg, FORWARD_FAMILIES)
+    _check_family(cfg)
     CALLS["forward"] += 1
     x, positions = _embed_inputs(params, batch)
     for layer in range(cfg.num_layers):
@@ -212,7 +214,7 @@ def forward(params: Params, cfg: ModelConfig, batch,
         if cfg.family == "hybrid" and layer % cfg.attn_every == 0:
             # The shared transformer block (its weights the same at every site).
             x, _ = _transformer_body(cfg, params["shared_attn"], x, positions, None)
-        x = _ssm_body(cfg, bp, x)
+        x, _ = _ssm_body(cfg, bp, x)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
@@ -237,16 +239,28 @@ def logits_at(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device="cuda") -> dict:
-    """Zeroed decode cache ``{"kv": {"k", "v": [L, N, S, Hkv, D]}, "len": 0}``."""
+    """Zeroed decode cache of ``batch_size`` rows (module docstring): KV
+    rows of ``max_len`` positions for the dense family and the hybrid's
+    shared-block sites, a float32 conv window and state per SSM block;
+    ``len`` 0."""
     _check_family(cfg)
-    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {
-        "kv": {
-            "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        },
-        "len": torch.zeros((), dtype=torch.int32, device=device),
-    }
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def kv(layers):
+        shape = (layers, batch_size, max_len, hkv, hd)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+    cache = {"len": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.family == "dense":
+        cache["kv"] = kv(cfg.num_layers)
+        return cache
+    one = init_ssm_cache(cfg, batch_size, device=device)
+    cache["ssm"] = {name: x.expand((cfg.num_layers,) + tuple(x.shape)).clone()
+                    for name, x in one.items()}
+    if cfg.family == "hybrid":
+        cache["kv"] = kv(_num_attn_sites(cfg))
+    return cache
 
 
 def _step_with_cache(params, cfg: ModelConfig, batch, cache,
@@ -254,23 +268,63 @@ def _step_with_cache(params, cfg: ModelConfig, batch, cache,
     """Shared prefill/decode path: runs ``S`` tokens against the cache
     (written in place).  ``last_positions`` (``[B]``, prefill) gathers each
     row's final hidden state before the unembed, so the logits are
-    ``[B, 1, V]``."""
+    ``[B, 1, V]``.
+
+    A recurrent block runs its O(1) step for one token and the
+    cache-producing scan for more (which starts from a zero state, as the
+    reference's does); the hybrid applies its shared block with site
+    ``i // attn_every``'s KV cache before the SSM block of layer ``i`` when
+    ``i % attn_every == 0``."""
     _check_family(cfg)
     x, positions = _embed_inputs(params, batch)
     cur_len = torch.as_tensor(cache["len"], device=x.device)
     positions = positions + (cur_len[:, None] if cur_len.dim() == 1 else cur_len)
     s = x.shape[1]
-    for layer in range(cfg.num_layers):
-        layer_cache = {"k": cache["kv"]["k"][layer], "v": cache["kv"]["v"][layer],
-                       "len": cur_len}
-        x, _ = _transformer_body(cfg, layer_params(params, layer), x, positions,
-                                 layer_cache)
     new_cache = dict(cache, len=cur_len + s)
+    if cfg.family == "dense":
+        for layer in range(cfg.num_layers):
+            layer_cache = {"k": cache["kv"]["k"][layer], "v": cache["kv"]["v"][layer],
+                           "len": cur_len}
+            x, _ = _transformer_body(cfg, layer_params(params, layer), x, positions,
+                                     layer_cache)
+    else:
+        conv, state = cache["ssm"]["conv"], cache["ssm"]["state"]
+        windows = []
+        for layer in range(cfg.num_layers):
+            if cfg.family == "hybrid" and layer % cfg.attn_every == 0:
+                site = layer // cfg.attn_every
+                site_cache = {"k": cache["kv"]["k"][site], "v": cache["kv"]["v"][site],
+                              "len": cur_len}
+                x, _ = _transformer_body(cfg, params["shared_attn"], x, positions,
+                                         site_cache)
+            layer_cache = None if s > 1 else {"conv": conv[layer], "state": state[layer]}
+            x, nc = _ssm_body(cfg, layer_params(params, layer), x, layer_cache,
+                              return_cache=True)
+            state[layer] = nc["state"]
+            if s > 1:
+                windows.append(nc["conv"])
+            else:
+                conv[layer] = nc["conv"].to(conv.dtype)
+        if windows:
+            new_cache["ssm"] = {"conv": torch.stack(windows), "state": state}
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if s > 1 and last_positions is not None:
         idx = torch.as_tensor(last_positions, device=x.device).to(torch.int64)
         x = x.gather(1, idx.reshape(-1, 1, 1).expand(-1, 1, x.shape[-1]))
     return unembed(params, x), new_cache
+
+
+def prefill(params, cfg: ModelConfig, batch, cache) -> tuple[torch.Tensor, dict]:
+    """Run the prompts ``batch["tokens"] [B, S]`` through the model, filling
+    the cache (every row the same length; a recurrent family's prompts
+    start from a zero state).  Returns ``(logits [B, V]`` at the last
+    position, ``cache)``."""
+    CALLS["prefill"] += 1
+    tokens = batch["tokens"]
+    last = torch.full((tokens.shape[0],), tokens.shape[1] - 1, dtype=torch.int64,
+                      device=tokens.device)
+    logits, cache = _step_with_cache(params, cfg, batch, cache, last_positions=last)
+    return logits[:, -1, :], cache
 
 
 def prefill_ragged(params, cfg: ModelConfig, tokens, lengths,

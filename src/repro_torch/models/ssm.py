@@ -1,18 +1,26 @@
 """Mamba-2 (SSD, state-space duality) blocks of the port (counterpart of
-``repro.models.ssm``): the cache-free path that ``forward`` runs.
+``repro.models.ssm``): the chunked scan and the O(1) decode step.
 
 The chunked formulation (Dao & Gu, arXiv:2405.21060) splits the sequence
 into chunks of ``Q`` tokens: a quadratic intra-chunk term and a sequential
 inter-chunk state pass.  :func:`ssm_block` runs the ``ssd_scan`` kernel on
-a CUDA tensor and its plain version on a CPU tensor, with the reference
-kernel path's chunk rule (:func:`kernel_chunk`), whatever ``attn_impl``
-says.  :func:`ssd_chunked` (the reference's padding scan, which also
-returns the final state) and :func:`ssd_sequential_ref` (the O(S)
-recurrence) are the plain scans the tests hold the kernel's plain version
-to.
+a CUDA tensor and its plain version on a CPU tensor, whatever
+``attn_impl`` says:
 
-The recurrent decode cache (``ssm_block(cache=...)``, ``return_cache``)
-is not ported: it comes with serving (ROADMAP.md §1).
+* cache-free (``forward``): the reference kernel path's chunk rule
+  (:func:`kernel_chunk`);
+* ``return_cache`` (the prefill that starts a decode cache): the chunking
+  of the reference's ``ssd_chunked``, ``Q = min(ssd_chunk, S)`` with ``S``
+  padded to a multiple of ``Q`` by ``dt = 0`` tokens (exact), and the
+  scan's final state (``ssd_scan(return_state=True)``);
+* ``cache`` with one token: the O(1) recurrence, plain tensor ops, as the
+  reference runs it (no kernel there either).
+
+:func:`ssd_chunked` (the reference's padding scan) and
+:func:`ssd_sequential_ref` (the O(S) recurrence) are the plain scans the
+tests hold the kernel's plain version to.  The decode cache of a block is
+``{"conv": [B, K-1, d_inner + 2N], "state": [B, H, P, N] float32}``
+(:func:`init_ssm_cache`).
 """
 
 from __future__ import annotations
@@ -63,6 +71,18 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for i in range(k):
         out = out + pad[:, i:i + s, :] * w[i]
     return out
+
+
+def _conv_step(window: torch.Tensor, x_t: torch.Tensor,
+               w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One causal-conv step: ``window [B, K-1, C]`` holds the previous
+    inputs, ``x_t [B, C]`` the new one, ``w [K, C]`` the taps.  Returns
+    ``(out [B, C], window)``, computed in the promoted type of the window
+    and the input (a float32 window promotes, as ``jnp.concatenate`` does)."""
+    dtype = torch.promote_types(window.dtype, x_t.dtype)
+    full = torch.cat([window.to(dtype), x_t[:, None, :].to(dtype)], dim=1)   # [B, K, C]
+    out = torch.einsum("bkc,kc->bc", full, w.to(dtype))
+    return out, full[:, 1:, :]
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -151,18 +171,38 @@ def ssd_sequential_ref(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
     return torch.stack(ys, dim=1), state
 
 
+def _scan_with_state(cfg, xdt, dA, bm, cm):
+    """The cache-producing prefill's scan: ``ssd_chunked``'s chunking
+    (``Q = min(ssd_chunk, S)``, ``S`` padded to a multiple of ``Q`` with
+    ``dt = 0`` tokens: decay 1 and no state contribution, so the state is
+    exact) through ``ssd_scan(return_state=True)``.  Returns ``(y [B, S, H,
+    P], h_final [B, H, P, N])``."""
+    s = xdt.shape[1]
+    q = min(cfg.ssd_chunk, s)
+    pad = -s % q
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        dA = F.pad(dA, (0, 0, 0, pad))
+        bm = F.pad(bm, (0, 0, 0, pad))
+        cm = F.pad(cm, (0, 0, 0, pad))
+    y, h_final = ssd_scan(xdt, dA, bm, cm, chunk=q, return_state=True)
+    return y[:, :s], h_final
+
+
 def ssm_block(p: dict, cfg, u: torch.Tensor, *, cache=None,
-              return_cache: bool = False) -> tuple[torch.Tensor, None]:
-    """Mamba-2 block, cache-free.  ``u [B, S, d]`` -> ``(out [B, S, d],
-    None)``.  The scan goes through ``ssd_scan`` (the kernel on a CUDA
-    tensor) with the chunk of :func:`kernel_chunk`; ``xdt`` and ``dA`` are
-    float32, ``B`` and ``C`` stay in the model's dtype."""
-    if cache is not None or return_cache:
-        raise NotImplementedError(
-            "the recurrent SSM decode cache is not ported yet (ROADMAP.md §1: it "
-            "comes with serving)")
+              return_cache: bool = False) -> tuple[torch.Tensor, Optional[dict]]:
+    """Mamba-2 block.  ``u [B, S, d]`` -> ``(out [B, S, d], new_cache)``.
+
+    ``cache`` (a block's decode cache) with ``S == 1`` takes the O(1)
+    recurrence and returns the advanced cache.  Without a cache the scan
+    goes through ``ssd_scan`` (the kernel on a CUDA tensor): cache-free
+    with the chunk of :func:`kernel_chunk` (``new_cache`` is ``None``), or
+    with ``return_cache`` with ``ssd_chunked``'s chunking and the final
+    state, returning the cache a decode continues from.  ``xdt`` and
+    ``dA`` are float32, ``B`` and ``C`` stay in the model's dtype."""
     b, s, _ = u.shape
-    di, h, pdim = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    kk = cfg.conv_kernel
 
     x = u @ p["in_x"]
     z = u @ p["in_z"]
@@ -171,16 +211,58 @@ def ssm_block(p: dict, cfg, u: torch.Tensor, *, cache=None,
     dt = softplus((u @ p["in_dt"]).float() + p["dt_bias"])           # [B, S, H]
     a = -torch.exp(p["A_log"])                                        # [H]
 
-    x = F.silu(_causal_conv(x, p["conv_x"]))
-    bm = F.silu(_causal_conv(bm, p["conv_B"]))
-    cm = F.silu(_causal_conv(cm, p["conv_C"]))
-    xh = x.reshape(b, s, h, pdim)
-    xdt = xh * dt[..., None]                                          # float32
-    y = ssd_scan(xdt, dt * a, bm, cm, chunk=kernel_chunk(cfg, s))
+    if cache is None or s > 1:
+        if cache is not None:
+            raise NotImplementedError("a chunked prefill continuing a decode cache "
+                                      "(the reference has none either)")
+        new_cache = None
+        if return_cache:
+            # The last K - 1 raw inputs, zero-padded on the left when the
+            # prompt is shorter than that.
+            raw = torch.cat([x, bm, cm], dim=-1)
+            new_cache = {"conv": F.pad(raw, (0, 0, max(kk - 1 - s, 0), 0))[:, -(kk - 1):]}
+        x = F.silu(_causal_conv(x, p["conv_x"]))
+        bm = F.silu(_causal_conv(bm, p["conv_B"]))
+        cm = F.silu(_causal_conv(cm, p["conv_C"]))
+        xh = x.reshape(b, s, h, pdim)
+        xdt = xh * dt[..., None]                                      # float32
+        if return_cache:
+            y, new_cache["state"] = _scan_with_state(cfg, xdt, dt * a, bm, cm)
+        else:
+            y = ssd_scan(xdt, dt * a, bm, cm, chunk=kernel_chunk(cfg, s))
+    else:
+        # The O(1) decode step.
+        packed = torch.cat([x[:, 0], bm[:, 0], cm[:, 0]], dim=-1)
+        w_packed = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=1)
+        conv_out, conv_win = _conv_step(cache["conv"], packed, w_packed)
+        conv_out = F.silu(conv_out)
+        x_t = conv_out[:, :di].reshape(b, h, pdim).float()
+        b_t = conv_out[:, di:di + n].float()
+        c_t = conv_out[:, di + n:].float()
+        dt_t = dt[:, 0]                                               # [B, H]
+        da_t = torch.exp(dt_t * a)                                    # [B, H]
+        hst = cache["state"] * da_t[:, :, None, None] + (
+            (dt_t[:, :, None] * x_t)[..., None] * b_t[:, None, None, :])
+        y = torch.einsum("bhpn,bn->bhp", hst, c_t).reshape(b, 1, h, pdim)
+        xh = x_t.reshape(b, 1, h, pdim)
+        new_cache = {"conv": conv_win, "state": hst}
     y = y + p["D"][:, None] * xh.float()
     y = y.reshape(b, s, di)
 
     # Gated RMSNorm (Mamba-2), then the output projection.
     y = y.to(u.dtype) * F.silu(z)
     y = rms_norm(y, p["norm"], cfg.rms_eps)
-    return y @ p["out"], None
+    return y @ p["out"], new_cache
+
+
+def init_ssm_cache(cfg, batch: int, dtype: torch.dtype = torch.float32,
+                   device="cuda") -> dict:
+    """A zero decode cache of one block for ``batch`` rows: ``conv [batch,
+    K-1, d_inner + 2N]`` in ``dtype`` and ``state [batch, H, P, N]`` in
+    float32."""
+    di, n, h, pdim = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    return {
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, di + 2 * n), dtype=dtype,
+                            device=device),
+        "state": torch.zeros((batch, h, pdim, n), dtype=torch.float32, device=device),
+    }

@@ -1,5 +1,5 @@
 """Token-search service: many users' search requests, one batched program
-(counterpart of ``repro.serving.search_service``; host-paced path).
+(counterpart of ``repro.serving.search_service``).
 
 A batch of prompt requests becomes ``B`` root states of one multi-root
 search (``build_searcher`` with ``spec.batch = B``), so every master tick
@@ -12,16 +12,19 @@ evaluates all their in-flight slots in **one** decode step.
   :meth:`~SearchService.drain` (or :meth:`~SearchService.serve` over a
   request stream): continuous.  A persistent
   :class:`~repro_torch.core.batched_async_search.BatchedAsyncEngine`
-  keeps the ``B`` tree rows searching; between rounds of
-  ``ticks_per_round`` master ticks the host harvests settled rows and
-  splices the next queued requests into them (tree, RNG lane and
-  evaluator slot caches re-seeded through :mod:`repro_torch.serving.admission`).
-  :class:`ServeStats` reports the occupancy this buys.
+  keeps the ``B`` tree rows searching, and a settled row takes the next
+  queued request (tree, RNG lane and evaluator slot caches re-seeded
+  through :mod:`repro_torch.serving.admission`).  :class:`ServeStats`
+  reports the occupancy this buys.
 
-Only the host-paced poll is ported (``fused=False``); the reference's
-default, the device-resident request ring (``fused=True``), raises
-``NotImplementedError`` (ROADMAP.md §1, item 4).  The service runs on CUDA
-unless ``device`` says otherwise.
+Two ways to pace it.  Fused (the default): each :meth:`~SearchService.poll`
+stages queued requests into the engine's request ring (prefilled ahead of
+time) and runs one ``serve_segment`` of up to ``ticks_per_segment`` ticks,
+in which settled rows are harvested and re-seeded from the ring without
+returning here: one host round per segment.  Host-paced (``fused=False``):
+each poll harvests, admits and runs up to ``ticks_per_round`` ticks.  Both
+give every request the same search.  The service runs on CUDA unless
+``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..core.evaluators import CachedModelEvaluator, Evaluator, ModelEvaluator
 from ..envs.token_env import TokenEnvState, make_token_env, sorted_top_k
 from ..models import logits_at
 from ..models.config import ModelConfig
+from ..sync import host_read
 from .admission import pages_needed, validate_prompts
 
 #: Environment variable overriding where the committed benchmark baseline
@@ -130,7 +134,10 @@ class ServeStats:
     ``busy_tree_ticks`` counts (tree row, master tick) pairs where the row
     searched; ``ticks * batch`` is the capacity, so :attr:`slot_idle_frac`
     is the share of row-ticks spent idle.  ``host_rounds`` counts
-    :meth:`SearchService.poll` rounds.
+    :meth:`SearchService.poll` rounds (on the fused path one
+    ``serve_segment`` each); ``ring_occupancy_sum`` sums the requests
+    staged in the ring at each fused round's dispatch, and
+    :attr:`ring_occupancy` is its mean.
     """
 
     batch: int = 0
@@ -140,6 +147,7 @@ class ServeStats:
     ticks: int = 0
     busy_tree_ticks: int = 0
     host_rounds: int = 0
+    ring_occupancy_sum: int = 0
 
     @property
     def slot_idle_frac(self) -> float:
@@ -147,6 +155,13 @@ class ServeStats:
         if cap == 0:
             return 0.0
         return 1.0 - self.busy_tree_ticks / cap
+
+    @property
+    def ring_occupancy(self) -> float:
+        """Mean staged requests per fused host round (0 when host-paced)."""
+        if self.host_rounds == 0:
+            return 0.0
+        return self.ring_occupancy_sum / self.host_rounds
 
 
 def _key(key, device) -> torch.Tensor:
@@ -165,11 +180,12 @@ class SearchService:
     on the async engine with a KV-cache model family (its paged subclass
     with ``paged=True``), else the uncached :class:`ModelEvaluator`.
 
-    ``ticks_per_round`` paces the continuous path: each :meth:`poll` runs at
-    most that many master ticks before the host harvests settled rows and
-    admits queued requests.  ``fused``, ``ring_capacity`` and
-    ``ticks_per_segment`` describe the reference's device ring; only
-    ``fused=False`` runs here.
+    ``fused`` (the default) serves through the engine's request ring:
+    ``ring_capacity`` staged requests at most (default ``B``), up to
+    ``ticks_per_segment`` master ticks per :meth:`poll` (default ``8 *
+    ticks_per_round``).  With ``fused=False`` each :meth:`poll` runs at
+    most ``ticks_per_round`` master ticks before the host harvests settled
+    rows and admits queued requests.
     """
 
     def __init__(
@@ -193,11 +209,6 @@ class SearchService:
         ticks_per_segment: Optional[int] = None,
         device=None,
     ):
-        if fused:
-            raise NotImplementedError(
-                "the fused device-resident serving ring is not ported yet (ROADMAP.md "
-                "§1, item 4: RequestRing, serve_segment); pass fused=False for the "
-                "host-paced poll")
         if spec.batch <= 0:
             raise ValueError("SearchService needs a batched spec (batch > 0)")
         if ticks_per_round < 1:
@@ -207,6 +218,10 @@ class SearchService:
             if value is not None and int(value) < 1:
                 raise ValueError(f"{name} must be >= 1, got {value}")
         self.device = resolve_device(device)
+        self.fused = fused
+        self.ring_capacity = int(ring_capacity) if ring_capacity is not None else spec.batch
+        self.ticks_per_segment = (int(ticks_per_segment) if ticks_per_segment is not None
+                                  else 8 * ticks_per_round)
         self.cfg = model_cfg
         self.params = params
         self.spec = spec
@@ -257,6 +272,13 @@ class SearchService:
         self._row_req: list = [None] * spec.batch
         self._next_req_id = 0
         self._base_key = rng.PRNGKey(0, device=self.device)
+        # Fused path: the ring and the rows' request ids on the device, and
+        # host mirrors of what is staged and in flight (exact: every change
+        # is counted from each round's staged, admitted and completed).
+        self._ring = None
+        self._row_req_dev = None
+        self._ring_free = self.ring_capacity
+        self._inflight = 0
 
     # ------------------------------------------------------------------
     # Root-state packing
@@ -338,6 +360,9 @@ class SearchService:
                                   active=torch.zeros((B,), dtype=torch.bool))
         self._carry = engine.evict(carry, torch.arange(B))
         self._engine = engine
+        if self.fused:
+            self._ring = engine.init_ring(roots, self.ring_capacity)
+            self._row_req_dev = torch.full((B,), -1, dtype=torch.int64, device=self.device)
 
     def _free_pool_blocks(self) -> Optional[int]:
         """Free blocks of the paged evaluator's pool (``None`` when dense;
@@ -390,7 +415,10 @@ class SearchService:
 
     def _admit_queued(self, settled: Optional[np.ndarray] = None) -> int:
         """Splice queued requests into free rows, in queue order; a paged
-        pool admits only as many as its free blocks hold."""
+        pool admits only as many as its free blocks hold.  One row per
+        ``admit`` (one prefill each), as the reference admits and as the
+        ring stages: every request's prefill then has the same shape on
+        both paths and rounds alike."""
         if settled is None:
             settled = self._settled()
         free_rows = [b for b in range(self.spec.batch)
@@ -398,7 +426,7 @@ class SearchService:
         if not free_rows or not self._queue:
             return 0
         budget = self._free_pool_blocks()
-        rows, prompts, keys = [], [], []
+        admitted = 0
         for b in free_rows:
             if not self._queue:
                 break
@@ -409,23 +437,26 @@ class SearchService:
                     break  # wait for pages to free (admit in order)
                 budget -= need
             heapq.heappop(self._queue)
-            rows.append(b)
-            prompts.append(prompt)
-            keys.append(key)
+            self._carry = self._engine.admit(self._carry, torch.tensor([b]),
+                                             self._root_rows([prompt]), key[None])
             self._row_req[b] = req_id
-        if rows:
-            # One admission (one ragged prefill) for all rows of the round.
-            self._carry = self._engine.admit(self._carry, torch.tensor(rows),
-                                             self._root_rows(prompts), torch.stack(keys))
-        self.stats.admissions += len(rows)
-        return len(rows)
+            admitted += 1
+        self.stats.admissions += admitted
+        return admitted
 
     def poll(self) -> dict:
-        """One host-paced serving round: harvest settled rows, admit queued
-        requests, advance the engine up to ``ticks_per_round`` master ticks.
-        Returns the requests that finished (``{req_id: SearchResult row}``;
-        they also accumulate in :attr:`results`)."""
+        """One serving round; returns the requests that finished in it
+        (``{req_id: SearchResult row}``; they also accumulate in
+        :attr:`results`).
+
+        Fused: stage queued requests into the ring, run one
+        ``serve_segment`` and take its completions.  Host-paced: harvest
+        settled rows, admit queued requests, advance the engine up to
+        ``ticks_per_round`` master ticks.
+        """
         self._ensure_engine()
+        if self.fused:
+            return self._poll_fused()
         settled = self._settled()
         fresh = self._harvest(settled)
         # Harvest left the freed rows settled: the same host mask serves
@@ -437,6 +468,56 @@ class SearchService:
             self.stats.ticks += int(t)
             self.stats.busy_tree_ticks += int(busy)
         self.stats.host_rounds += 1
+        return fresh
+
+    def _poll_fused(self) -> dict:
+        """One fused round: refill the ring in priority-then-FIFO order (one
+        request per ``stage`` call; a paged pool stages only what its free
+        blocks hold), run one segment, take its completions."""
+        budget = self._free_pool_blocks()
+        while self._queue and self._ring_free > 0:
+            _, req_id, prompt, key = self._queue[0]
+            if budget is not None:
+                need = pages_needed(len(prompt), self.evaluator.block_size)
+                if need > budget:
+                    break  # wait for pages to free (admit in order)
+                budget -= need
+            heapq.heappop(self._queue)
+            self._carry, self._ring = self._engine.stage(
+                self._carry, self._ring, self._root_rows([prompt]), key[None], [req_id])
+            self._ring_free -= 1
+        staged = self.ring_capacity - self._ring_free
+        fresh = {}
+        if staged > 0 or self._inflight > 0:
+            self._carry, self._ring, self._row_req_dev, comp, t, busy = \
+                self._engine.serve_segment(self._carry, self._ring, self._row_req_dev,
+                                           self.ticks_per_segment)
+            oom = self._carry[7]["oom"] if self.paged else torch.zeros_like(self._ring.count)
+            # One host sync; the completion rows then copy without waiting.
+            count_after, oom = (int(x) for x in host_read(
+                torch.stack([self._ring.count, oom.to(self._ring.count.dtype)])))
+            if oom:
+                self.evaluator.check_exhausted(self._carry[7])
+            n = comp.count
+            rows = SearchResult(
+                action=comp.action[:n].cpu(), root_n=comp.root_n[:n].cpu(),
+                root_v=comp.root_v[:n].cpu(), tree_size=comp.tree_size[:n].cpu(),
+                dup_selections=torch.zeros((n,), dtype=torch.float32),
+                max_o=comp.max_o[:n].cpu(), overflowed=comp.overflowed[:n].cpu(),
+                ticks=comp.ticks[:n].cpu())
+            for i, req_id in enumerate(comp.req_id[:n].tolist()):
+                row = SearchResult(*(x[i] for x in rows))
+                self._results[req_id] = row
+                fresh[req_id] = row
+            admitted = staged - count_after
+            self._ring_free = self.ring_capacity - count_after
+            self._inflight += admitted - n
+            self.stats.admissions += admitted
+            self.stats.completed += n
+            self.stats.ticks += t
+            self.stats.busy_tree_ticks += busy
+        self.stats.host_rounds += 1
+        self.stats.ring_occupancy_sum += staged
         return fresh
 
     def drain(self, max_rounds: int = 100_000) -> dict:
@@ -456,12 +537,16 @@ class SearchService:
                                    "queued prompts?")
         else:
             raise RuntimeError(f"drain exceeded {max_rounds} rounds")
-        # One last harvest: the final segment may have settled rows.
-        self._harvest()
+        if not self.fused:
+            # One last harvest: the final segment may have settled rows (the
+            # fused loop harvests inside the segment).
+            self._harvest()
         return dict(self._results)
 
     def _in_flight(self) -> int:
-        """Requests past the queue but short of a result."""
+        """Requests past the queue but short of a result (host-side)."""
+        if self.fused:
+            return self._inflight + self.ring_capacity - self._ring_free
         return sum(r is not None for r in self._row_req)
 
     def serve(self, prompt_stream: Iterable[Sequence[int]], keys=None) -> list:

@@ -12,7 +12,7 @@
   refuses (LeafP and RootP on the async engine or batched, unknown algos),
   the cached evaluators (dense, paged, frontier) on the wave engine and a
   model evaluator whose top-K does not match the environment; the search
-  service refuses the unported device ring (``fused=True``).
+  service runs its fused request ring by default (``fused=True``).
 """
 
 import ast
@@ -130,9 +130,9 @@ def test_launcher_defaults_to_cuda():
 
 def test_unported_paths_raise_not_implemented():
     """What stays refused: LeafP and RootP on the async engine or batched
-    (the reference's ``ValueError``), unknown algos, and the search
-    service's device ring (``fused=True``, ROADMAP.md §1 item 4).  All six
-    algos build on the CPU."""
+    (the reference's ``ValueError``) and unknown algos.  All six algos
+    build on the CPU, and the search service's fused request ring, its
+    default, serves on it."""
     from repro_torch.serving import SearchService
 
     env = make_bandit_tree(depth=3, num_actions=3)
@@ -151,11 +151,14 @@ def test_unported_paths_raise_not_implemented():
         assert callable(build_searcher(env, SearchSpec(engine="async", batch=batch),
                                        device="cpu"))
     cfg, params = _tiny_lm()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-        SearchService(cfg, params, SearchSpec(engine="async", batch=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-        SearchService(cfg, params, SearchSpec(engine="async", batch=2), device="cpu",
-                      fused=True)
+    spec = SearchSpec(engine="async", batch=2, num_simulations=4, wave_size=2, max_depth=2,
+                      max_sim_steps=2)
+    for kw in ({}, {"fused": True}):
+        svc = SearchService(cfg, params, spec, device="cpu", top_k=4, max_len=8, **kw)
+        assert svc.fused
+        rows = svc.serve([[3, 5], [7], [2, 9, 4]])
+        assert len(rows) == 3 and svc.stats.completed == 3
+        assert svc.stats.ring_occupancy > 0.0 and svc._ring is not None
 
 
 def _tiny_lm():

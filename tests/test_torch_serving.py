@@ -12,7 +12,9 @@ reference's), the same prompts and keys:
 * ``submit``/``poll``/``drain`` round by round: the same requests finish
   in the same rounds with the same counters;
 * refusals: over-long prompts, ``decide``'s out-of-range action (padding
-  rows ignored), a wave-engine spec, ``fused=True``;
+  rows ignored), a wave-engine spec; ``fused=True`` (the default) serves
+  the same requests as the host-paced path (``tests/test_torch_ring.py``
+  holds it in every evaluator mode);
 * the pool-size default (env override, fallback warning, unparseable
   baseline), priority-then-FIFO admission, zero leaked pages after churn;
 * the admission helpers against ``repro.serving.admission``.
@@ -186,9 +188,12 @@ def test_refusals(tiny_lm):
         svc.search([list(range(2, 14))], np.asarray(jax.random.PRNGKey(0)))
     with pytest.raises(ValueError, match="empty"):
         svc.submit([])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-        SearchService(cfg, p, SearchSpec(batch=2, **SPEC), device="cpu",
-                      **{**SERVICE, "fused": True})
+    fused = SearchService(cfg, p, SearchSpec(batch=2, **SPEC), device="cpu",
+                          **{**SERVICE, "fused": True})
+    keys = _keys(11, 3)
+    for a, b in zip(fused.serve(PROMPTS[:3], keys=keys), svc.serve(PROMPTS[:3], keys=keys)):
+        assert int(a.action) == int(b.action)
+        np.testing.assert_array_equal(a.root_n.numpy(), b.root_n.numpy())
     wave = SearchService(cfg, p, SearchSpec(batch=2, **{**SPEC, "engine": "wave"}),
                          device="cpu", **SERVICE)
     wave.submit([3, 5])

@@ -346,21 +346,31 @@ def test_model_guided_search_matches_the_reference(jx, model, engine):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_recurrent_families_refuse_the_decode_cache(arch):
+    """The cached search evaluators still refuse a recurrent state, as the
+    reference does (it has no per-position rollback); the recurrent decode
+    cache itself runs: ``ssm_block``'s cache-producing prefill and O(1)
+    step, and ``init_cache`` + ``decode_step`` from an empty cache equal
+    the cache-free forward."""
     cfg = get_reduced(arch, vocab_size=VOCAB)
     p = init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="recurrent"):
         CachedModelEvaluator(cfg, p, top_k=K, eos_token=1)
     bp = {k: v[0] for k, v in p["blocks"]["ssm"].items()}
-    u = torch.zeros((1, 1, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssm.ssm_block(bp, cfg, u, cache={"conv": None, "state": None})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssm.ssm_block(bp, cfg, u, return_cache=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode_step(p, cfg, torch.zeros((1,), dtype=torch.int32),
-                    {"kv": {}, "len": torch.zeros((), dtype=torch.int32)})
+    u = torch.randn((2, 6, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    full, none = ssm.ssm_block(bp, cfg, u)
+    assert none is None
+    head, cache = ssm.ssm_block(bp, cfg, u[:, :5], return_cache=True)
+    assert cache["conv"].shape == (2, cfg.conv_kernel - 1, cfg.d_inner + 2 * cfg.ssm_state)
+    assert cache["state"].shape == (2, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    step, cache = ssm.ssm_block(bp, cfg, u[:, 5:], cache=cache)
+    torch.testing.assert_close(torch.cat([head, step], dim=1), full, **SCAN_TOL)
+    tokens = torch.tensor([[3, 9, 4]])
+    logits, _ = forward(p, cfg, {"tokens": tokens})
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    for t in range(3):
+        got, cache = decode_step(p, cfg, tokens[:, t], cache)
+        torch.testing.assert_close(got, logits[:, t], **SCAN_TOL)
+    assert int(cache["len"]) == 3
 
 
 # ---------------------------------------------------------------------------

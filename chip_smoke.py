@@ -22,7 +22,9 @@ Phases (any failure raises, so the script exits non-zero):
    B=1024, two waves and a pending third selection, four kinds; the
    per-level ``tree_select`` bit for bit on adversarial tables; the
    attention kernels in float32 and bfloat16 over a grid of shapes and the
-   shapes phases 7-14 drive, ``flash_attention`` also at zamba2's D=112,
+   shapes phases 7-23 drive (the new families' head layouts 40/10, 40/8,
+   64/8, 16/16 at D=128 and 64/4, 12/12 at D=64), ``flash_attention``
+   also at zamba2's D=112,
    the tree kernels also with prefixes longer than their shared-memory
    copy and A=32;
    ``ssd_scan`` with float32 and bfloat16 B/C over a grid, the driven
@@ -112,8 +114,28 @@ Phases (any failure raises, so the script exits non-zero):
     and zamba2-7b (after 14), 8 slots, 8 prompts, 16 new tokens: one
     ``ssd_scan`` (with its final state) per layer and prompt prefilled,
     none in a decode step, 14 ``decode_attention`` launches per zamba2
-    decode step; 20.2 (last) at 2 float32 layers, ``prefill`` and 3 decode
+    decode step; 20.2 at 2 float32 layers, ``prefill`` and 3 decode
     steps against ``forward``'s logits;
+21. the dense configs (after phase 20's zamba2, one model at a time, bf16):
+    ``ServingEngine`` dense, phase 20's cell (8 slots, 8 prompts, 16 new
+    tokens, greedy) over phi3-medium-14b and qwen2.5-32b at full depth and
+    deepseek-67b at 40 of its 95 layers: every request done, one
+    ``decode_attention`` launch per layer and decode step;
+22. MoE: qwen2-moe-a2.7b at full width and depth in phase 7's cell with
+    the KV-cached evaluator (24 launches per decode step), then
+    ``ServingEngine`` dense and paged (no block in use after); then
+    qwen3-moe-235b-a22b at 8 of its 94 layers, ``ServingEngine`` dense;
+23. the stubs at full depth: llava-next-mistral-7b (8 rows of 576 patch
+    embeddings from a seed and a 128-token prompt: ``prefill`` into a
+    720-position cache, 16 ``decode_step``\\ s, one ``forward`` over the 704
+    positions) and whisper-small (1500 frame embeddings, 64-token
+    prompts): ``decode_attention`` once per (self-attention) layer and
+    step, ``flash_attention`` once per layer of the forward;
+21.2-23.2 (last) at 2 full-width float32 layers: qwen2.5-32b, qwen2-moe,
+    qwen3-moe (capacity for every token), llava and whisper ``prefill``
+    and 3 decode steps against ``forward``'s logits; qwen2-moe's router
+    top-4 on the card against the CPU's; the reduced qwen2-moe's cached,
+    frontier and paged frontier searches on the GPU against the CPU;
 9. agreement on the card: cached prefill vs flash forward vs decode step
    logits (full width, 2 layers, float32), the reduced model's cached and
    paged frontier searches on the GPU against the port on the CPU,
@@ -126,8 +148,8 @@ Phases (any failure raises, so the script exits non-zero):
 
 Phases 15 and 16 run after phase 6; phases 10-12 and 17-19 before phase
 9, while phase 7's model is loaded; phases 13 and 14, each followed by its
-phase 20, after it is freed, one model at a time; 17.2 with 18.2, then
-19.2 and 20.2 last.  Phase
+phase 20, after it is freed, then 21-23, one model at a time; 17.2 with
+18.2, then 19.2, 20.2 and 21.2-23.2 last.  Phase
 10 must choose phase 7's action on at least 7 of 8 trees and phase 12
 phase 11's.  Phase 11 prints its agreement with phase 7 without holding
 it: in bf16 over 32 random layers the frontier forward, the decode step
@@ -143,7 +165,9 @@ walk that replaced its per-level launches on the main path, and the
 per-level kernel under ``level_*`` keys), error against its plain version, time,
 plain time, bound, library time and ``bound_share`` (bound / time), and
 the device times by graph replay (``device_ms``, ``library_device_ms``,
-``device_bound_share``); the last line is
+``device_bound_share``), the launches on phases 21-23's paths
+(``family_launches``) and ``decode_attention`` timed at qwen2.5-32b's and
+qwen3-moe's decode shapes (``family_shapes``); the last line is
 ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.  Without a CUDA device, or without the rest of the
@@ -552,16 +576,17 @@ def check_flash(torch, device, lm_shapes):
     return max_err
 
 
-def time_decode(torch, device):
+def time_decode(torch, device, n=ASYNC_B * ASYNC_W, s=MAX_LEN, hq=32, hkv=8, d=128,
+                min_len=PROMPT_LEN + 1):
     """Kernel, plain version and SDPA at phase 7's decode shape: 128 slots,
-    32/8 heads, D=128, a 160-entry bf16 cache, lengths 129..160."""
+    32/8 heads, D=128, a 160-entry bf16 cache, lengths 129..160; or at
+    another ``(n, s, hq, hkv, d)`` with lengths ``min_len..s``."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
 
-    n, s, hq, hkv, d = ASYNC_B * ASYNC_W, MAX_LEN, 32, 8, 128
     gen = torch.Generator(device=device).manual_seed(13)
     q, k, v, lens = decode_inputs(torch, gen, n, s, hq, hkv, d, torch.bfloat16, device,
-                                  min_len=PROMPT_LEN + 1)
+                                  min_len=min_len)
     err = attention_err(torch, decode_attention(q, k, v, lens),
                         decode_attention_ref(q, k, v, lens), "bfloat16", "timed decode")
     k_ms = time_ms(torch, lambda: decode_attention(q, k, v, lens), 500)
@@ -578,7 +603,7 @@ def time_decode(torch, device):
     nbytes = 2 * (2 * n * hq * d + 2 * valid * hkv * d) + 4 * n
     ops = 4 * d * hq * valid
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-    print(f"decode_attention bf16 N={n} S={s} 32/8 D=128 (kv_len sum {valid}): kernel "
+    print(f"decode_attention bf16 N={n} S={s} {hq}/{hkv} D={d} (kv_len sum {valid}): kernel "
           f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, SDPA "
           f"{lib_ms * 1e3!r} us (device {lib_dev * 1e3!r} us), bound {bound_ms * 1e3!r} us "
           f"({nbytes} bytes, {ops} flops); |kernel - plain| {err!r}")
@@ -1197,19 +1222,23 @@ def single_root(torch, device):
 # ---------------------------------------------------------------------------
 
 
-def lm_setup(torch, device, layers, dtype, seed, name="llama3-8b"):
-    """Model ``name`` at full width with ``layers`` layers, random
-    parameters from the port's ``init_params`` on the card."""
+def lm_setup(torch, device, layers, dtype, seed, name="llama3-8b", **overrides):
+    """Model ``name`` at full width with ``layers`` layers (and the
+    configuration's ``overrides``), random parameters from the port's
+    ``init_params`` on the card."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
-    cfg = dataclasses.replace(get_config(name), num_layers=layers, dtype=dtype)
+    full = get_config(name)
+    cfg = dataclasses.replace(full, num_layers=layers, dtype=dtype, **overrides)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
     sync(device)
-    print(f"{name} {layers} layers {dtype}: {cfg.param_count()} parameters made on "
+    depth = ("" if layers == full.num_layers
+             else f" (reduced from {full.num_layers}: {full.param_count()} in full)")
+    print(f"{name} {layers} layers{depth} {dtype}: {cfg.param_count()} parameters made on "
           f"the card in {time.perf_counter() - t0!r} s")
     return cfg, params
 
@@ -1272,9 +1301,11 @@ def counted_run(torch, device, fn):
             torch.cuda.max_memory_allocated(device) / 2 ** 30)
 
 
-def model_guided(torch, device, cfg, params):
-    """Phase 7: 8 async WU-UCT searches over llama3-8b with the KV-cached
-    evaluator; one decode step (32 decode_attention launches) per tick."""
+def model_guided(torch, device, cfg, params, profile=True):
+    """Phase 7 (and 22a over qwen2-moe): 8 async WU-UCT searches with the
+    KV-cached evaluator; one decode step (one decode_attention launch per
+    layer) per tick; then, with ``profile``, a warm call under the
+    profiler."""
     from repro_torch.core import CachedModelEvaluator, build_searcher
 
     env, spec, roots, rngs = guided_cell(torch, device, cfg, params)
@@ -1282,18 +1313,16 @@ def model_guided(torch, device, cfg, params):
     search = build_searcher(env, spec, evaluator=ev, device=device)
     res, wall, launches, calls, syncs, peak = counted_run(torch, device,
                                                          lambda: search(roots, rngs))
-    steps = calls["decode_step"]
-    if steps == 0 or launches["decode_attention"] < cfg.num_layers * steps:
-        raise AssertionError(f"decode_attention launched {launches['decode_attention']} "
-                             f"times for {steps} decode steps of {cfg.num_layers} layers")
-    search_results_ok(torch, res, spec, "model-guided search")
-    print(f"model-guided path: llama3-8b {cfg.num_layers} layers bf16, async wu_uct "
+    launch_identity(launches, calls, "decode_attention", "decode_step", cfg.num_layers)
+    search_results_ok(torch, res, spec, f"{cfg.name} model-guided search")
+    print(f"model-guided path: {cfg.name} {cfg.num_layers} layers bf16, async wu_uct "
           f"B={ASYNC_B} W={ASYNC_W} T={spec.num_simulations}, prompt {PROMPT_LEN}, "
           f"max_len {MAX_LEN}, top_k {TOP_K}: {ASYNC_B / wall!r} searches/s (wall {wall!r} "
           f"s, first call), master ticks {int(res.ticks.max())}, model calls {calls}, "
           f"launches {launches}, host syncs {syncs}, peak memory {peak!r} GiB; "
           f"actions {res.action.tolist()}, root_n sums {res.root_n.sum(1).tolist()}")
-    profile_call(torch, device, lambda: search(roots, rngs), "model-guided path")
+    if profile:
+        profile_call(torch, device, lambda: search(roots, rngs), "model-guided path")
     return launches, {"action": res.action.cpu(), "calls": calls, "peak": peak,
                       "wall": wall, "ticks": int(res.ticks.max())}
 
@@ -2396,31 +2425,9 @@ def lm_serving(torch, device, cfg, params):
     """Phase 19: ServingEngine over llama3-8b at full width and depth, 8
     slots, 16 ragged prompts of 64-128 tokens, 32 new tokens at most,
     greedy: dense, then paged (16-token blocks, the dense equivalent)."""
-    prompts = serve_prompts(torch, cfg.vocab_size, SERVE_R)
     launches = {}
     for paged in (False, True):
-        out, wall, got, calls, syncs, peak, engine = engine_run(
-            torch, device, cfg, params, prompts, paged, ENGINE_NEW)
-        kernel = "paged_decode_attention" if paged else "decode_attention"
-        launch_identity(got, calls, kernel, "paged_decode_step" if paged else "decode_step",
-                        cfg.num_layers)
-        launches[kernel] = got[kernel]
-        tokens = sum(len(o) for o in out)
-        line = (f"ServingEngine {'paged' if paged else 'dense'}: llama3-8b {cfg.num_layers} "
-                f"layers {dtype_name(cfg)}, {ENGINE_SLOTS} slots, {SERVE_R} prompts "
-                f"({min(map(len, prompts))}-{max(map(len, prompts))} tokens), up to "
-                f"{ENGINE_NEW} new tokens: {tokens} tokens in {wall!r} s = {tokens / wall!r} "
-                f"tokens/s, {SERVE_R / wall!r} requests/s; model calls "
-                f"{ {k: v for k, v in calls.items() if v} }, {kernel} launches {got[kernel]}, "
-                f"host syncs {syncs}, peak memory {peak!r} GiB")
-        if paged:
-            used = engine.blocks_in_use()
-            if used:
-                raise AssertionError(f"ServingEngine paged: {used} blocks in use after the run")
-            line += f"; 0 of {engine.num_blocks} blocks in use after the run"
-        print(line)
-        del engine
-        torch.cuda.empty_cache()
+        launches.update(family_engine(torch, device, cfg, params, paged, SERVE_R, ENGINE_NEW))
     return launches
 
 
@@ -2542,6 +2549,300 @@ def agreement_recurrent_cache(torch, device):
         torch.cuda.empty_cache()
 
 
+# Phases 21-23: the other model families, one model on the card at a time.
+# phi3-medium-14b and qwen2.5-32b at full depth; deepseek-67b at 40 of its
+# 95 layers (58.7 of 134.8 GB in bf16); qwen3-moe-235b-a22b at 8 of 94
+# layers (41.7 of 463.5 GB).  Cut deepseek first, then qwen3-moe, if the
+# run runs long.
+DENSE_FAMILY = (("phi3-medium-14b", 40), ("qwen2.5-32b", 64), ("deepseek-67b", 40))
+MOE_SMALL, MOE_LARGE, MOE_LARGE_LAYERS = "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", 8
+# (Hq, Hkv, D) of the new paths: phi3, qwen2.5-32b (G = 5), deepseek (G = 8),
+# qwen2-moe (MHA), qwen3-moe (G = 16 at D = 64), whisper (MHA at D = 64).
+NEW_LAYOUTS = [(40, 10, 128), (40, 8, 128), (64, 8, 128), (16, 16, 128), (64, 4, 64),
+               (12, 12, 64)]
+STUB_ROWS, STUB_PROMPT, STUB_STEPS = 8, 128, 16    # phase 23: llava's rows and prompt
+WHISPER_PROMPT = 64
+PARITY_PROMPT = 128           # phases 21.2-23.2: prompt tokens before 3 decode steps
+
+
+def family_engine(torch, device, cfg, params, paged=False, n_prompts=RECURRENT_R,
+                  new_tokens=RECURRENT_NEW):
+    """Phases 19, 21 and 22(b): ServingEngine over ``cfg`` (bf16), 8 slots,
+    ``n_prompts`` ragged prompts (phase 20's 8 by default), ``new_tokens``
+    at most, greedy: every request finishes, the decode kernel launches
+    once per layer and decode step, and a paged run leaves no block in
+    use.  Returns the kernel's launches."""
+    prompts = serve_prompts(torch, cfg.vocab_size, n_prompts)
+    out, wall, got, calls, syncs, peak, engine = engine_run(
+        torch, device, cfg, params, prompts, paged, new_tokens)
+    kernel, call = (("paged_decode_attention", "paged_decode_step") if paged
+                    else ("decode_attention", "decode_step"))
+    launch_identity(got, calls, kernel, call, cfg.num_layers)
+    tokens = sum(len(o) for o in out)
+    line = (f"ServingEngine {'paged' if paged else 'dense'}: {cfg.name} {cfg.num_layers} "
+            f"layers {dtype_name(cfg)}, {ENGINE_SLOTS} slots, {n_prompts} prompts "
+            f"({min(map(len, prompts))}-{max(map(len, prompts))} tokens), up to "
+            f"{new_tokens} new tokens: {tokens} tokens in {wall!r} s = {tokens / wall!r} "
+            f"tokens/s, {n_prompts / wall!r} requests/s; model calls {({k: v for k, v in calls.items() if v})}, {kernel} "
+            f"launches {got[kernel]} ({cfg.num_layers} x {calls[call]} steps), host syncs "
+            f"{syncs}, peak memory {peak!r} GiB")
+    if paged:
+        used = engine.blocks_in_use()
+        if used:
+            raise AssertionError(f"ServingEngine paged {cfg.name}: {used} blocks in use")
+        line += f"; 0 of {engine.num_blocks} blocks in use after the run"
+    print(line)
+    del engine
+    torch.cuda.empty_cache()
+    return {kernel: got[kernel]}
+
+
+def dense_family(torch, device):
+    """Phase 21: ServingEngine dense over phi3-medium-14b, qwen2.5-32b and
+    deepseek-67b (reduced depth), each loaded after the last is freed."""
+    launches = 0
+    for name, layers in DENSE_FAMILY:
+        cfg, params = lm_setup(torch, device, layers, torch.bfloat16, seed=1, name=name)
+        launches += family_engine(torch, device, cfg, params)["decode_attention"]
+        del params
+        torch.cuda.empty_cache()
+    return {"decode_attention": launches}
+
+
+def moe_family(torch, device):
+    """Phase 22: qwen2-moe-a2.7b at full width and depth (phase 7's cell,
+    then ServingEngine dense and paged), then qwen3-moe at reduced depth
+    (ServingEngine dense)."""
+    cfg, params = lm_setup(torch, device, 24, torch.bfloat16, seed=1, name=MOE_SMALL)
+    got = {"decode_attention": model_guided(torch, device, cfg, params,
+                                            profile=False)[0]["decode_attention"]}
+    got["decode_attention"] += family_engine(torch, device, cfg, params)["decode_attention"]
+    got.update(family_engine(torch, device, cfg, params, paged=True))
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = lm_setup(torch, device, MOE_LARGE_LAYERS, torch.bfloat16, seed=1,
+                           name=MOE_LARGE)
+    got["decode_attention"] += family_engine(torch, device, cfg, params)["decode_attention"]
+    del params
+    torch.cuda.empty_cache()
+    return got
+
+
+def stub_batch(torch, device, cfg, tokens, seed):
+    """The frontend stubs' inputs beside ``tokens``, as the reference's
+    tests draw them: N(0, 1) patch embeddings (vlm) or frame embeddings
+    (encdec) of the model's width, from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batch = {"tokens": tokens}
+    b = tokens.shape[0]
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn((b, cfg.num_patches, cfg.d_model), generator=gen,
+                                            device=device)
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                            device=device)
+    return batch
+
+
+def stub_path(torch, device, cfg, params, prompt_len):
+    """Phase 23 for one stub: ``prefill`` of 8 rows (the frontend's
+    embeddings and ``prompt_len`` tokens), 16 greedy ``decode_step``\\ s,
+    then one cache-free ``forward`` over the same positions.  Held: the
+    decode kernel launches once per (self-attention) layer and step, the
+    flash kernel once per layer of the forward, every logit finite."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import decode_step, forward, init_cache, prefill
+
+    tokens = torch.stack([prompt_tokens(torch, cfg.vocab_size, prompt_len, seed=200 + i)
+                          for i in range(STUB_ROWS)]).to(device)
+    batch = stub_batch(torch, device, cfg, tokens, seed=33)
+    extra = cfg.num_patches if cfg.family == "vlm" else 0
+    cache_len = -(-(extra + prompt_len + STUB_STEPS) // BLOCK) * BLOCK
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, batch, init_cache(cfg, STUB_ROWS, cache_len,
+                                                           device=device))
+    sync(device)
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = dict(LAUNCHES)
+    finite = bool(torch.isfinite(logits.float()).all())
+    t0 = time.perf_counter()
+    for _ in range(STUB_STEPS):
+        tok = torch.argmax(logits, dim=-1)
+        logits, cache = decode_step(params, cfg, tok, cache)
+        finite &= bool(torch.isfinite(logits.float()).all())
+    sync(device)
+    t_decode = time.perf_counter() - t0
+    decode_launches = LAUNCHES["decode_attention"] - prefill_launches["decode_attention"]
+    reset_launches()
+    t0 = time.perf_counter()
+    full, _ = forward(params, cfg, batch)
+    sync(device)
+    t_forward = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    finite &= bool(torch.isfinite(full.float()).all())
+    if decode_launches != cfg.num_layers * STUB_STEPS or LAUNCHES["flash_attention"] != \
+            cfg.num_layers or not finite:
+        raise AssertionError(f"{cfg.name}: decode_attention {decode_launches} launches for "
+                             f"{STUB_STEPS} steps of {cfg.num_layers} layers, flash_attention "
+                             f"{LAUNCHES['flash_attention']} for one forward; finite {finite}")
+    encoder = (f" + {cfg.num_encoder_layers} encoder layers over {cfg.encoder_seq} frames"
+               if cfg.family == "encdec" else "")
+    prefill_kernels = {k: v for k, v in prefill_launches.items() if v}
+    rows = (f"{extra + prompt_len} positions ({extra} patch embeddings and {prompt_len} "
+            f"tokens)" if extra else f"{prompt_len} tokens")
+    print(f"{cfg.name} stub: {cfg.num_layers} layers{encoder} {dtype_name(cfg)}, "
+          f"{STUB_ROWS} rows of {rows}: prefill {t_prefill!r} s, {STUB_STEPS} decode steps "
+          f"{t_decode!r} s = {STUB_ROWS * STUB_STEPS / t_decode!r} tokens/s, forward "
+          f"{t_forward!r} s; launches: prefill {prefill_kernels}, decode_attention "
+          f"{decode_launches} in the decode steps, flash_attention "
+          f"{LAUNCHES['flash_attention']} in the forward; peak memory {peak!r} GiB")
+    return {"decode_attention": decode_launches, "flash_attention": LAUNCHES["flash_attention"]}
+
+
+def stub_family(torch, device):
+    """Phase 23: llava-next-mistral-7b (576 patch embeddings and a 128-token
+    prompt, 704 positions) and whisper-small (1500 frame embeddings and a
+    64-token prompt), full depth, bf16."""
+    from repro_torch.configs import get_config
+
+    got = {"decode_attention": 0, "flash_attention": 0}
+    for name, prompt_len in (("llava-next-mistral-7b", STUB_PROMPT),
+                             ("whisper-small", WHISPER_PROMPT)):
+        cfg, params = lm_setup(torch, device, get_config(name).num_layers, torch.bfloat16,
+                               seed=1, name=name)
+        for k, v in stub_path(torch, device, cfg, params, prompt_len).items():
+            got[k] += v
+        del params
+        torch.cuda.empty_cache()
+    return got
+
+
+def roomy(cfg):
+    """``cfg`` with an MoE capacity of every token of a call (``k / E``
+    times the capacity factor is 1), so no token drops and an MoE model's
+    cached steps equal its cache-free forward, as the reference's
+    ``tests/test_arch_smoke.py`` arranges it."""
+    import dataclasses
+
+    if cfg.family != "moe":
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+
+
+def family_parity_f32(torch, device):
+    """Phases 21.2, 22.2 and 23.2 at full width, 2 layers (whisper: 2 + 2),
+    float32 (no TF32): ``prefill`` of 128 tokens (behind llava's patches,
+    with whisper's frames) and 3 ``decode_step``\\ s against the cache-free
+    ``forward``'s logits (LOGIT_TOL); then qwen2-moe's router top-k on the
+    card against the CPU's on the same inputs, and the reduced qwen2-moe's
+    cached, frontier and paged frontier searches on the card against the
+    port on the CPU (phase 9's bar).  Returns the kernel launches."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import decode_step, forward, init_cache, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    total = {}
+    for name in ("qwen2.5-32b", MOE_SMALL, MOE_LARGE, "llava-next-mistral-7b",
+                 "whisper-small"):
+        extra_cfg = {"num_encoder_layers": 2} if name == "whisper-small" else {}
+        cfg, params = lm_setup(torch, device, 2, torch.float32, seed=5, name=name,
+                               **extra_cfg)
+        cfg = roomy(cfg)
+        gen = torch.Generator(device=device).manual_seed(9)
+        toks = torch.randint(2, cfg.vocab_size, (2, PARITY_PROMPT + 3), generator=gen,
+                             device=device, dtype=torch.int32)
+        batch = stub_batch(torch, device, cfg, toks, seed=34)
+        extra = cfg.num_patches if cfg.family == "vlm" else 0
+        reset_launches()
+        full, _ = forward(params, cfg, batch)
+        logits, cache = prefill(params, cfg, dict(batch, tokens=toks[:, :PARITY_PROMPT]),
+                                init_cache(cfg, 2, extra + PARITY_PROMPT + 8, device=device))
+        diffs = []
+        for t in range(PARITY_PROMPT - 1, PARITY_PROMPT + 3):
+            if t >= PARITY_PROMPT:
+                logits, cache = decode_step(params, cfg, toks[:, t], cache)
+            torch.testing.assert_close(logits, full[:, extra + t], **LOGIT_TOL)
+            diffs.append(float((logits - full[:, extra + t]).abs().max()))
+        if (LAUNCHES["flash_attention"], LAUNCHES["decode_attention"]) != (2, 6):
+            raise AssertionError(f"{name}: forward, prefill and 3 decode steps launched "
+                                 f"{LAUNCHES}; expected 2 flash and 6 decode kernels")
+        for k, v in LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+        what = " (MoE capacity: every token)" if cfg.family == "moe" else ""
+        behind = f" behind {extra} patch embeddings" if extra else ""
+        print(f"{name} full width, 2 layers, float32{what}, 2 x {PARITY_PROMPT} prompt "
+              f"tokens{behind}: max |prefill and decode step logits - forward's| = "
+              f"{diffs!r} (logits up to {float(full.abs().max())!r}; tolerance {LOGIT_TOL})")
+        if name == MOE_SMALL:
+            router_topk_agree(torch, device, cfg, params)
+        del params, full, cache
+        torch.cuda.empty_cache()
+    for k, v in agreement_moe_reduced(torch, device).items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def router_topk_agree(torch, device, cfg, params):
+    """qwen2-moe's router (float32, ``[2048, 60]``) over 1280 random token
+    states: the top-4 experts on the card equal the CPU's, except where two
+    experts' CPU probabilities are within 2e-7 of each other (a tie at
+    float32 rounding; TF32 would flip ~1e-3 gaps)."""
+    from repro_torch.models.layers import sorted_top_k
+
+    router = params["blocks"]["moe"]["router"][0]
+    gen = torch.Generator(device=device).manual_seed(35)
+    x = torch.randn((ASYNC_B * MAX_LEN, cfg.d_model), generator=gen, device=device)
+    (probs_card, idx_card), (probs_cpu, idx_cpu) = (
+        (probs.cpu(), sorted_top_k(probs, cfg.num_experts_per_tok)[1].cpu())
+        for probs in (torch.softmax(x.to(dev) @ router.to(dev), dim=-1)
+                      for dev in (device, torch.device("cpu"))))
+    diff = (idx_card != idx_cpu).any(1)
+    gap = (probs_cpu.gather(1, idx_card) - probs_cpu.gather(1, idx_cpu)).abs().amax(1)
+    if bool((diff & (gap > 2e-7)).any()):
+        raise AssertionError(f"router top-k: {int(diff.sum())} of {x.shape[0]} tokens route "
+                             f"differently on the card, CPU probability gaps up to "
+                             f"{float(gap.max())!r}")
+    print(f"{cfg.name} router (float32 {tuple(router.shape)}): top-{cfg.num_experts_per_tok} "
+          f"experts on the card equal the CPU's on {x.shape[0] - int(diff.sum())} of "
+          f"{x.shape[0]} tokens ({int(diff.sum())} float32 ties), max |probability "
+          f"difference| {float((probs_card - probs_cpu).abs().max())!r}")
+
+
+def agreement_moe_reduced(torch, device):
+    """Phase 22.2's searches: the reduced qwen2-moe (vocab 64, 2 layers,
+    float32) in phase 9.2's cell, cached, frontier and paged frontier, on
+    the card and on the port's CPU path; returns the card's launches."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import (
+        CachedModelEvaluator,
+        FrontierModelEvaluator,
+        PagedFrontierModelEvaluator,
+    )
+    from repro_torch.models import init_params
+
+    cfg = get_reduced(MOE_SMALL, vocab_size=64, num_layers=2)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(4))
+    blocks = 8 * 4 * -(-REDUCED_MAX_LEN // REDUCED_BLOCK)
+    evaluators = {
+        "cached": lambda p: CachedModelEvaluator(cfg, p, top_k=TOP_K, eos_token=EOS),
+        "frontier": lambda p: FrontierModelEvaluator(cfg, p, top_k=TOP_K, eos_token=EOS),
+        "paged frontier": lambda p: PagedFrontierModelEvaluator(
+            cfg, p, top_k=TOP_K, eos_token=EOS, block_size=REDUCED_BLOCK, num_blocks=blocks),
+    }
+    total = {}
+    for what, make in evaluators.items():
+        launches, _ = gpu_cpu_agree(torch, device, cfg, params, reduced_spec(), make,
+                                    f"reduced {MOE_SMALL} (vocab 64, 2 layers) async {what} "
+                                    "search")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main():
     import torch
 
@@ -2566,25 +2867,54 @@ def main():
     fields["tree_select"].update(check_tree_descend(torch, device))
     # Driven shapes beyond the grids: phase 9.1 (4 rows, 24 positions, full
     # width) and phase 9.2 (the reduced model's 8 x 4 slots, 4/2 heads, D=16).
+    # Phases 21-23 drive 8 slots of 160 at each new layout, qwen2-moe's 128
+    # slots (phase 22a), llava's 8 rows of 720; phases 21.2-23.2 2 rows of
+    # 136 (llava 712).
+    family_decode = [(n, s, *layout) for layout in NEW_LAYOUTS
+                     for n, s in ((ENGINE_SLOTS, MAX_LEN), (2, PARITY_PROMPT + 8))]
+    family_decode += [(ASYNC_B * ASYNC_W, MAX_LEN, 16, 16, 128), (STUB_ROWS, 720, 32, 8, 128),
+                      (2, 576 + PARITY_PROMPT + 8, 32, 8, 128)]
     err = check_decode(torch, device, [(4, 24, 32, 8, 128),
-                                       (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)])
+                                       (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)] + family_decode)
     fields["decode_attention"] = {"max_abs_err": err, **time_decode(torch, device)}
+    # qwen2.5-32b's and qwen3-moe's ServingEngine decode (phases 21, 22):
+    # 8 slots of 160, lengths 65-160.
+    fields["decode_attention"]["family_shapes"] = {
+        name: {"shape": [ENGINE_SLOTS, MAX_LEN, hq, hkv, d],
+               **time_decode(torch, device, ENGINE_SLOTS, MAX_LEN, hq, hkv, d, min_len=65)}
+        for name, (hq, hkv, d) in (("qwen2.5-32b", (40, 8, 128)),
+                                   (MOE_LARGE, (64, 4, 64)))}
     # Phase 14 drives zamba2's shared block (8 rows of 160, 32/32, D=112),
-    # phase 9.4 the reduced zamba2 (32 rows of 20, 4/2 heads, D=16).
+    # phase 9.4 the reduced zamba2 (32 rows of 20, 4/2 heads, D=16); the
+    # new layouts at 2 x 160, llava's 8 x 704 and whisper's 8 x 64 (phase
+    # 23), and phases 21.2-23.2's 2 x 131 (llava 707).
+    family_flash = [(2, MAX_LEN, *layout) for layout in NEW_LAYOUTS]
+    family_flash += [(STUB_ROWS, 576 + STUB_PROMPT, 32, 8, 128),
+                     (STUB_ROWS, WHISPER_PROMPT, 12, 12, 64),
+                     (2, 576 + PARITY_PROMPT + 3, 32, 8, 128)]
+    family_flash += [(2, PARITY_PROMPT + 3, *layout) for layout in
+                     ((40, 8, 128), (16, 16, 128), (64, 4, 64), (12, 12, 64))]
     err = check_flash(torch, device, [(4, 24, 32, 8, 128), (WAVE_B * WAVE_W, MAX_LEN, 32, 32, 112),
-                                      (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)])
+                                      (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)] + family_flash)
     fields["flash_attention"] = {"max_abs_err": err, **time_flash(torch, device)}
     time_flash(torch, device, hq=32, hkv=32, d=112)
     # Phases 10-12 drive 128 slots over 10 blocks of 16 with A = 8 candidates
     # at full width; phase 9.2 32 slots over 5 blocks of 4, 4/2 heads, D=16.
     n_main, npg_main = ASYNC_B * ASYNC_W, -(-MAX_LEN // BLOCK)
     npg_reduced = -(-REDUCED_MAX_LEN // REDUCED_BLOCK)
-    errs = check_tree(torch, device, [(n_main, TOP_K, MAX_LEN, 32, 8, 128)],
+    # The new layouts at 8 slots over 10 blocks of 16 (qwen2-moe's paged
+    # ServingEngine and, with A = 8, its frontier).
+    errs = check_tree(torch, device,
+                      [(n_main, TOP_K, MAX_LEN, 32, 8, 128)]
+                      + [(ENGINE_SLOTS, TOP_K, MAX_LEN, *layout) for layout in NEW_LAYOUTS],
                       [(n_main, TOP_K, BLOCK, npg_main, 32, 8, 128),
-                       (32, TOP_K, REDUCED_BLOCK, npg_reduced, 4, 2, 16)])
+                       (32, TOP_K, REDUCED_BLOCK, npg_reduced, 4, 2, 16)]
+                      + [(ENGINE_SLOTS, TOP_K, BLOCK, npg_main, *layout)
+                         for layout in NEW_LAYOUTS])
     errs["paged_decode_attention"] = check_paged_decode(
         torch, device, [(n_main, BLOCK, npg_main, 32, 8, 128),
-                        (32, REDUCED_BLOCK, npg_reduced, 4, 2, 16)])
+                        (32, REDUCED_BLOCK, npg_reduced, 4, 2, 16)]
+        + [(ENGINE_SLOTS, BLOCK, npg_main, *layout) for layout in NEW_LAYOUTS])
     for name, timed in time_paged_family(torch, device).items():
         fields[name] = {"max_abs_err": errs[name], **timed}
     # The scans phases 13, 14 and 9.4 drive: mamba2 (128 slots, H=80, P=64,
@@ -2671,6 +3001,15 @@ def main():
     del params
     torch.cuda.empty_cache()
 
+    phase("21. the dense configs (ServingEngine: phi3-medium-14b, qwen2.5-32b, deepseek-67b)")
+    family = {"21": dense_family(torch, device)}
+
+    phase("22. MoE (qwen2-moe-a2.7b: phase 7's cell and ServingEngine; qwen3-moe-235b-a22b)")
+    family["22"] = moe_family(torch, device)
+
+    phase("23. the stubs (llava-next-mistral-7b, whisper-small: prefill, decode, forward)")
+    family["23"] = stub_family(torch, device)
+
     phase("9. agreement on the card")
     agreement_full_width(torch, device)
     agreement_reduced(torch, device)
@@ -2687,6 +3026,10 @@ def main():
     phase("20.2 recurrent prefill and decode against forward (float32, 2 layers)")
     agreement_recurrent_cache(torch, device)
 
+    phase("21.2, 22.2 and 23.2 the new families against forward, qwen2-moe's router and "
+          "searches against the CPU (float32, 2 layers)")
+    family["21.2-23.2"] = family_parity_f32(torch, device)
+
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -2694,6 +3037,8 @@ def main():
         "replaces": REPLACES[name],
         "launches": launches[name],
         **fields[name],
+        # Launches on the new families' paths, by phase (not the main path's).
+        "family_launches": {ph: got[name] for ph, got in family.items() if got.get(name)},
         "bound_share": fields[name]["bound_ms"] / fields[name]["ms"],
         "device_bound_share": fields[name]["bound_ms"] / fields[name]["device_ms"],
     } for name in KERNELS]

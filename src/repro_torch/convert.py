@@ -14,8 +14,9 @@ states, keys or mid-search tree:
   becomes the port's ``BatchedTree``, index buffers widened to ``int64``;
 * :func:`params_from_numpy` — the reference's LM parameter pytree (nested
   dicts of numpy arrays, bfloat16 ones included) becomes the port's
-  parameter dict of the same layout, in the model's dtype except the SSM
-  leaves the reference keeps in float32 (``A_log``, ``dt_bias``, ``D``).
+  parameter dict of the same layout, in the model's dtype except the
+  leaves the reference keeps in float32 (an SSM block's ``A_log``,
+  ``dt_bias``, ``D`` and the MoE ``router``).
 
 Every function copies its input and takes an explicit ``device``.
 """
@@ -33,7 +34,7 @@ from .envs.random_mdp import RandomMDPState
 from .envs.tap_game import TapGameState
 from .envs.token_env import TokenEnvState
 from .models.config import ModelConfig
-from .models.ssm import FLOAT32_LEAVES
+from .models.lm import FLOAT32_LEAVES
 
 STATE_TYPES = {cls.__name__: cls for cls in (TapGameState, BanditTreeState, TokenEnvState,
                                              RandomMDPState)}
@@ -91,7 +92,7 @@ def params_from_numpy(params: Any, cfg: ModelConfig, *, device) -> dict:
     """The reference's parameter pytree (nested dicts, numpy leaves) ->
     the port's parameter dict: same keys and shapes, on ``device``, leaves
     in ``cfg.dtype`` except those the reference holds in float32 whatever
-    the model's dtype (:data:`repro_torch.models.ssm.FLOAT32_LEAVES`),
+    the model's dtype (:data:`repro_torch.models.lm.FLOAT32_LEAVES`),
     which stay float32."""
     if not isinstance(params, dict) or "embed" not in params:
         raise TypeError("expected the reference's LM parameter dict (with 'embed')")

@@ -287,9 +287,8 @@ class ModelEvaluator(Evaluator):
     environment's own transition core, so the search explores the same MDP.
 
     The simulation action is ``rng.categorical`` over the top-K values with
-    the slot's key, as the reference draws it; the port draws the Gumbel
-    noise in float32, which is the reference's draw for float32 models (a
-    bfloat16 reference model draws it in bfloat16).
+    the slot's key, in the model's dtype, as the reference draws it (a
+    bfloat16 model draws bfloat16 Gumbel noise).
     """
 
     def __init__(
@@ -324,7 +323,7 @@ class ModelEvaluator(Evaluator):
         from ..envs.token_env import apply_token, sorted_top_k
 
         top_vals, top_idx = sorted_top_k(pol_logits, self.top_k)
-        ranks = rng.categorical(keys, top_vals.float())
+        ranks = rng.categorical(keys, top_vals)
         a = torch.where(kind == EXPAND, act.to(torch.int64), ranks)
         token = top_idx.gather(1, torch.clamp(a, 0, self.top_k - 1)[:, None])[:, 0]
         logp = torch.log_softmax(rew_logits.float(), dim=-1).gather(1, token[:, None])[:, 0]

@@ -22,6 +22,7 @@ import torch
 from .. import rng
 from ..models import logits_at
 from ..models.config import ModelConfig
+from ..models.layers import sorted_top_k
 from .base import Environment
 
 
@@ -29,14 +30,6 @@ class TokenEnvState(NamedTuple):
     tokens: torch.Tensor   # i32[N, max_len]
     length: torch.Tensor   # i32[N]
     done: torch.Tensor     # bool[N]
-
-
-def sorted_top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` over the last axis: the ``k`` largest values in
-    descending order, equal values in ascending index order (a stable
-    descending sort; ``torch.topk`` promises no order among ties)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def apply_token(state: TokenEnvState, token: torch.Tensor, logp: torch.Tensor,
@@ -62,8 +55,15 @@ def apply_token(state: TokenEnvState, token: torch.Tensor, logp: torch.Tensor,
 def position_logits(params, cfg: ModelConfig, state: TokenEnvState) -> torch.Tensor:
     """Each row's logits at its last token (``length - 1``; a reference
     ``length`` of 0 reads the last position, as JAX's negative index
-    does)."""
+    does).
+
+    The reference runs one forward per row (``vmap``); an MoE layer routes
+    the tokens of a call together, so for the moe family each row is its
+    own forward here too."""
     pos = torch.remainder(state.length.to(torch.int64) - 1, state.tokens.shape[-1])
+    if cfg.family == "moe":
+        return torch.cat([logits_at(params, cfg, state.tokens[i:i + 1], pos[i:i + 1])
+                          for i in range(pos.shape[0])])
     return logits_at(params, cfg, state.tokens, pos)
 
 
@@ -116,7 +116,7 @@ def make_token_env(
         # Sample an action rank ∝ the policy's top-K probabilities.
         pol = position_logits(policy_params, policy_cfg, state)
         top_vals, _ = sorted_top_k(pol, k)
-        return rng.categorical(keys, top_vals.float()).to(torch.int32)
+        return rng.categorical(keys, top_vals).to(torch.int32)
 
     def observe(state: TokenEnvState) -> torch.Tensor:
         return state.tokens.to(torch.float32)

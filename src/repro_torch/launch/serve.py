@@ -10,8 +10,12 @@ CPU-scale smoke (the reduced config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --smoke \
       --requests 6 --prompt-len 12 --max-len 48 --device cpu
 
-``--arch`` takes llama3-8b (KV cache), mamba2-2.7b and zamba2-7b (the
-recurrent decode cache).  ``--temperature`` above 0 samples each tick with
+``--arch`` takes every name of ``repro_torch.configs.list_archs()``: the
+dense and MoE families admit through the ragged batched prefill (KV
+cache), mamba2-2.7b and zamba2-7b take the recurrent decode cache, and
+llava-next-mistral-7b prefills one prompt at a time, text only.
+whisper-small raises the reference's ``KeyError: 'frame_embeds'`` (its
+prefill needs frame embeddings that a text prompt lacks).  ``--temperature`` above 0 samples each tick with
 a key folded from seed 0 (the reference's launcher decodes greedily
 whatever it is given).  ``--device`` defaults to ``cuda``; without a card
 the launcher raises unless ``--device cpu`` is given.
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import rng
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.core.api import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serving import ServeConfig, ServingEngine
@@ -35,7 +39,7 @@ from repro_torch.serving import ServeConfig, ServingEngine
 
 def main(argv: Optional[Sequence[str]] = None) -> list[list[int]]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="llama3-8b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true", help="the reduced config")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)

@@ -1,8 +1,10 @@
 """Model configuration of the port (counterpart of ``repro.models.config``).
 
-The dense, SSM (Mamba-2) and hybrid (Zamba2) families: the fields they
-read, with a torch ``dtype``.  The other families' fields come with their
-blocks.  ``attn_impl`` stays so configurations carry across, but it does
+One dataclass covers every family — dense, MoE, SSM (Mamba-2), hybrid
+(Zamba2), the VLM stub and enc-dec (Whisper) — with a torch ``dtype``.
+The reference's training- and mesh-only fields (``remat``,
+``scan_layers``, ``loss_chunk``, ``seq_shard_activations``) are not
+carried.  ``attn_impl`` stays so configurations carry across, but it does
 not choose the path: attention and the SSD scan on a CUDA tensor always
 run the port's kernels, on a CPU tensor their plain versions.
 """
@@ -18,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # dense | ssm | hybrid (the ported families)
+    family: str                 # dense | moe | ssm | hybrid | vlm | encdec
     num_layers: int
     d_model: int
     num_heads: int
@@ -26,6 +28,16 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None        # default d_model // num_heads
+
+    # --- MoE ---
+    num_experts: int = 0                  # routed experts
+    num_experts_per_tok: int = 0
+    moe_d_ff: int = 0                     # per-expert hidden size
+    shared_expert_d_ff: int = 0           # fused shared-experts hidden size
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # Experts >= num_experts_real are dead (router logits masked to -1e30).
+    num_experts_real: Optional[int] = None
 
     # --- SSM (Mamba-2 / SSD) ---
     ssm_state: int = 0
@@ -36,6 +48,13 @@ class ModelConfig:
 
     # --- hybrid (Zamba2-style) ---
     attn_every: int = 0                   # shared attn block every k SSM blocks
+
+    # --- VLM stub ---
+    num_patches: int = 0                  # precomputed patch embeds prepended
+
+    # --- enc-dec (Whisper) ---
+    num_encoder_layers: int = 0
+    encoder_seq: int = 0                  # precomputed frame embeds (stub)
 
     qkv_bias: bool = False
     rope_theta: float = 1e4
@@ -66,17 +85,32 @@ class ModelConfig:
         """Sub-quadratic decode: SSM / hybrid only."""
         return self.family in ("ssm", "hybrid")
 
-    def param_count(self) -> int:
-        """Approximate parameter count of the ported families (as the
-        reference counts it: without the final norm)."""
-        d, L, V, hd = self.d_model, self.num_layers, self.vocab_size, self.head_dim
-        total = V * d * (1 if self.tie_embeddings else 2)
-        attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        return d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
             + (self.num_heads * hd) * d
-        if self.family == "dense":
+
+    def _moe_params(self, experts: int) -> int:
+        d = self.d_model
+        return 3 * d * self.moe_d_ff * experts + 3 * d * self.shared_expert_d_ff \
+            + d * self.num_experts
+
+    def param_count(self) -> int:
+        """Approximate parameter count, as the reference counts it (without
+        the final norm)."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        total = V * d * (1 if self.tie_embeddings else 2)
+        attn = self._attn_params()
+        if self.family in ("dense", "vlm"):
             return total + L * (attn + 3 * d * self.d_ff + 2 * d)
+        if self.family == "moe":
+            return total + L * (attn + self._moe_params(self.num_experts) + 2 * d)
+        if self.family == "encdec":
+            ffn = 3 * d * self.d_ff
+            total += self.num_encoder_layers * (attn + ffn + 2 * d)
+            return total + L * (2 * attn + ffn + 3 * d)    # self + cross attention
         if self.family not in ("ssm", "hybrid"):
-            raise ValueError(f"family {self.family!r} is not ported")
+            raise ValueError(f"unknown family {self.family!r}")
         di, H, N = self.d_inner, self.ssm_heads, self.ssm_state
         blk = d * di * 2 + d * 2 * N + d * H + di * d \
             + self.conv_kernel * (di + 2 * N) + 3 * H + di
@@ -84,6 +118,16 @@ class ModelConfig:
         if self.family == "hybrid":
             total += attn + 3 * d * self.d_ff + 2 * d     # the one shared block
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters active per token (MoE: the routed top-k and the shared
+        experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        n_embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return n_embed + L * (self._attn_params()
+                              + self._moe_params(self.num_experts_per_tok) + 2 * d)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
@@ -99,9 +143,16 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         dtype=torch.float32,
         attn_chunk=64,
     )
+    if cfg.family == "moe":
+        base.update(num_experts=4, num_experts_per_tok=2, moe_d_ff=64,
+                    shared_expert_d_ff=64 if cfg.shared_expert_d_ff else 0)
     if cfg.family in ("ssm", "hybrid"):
         base.update(ssm_state=16, ssm_head_dim=16, ssd_chunk=16)
     if cfg.family == "hybrid":
         base.update(attn_every=2)
+    if cfg.family == "vlm":
+        base.update(num_patches=8)
+    if cfg.family == "encdec":
+        base.update(num_encoder_layers=2, encoder_seq=16)
     base.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

@@ -1,5 +1,6 @@
-"""Transformer building blocks of the dense family (counterpart of
-``repro.models.layers``): RMSNorm, RoPE, GQA attention, SwiGLU.
+"""Transformer building blocks (counterpart of ``repro.models.layers``):
+RMSNorm, RoPE, GQA attention, enc-dec cross attention, SwiGLU and the
+routed-expert MoE layer.
 
 Everything is a function over a parameter dict, in the reference's
 layouts: activations ``[B, S, d]``, attention ``[B, S, H, D]``, cache
@@ -16,8 +17,11 @@ slices ``[B, S, Hkv, D]``.  Two attention paths reach the port's kernels:
 On a CUDA tensor each launches its hand-written kernel, on a CPU tensor its
 plain version (``kernels/*/ref.py``); both keep ``p`` and ``p·V`` in
 float32, as the Pallas kernels do.  Chunked prefill and catch-up with a
-cache (``S > 1``) take :func:`chunked_attention`, the reference's plain
-online-softmax path, as the reference does.
+cache (``S > 1``), the enc-dec encoder's non-causal self-attention and
+cross attention take :func:`chunked_attention`, the reference's plain
+online-softmax path, as the reference does.  The MoE layer
+(:func:`moe_block`) is plain tensor ops, as in the reference, where no
+Pallas kernel runs.
 
 **In place:** :func:`attention_block` writes the new K/V into the cache
 tensors (or pools) it is given and returns them; a caller that needs the
@@ -350,6 +354,20 @@ def attention_block(
     return out, new_cache
 
 
+def cross_attention_block(p, cfg, x, enc_kv):
+    """Enc-dec cross attention: queries from ``x [B, S, d]`` (no RoPE),
+    keys and values precomputed from the encoder (``enc_kv["k"]``/``["v"]``
+    ``[B, Se, Hkv, D]``), non-causal, through :func:`chunked_attention`."""
+    b, s, _ = x.shape
+    hd, hq = cfg.head_dim, cfg.num_heads
+    q = (x @ p["wq"]).reshape(b, s, hq, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(hq, hd)
+    out = chunked_attention(q, enc_kv["k"], enc_kv["v"], causal=False,
+                            chunk=min(cfg.attn_chunk, enc_kv["k"].shape[1]))
+    return out.reshape(b, s, hq * hd) @ p["wo"]
+
+
 def tree_attention_block(p, cfg, x, positions, k_cache, v_cache, kv_len):
     """Frontier attention: ``A`` candidate tokens per row over a READ-ONLY
     dense cache.
@@ -395,3 +413,97 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype: torch.dtype) 
 
 def mlp_block(p, x):
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with capacity-bounded scatter dispatch
+# ---------------------------------------------------------------------------
+
+
+def sorted_top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the ``k`` largest values in
+    descending order, equal values in ascending index order (a stable
+    descending sort; ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def init_moe(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+    """The router ``[d, E]`` (float32 whatever ``dtype``, as the
+    reference's), the experts' stacked SwiGLU weights ``[E, d, f]`` /
+    ``[E, f, d]``, and the fused shared experts (``shared``) if any."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    std = 0.02
+    p = {
+        "router": normal(gen, (d, e), std, torch.float32),
+        "w_gate": normal(gen, (e, d, f), std, dtype),
+        "w_up": normal(gen, (e, d, f), std, dtype),
+        "w_down": normal(gen, (e, f, d), std, dtype),
+    }
+    if cfg.shared_expert_d_ff:
+        p["shared"] = init_mlp(gen, d, cfg.shared_expert_d_ff, dtype)
+    return p
+
+
+def moe_block(p, cfg, x):
+    """MoE layer, ``x [B, S, d] -> (out [B, S, d], aux [])``.  On one
+    device this is :func:`_moe_block_local`; the reference's expert-parallel
+    path under a mesh (``_moe_block_sharded``) is not ported."""
+    return _moe_block_local(p, cfg, x)
+
+
+def _moe_block_local(p, cfg, x):
+    """Single-device MoE with the reference's dense scatter dispatch.
+
+    All ``T = B·S`` tokens of the call route together, so the expert
+    capacity ``ceil(T·k / E · capacity_factor)`` and which tokens overflow
+    depend on the call's ``[B, S]``, padding and idle rows included.  The
+    router product is float32 (the caller keeps TF32 off on the card: a
+    flipped top-k sends a token to another expert).  Each (token, choice)
+    in row-major ``[T, k]`` order takes the next free place of its expert
+    (an exclusive cumsum of the one-hot); one past the capacity goes to the
+    overflow bin ``E·C`` and is dropped.  Experts run as batched products
+    ``[E, C, d] @ [E, d, f]``; outputs gather back weighted by the
+    renormalised top-k gates.  ``aux`` is the Switch-style load-balancing
+    loss.
+    """
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    t = b * s
+    xt = x.reshape(t, d)
+
+    logits = xt.float() @ p["router"]                           # [T, E]
+    if cfg.num_experts_real is not None and cfg.num_experts_real < e:
+        dead = torch.arange(e, device=x.device) >= cfg.num_experts_real
+        logits = torch.where(dead, NEG_INF, logits)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = sorted_top_k(probs, k)              # [T, k]
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    density = F.one_hot(expert_idx[:, 0], e).float().mean(dim=0)
+    aux = torch.sum(density * probs.mean(dim=0)) * e * cfg.router_aux_weight
+
+    capacity = int(max(1, math.ceil(t * k / e * cfg.capacity_factor)))
+    flat_expert = expert_idx.reshape(-1)                        # [T*k]
+    onehot = F.one_hot(flat_expert, e)                          # [T*k, E]
+    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat_expert[:, None])[:, 0]
+    keep = pos < capacity
+    slot = torch.where(keep, flat_expert * capacity + torch.clamp_max(pos, capacity - 1),
+                       e * capacity)                            # overflow bin
+
+    # Kept slots are distinct; only the overflow bin takes several writes.
+    buf = x.new_zeros((e * capacity + 1, d))
+    buf.index_copy_(0, slot, xt.repeat_interleave(k, dim=0))
+    expert_in = buf[: e * capacity].reshape(e, capacity, d)
+
+    h = F.silu(torch.bmm(expert_in, p["w_gate"])) * torch.bmm(expert_in, p["w_up"])
+    expert_out = torch.bmm(h, p["w_down"])
+
+    flat_out = torch.cat([expert_out.reshape(e * capacity, d), x.new_zeros((1, d))])
+    gathered = flat_out[slot].reshape(t, k, d)
+    gates = (gate_vals * keep.reshape(t, k)).to(x.dtype)
+    out = torch.einsum("tkd,tk->td", gathered, gates).reshape(b, s, d)
+
+    if "shared" in p:
+        out = out + mlp_block(p["shared"], x)
+    return out, aux

@@ -1,21 +1,35 @@
-"""The language model of the port (counterpart of ``repro.models.lm``):
+"""The language model of the port (counterpart of ``repro.models.lm``),
+every family of the reference:
 
-* ``dense``  — a pre-norm GQA transformer (llama3 and its kin);
+* ``dense``  — a pre-norm GQA transformer (llama3, phi3, deepseek, qwen2.5);
+* ``moe``    — dense attention and a routed-expert MLP with fused shared
+  experts (qwen2-moe, qwen3-moe);
 * ``ssm``    — a Mamba-2 stack (attention-free; mamba2-2.7b);
 * ``hybrid`` — a Mamba-2 stack with one *shared* transformer block applied
-  before the SSM block of every ``attn_every``-th layer (Zamba2-style).
+  before the SSM block of every ``attn_every``-th layer (Zamba2-style);
+* ``vlm``    — the dense backbone with precomputed patch embeddings
+  (``batch["patch_embeds"]``) prepended to the tokens (llava; the vision
+  tower is stubbed);
+* ``encdec`` — an encoder over precomputed frame embeddings
+  (``batch["frame_embeds"]``; whisper's conv frontend is stubbed) and a
+  decoder whose blocks add cross attention to the encoder's output.
 
 Parameters are a plain dict in the reference's layout — ``embed``,
 ``final_norm``, ``lm_head``, ``blocks``, whose leaves stack the layers on
-a leading ``[L]`` axis, and the hybrid's ``shared_attn`` — so
+a leading ``[L]`` axis, the hybrid's ``shared_attn`` and the enc-dec's
+``encoder.{blocks, final_norm}`` — so
 :func:`repro_torch.convert.params_from_numpy` carries the reference's
 parameters across leaf by leaf.  The layer loop is a Python loop over
 views of the stacked leaves.
 
 Caches follow the reference's contract (:func:`init_cache`):
 
-* dense: ``{"kv": {"k", "v": [L, N, S, Hkv, D]}, "len"}`` with a scalar or
-  per-row ``len``; rows at positions ``>= len`` are garbage until written;
+* dense, moe, vlm: ``{"kv": {"k", "v": [L, N, S, Hkv, D]}, "len"}`` with
+  a scalar or per-row ``len``; rows at positions ``>= len`` are garbage
+  until written;
+* encdec: the same plus ``"cross"``: ``{"k", "v": [L, N, Se, Hkv, D]}``,
+  each decoder layer's cross-attention K/V of the encoder output, filled
+  by :func:`prefill`;
 * ssm: ``{"ssm": {"conv": [L, N, K-1, d_inner + 2N], "state": [L, N, H, P,
   N] float32}, "len"}``, the recurrent state of every Mamba-2 block;
 * hybrid: the ssm cache plus ``"kv"`` with one ``[sites, N, S, Hkv, D]``
@@ -27,7 +41,11 @@ prefill of more than one token replaces the conv windows with ones in the
 model's dtype, as the reference's returns them.  Only the KV families
 (:data:`KV_CACHE_FAMILIES`) take the ragged prefill, the chunked catch-up
 and the frontier: a recurrent state has no per-position validity to roll
-back.
+back, and the vlm and encdec families need their frontend's inputs.
+
+An MoE layer routes all tokens of a call together (its expert capacity
+depends on the call's ``[B, S]``), so every function here hands it the
+``[B, S]`` the reference's does.
 
 :data:`CALLS` counts the calls of each model function, so a run can relate
 kernel launches to model calls.
@@ -39,12 +57,16 @@ from typing import Any, Callable
 
 import torch
 
+from . import ssm
 from .config import ModelConfig
 from .layers import (
     attention_block,
+    cross_attention_block,
     init_attention,
     init_mlp,
+    init_moe,
     mlp_block,
+    moe_block,
     normal,
     rms_norm,
     tree_attention_block,
@@ -58,26 +80,20 @@ CALLS: dict[str, int] = {"forward": 0, "prefill": 0, "prefill_ragged": 0, "decod
                          "paged_decode_step": 0, "paged_decode_frontier": 0}
 
 # Families whose decode cache is pure position-indexed KV (the reference's
-# set; the port runs the dense one).
+# set): the ones the ragged prefill, the catch-up and the frontier take.
 KV_CACHE_FAMILIES = ("dense", "moe")
-# Families the port runs: forward, prefill and decode.
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+# Families of transformer blocks (attention + MLP or MoE) at every layer.
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "encdec")
+
+# Leaves the reference keeps in float32 whatever the model's dtype: an SSM
+# block's (``ssm.FLOAT32_LEAVES``) and the MoE ``router``.
+FLOAT32_LEAVES = ssm.FLOAT32_LEAVES + ("router",)
 
 
 def reset_calls() -> None:
     """Set every model-call count to 0."""
     for name in CALLS:
         CALLS[name] = 0
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    """Refuse a family the port does not run yet."""
-    if cfg.family in PORTED_FAMILIES:
-        return
-    raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (ROADMAP.md §1: MoE and the "
-        "VLM/enc-dec stubs)"
-    )
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -97,16 +113,20 @@ def layer_params(params: Params, layer: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _init_transformer_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def _init_transformer_block(gen: torch.Generator, cfg: ModelConfig,
+                            cross: bool = False) -> dict:
     def ones():
         return torch.ones((cfg.d_model,), dtype=cfg.dtype, device=gen.device)
 
-    return {
-        "attn_norm": ones(),
-        "attn": init_attention(gen, cfg),
-        "mlp_norm": ones(),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype),
-    }
+    p = {"attn_norm": ones(), "attn": init_attention(gen, cfg), "mlp_norm": ones()}
+    if cfg.family == "moe":
+        p["moe"] = init_moe(gen, cfg, cfg.dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype)
+    if cross:
+        p["cross_norm"] = ones()
+        p["cross"] = init_attention(gen, cfg)
+    return p
 
 
 def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -116,36 +136,52 @@ def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def _stacked(n: int, init_layer: Callable[[], dict], device) -> dict:
+    """``n`` layers from ``init_layer``, drawn one by one into leaves
+    stacked on a leading ``[n]`` axis."""
+    blocks = None
+    for layer in range(n):
+        one = init_layer()
+        if blocks is None:
+            blocks = tree_map(lambda x: torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                                                    device=device), one)
+
+        def put(buf, x):
+            buf[layer] = x
+
+        tree_map(put, blocks, one)
+    return blocks
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters of the reference's shapes and dtypes (normal, std
-    0.02; norms ones; an SSM block's ``A_log``/``dt_bias``/``D`` in
-    float32), drawn from ``gen`` on its device, layer by layer into the
-    stacked ``[L, ...]`` leaves."""
-    _check_family(cfg)
+    0.02; norms ones; an SSM block's ``A_log``/``dt_bias``/``D`` and the
+    MoE router in float32), drawn from ``gen`` on its device, layer by
+    layer into the stacked ``[L]`` leaves."""
     dev = gen.device
     std = 0.02
-    init_layer = _init_transformer_block if cfg.family == "dense" else _init_ssm_layer
-
+    if cfg.family not in TRANSFORMER_FAMILIES + ("ssm", "hybrid"):
+        raise ValueError(f"unknown model family {cfg.family!r}")
     params: dict = {
         "embed": normal(gen, (cfg.vocab_size, cfg.d_model), std, cfg.dtype),
         "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal(gen, (cfg.d_model, cfg.vocab_size), std, cfg.dtype)
-    blocks = None
-    for layer in range(cfg.num_layers):
-        one = init_layer(gen, cfg)
-        if blocks is None:
-            blocks = tree_map(lambda x: torch.empty((cfg.num_layers,) + tuple(x.shape),
-                                                    dtype=x.dtype, device=dev), one)
-
-        def put(buf, x):
-            buf[layer] = x
-
-        tree_map(put, blocks, one)
-    params["blocks"] = blocks
+    if cfg.family in TRANSFORMER_FAMILIES:
+        cross = cfg.family == "encdec"
+        params["blocks"] = _stacked(cfg.num_layers,
+                                    lambda: _init_transformer_block(gen, cfg, cross), dev)
+    else:
+        params["blocks"] = _stacked(cfg.num_layers, lambda: _init_ssm_layer(gen, cfg), dev)
     if cfg.family == "hybrid":
         params["shared_attn"] = _init_transformer_block(gen, cfg)
+    if cfg.family == "encdec":
+        params["encoder"] = {
+            "blocks": _stacked(cfg.num_encoder_layers,
+                               lambda: _init_transformer_block(gen, cfg), dev),
+            "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=dev),
+        }
     return params
 
 
@@ -154,14 +190,29 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def _transformer_body(cfg, bp, x, positions, cache):
+def _ffn(cfg, bp, x):
+    """A transformer block's MLP half: ``(x + h, aux)``, ``aux`` the MoE
+    router loss (``None`` for a dense MLP)."""
+    xn = rms_norm(x, bp["mlp_norm"], cfg.rms_eps)
+    if cfg.family == "moe":
+        h, aux = moe_block(bp["moe"], cfg, xn)
+        return x + h, aux
+    return x + mlp_block(bp["mlp"], xn), None
+
+
+def _transformer_body(cfg, bp, x, positions, cache, enc_kv=None):
+    """Self attention, cross attention to ``enc_kv`` (enc-dec), then the
+    MLP or MoE.  Returns ``(x, new_cache, aux)``."""
     h, new_cache = attention_block(
         bp["attn"], cfg, rms_norm(x, bp["attn_norm"], cfg.rms_eps),
         positions, cache=cache,
     )
     x = x + h
-    h = mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps))
-    return x + h, new_cache
+    if enc_kv is not None:
+        x = x + cross_attention_block(bp["cross"], cfg,
+                                      rms_norm(x, bp["cross_norm"], cfg.rms_eps), enc_kv)
+    x, aux = _ffn(cfg, bp, x)
+    return x, new_cache, aux
 
 
 def _ssm_body(cfg, bp, x, cache=None, return_cache=False):
@@ -188,35 +239,75 @@ def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _embed_inputs(params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+def _embed_inputs(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings, behind the patch embeddings for vlm, and their
+    positions (``batch["positions"]`` or ``0..S-1``)."""
     tokens = batch["tokens"]
     x = params["embed"][tokens]
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     return x, positions
 
 
+def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The enc-dec encoder over frame embeddings ``[B, Se, d]``:
+    non-causal self attention (RoPE, :func:`layers.chunked_attention`) and
+    the MLP per layer, then the final norm."""
+    x = frames.to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    enc = params["encoder"]
+    for layer in range(cfg.num_encoder_layers):
+        bp = tree_map(lambda a: a[layer], enc["blocks"])
+        h, _ = attention_block(bp["attn"], cfg, rms_norm(x, bp["attn_norm"], cfg.rms_eps),
+                               positions, causal=False)
+        x = x + h
+        x = x + mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps))
+    return rms_norm(x, enc["final_norm"], cfg.rms_eps)
+
+
+def _enc_kv(cfg: ModelConfig, bp_cross, enc_out: torch.Tensor) -> dict:
+    """One decoder layer's cross-attention K/V ``[B, Se, Hkv, D]`` of the
+    encoder output (no RoPE)."""
+    b, se, _ = enc_out.shape
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    k = (enc_out @ bp_cross["wk"]).reshape(b, se, hkv, hd)
+    v = (enc_out @ bp_cross["wv"]).reshape(b, se, hkv, hd)
+    if cfg.qkv_bias:
+        k = k + bp_cross["bk"].reshape(hkv, hd)
+        v = v + bp_cross["bv"].reshape(hkv, hd)
+    return {"k": k, "v": v}
+
+
 def forward(params: Params, cfg: ModelConfig, batch,
             return_hidden: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full forward (no cache); causal attention goes through
+    """Full forward (no cache); causal self attention goes through
     ``flash_attention``, the SSM scan through ``ssd_scan``.  The hybrid
     applies its shared block before the SSM block of layer ``i`` when ``i %
-    attn_every == 0``.  Returns ``(logits | final hidden, aux_loss)``."""
-    _check_family(cfg)
+    attn_every == 0``; the enc-dec runs its encoder over
+    ``batch["frame_embeds"]`` first.  Returns ``(logits | final hidden,
+    aux)``, ``aux`` the MoE router loss summed over layers (0 for the
+    other families)."""
     CALLS["forward"] += 1
-    x, positions = _embed_inputs(params, batch)
+    x, positions = _embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    enc_out = (_run_encoder(params, cfg, batch["frame_embeds"]) if cfg.family == "encdec"
+               else None)
     for layer in range(cfg.num_layers):
         bp = layer_params(params, layer)
-        if cfg.family == "dense":
-            x, _ = _transformer_body(cfg, bp, x, positions, None)
+        if cfg.family in TRANSFORMER_FAMILIES:
+            enc_kv = _enc_kv(cfg, bp["cross"], enc_out) if enc_out is not None else None
+            x, _, a = _transformer_body(cfg, bp, x, positions, None, enc_kv)
+            if a is not None:
+                aux = aux + a
             continue
         if cfg.family == "hybrid" and layer % cfg.attn_every == 0:
             # The shared transformer block (its weights the same at every site).
-            x, _ = _transformer_body(cfg, params["shared_attn"], x, positions, None)
+            x, _, _ = _transformer_body(cfg, params["shared_attn"], x, positions, None)
         x, _ = _ssm_body(cfg, bp, x)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     return unembed(params, x), aux
@@ -240,26 +331,28 @@ def logits_at(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
                device="cuda") -> dict:
     """Zeroed decode cache of ``batch_size`` rows (module docstring): KV
-    rows of ``max_len`` positions for the dense family and the hybrid's
-    shared-block sites, a float32 conv window and state per SSM block;
-    ``len`` 0."""
-    _check_family(cfg)
+    rows of ``max_len`` positions for the transformer families and the
+    hybrid's shared-block sites, the enc-dec's cross K/V of
+    ``encoder_seq`` positions, a float32 conv window and state per SSM
+    block; ``len`` 0."""
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
 
-    def kv(layers):
-        shape = (layers, batch_size, max_len, hkv, hd)
+    def kv(layers, length):
+        shape = (layers, batch_size, length, hkv, hd)
         return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
     cache = {"len": torch.zeros((), dtype=torch.int32, device=device)}
-    if cfg.family == "dense":
-        cache["kv"] = kv(cfg.num_layers)
+    if cfg.family in TRANSFORMER_FAMILIES:
+        cache["kv"] = kv(cfg.num_layers, max_len)
+        if cfg.family == "encdec":
+            cache["cross"] = kv(cfg.num_layers, cfg.encoder_seq)
         return cache
     one = init_ssm_cache(cfg, batch_size, device=device)
     cache["ssm"] = {name: x.expand((cfg.num_layers,) + tuple(x.shape)).clone()
                     for name, x in one.items()}
     if cfg.family == "hybrid":
-        cache["kv"] = kv(_num_attn_sites(cfg))
+        cache["kv"] = kv(_num_attn_sites(cfg), max_len)
     return cache
 
 
@@ -274,19 +367,21 @@ def _step_with_cache(params, cfg: ModelConfig, batch, cache,
     cache-producing scan for more (which starts from a zero state, as the
     reference's does); the hybrid applies its shared block with site
     ``i // attn_every``'s KV cache before the SSM block of layer ``i`` when
-    ``i % attn_every == 0``."""
-    _check_family(cfg)
-    x, positions = _embed_inputs(params, batch)
+    ``i % attn_every == 0``; an enc-dec layer attends to its cached cross
+    K/V."""
+    x, positions = _embed_inputs(params, cfg, batch)
     cur_len = torch.as_tensor(cache["len"], device=x.device)
     positions = positions + (cur_len[:, None] if cur_len.dim() == 1 else cur_len)
     s = x.shape[1]
     new_cache = dict(cache, len=cur_len + s)
-    if cfg.family == "dense":
+    if cfg.family in TRANSFORMER_FAMILIES:
         for layer in range(cfg.num_layers):
             layer_cache = {"k": cache["kv"]["k"][layer], "v": cache["kv"]["v"][layer],
                            "len": cur_len}
-            x, _ = _transformer_body(cfg, layer_params(params, layer), x, positions,
-                                     layer_cache)
+            enc_kv = ({"k": cache["cross"]["k"][layer], "v": cache["cross"]["v"][layer]}
+                      if cfg.family == "encdec" else None)
+            x, _, _ = _transformer_body(cfg, layer_params(params, layer), x, positions,
+                                        layer_cache, enc_kv)
     else:
         conv, state = cache["ssm"]["conv"], cache["ssm"]["state"]
         windows = []
@@ -295,8 +390,8 @@ def _step_with_cache(params, cfg: ModelConfig, batch, cache,
                 site = layer // cfg.attn_every
                 site_cache = {"k": cache["kv"]["k"][site], "v": cache["kv"]["v"][site],
                               "len": cur_len}
-                x, _ = _transformer_body(cfg, params["shared_attn"], x, positions,
-                                         site_cache)
+                x, _, _ = _transformer_body(cfg, params["shared_attn"], x, positions,
+                                            site_cache)
             layer_cache = None if s > 1 else {"conv": conv[layer], "state": state[layer]}
             x, nc = _ssm_body(cfg, layer_params(params, layer), x, layer_cache,
                               return_cache=True)
@@ -317,12 +412,22 @@ def _step_with_cache(params, cfg: ModelConfig, batch, cache,
 def prefill(params, cfg: ModelConfig, batch, cache) -> tuple[torch.Tensor, dict]:
     """Run the prompts ``batch["tokens"] [B, S]`` through the model, filling
     the cache (every row the same length; a recurrent family's prompts
-    start from a zero state).  Returns ``(logits [B, V]`` at the last
-    position, ``cache)``."""
+    start from a zero state; a vlm's ``patch_embeds`` go first).  An
+    enc-dec runs its encoder over ``batch["frame_embeds"]`` here and
+    writes each layer's cross K/V into ``cache["cross"]``.  Returns
+    ``(logits [B, V]`` at the last position, ``cache)``."""
     CALLS["prefill"] += 1
+    if cfg.family == "encdec":
+        enc_out = _run_encoder(params, cfg, batch["frame_embeds"])
+        for layer in range(cfg.num_layers):
+            kv = _enc_kv(cfg, layer_params(params, layer)["cross"], enc_out)
+            cache["cross"]["k"][layer] = kv["k"]
+            cache["cross"]["v"][layer] = kv["v"]
     tokens = batch["tokens"]
-    last = torch.full((tokens.shape[0],), tokens.shape[1] - 1, dtype=torch.int64,
-                      device=tokens.device)
+    s = tokens.shape[1]
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        s += batch["patch_embeds"].shape[1]
+    last = torch.full((tokens.shape[0],), s - 1, dtype=torch.int64, device=tokens.device)
     logits, cache = _step_with_cache(params, cfg, batch, cache, last_positions=last)
     return logits[:, -1, :], cache
 
@@ -391,7 +496,6 @@ def decode_frontier(params, cfg: ModelConfig, tokens, cache) -> tuple[torch.Tens
     """
     if cfg.family not in KV_CACHE_FAMILIES:
         raise ValueError(f"decode_frontier supports KV-cache LM families, not {cfg.family!r}")
-    _check_family(cfg)
     CALLS["decode_frontier"] += 1
     n, a = tokens.shape
     x = params["embed"][tokens]
@@ -403,8 +507,7 @@ def decode_frontier(params, cfg: ModelConfig, tokens, cache) -> tuple[torch.Tens
         h, k, v = tree_attention_block(
             bp["attn"], cfg, rms_norm(x, bp["attn_norm"], cfg.rms_eps), positions,
             cache["kv"]["k"][layer], cache["kv"]["v"][layer], cur_len)
-        x = x + h
-        x = x + mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps))
+        x, _ = _ffn(cfg, bp, x + h)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)

@@ -32,8 +32,8 @@ from __future__ import annotations
 import torch
 
 from .config import ModelConfig
-from .layers import attention_block, mlp_block, paged_tree_attention_block, rms_norm
-from .lm import CALLS, KV_CACHE_FAMILIES, _check_family, layer_params, unembed
+from .layers import attention_block, paged_tree_attention_block, rms_norm
+from .lm import CALLS, KV_CACHE_FAMILIES, _ffn, layer_params, unembed
 
 
 class PagePoolExhaustedError(RuntimeError):
@@ -57,7 +57,6 @@ def init_paged_cache(cfg: ModelConfig, n_slots: int, max_len: int, *, block_size
     if cfg.family not in KV_CACHE_FAMILIES:
         raise ValueError(f"paged KV caches support families {KV_CACHE_FAMILIES}, "
                          f"not {cfg.family!r}")
-    _check_family(cfg)
     shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -133,10 +132,6 @@ def gather_pages(cache) -> tuple[torch.Tensor, torch.Tensor]:
     return gather(cache["k"]), gather(cache["v"])
 
 
-def _mlp(cfg, bp, x):
-    return x + mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps))
-
-
 def paged_decode_step(params, cfg: ModelConfig, token, cache) -> tuple[torch.Tensor, dict]:
     """One decode step over a paged cache: write and attend.
 
@@ -155,7 +150,6 @@ def paged_decode_step(params, cfg: ModelConfig, token, cache) -> tuple[torch.Ten
     if cfg.family not in KV_CACHE_FAMILIES:
         raise ValueError(f"paged_decode_step supports families {KV_CACHE_FAMILIES}, "
                          f"not {cfg.family!r}")
-    _check_family(cfg)
     CALLS["paged_decode_step"] += 1
     token = token.reshape(-1, 1)
     x = params["embed"][token]
@@ -168,7 +162,7 @@ def paged_decode_step(params, cfg: ModelConfig, token, cache) -> tuple[torch.Ten
                        "write_off": cache["write_off"]}
         h, _ = attention_block(bp["attn"], cfg, rms_norm(x, bp["attn_norm"], cfg.rms_eps),
                                positions, cache=layer_cache)
-        x = _mlp(cfg, bp, x + h)
+        x, _ = _ffn(cfg, bp, x + h)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return unembed(params, x)[:, -1, :], cache
 
@@ -188,7 +182,6 @@ def paged_decode_frontier(params, cfg: ModelConfig, tokens,
     if cfg.family not in KV_CACHE_FAMILIES:
         raise ValueError(f"paged_decode_frontier supports families {KV_CACHE_FAMILIES}, "
                          f"not {cfg.family!r}")
-    _check_family(cfg)
     CALLS["paged_decode_frontier"] += 1
     n, a = tokens.shape
     x = params["embed"][tokens]
@@ -200,7 +193,7 @@ def paged_decode_frontier(params, cfg: ModelConfig, tokens,
         h, k, v = paged_tree_attention_block(
             bp["attn"], cfg, rms_norm(x, bp["attn_norm"], cfg.rms_eps), positions,
             cache["k"][layer], cache["v"][layer], cache["table"], cur_len)
-        x = _mlp(cfg, bp, x + h)
+        x, _ = _ffn(cfg, bp, x + h)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)

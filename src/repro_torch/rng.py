@@ -37,7 +37,6 @@ import torch
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_TINY_F32 = float(np.finfo(np.float32).tiny)
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -110,16 +109,31 @@ def random_bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int] = (),
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform`` in float32 over ``[minval, maxval)``.
+            minval: float = 0.0, maxval: float = 1.0,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform`` over ``[minval, maxval)`` in float32 or
+    bfloat16.
 
-    XLA fuses the scale-and-shift ``u * (maxval - minval) + minval`` into
-    one fused multiply-add.  The port forms it in float64, which holds the
-    product exactly, then rounds once to float32: the fused result, as
-    long as ``|minval|`` is below about 32 times the span (beyond that the
-    float64 sum itself may round).
+    float32: XLA fuses the scale-and-shift ``u * (maxval - minval) +
+    minval`` into one fused multiply-add.  The port forms it in float64,
+    which holds the product exactly, then rounds once to float32: the
+    fused result, as long as ``|minval|`` is below about 32 times the span
+    (beyond that the float64 sum itself may round).
+
+    bfloat16: JAX draws 8 random bits per value (the low byte of the
+    32-bit bits), since bfloat16 has fewer than 8 mantissa bits; ``(b >> 1)
+    | 0x3F80`` viewed as bfloat16 lies in ``[1, 2)``.  Every later step is
+    a bfloat16 operation, each rounded, as XLA computes it.
     """
     bits = random_bits(key, shape)
+    if dtype == torch.bfloat16:
+        one = torch.tensor(1.0, dtype=dtype, device=key.device)
+        lo = torch.tensor(minval, dtype=dtype, device=key.device)
+        hi = torch.tensor(maxval, dtype=dtype, device=key.device)
+        floats = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(dtype) - one
+        return torch.maximum(lo, floats * (hi - lo) + lo)
+    if dtype != torch.float32:
+        raise TypeError(f"uniform draws float32 or bfloat16, not {dtype}")
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = np.float32(minval)
     scale = np.float32(maxval) - lo      # float32 arithmetic, as in JAX
@@ -171,29 +185,34 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int,
     return value.to(dtype)
 
 
-def gumbel(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
-    """``jax.random.gumbel`` (float32, the default ``mode='low'``)."""
-    u = uniform(key, shape, minval=_TINY_F32, maxval=1.0)
+def gumbel(key: torch.Tensor, shape: Sequence[int] = (),
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.gumbel`` (the default ``mode='low'``) in float32 or
+    bfloat16: ``-log(-log(u))`` of a uniform over ``[tiny, 1)``, each step
+    in ``dtype``."""
+    u = uniform(key, shape, minval=float(torch.finfo(dtype).tiny), maxval=1.0, dtype=dtype)
     return -torch.log(-torch.log(u))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical`` over the last axis of ``logits``.
 
-    A single key ``[2]`` draws the noise for the whole ``logits`` array,
-    as JAX does; batched keys ``[..., 2]`` draw one row each (``vmap`` of
-    the single-key call), so their batch shape must be
-    ``logits.shape[:-1]``.  Returns ``int64`` indices.
+    The Gumbel noise is drawn in the logits' dtype (float32 or bfloat16),
+    as JAX draws it, and added in that dtype.  A single key ``[2]`` draws
+    the noise for the whole ``logits`` array, as JAX does; batched keys
+    ``[..., 2]`` draw one row each (``vmap`` of the single-key call), so
+    their batch shape must be ``logits.shape[:-1]``.  Returns ``int64``
+    indices.
     """
     if key.dim() == 1:
-        g = gumbel(key, tuple(logits.shape))
+        g = gumbel(key, tuple(logits.shape), dtype=logits.dtype)
     else:
         if key.shape[:-1] != logits.shape[:-1]:
             raise ValueError(
                 f"batched keys {tuple(key.shape)} do not match logits "
                 f"{tuple(logits.shape)}"
             )
-        g = gumbel(key, (logits.shape[-1],))
+        g = gumbel(key, (logits.shape[-1],), dtype=logits.dtype)
     return torch.argmax(g + logits, dim=-1)
 
 

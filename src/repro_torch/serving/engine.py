@@ -20,8 +20,11 @@ enter the state), so they prefill one prompt at a time
 Decoding is greedy, or ``rng.categorical`` over ``logits / temperature``
 when the temperature is above 0 and :meth:`ServingEngine.step` is given a
 key.  The engine runs on CUDA unless ``device`` says otherwise; the cache
-and the page bookkeeping live there, the slot bookkeeping on the host (one
-host sync per tick, for the tokens).
+and the page bookkeeping live there, the slot bookkeeping on the host.
+Every host read goes through :func:`repro_torch.sync.host_read`: one per
+tick (the tokens, and a paged pool's exhaustion count with them), one per
+admission (the first tokens; a paged admission also reads the free
+blocks).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..models import (
 )
 from ..models.config import ModelConfig
 from ..models.lm import tree_map
+from ..sync import host_read
 from .admission import (
     PromptTooLongError,
     pack_prompts,
@@ -115,7 +119,7 @@ class ServingEngine:
 
     def blocks_in_use(self) -> int:
         """Pool blocks currently allocated (paged mode only; one host sync)."""
-        return int((self._refcount > 0).sum())
+        return int(host_read((self._refcount > 0).sum()))
 
     def _alloc_tables(self, p_r: torch.Tensor, npg: int) -> torch.Tensor:
         """Admission page schedule: one ``alloc_blocks`` sweep per page
@@ -205,9 +209,9 @@ class ServingEngine:
                 self._table[torch.from_numpy(slots).to(dev), :npg] = dst
             else:
                 splice_dense_slots(self.cache, torch.from_numpy(slots).to(dev), cache_n)
-            first = torch.argmax(logits, dim=-1).cpu().numpy()
+            first = host_read(torch.argmax(logits, dim=-1))
         else:
-            first = np.zeros(take, np.int64)
+            firsts = []
             for i, p in enumerate(prompts[:take]):
                 cache1 = init_cache(cfg, 1, sc.max_len, device=dev)
                 tokens = torch.tensor([p], dtype=torch.int32, device=dev)
@@ -220,7 +224,8 @@ class ServingEngine:
 
                 tree_map(put, {k: v for k, v in self.cache.items() if k != "len"},
                          {k: v for k, v in cache1.items() if k != "len"})
-                first[i] = int(torch.argmax(logits[0]))
+                firsts.append(torch.argmax(logits[0]))
+            first = host_read(torch.stack(firsts))
         for i in range(take):
             slot = int(slots[i])
             tok = int(first[i])
@@ -253,14 +258,20 @@ class ServingEngine:
             self.cache["len"] = torch.from_numpy(self.lengths.copy()).to(dev)
             logits, self.cache = decode_step(self.params, self.cfg, tokens, self.cache)
         if self.sc.temperature > 0 and key is not None:
-            toks = rng.categorical(key.to(dev), logits.float() / self.sc.temperature)
+            # In the logits' dtype, as the reference divides and draws.
+            toks = rng.categorical(key.to(dev), logits / self.sc.temperature)
         else:
             toks = torch.argmax(logits, dim=-1)
-        if n_fail is not None and int(n_fail):
-            # A slot that found no block wrote nothing and did not advance.
-            raise PagePoolExhaustedError(f"no free KV block for {int(n_fail)} active "
-                                         f"slot(s) (num_blocks={self.num_blocks})")
-        toks = toks.cpu().numpy()
+        if n_fail is None:
+            toks = host_read(toks)
+        else:
+            # One host read fetches the tokens and the exhaustion count.
+            got = host_read(torch.cat([toks.to(torch.int64), n_fail.reshape(1).to(torch.int64)]))
+            toks, n_fail = got[:-1], int(got[-1])
+            if n_fail:
+                # A slot that found no block wrote nothing and did not advance.
+                raise PagePoolExhaustedError(f"no free KV block for {n_fail} active "
+                                             f"slot(s) (num_blocks={self.num_blocks})")
         emitted = {}
         finished = np.zeros(self.active.shape, bool)
         for slot in np.flatnonzero(self.active):

@@ -47,7 +47,7 @@ from ..core.evaluators import CachedModelEvaluator, Evaluator, ModelEvaluator
 from ..envs.token_env import TokenEnvState, make_token_env, sorted_top_k
 from ..models import logits_at
 from ..models.config import ModelConfig
-from ..sync import host_read
+from ..sync import host_copy, host_read
 from .admission import pages_needed, validate_prompts
 
 #: Environment variable overriding where the committed benchmark baseline
@@ -369,7 +369,8 @@ class SearchService:
         one host sync)."""
         if not self.paged:
             return None
-        return int(self.evaluator.num_blocks - (self._carry[7]["refcount"] > 0).sum())
+        return int(self.evaluator.num_blocks
+                   - host_read((self._carry[7]["refcount"] > 0).sum()))
 
     def submit(self, prompt: Sequence[int], key=None, priority: int = 0) -> int:
         """Queue one search request; returns its request id.
@@ -389,7 +390,7 @@ class SearchService:
 
     def _settled(self) -> np.ndarray:
         """Host copy of the per-row settled mask (one device sync)."""
-        return self._engine.settled(self._carry).cpu().numpy()
+        return host_read(self._engine.settled(self._carry))
 
     def _harvest(self, settled: Optional[np.ndarray] = None) -> dict:
         """Collect the results of settled occupied rows and free the rows."""
@@ -400,8 +401,8 @@ class SearchService:
         fresh = {}
         if not done_rows:
             return fresh
-        # A host copy: admission rewrites the rows' buffers in place.
-        res = SearchResult(*(x.to("cpu", copy=True) for x in self._engine.result(self._carry)))
+        # A host copy (one sync): admission rewrites the rows' buffers in place.
+        res = SearchResult(*host_copy(self._engine.result(self._carry)))
         for b in done_rows:
             req_id = self._row_req[b]
             row = SearchResult(*(x[b] for x in res))

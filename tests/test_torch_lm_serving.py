@@ -19,7 +19,11 @@ runs its plain version.
   cuda``; that test imports no JAX, the others take the JAX package from
   the ``jx`` fixture);
 * the ``launch.serve`` launcher with ``--device cpu``, and its refusal to
-  run on the CPU unasked.
+  run on the CPU unasked;
+* host syncs: one per ``ServingEngine`` tick, dense and paged (the tokens,
+  and the pool's exhaustion count with them);
+* bfloat16 sampling: a sampled serving tick and the evaluators' rollout
+  ranks over the same bfloat16 logits draw the reference's tokens exactly.
 """
 
 import dataclasses
@@ -209,6 +213,89 @@ def test_serving_engine_refuses_paged_recurrent_and_long_prompts():
 
     with pytest.raises(PromptTooLongError):
         engine.add_requests([list(range(2, 10))])
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_serving_engine_syncs_once_per_tick(paged):
+    """Every tick reads the host once: the tokens, with the paged pool's
+    exhaustion count in the same read."""
+    from repro_torch.sync import SYNCS, reset_syncs
+
+    cfg = get_reduced("llama3-8b", vocab_size=VOCAB)
+    p = init_params(cfg, torch.Generator().manual_seed(0))
+    engine = ServingEngine(cfg, p, ServeConfig(batch_slots=2, max_len=24, eos_token=-1,
+                                               paged=paged, block_size=4), device="cpu")
+    reset_syncs()
+    engine.add_requests(_prompts(4, (5, 9)))
+    admission = SYNCS["host_any"]
+    assert admission == (2 if paged else 1)      # the first tokens (paged: free blocks)
+    for tick in range(6):
+        reset_syncs()
+        engine.step(rng.PRNGKey(tick) if tick % 2 else None)
+        assert SYNCS["host_any"] == 1, tick
+
+
+def test_bf16_sampled_serving_tick_equals_reference(jx, monkeypatch):
+    """One sampled tick over the same bfloat16 logits (8 slots x 1000):
+    ``logits / temperature`` and the Gumbel draw stay bfloat16 on both
+    sides, so the tokens are equal."""
+    from repro_torch.serving import engine as engine_mod
+
+    arch = "llama3-8b"
+    jcfg = dataclasses.replace(jx.get_reduced(arch), vocab_size=1000, dtype=jx.jnp.bfloat16)
+    cfg = get_reduced(arch, vocab_size=1000, dtype=torch.bfloat16)
+    logits = np.random.default_rng(21).normal(size=(8, 1000)).astype(np.float32) * 3
+    t_logits = torch.from_numpy(logits).to(torch.bfloat16)
+    j_logits = jx.jnp.asarray(logits).astype(jx.jnp.bfloat16)
+    sc = dict(batch_slots=8, max_len=16, temperature=0.7, eos_token=-1)
+    ref = jx.ServingEngine(jcfg, jx.models.init_params(jcfg, jx.jax.random.PRNGKey(0)),
+                           jx.ServeConfig(**sc))
+    engine = ServingEngine(cfg, init_params(cfg, torch.Generator().manual_seed(0)),
+                           ServeConfig(**sc), device="cpu")
+    prompts = _prompts(6, (3,) * 8)
+    ref.add_requests(prompts)
+    engine.add_requests(prompts)
+    ref._decode = lambda params, tokens, cache: (j_logits, cache)
+    monkeypatch.setattr(engine_mod, "decode_step", lambda *a: (t_logits, a[-1]))
+    for seed in range(4):
+        want = ref.step(jx.jax.random.PRNGKey(seed))
+        got = engine.step(rng.PRNGKey(seed))
+        assert got == {k: int(v) for k, v in want.items()}, seed
+
+
+def test_bf16_rollout_ranks_equal_reference(jx):
+    """The evaluators' simulation ranks over bfloat16 top-K logits (256 rows,
+    top 8) with per-row keys: the reference's draws exactly."""
+    from repro.core import ModelEvaluator as JaxModel
+    from repro.core import SearchSpec as JaxSearchSpec
+    from repro.envs.token_env import TokenEnvState as JaxTokenState
+    from repro_torch.core import ModelEvaluator, SearchSpec
+    from repro_torch.core.evaluators import SIM
+    from repro_torch.envs.token_env import TokenEnvState
+
+    n, k, vocab = 256, 8, 64
+    g = np.random.default_rng(22)
+    logits = (g.normal(size=(n, vocab)) * 2).astype(np.float32)
+    kd = g.integers(0, 2 ** 32, size=(n, 2), dtype=np.uint32)
+    toks = np.zeros((n, 16), np.int32)
+    length = np.full((n,), 4, np.int32)
+    done = np.zeros((n,), bool)
+    zeros_f, ones_f = np.zeros((n,), np.float32), np.ones((n,), np.float32)
+    kind = np.full((n,), SIM, np.int32)
+    rest = (done, zeros_f, ones_f, np.zeros((n,), np.int32))
+    j_pol = jx.jnp.asarray(logits).astype(jx.jnp.bfloat16)
+    t_pol = torch.from_numpy(logits).to(torch.bfloat16)
+    jev = JaxModel(None, None, top_k=k, eos_token=-1)
+    ev = ModelEvaluator(None, None, top_k=k, eos_token=-1)
+    _, want = jev._transition(
+        JaxSearchSpec(gamma=1.0).config, jx.jnp.asarray(kind), jx.jnp.zeros((n,), jx.jnp.int32),
+        JaxTokenState(*map(jx.jnp.asarray, (toks, length, done))),
+        *map(jx.jnp.asarray, rest), jx.jnp.asarray(kd), j_pol, j_pol)
+    _, got = ev._transition(
+        SearchSpec(gamma=1.0).config, torch.from_numpy(kind), torch.zeros((n,), dtype=torch.int32),
+        TokenEnvState(*map(torch.from_numpy, (toks, length, done))),
+        *map(torch.from_numpy, rest), convert.keys_from_numpy(kd, device="cpu"), t_pol, t_pol)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # ---------------------------------------------------------------------------

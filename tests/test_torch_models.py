@@ -86,8 +86,10 @@ def test_configs_match_the_reference():
         32, 4096, 32, 8, 128, 14336, 128256, 5e5, torch.bfloat16)
     from repro.configs import get_config as jax_get_config
     assert full.param_count() == jax_get_config("llama3-8b").param_count()
+    assert get_config("qwen2.5-32b").param_count() == jax_get_config(
+        "qwen2.5-32b").param_count()
     with pytest.raises(KeyError):
-        get_config("qwen2.5-32b")
+        get_config("gpt2")          # in neither registry
 
 
 def test_init_params_shapes_and_scale(lm):

@@ -2,7 +2,9 @@
 
 Keys are raw uint32 key data drawn with numpy and handed to both sides.
 ``split``, ``fold_in``, the 32-bit bits, ``uniform``, ``randint`` and
-``categorical`` must be bit-exact.  ``gumbel`` takes two float32 logs,
+``categorical`` must be bit-exact; in bfloat16 (8 random bits per value,
+every step a bfloat16 operation) so must ``uniform``, ``gumbel`` and
+``categorical``.  ``gumbel`` takes two float32 logs,
 and PyTorch's ``log`` differs from XLA's in the last bit on about a
 seventh of inputs; near ``-log(u) = 1`` the outer log is close to zero,
 where one ulp of input is many ulps of output, so it is held to
@@ -135,3 +137,50 @@ def test_categorical(width):
     # One key over a whole [rows, width] table draws like JAX too.
     one = np.asarray(jax.random.categorical(jnp.asarray(kd[0]), jnp.asarray(logits)))
     np.testing.assert_array_equal(rng.categorical(kt[0], torch.from_numpy(logits)).numpy(), one)
+
+
+def _bf16(x):
+    """float32 copy of a bfloat16 array (JAX) or tensor (port), exact."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("shape", [(), (7, 36), (1024,)])
+@pytest.mark.parametrize("bounds", [(0.0, 1.0), (0.3, 2.7), (-1.5, 0.7)])
+def test_uniform_bfloat16(shape, bounds):
+    kd, kt = _both(11)
+    lo, hi = bounds
+    ref = _jax_per_key(lambda k: jax.random.uniform(k, shape, jnp.bfloat16, lo, hi), kd)
+    out = rng.uniform(kt, shape, lo, hi, dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bf16(out), _bf16(ref))
+
+
+@pytest.mark.parametrize("shape", [(5,), (1024,)])
+def test_gumbel_bfloat16(shape):
+    """Bit-equal; 1024 draws per key reach every one of the 128 values
+    ``u`` can take."""
+    kd, kt = _both(12)
+    ref = _jax_per_key(lambda k: jax.random.gumbel(k, shape, jnp.bfloat16), kd)
+    out = rng.gumbel(kt, shape, dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bf16(out), _bf16(ref))
+
+
+@pytest.mark.parametrize("width", [4, 8, 1000])
+def test_categorical_bfloat16(width):
+    """bfloat16 logits draw bfloat16 noise, with batched keys (``vmap``)
+    and with one key over the whole table, as ``jax.random.categorical``."""
+    kd, kt = _both(13)
+    logits = np.random.default_rng(14).normal(size=(NUM_KEYS, width)).astype(np.float32)
+    jl = jnp.asarray(logits).astype(jnp.bfloat16)
+    tl = torch.from_numpy(logits).to(torch.bfloat16)
+    ref = _jax_per_key(jax.random.categorical, kd, jl)
+    np.testing.assert_array_equal(rng.categorical(kt, tl).numpy(), ref)
+    one = np.asarray(jax.random.categorical(jnp.asarray(kd[0]), jl))
+    np.testing.assert_array_equal(rng.categorical(kt[0], tl).numpy(), one)
+    # The float32 draw of the same logits is another draw.
+    f32 = _jax_per_key(jax.random.categorical, kd, jl.astype(jnp.float32))
+    if width > 8:
+        assert (f32 != ref).any()

@@ -17,7 +17,9 @@ reference's), the same prompts and keys:
   holds it in every evaluator mode);
 * the pool-size default (env override, fallback warning, unparseable
   baseline), priority-then-FIFO admission, zero leaked pages after churn;
-* the admission helpers against ``repro.serving.admission``.
+* the admission helpers against ``repro.serving.admission``;
+* the host-paced poll's host reads (settled mask, free pool blocks, the
+  harvested results) go through ``repro_torch.sync``, so they are counted.
 """
 
 import dataclasses
@@ -131,6 +133,34 @@ def test_mid_run_admission_equals_fresh_batch(tiny_lm, paged):
         assert int(rows[i].action) == int(fresh.action[b])
         np.testing.assert_array_equal(rows[i].root_n.numpy(), fresh.root_n[b].numpy())
         np.testing.assert_array_equal(rows[i].root_v.numpy(), fresh.root_v[b].numpy())
+
+
+def test_host_paced_reads_are_counted(tiny_lm, monkeypatch):
+    """Each host read of a paged host-paced drain goes through the counted
+    sync helpers: one settled-mask read per round (and the drain's last
+    harvest), the pool's free blocks, and one copy per harvest that frees
+    rows."""
+    import inspect
+
+    from repro_torch.sync import SYNCS, reset_syncs
+
+    callers = []
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            callers.append(inspect.stack()[1].function)
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(search_service, "host_read", counted(search_service.host_read))
+    monkeypatch.setattr(search_service, "host_copy", counted(search_service.host_copy))
+    svc = _service(tiny_lm, True)
+    reset_syncs()
+    svc.serve(PROMPTS, keys=_keys(11, len(PROMPTS)))
+    assert callers.count("_settled") in (svc.stats.host_rounds, svc.stats.host_rounds + 1)
+    assert callers.count("_free_pool_blocks") >= 1
+    assert callers.count("_harvest") >= len(PROMPTS) // svc.spec.batch
+    assert SYNCS["host_any"] >= len(callers)
 
 
 def test_submit_poll_drain_round_by_round_equals_reference(tiny_lm):

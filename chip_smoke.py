@@ -7,15 +7,16 @@ Phases (any failure raises, so the script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); require CUDA;
 2. build the port's CUDA libraries from ``src/repro_torch/csrc`` with
-   nvcc, one process per library, all at once (eight kernels in six
+   nvcc, one process per library, all at once (nine kernels in seven
    libraries: ``tree_select`` holds the walk and the per-level kernel,
-   ``tree_decode_attention`` the dense and the paged tree kernel), and
-   summarise ptxas's registers, spills and static shared memory of
+   ``tree_decode_attention`` the dense and the paged tree kernel;
+   ``flash_attention_bwd`` the three launches of the attention backward),
+   and summarise ptxas's registers, spills and static shared memory of
    ``tree_select``, ``flash_attention`` (bf16 on the tensor cores, float32 on the
    CUDA cores), ``decode_attention`` (the key-split body),
    ``tree_decode_attention`` (the body over a shared-memory copy of the
-   prefix) and ``ssd_scan`` (bf16 B/C on the tensor cores, float32 and the
-   state pass on the CUDA cores);
+   prefix), ``ssd_scan`` (bf16 B/C on the tensor cores, float32 and the
+   state pass on the CUDA cores) and ``flash_attention_bwd`` (CUDA cores);
 3. hold each kernel against its plain PyTorch version on the card (the
    tree walk ``tree_descend``, bit for bit, on trees the port grows on the
    card: phase 4's tap cell at B=256 and B=1 and phase 5's bandit tree at
@@ -27,6 +28,9 @@ Phases (any failure raises, so the script exits non-zero):
    also at zamba2's D=112,
    the tree kernels also with prefixes longer than their shared-memory
    copy and A=32;
+   ``flash_attention``'s log-sum-exp output and its backward
+   ``flash_attention_bwd`` in float32 and bf16 (phase 24's shape among
+   them; ``out`` bit-equal with and without the log-sum-exp),
    ``ssd_scan`` with float32 and bfloat16 B/C over a grid, the driven
    shapes, and against the sequential recurrence too, and its final state
    (``return_state``) over the grid and phase 20's prefill shapes, timed
@@ -48,13 +52,13 @@ Phases (any failure raises, so the script exits non-zero):
    are re-searched by the port on the CPU with the same keys;
 5. the bandit tree at B=1024 for the four algos, against the exact optimum;
 6. the single-root path: ``batch=0`` and two moves of ``play_episode``;
-7. the model-guided main path: llama3-8b at full width and depth (bf16,
-   random parameters from a seed), 8 async WU-UCT searches with the
-   KV-cached evaluator; every decode step goes through ``decode_attention``
-   (32 launches per step); then a warm second call under torch.profiler
+7. the model-guided main path: llama3-8b at full width and depth (32
+   layers, ``LM_LAYERS``), bf16, random parameters from a seed, 8 async WU-UCT searches with the KV-cached
+   evaluator; every decode step goes through ``decode_attention`` (one
+   launch per layer and step); then a warm second call under torch.profiler
    (device activity: busy share and the top kernels);
 8. the uncached path: ``ModelEvaluator`` on the wave engine at the same
-   width; every forward goes through ``flash_attention`` (32 per forward);
+   width; every forward goes through ``flash_attention`` (one per layer);
 10. the paged path, while llama3-8b is loaded: phase 7's searches with
     ``PagedCachedModelEvaluator`` (16-token blocks, 1280 blocks: the dense
     equivalent); every paged decode step goes through
@@ -78,23 +82,25 @@ Phases (any failure raises, so the script exits non-zero):
     14 sites of its shared attention block, bf16), phase 8's wave cell with
     ``ModelEvaluator``; 81 ``ssd_scan`` and 14 ``flash_attention``
     (D=112) launches per forward;
-15. the paper's baselines: LeafP and RootP (K = 16) on 16 single roots of
+15. the paper's baselines: LeafP and RootP (K = 16) on 8 single roots of
     phase 4's tap game (T=128, W=16, width 5): exactly T/W and T/K
-    ``tree_descend`` launches per search and no ``tree_select``, 8 roots
-    re-searched on the CPU (at least 7 of 8 actions equal); on 32 single
-    roots of phase 5's bandit tree, the optimal-action share beside phase
+    ``tree_descend`` launches per search and no ``tree_select``, the 8
+    roots re-searched on the CPU (at least 7 of 8 actions equal); on 16
+    single roots of phase 5's bandit tree, the optimal-action share beside phase
     5's (RootP above chance); wu_uct on the random MDP at B=256 (8 trees
     against the CPU);
 16. trace mode: phase 5's bandit tree on the async engine (B=256, W=16)
-    traced for the reference's bound of 1026 ticks, O conservation on
-    every tick and tree and O = 0 at the end, checked on the host; the
+    traced for T + 2 = 130 ticks (the slowest tree settles in about 33;
+    every tree must have settled), O conservation on every
+    tick and tree and O = 0 at the end, checked on the host; the
     reduced llama (2 layers, float32) with the cached and paged evaluators:
     every busy slot's cache depth equals its prefix, the pool's working set
     stays within its blocks;
-17. host-paced serving, while llama3-8b is loaded (after phase 12):
+17. host-paced serving, while llama3-8b is loaded (after phase 12), over
+    its first 16 layers (``SERVE_LAYERS``; cut from full depth for time):
     ``SearchService(fused=False)`` in phase 7's cell drains 16 ragged
     prompts arriving in two bursts of 8, dense then paged (phase 10's
-    pool): one valid action each, 32 decode-kernel launches per decode
+    pool): one valid action each, one decode-kernel launch per layer and decode
     step, every page free after the paged drain; one warm burst under the
     profiler; the mid-run admissions against a fresh batch are printed;
     17.2 (after phase 9) holds them at 2 float32 layers (7 of 8);
@@ -105,9 +111,9 @@ Phases (any failure raises, so the script exits non-zero):
     fused = host-paced at 2 float32 layers in the four evaluator modes
     (dense, paged, frontier, paged frontier: action, root_n and ticks
     equal, root_v within 1e-6);
-19. LM serving: ``ServingEngine`` over llama3-8b at full width and depth,
+19. LM serving: ``ServingEngine`` over phase 17's 16 layers of llama3-8b,
     8 slots, 16 ragged prompts, at most 32 new tokens, greedy, dense then
-    paged: 32 decode-kernel launches per decode step, every request done,
+    paged: one decode-kernel launch per layer and decode step, every request done,
     no block in use after; 19.2 (after 18.2) at 2 float32 layers, at least
     15 of 16 requests equal greedy decoding through ``forward``;
 20. recurrent serving: ``ServingEngine`` over mamba2-2.7b (after phase 13)
@@ -136,6 +142,18 @@ Phases (any failure raises, so the script exits non-zero):
     and 3 decode steps against ``forward``'s logits; qwen2-moe's router
     top-4 on the card against the CPU's; the reduced qwen2-moe's cached,
     frontier and paged frontier searches on the GPU against the CPU;
+24. training on the card (after phase 23): (a) llama3-8b at full width,
+    8 of its 32 layers, bf16, random weights from a seed, through
+    ``launch.train.train``: 7 AdamW steps (1 warm-up, 6 timed) of 8 × 512
+    tokens on a repeated ``SyntheticStream`` batch, remat on, the loss
+    unchunked: every loss and grad norm finite, the last loss below the
+    first, ``flash_attention`` = 2 × 8 launches a step (the forward and its
+    recompute) and ``flash_attention_bwd`` = 8; step time, tokens/s, peak
+    memory; (b) ``repro_torch.examples.train_policy`` at its default size:
+    the restored run reaches its last step; and a grad-requiring input to
+    ``ssd_scan`` and to ``decode_attention`` raises (they have no
+    backward); 24.2 (last) one train step at 2 full-width float32 layers
+    (vocabulary cut to 4096) on the card against the port on the CPU;
 9. agreement on the card: cached prefill vs flash forward vs decode step
    logits (full width, 2 layers, float32), the reduced model's cached and
    paged frontier searches on the GPU against the port on the CPU,
@@ -148,8 +166,8 @@ Phases (any failure raises, so the script exits non-zero):
 
 Phases 15 and 16 run after phase 6; phases 10-12 and 17-19 before phase
 9, while phase 7's model is loaded; phases 13 and 14, each followed by its
-phase 20, after it is freed, then 21-23, one model at a time; 17.2 with
-18.2, then 19.2, 20.2 and 21.2-23.2 last.  Phase
+phase 20, after it is freed, then 21-23 and 24, one model at a time;
+17.2 with 18.2, then 19.2, 20.2, 21.2-23.2 and 24.2 last.  Phase
 10 must choose phase 7's action on at least 7 of 8 trees and phase 12
 phase 11's.  Phase 11 prints its agreement with phase 7 without holding
 it: in bf16 over 32 random layers the frontier forward, the decode step
@@ -160,13 +178,13 @@ least 90 % of rows, frontier and paged frontier actions at least 7 of 8
 equal to the cached search's), and phase 9.3 holds frontier to cached
 decisions in float32.  The line before
 the last is a JSON object with each kernel's launches on its main path
-(phase 4, 7, 8, 10, 11, 12 or 13; the ``tree_select`` row reports the
+(phase 4, 7, 8, 10, 11, 12, 13 or 24; the ``tree_select`` row reports the
 walk that replaced its per-level launches on the main path, and the
 per-level kernel under ``level_*`` keys), error against its plain version, time,
 plain time, bound, library time and ``bound_share`` (bound / time), and
 the device times by graph replay (``device_ms``, ``library_device_ms``,
 ``device_bound_share``), the launches on phases 21-23's paths
-(``family_launches``) and ``decode_attention`` timed at qwen2.5-32b's and
+(``family_launches``; phase 24's too) and ``decode_attention`` timed at qwen2.5-32b's and
 qwen3-moe's decode shapes (``family_shapes``); the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -197,8 +215,11 @@ BANDIT_B = 1024
 TRACE_B = 256                 # phase 16's traced bandit forest
 KINDS = ("wu_uct", "uct", "treep", "treep_vc")
 KERNELS = ("tree_select", "decode_attention", "flash_attention", "paged_decode_attention",
-           "tree_decode_attention", "paged_tree_decode_attention", "ssd_scan")
-# The library (``csrc/<name>.cu``) of each kernel, and the TPU kernel it replaces.
+           "tree_decode_attention", "paged_tree_decode_attention", "ssd_scan",
+           "flash_attention_bwd")
+# The library (``csrc/<name>.cu``) of each kernel, and the TPU kernel it
+# replaces (the backward: the forward's, which has no Pallas backward; the
+# reference differentiates XLA's chunked attention).
 SOURCES = {name: name for name in KERNELS}
 SOURCES["paged_tree_decode_attention"] = "tree_decode_attention"
 REPLACES = {
@@ -211,10 +232,15 @@ REPLACES = {
     "paged_tree_decode_attention":
         "src/repro/kernels/decode_attention/tree_decode_attention.py:259",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:99",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/flash_attention.py:120",
 }
 # The model-guided paths (phases 7 and 8): llama3-8b, a 128-token prompt,
 # 160-token sequences, top-8 actions, EOS token 1.
-LM_LAYERS = 32                # full depth; cut here first if phase 7 runs long
+LM_LAYERS = 32                # full depth (phases 7-12)
+# Phases 17-19 serve the first 16 of those layers (cut for time: they are
+# host-bound, a layer's launches at a time, and the whole run has to fit
+# 900 s with phase 24 added on a slow host).
+SERVE_LAYERS = 16
 PROMPT_LEN, MAX_LEN, TOP_K, EOS = 128, 160, 8, 1
 ASYNC_B, ASYNC_W = 8, 16
 WAVE_B, WAVE_W = 2, 4
@@ -282,7 +308,7 @@ def select_inputs(torch, rs, b, a, device):
 # scan on the tensor cores, the key-split decode, the tree kernels over a
 # staged prefix).
 PTXAS_SUMMARY = ("tree_select", "flash_attention", "decode_attention", "tree_decode_attention",
-                 "ssd_scan")
+                 "ssd_scan", "flash_attention_bwd")
 
 
 def ptxas_summary(log):
@@ -332,6 +358,21 @@ def device_ms(fn, calls=50):
     from repro_torch.launch.attention_sweep import graph_ms
 
     return graph_ms(fn, calls=calls)
+
+
+def profiled_device_ms(torch, device, fn, calls):
+    """Device time of one ``fn()`` in ms: the summed device time of the
+    kernels of ``calls`` warm calls under torch.profiler, per call (for
+    calls a CUDA graph cannot capture)."""
+    fn()
+    sync(device)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync(device)
+    ns = sum(evt.duration_ns() for evt in prof.profiler.kineto_results.events()
+             if evt.device_type() == torch.autograd.DeviceType.CUDA)
+    return ns * 1e-6 / calls
 
 
 def check_tree_select(torch, device):
@@ -641,6 +682,127 @@ def time_flash(torch, device, hq=32, hkv=8, d=128):
           f"(device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, SDPA {lib_ms * 1e3!r} us "
           f"(device {lib_dev * 1e3!r} us), bound {bound_ms * 1e3!r} us (by {bound_by}: "
           f"{nbytes} bytes, {ops} flops); |kernel - plain| {err!r}")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "device_ms": k_dev, "library_device_ms": lib_dev}
+
+
+# flash_attention_bwd against its plain version (phase 3).  float32: the
+# kernel and the plain version compute the same float32 formulas, summed in
+# another order.  bfloat16: against the float32 plain version on the same
+# bf16 inputs (upcast), per tensor: the kernel rounds each gradient once
+# to bf16 (2^-9 relative) after the same float32 arithmetic.
+FLASH_BWD_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+FLASH_BWD_BF16_SHARE = 2.0 ** -6
+# Phase 24's training shape: 8 rows of 512 tokens, llama3-8b's 32/8 heads.
+TRAIN_B, TRAIN_S = 8, 512
+
+
+def flash_bwd_inputs(torch, gen, b, s, hq, hkv, d, dtype, device, causal=True):
+    """q, k, v, dout (N(0, 1) in ``dtype``) and the forward kernel's
+    ``(out, lse)``."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    q = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=device).to(dtype)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=device).to(dtype)
+    dout = torch.randn((b, s, hq, d), generator=gen, device=device).to(dtype)
+    out, lse = flash_ops._forward(q, k, v, causal, with_lse=True)
+    return q, k, v, dout, out, lse
+
+
+def check_flash_bwd(torch, device):
+    """The forward's ``lse`` against ``flash_attention_lse_ref`` and its
+    ``out`` bit-equal with and without ``lse``; ``flash_attention_bwd``
+    against ``flash_attention_bwd_ref`` (float32 and bf16, causal and not,
+    GQA and MHA, D = 16, 64, 112, 128, ragged tiles).  Returns the max
+    errors."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+        flash_attention_lse_ref)
+
+    gen = torch.Generator(device=device).manual_seed(15)
+    shapes = [(TRAIN_B, TRAIN_S, 32, 8, 128, True), (2, 160, 8, 2, 64, True),
+              (2, 160, 32, 32, 112, True), (1, 33, 4, 1, 16, True), (2, 7, 8, 8, 64, True),
+              (2, 100, 8, 2, 128, False)]
+    errs = {"lse": 0.0, "float32": 0.0, "bfloat16_share": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for b, s, hq, hkv, d, causal in shapes:
+            what = (f"flash_attention_bwd {name} B={b} S={s} Hq/Hkv={hq}/{hkv} D={d} "
+                    f"causal={causal}")
+            q, k, v, dout, out, lse = flash_bwd_inputs(torch, gen, b, s, hq, hkv, d, dtype,
+                                                       device, causal)
+            if not torch.equal(out, flash_attention(q, k, v, causal=causal)):
+                raise AssertionError(f"{what}: out differs with and without lse")
+            lse_ref = flash_attention_lse_ref(q, k, causal=causal)
+            atol, rtol = ATTN_TOL["float32"]
+            diff = (lse - lse_ref).abs()
+            if bool((diff > atol + rtol * lse_ref.abs()).any()):
+                raise AssertionError(f"{what}: lse differs by up to {float(diff.max())!r}")
+            errs["lse"] = max(errs["lse"], float(diff.max()))
+            got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+            sync(device)
+            ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                          dout.float(), lse, causal=causal)
+            for grad, x, r in zip(("dq", "dk", "dv"), got, ref):
+                if x.dtype != dtype or not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"{what}: {grad} is {x.dtype} or not finite")
+                diff = (x.float() - r).abs()
+                if dtype == torch.float32:
+                    tol = FLASH_BWD_F32_TOL
+                    bad = diff > tol["atol"] + tol["rtol"] * r.abs()
+                    if bool(bad.any()):
+                        raise AssertionError(f"{what}: {grad} differs by up to "
+                                             f"{float(diff.max())!r} ({int(bad.sum())} "
+                                             f"elements out of {tol})")
+                    errs["float32"] = max(errs["float32"], float(diff.max()))
+                else:
+                    share = float(diff.max()) / max(float(r.abs().max()), 1e-30)
+                    if share > FLASH_BWD_BF16_SHARE:
+                        raise AssertionError(f"{what}: {grad} differs by {share!r} of its "
+                                             f"largest value (bar {FLASH_BWD_BF16_SHARE})")
+                    errs["bfloat16_share"] = max(errs["bfloat16_share"], share)
+            del q, k, v, dout, out, lse, got, ref
+    print(f"flash_attention lse and backward match their plain versions: {len(shapes)} "
+          f"shapes x (float32, bfloat16) {[sh[:5] for sh in shapes]}, out bit-equal with "
+          f"and without lse; max |lse - plain| {errs['lse']!r}, float32 max |d - plain| "
+          f"{errs['float32']!r}, bf16 max |d - plain| / max |plain| "
+          f"{errs['bfloat16_share']!r}")
+    return errs
+
+
+def time_flash_bwd(torch, device, b=TRAIN_B, s=TRAIN_S, hq=32, hkv=8, d=128):
+    """Backward kernel, plain version and SDPA's backward at phase 24's
+    shape (bf16, causal): paced and by CUDA-graph replay."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_bwd_ref
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    q, k, v, dout, out, lse = flash_bwd_inputs(torch, gen, b, s, hq, hkv, d, torch.bfloat16,
+                                               device)
+    run = lambda: flash_attention_bwd(q, k, v, out, dout, lse)
+    k_ms = time_ms(torch, run, 20)
+    k_dev = device_ms(run, calls=10)
+    p_ms = time_ms(torch, lambda: flash_attention_bwd_ref(q, k, v, out, dout, lse), 5)
+    # The library call: SDPA's backward through autograd (its forward once).
+    # The autograd engine's stream cannot be captured in a CUDA graph, so
+    # its device time is the sum of its kernels' profiled device times.
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout_t, retain_graph=True)
+    lib_ms = time_ms(torch, lib, 20)
+    lib_dev = profiled_device_ms(torch, device, lib, calls=10)
+    elems_q, elems_kv = b * s * hq * d, b * s * hkv * d
+    nbytes = 2 * (4 * elems_q + 4 * elems_kv) + 4 * b * hq * s
+    ops = 10 * d * (s * (s + 1) // 2) * b * hq          # five products over the causal half
+    bound_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / BF16_OPS_PER_S}
+    bound_by = max(bound_s, key=bound_s.get)
+    bound_ms = bound_s[bound_by] * 1e3
+    print(f"flash_attention_bwd bf16 B={b} S={s} {hq}/{hkv} D={d} causal: kernel "
+          f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, SDPA "
+          f"backward {lib_ms * 1e3!r} us (device {lib_dev * 1e3!r} us), bound "
+          f"{bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, {ops} flops)")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "device_ms": k_dev, "library_device_ms": lib_dev}
 
@@ -1243,6 +1405,18 @@ def lm_setup(torch, device, layers, dtype, seed, name="llama3-8b", **overrides):
     return cfg, params
 
 
+def serve_layers(torch, cfg, params):
+    """Phase 7's llama3-8b cut to its first ``SERVE_LAYERS`` layers: views
+    of the stacked layer leaves, no copy."""
+    import dataclasses
+
+    from repro_torch.models.lm import tree_map
+
+    cut = {**params, "blocks": tree_map(lambda x: x[:SERVE_LAYERS], params["blocks"])}
+    print(f"phases 17-19 serve {SERVE_LAYERS} of llama3-8b's {cfg.num_layers} layers")
+    return dataclasses.replace(cfg, num_layers=SERVE_LAYERS), cut
+
+
 def prompt_tokens(torch, vocab, n, seed):
     """A prompt of ``n`` tokens from a seed (no EOS, no padding id)."""
     return torch.from_numpy(np.random.default_rng(seed).integers(2, vocab, size=n)
@@ -1670,7 +1844,7 @@ def wave_search(torch, device, cfg, params):
 def uncached(torch, device, cfg, params):
     """Phase 8: ModelEvaluator on the wave engine; every forward (the
     environment's steps and the tick-driven rollouts) runs flash_attention
-    in each of its 32 layers."""
+    in each of its layers."""
     launches, calls, line = wave_search(torch, device, cfg, params)
     launch_identity(launches, calls, "flash_attention", "forward", cfg.num_layers)
     print(f"uncached path: llama3-8b {cfg.num_layers} layers bf16, {line}")
@@ -1926,10 +2100,11 @@ def agreement_frontier(torch, device):
 # The paper's baselines, trace mode and host-paced serving (phases 15-17)
 # ---------------------------------------------------------------------------
 
-BASELINE_ROOTS = 16           # phase 15's single tap-game roots per baseline
-# Phases 15 and 17-19 were cut (from 64 bandit roots and 24 requests) to
-# keep the whole run within 900 s on a slow host; the requests come first.
-BASELINE_BANDIT_ROOTS = 32    # phase 15's single bandit roots per baseline
+BASELINE_ROOTS = 8            # phase 15's single tap-game roots per baseline
+# Phases 15-19 were cut (from 16 tap and 64, then 32 bandit roots, a
+# traced forest of 256 and 24 requests) to keep the whole run within 900 s
+# on a slow host with phase 24 added.
+BASELINE_BANDIT_ROOTS = 16    # phase 15's single bandit roots per baseline
 MDP_B = 256                   # phase 15's random-MDP batch (launcher's --env mdp)
 SERVE_R, SERVE_BURST = 16, 8  # phases 17-19: requests, arriving in bursts of 8
 PARITY_R = 16                 # phase 17.2: two bursts; the second is compared
@@ -2097,8 +2272,8 @@ def check_o_conservation(trace, T):
 
 def trace_phase(torch, device):
     """Phase 16: trace mode on the card.  Phase 5's bandit tree on the async
-    engine (B = 256, W = 16) for the reference's trace bound, with O
-    conservation checked on the host; then the reduced llama (2 layers,
+    engine (B = 256, W = 16) for T + 2 ticks, with O conservation checked
+    on the host; then the reduced llama (2 layers,
     float32) with the cached and the paged evaluator, cache depth against
     each busy slot's prefix and the pool's working set."""
     import dataclasses
@@ -2113,8 +2288,10 @@ def trace_phase(torch, device):
     env = make_bandit_tree(depth=6, num_actions=4)
     spec = SearchSpec(algo="wu_uct", engine="async", batch=TRACE_B, **BANDIT_SPEC)
     cfg = spec.config
-    # The reference's _trace_bound (tests/test_async_invariants.py).
-    ticks = cfg.num_simulations * (cfg.max_sim_steps + 2) + 2
+    # T + 2 ticks, cut for time from the reference's worst-case bound
+    # T * (max_sim_steps + 2) + 2 = 1026: the slowest tree settles in about
+    # 33, and each frozen tick after that costs 60-80 ms on the host.
+    ticks = cfg.num_simulations + 2
     roots = env.init(rng.split(rng.PRNGKey(0, device=device), TRACE_B))
     rngs = rng.split(rng.PRNGKey(1, device=device), TRACE_B)
     sync(device)
@@ -2422,7 +2599,7 @@ def engine_run(torch, device, cfg, params, prompts, paged, new_tokens):
 
 
 def lm_serving(torch, device, cfg, params):
-    """Phase 19: ServingEngine over llama3-8b at full width and depth, 8
+    """Phase 19: ServingEngine over phase 7's llama3-8b, 8
     slots, 16 ragged prompts of 64-128 tokens, 32 new tokens at most,
     greedy: dense, then paged (16-token blocks, the dense equivalent)."""
     launches = {}
@@ -2843,6 +3020,216 @@ def agreement_moe_reduced(torch, device):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Training on the card (phase 24)
+# ---------------------------------------------------------------------------
+
+# llama3-8b at full width, cut to 8 of its 32 layers: with bf16 weights and
+# gradients and AdamW's float32 m, v and master (16 bytes a parameter) the
+# 8.03e9 parameters need ~128 GB; 8 layers (2.795e9) ~45 GB, ~55 GB at the
+# optimizer's peak.  The learning rate reaches 3e-4 at the first step.
+TRAIN_LAYERS = 8
+TRAIN_STEPS = 7               # 1 warm-up step and 6 timed
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+# 24.2: 2 float32 layers of 2 x 64 tokens, the vocabulary cut to 4096.  At
+# the first step AdamW moves a parameter by lr times the sign of its
+# gradient whatever the gradient's size, so a gradient at float32 noise
+# whose sign differs between card and CPU moves by 2 lr: lr = 1e-6 keeps
+# that inside the parameters' bar (1e-6 + 1e-4 |p|), which therefore says
+# little of the gradients: they are held directly, leaf by leaf, before the
+# step, and through the new moments (m = 0.1 g, v = 0.05 g^2) after it.
+PARITY_TRAIN = dict(b=2, s=64, vocab=4096, lr=1e-6)
+LOSS_RTOL = 1e-5
+PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
+GRAD_SHARE = 1e-4             # max |g_gpu - g_cpu| <= this x max |g_cpu|, per leaf
+MOMENT_SHARE = 1e-4           # max |m_gpu - m_cpu| <= this x max |m_cpu|, per leaf
+
+
+class RepeatedBatch:
+    """A data source that serves one batch at every step."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def batch_at(self, step):
+        return self.batch
+
+
+def train_llama(torch, device):
+    """Phase 24(a): returns the kernels' launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import train
+    from repro_torch.training import AdamWConfig, SyntheticStream, TrainConfig
+    from repro_torch.training.optimizer import leaves
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=TRAIN_LAYERS)
+    if not (cfg.remat and cfg.loss_chunk == 0 and cfg.dtype == torch.bfloat16):
+        raise AssertionError(f"phase 24 trains the reference's llama3-8b settings: {cfg}")
+    source = RepeatedBatch(SyntheticStream(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=3).batch_at(0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    params, opt_state, records = train(
+        cfg, TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT)), steps=TRAIN_STEPS,
+        batch=TRAIN_B, seq=TRAIN_S, seed=1, device=device, source=source, log_every=1)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    n_params = sum(x.numel() for x in leaves(params))
+    del params, opt_state
+    torch.cuda.empty_cache()
+    for r in records:
+        if not (math.isfinite(r.loss) and math.isfinite(r.grad_norm)):
+            raise AssertionError(f"phase 24: step {r.step} loss {r.loss}, grad norm "
+                                 f"{r.grad_norm}")
+    if not records[-1].loss < records[0].loss:
+        raise AssertionError(f"phase 24: the loss did not fall on the repeated batch: "
+                             f"{[r.loss for r in records]}")
+    want = {"flash_attention": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS}
+    others = {k: n for k, n in launches.items() if k not in want and n}
+    if any(launches[k] != n for k, n in want.items()) or others:
+        raise AssertionError(f"phase 24: launches {launches}, expected {want} and no other")
+    timed = [r.seconds for r in records[1:]]
+    step_s = sum(timed) / len(timed)
+    name = torch.cuda.get_device_name(device)
+    print(f"train llama3-8b full width, {TRAIN_LAYERS} of 32 layers, bf16, {n_params} "
+          f"parameters, {TRAIN_B} x {TRAIN_S} tokens a step, remat, loss unchunked, on {name}: "
+          f"losses {[r.loss for r in records]}, grad norms {[r.grad_norm for r in records]}, "
+          f"lr {[r.lr for r in records]}; step times {[r.seconds for r in records]} s "
+          f"(first: warm-up); mean of the {len(timed)} timed {step_s!r} s, "
+          f"{TRAIN_B * TRAIN_S / step_s!r} tokens/s; peak memory {peak / 2**30!r} GiB; "
+          f"wall {wall!r} s (parameters made, 7 steps); launches per step: flash_attention "
+          f"{launches['flash_attention'] / TRAIN_STEPS!r}, flash_attention_bwd "
+          f"{launches['flash_attention_bwd'] / TRAIN_STEPS!r}")
+    return {k: launches[k] for k in want}
+
+
+def train_policy_example(torch, device):
+    """Phase 24(b): the example at its default size on the card."""
+    from repro_torch.examples import train_policy
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train_policy.main(["--device", str(device)])
+    sync(device)
+    wall = time.perf_counter() - t0
+    if (out["restored_at"], out["last_step"]) != (20, 40):
+        raise AssertionError(f"train_policy: restored at {out['restored_at']}, reached "
+                             f"{out['last_step']} (expected 20, 40)")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"train_policy: losses {out['losses']}")
+    if not (LAUNCHES["flash_attention_bwd"] and LAUNCHES["flash_attention"]):
+        raise AssertionError(f"train_policy did not run the attention kernels: {LAUNCHES}")
+    print(f"train_policy on the card: restored at step {out['restored_at']}, reached step "
+          f"{out['last_step']}, losses {out['losses'][0]!r} -> {out['losses'][-1]!r}, wall "
+          f"{wall!r} s; flash_attention {LAUNCHES['flash_attention']}, flash_attention_bwd "
+          f"{LAUNCHES['flash_attention_bwd']} launches")
+    return {"flash_attention": LAUNCHES["flash_attention"],
+            "flash_attention_bwd": LAUNCHES["flash_attention_bwd"]}
+
+
+def grad_guard(torch, device):
+    """A grad-requiring input to a kernel with no backward raises."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    x = torch.randn((1, 16, 2, 16), device=device, requires_grad=True)
+    da = -torch.rand((1, 16, 2), device=device)
+    bc = torch.randn((1, 16, 16), device=device)
+    q = torch.randn((2, 8, 64), device=device).to(torch.bfloat16).requires_grad_()
+    cache = torch.randn((2, 32, 2, 64), device=device).to(torch.bfloat16)
+    for what, call in (("ssd_scan", lambda: ssd_scan(x, da, bc, bc, chunk=16)),
+                       ("decode_attention", lambda: decode_attention(q, cache, cache, 32))):
+        try:
+            call()
+        except RuntimeError as err:
+            if "no backward" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"{what} took a grad-requiring input without raising")
+    print("ssd_scan and decode_attention raise for a grad-requiring input on the card")
+
+
+def train_parity_f32(torch, device):
+    """24.2: the gradients and one train step at 2 full-width float32
+    layers (no TF32) on the card and on the CPU, from the same parameters
+    and batch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import tree_map
+    from repro_torch.training import (AdamWConfig, SyntheticStream, TrainConfig, adamw_init,
+                                      make_train_step)
+    from repro_torch.training.data import to_device
+    from repro_torch.training.optimizer import leaves
+    from repro_torch.training.train_step import grad_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    pt = PARITY_TRAIN
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2, vocab_size=pt["vocab"],
+                              dtype=torch.float32)
+    step = make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(
+        lr=pt["lr"], warmup_steps=1, total_steps=10)))
+    batch = SyntheticStream(cfg.vocab_size, pt["b"], pt["s"], seed=4).batch_at(0)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(5))
+    cpu_params = tree_map(lambda x: x.to("cpu", copy=True), params)   # the step writes in place
+    _, g_grads = grad_fn(params, cfg, to_device(batch, device))
+    _, c_grads = grad_fn(cpu_params, cfg, to_device(batch, "cpu"))
+    worst_grad, grad_rel = 0.0, []
+    for i, (g_leaf, c_leaf) in enumerate(zip(leaves(g_grads), leaves(c_grads))):
+        diff = (g_leaf.cpu() - c_leaf).abs()
+        share = float(diff.max()) / max(float(c_leaf.abs().max()), 1e-30)
+        if share > GRAD_SHARE:
+            raise AssertionError(f"24.2: gradient leaf {i} {tuple(c_leaf.shape)} differs by "
+                                 f"{share!r} of its largest value (bar {GRAD_SHARE})")
+        worst_grad = max(worst_grad, share)
+        grad_rel.append(float(diff.norm()) / max(float(c_leaf.norm()), 1e-30))
+    del g_grads, c_grads
+    t0 = time.perf_counter()
+    gp, gs, gm = step(params, adamw_init(params), to_device(batch, device))
+    sync(device)
+    t1 = time.perf_counter()
+    cp, cs, cm = step(cpu_params, adamw_init(cpu_params), to_device(batch, "cpu"))
+    t2 = time.perf_counter()
+    loss_rel = abs(gm["loss"] - cm["loss"]) / abs(cm["loss"])
+    if loss_rel > LOSS_RTOL:
+        raise AssertionError(f"24.2: loss {gm['loss']!r} on the card, {cm['loss']!r} on the "
+                             f"CPU (relative {loss_rel!r})")
+    worst_param, worst_moment = 0.0, 0.0
+    for g_leaf, c_leaf in zip(leaves(gp), leaves(cp)):
+        diff = (g_leaf.cpu() - c_leaf).abs()
+        bound = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * c_leaf.abs()
+        if bool((diff > bound).any()):
+            raise AssertionError(f"24.2: updated parameters differ by up to "
+                                 f"{float(diff.max())!r} ({int((diff > bound).sum())} elements "
+                                 f"out of {PARAM_TOL})")
+        worst_param = max(worst_param, float((diff / bound).max()))
+    for g_leaf, c_leaf in zip(leaves(gs.m) + leaves(gs.v), leaves(cs.m) + leaves(cs.v)):
+        share = float((g_leaf.cpu() - c_leaf).abs().max()) / max(float(c_leaf.abs().max()),
+                                                                 1e-30)
+        if share > MOMENT_SHARE:
+            raise AssertionError(f"24.2: a moment differs by {share!r} of its largest value")
+        worst_moment = max(worst_moment, share)
+    print(f"24.2 one train step, llama3-8b full width, 2 layers, float32, vocabulary "
+          f"{cfg.vocab_size}, {pt['b']} x {pt['s']} tokens, lr {pt['lr']}: loss card "
+          f"{gm['loss']!r} CPU {cm['loss']!r} (relative {loss_rel!r}), grad norm card "
+          f"{gm['grad_norm']!r} CPU {cm['grad_norm']!r}; gradients within {worst_grad!r} of "
+          f"their largest value per leaf (bar {GRAD_SHARE}; largest relative norm of the "
+          f"difference {max(grad_rel)!r}); parameters within the bar (worst "
+          f"{worst_param!r} of it), moments within {worst_moment!r} of their largest value; "
+          f"step {t1 - t0!r} s on the card, {t2 - t1!r} s on the CPU")
+
+
 def main():
     import torch
 
@@ -2898,6 +3285,11 @@ def main():
                                       (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)] + family_flash)
     fields["flash_attention"] = {"max_abs_err": err, **time_flash(torch, device)}
     time_flash(torch, device, hq=32, hkv=32, d=112)
+    bwd_errs = check_flash_bwd(torch, device)
+    fields["flash_attention_bwd"] = {"max_abs_err": bwd_errs["float32"],
+                                     "bf16_max_err_share": bwd_errs["bfloat16_share"],
+                                     "lse_max_abs_err": bwd_errs["lse"],
+                                     **time_flash_bwd(torch, device)}
     # Phases 10-12 drive 128 slots over 10 blocks of 16 with A = 8 candidates
     # at full width; phase 9.2 32 slots over 5 blocks of 4, 4/2 heads, D=16.
     n_main, npg_main = ASYNC_B * ASYNC_W, -(-MAX_LEN // BLOCK)
@@ -2970,6 +3362,8 @@ def main():
     got = paged_frontier_path(torch, device, cfg, params, base, dense_frontier)
     launches["paged_tree_decode_attention"] = got["paged_tree_decode_attention"]
 
+    cfg, params = serve_layers(torch, cfg, params)
+
     phase("17. host-paced serving (SearchService, phase 7's cell)")
     _, host_paced = serving_path(torch, device, cfg, params)
 
@@ -3010,6 +3404,11 @@ def main():
     phase("23. the stubs (llava-next-mistral-7b, whisper-small: prefill, decode, forward)")
     family["23"] = stub_family(torch, device)
 
+    phase("24. training on the card (llama3-8b 8 of 32 layers; train_policy; the grad guard)")
+    launches["flash_attention_bwd"] = train_llama(torch, device)["flash_attention_bwd"]
+    family["24"] = train_policy_example(torch, device)
+    grad_guard(torch, device)
+
     phase("9. agreement on the card")
     agreement_full_width(torch, device)
     agreement_reduced(torch, device)
@@ -3029,6 +3428,9 @@ def main():
     phase("21.2, 22.2 and 23.2 the new families against forward, qwen2-moe's router and "
           "searches against the CPU (float32, 2 layers)")
     family["21.2-23.2"] = family_parity_f32(torch, device)
+
+    phase("24.2 one train step on the card against the CPU (float32, 2 layers)")
+    train_parity_f32(torch, device)
 
     kernels = [{
         "name": name,

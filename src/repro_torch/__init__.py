@@ -5,9 +5,11 @@ never ``jax`` and nothing of ``repro``.  Entry points run on CUDA unless
 the caller asks for the CPU; the hand-written kernels live in
 ``repro_torch/csrc`` and are built with ``nvcc`` at first use.
 
-Ported so far: the rollout-evaluated wave engine (single-root and batched)
-behind ``repro_torch.core.build_searcher``, the tap game and bandit tree
-environments, a bit-exact twin of the ``jax.random`` functions they use,
-and the ``tree_select`` kernels (one level, and ``tree_descend``, the whole
-walk from the root in one launch).
+Ported so far: the search engines behind ``repro_torch.core.build_searcher``
+(every algo, rollout- and model-guided, dense, paged and frontier
+evaluators), the environments, a bit-exact twin of the ``jax.random``
+functions they use, every model family and configuration, search and LM
+serving, training (``repro_torch.training``, ``repro_torch.launch.train``)
+and the reference's examples (``repro_torch.examples``), on the seven
+kernels of the reference and the backward of ``flash_attention``.
 """

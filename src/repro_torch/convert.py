@@ -16,7 +16,10 @@ states, keys or mid-search tree:
   dicts of numpy arrays, bfloat16 ones included) becomes the port's
   parameter dict of the same layout, in the model's dtype except the
   leaves the reference keeps in float32 (an SSM block's ``A_log``,
-  ``dt_bias``, ``D`` and the MoE ``router``).
+  ``dt_bias``, ``D`` and the MoE ``router``);
+* :func:`opt_state_from_numpy` — the reference's ``AdamWState`` (``step``,
+  ``m``, ``v``, ``master`` as numpy) becomes the port's: float32 moments
+  and master weights of the parameters' layout and an int32 step.
 
 Every function copies its input and takes an explicit ``device``.
 """
@@ -35,6 +38,7 @@ from .envs.tap_game import TapGameState
 from .envs.token_env import TokenEnvState
 from .models.config import ModelConfig
 from .models.lm import FLOAT32_LEAVES
+from .training.optimizer import AdamWState
 
 STATE_TYPES = {cls.__name__: cls for cls in (TapGameState, BanditTreeState, TokenEnvState,
                                              RandomMDPState)}
@@ -94,6 +98,12 @@ def params_from_numpy(params: Any, cfg: ModelConfig, *, device) -> dict:
     in ``cfg.dtype`` except those the reference holds in float32 whatever
     the model's dtype (:data:`repro_torch.models.lm.FLOAT32_LEAVES`),
     which stay float32."""
+    _check_layout(params, cfg)
+    return _convert(params, lambda name: torch.float32 if name in FLOAT32_LEAVES
+                    else cfg.dtype, device)
+
+
+def _check_layout(params: Any, cfg: ModelConfig) -> None:
     if not isinstance(params, dict) or "embed" not in params:
         raise TypeError("expected the reference's LM parameter dict (with 'embed')")
     embed = np.shape(params["embed"])
@@ -101,10 +111,23 @@ def params_from_numpy(params: Any, cfg: ModelConfig, *, device) -> dict:
         raise ValueError(f"embed has shape {tuple(embed)}, the config wants "
                          f"{(cfg.vocab_size, cfg.d_model)}")
 
-    def convert(tree, name):
-        if isinstance(tree, dict):
-            return {k: convert(v, k) for k, v in tree.items()}
-        dtype = torch.float32 if name in FLOAT32_LEAVES else cfg.dtype
-        return _param_tensor(tree, dtype, device)
 
-    return convert(params, None)
+def _convert(tree, dtype_of, device, name=None):
+    if isinstance(tree, dict):
+        return {k: _convert(v, dtype_of, device, k) for k, v in tree.items()}
+    return _param_tensor(tree, dtype_of(name), device)
+
+
+def opt_state_from_numpy(state: Any, cfg: ModelConfig, *, device) -> AdamWState:
+    """The reference's ``AdamWState`` (``step`` a scalar, ``m``, ``v`` and
+    ``master`` parameter trees of numpy arrays) -> the port's: the trees in
+    float32, as the reference keeps them, on ``device``; the step int32.
+    Each tree's layout is checked against ``cfg`` as
+    :func:`params_from_numpy` checks it."""
+    trees = {}
+    for field in ("m", "v", "master"):
+        tree = getattr(state, field)
+        _check_layout(tree, cfg)
+        trees[field] = _convert(tree, lambda name: torch.float32, device)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device)
+    return AdamWState(step=step, **trees)

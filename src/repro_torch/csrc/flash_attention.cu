@@ -63,6 +63,13 @@
 // The tensor cores take float32 only as TF32, whose 10-bit mantissa would
 // break the float32 bar (5e-5) that the float32 callers are held to.
 // Which body runs is fixed by the dtype; neither falls back to the other.
+//
+// Both bodies can also write `lse` [B, Hq, Sq] (float32, when its pointer
+// is not null): the natural-log log-sum-exp of each row's scaled scores,
+// m + log l (the bf16 body's m and l are in log2 units, so (m + log2 l) ln 2;
+// the float32 body takes __logf, whose slow path would spill its registers).
+// The backward (csrc/flash_attention_bwd.cu) recomputes p = exp(s - lse)
+// from it.  The output does not depend on whether `lse` is written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +88,7 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBlockK = 32;                     // keys per tile: one per lane
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -95,8 +103,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int Hq, int Hkv, int causal, float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                       int causal, float scale) {
   constexpr int kPerLane = (D + 31) / 32;  // output elements per lane
   extern __shared__ float smem[];
   float* qs = smem;                     // [kBlockQ][D]
@@ -200,6 +209,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int t = q0 + warp * kRowsPerWarp + i;
     if (t >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-20f);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<size_t>(b) * Hq + hq) * Sq + t] = m[i] + __logf(l[i]);
     T* orow = out + ((static_cast<size_t>(b) * Sq + t) * Hq + hq) * D;
 #pragma unroll
     for (int c = 0; c < kPerLane; ++c) {
@@ -299,8 +310,9 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 template <int D, int W>
 __global__ void __launch_bounds__(W * 32)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                 int Sk, int Hq, int Hkv, int causal, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                 int causal, float scale) {
   constexpr int kBlockRows = 16 * W;       // query rows per block
   constexpr int kStride = D + 8;           // elements per shared row
   constexpr int kChunks = D / 8;           // 16-byte chunks per row
@@ -530,6 +542,18 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-20f);
   }
+  if (lse != nullptr && c == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int f = wf0 + g + 8 * i;
+      if (f < n_rows) {
+        const int t = f / G;
+        const long long row =
+            (static_cast<long long>(b) * Hq + hk * G + (f - t * G)) * Sq + t;
+        lse[row] = (m[i] + log2f(l[i])) * kLn2;
+      }
+    }
+  }
   bf16* stage = qs + 16 * warp * kStride;
 #pragma unroll
   for (int i = 0; i < kDTiles; ++i) {
@@ -551,9 +575,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+               float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -564,15 +588,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(B * Hq, (Sq + kBlockQ - 1) / kBlockQ);
   flash_attention_kernel<float, D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, Hq, Hkv,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Sq, Sk, Hq, Hkv,
       causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int W>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D, W>();
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -585,22 +609,22 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid(B * Hkv, static_cast<unsigned>(tiles));
   flash_mma_kernel<D, W><<<grid, W * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Sk, Hq, Hkv,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Sk, Hq, Hkv,
       causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
+int launch_d(const void* q, const void* k, const void* v, void* out, float* lse,
+             int B, int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
              int dtype, cudaStream_t s) {
   switch (dtype) {
     case 0:
-      return launch_f32<D>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+      return launch_f32<D>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 1:
       return Hq == Hkv
-          ? launch_bf16<D, 2>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s)
-          : launch_bf16<D, 4>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+          ? launch_bf16<D, 2>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s)
+          : launch_bf16<D, 4>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -610,11 +634,13 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int B,
 
 // q and out [B, Sq, Hq, D], k and v [B, Sk, Hkv, D], all contiguous, of
 // one type (dtype 0: float32, 1: bfloat16) and 16-byte aligned; D in {16,
-// 32, 64, 112, 128}, Hq a multiple of Hkv.  Launches on `stream` (PyTorch's
+// 32, 64, 112, 128}, Hq a multiple of Hkv.  `lse` is null or float32 [B,
+// Hq, Sq], written with each row's log-sum-exp.  Launches on `stream` (PyTorch's
 // current stream).  Returns the cudaError_t of the launch; 0 means it was
 // queued.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
+                                      const void* v, void* out, void* lse,
+                                      int B, int Sq,
                                       int Sk, int Hq, int Hkv, int D,
                                       int causal, float scale, int dtype,
                                       int device, void* stream) {
@@ -624,17 +650,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (D) {
     case 16:
-      return launch_d<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
+      return launch_d<16>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
     case 32:
-      return launch_d<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
+      return launch_d<32>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
     case 64:
-      return launch_d<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
+      return launch_d<64>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
     case 112:  // zamba2-7b: 3584 / 32 heads
-      return launch_d<112>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
+      return launch_d<112>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
     case 128:
-      return launch_d<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
+      return launch_d<128>(q, k, v, out, l, B, Sq, Sk, Hq, Hkv, causal, scale, dtype, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -41,6 +41,7 @@ KERNEL_FLAGS: dict[str, tuple[str, ...]] = {
     # Held to their plain versions within a tolerance: FMAs are welcome.
     "decode_attention": (),
     "flash_attention": (),
+    "flash_attention_bwd": (),
     "paged_decode_attention": (),
     "tree_decode_attention": (),
     # Accurate expf (no --use_fast_math); held to its plain version within

@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from .. import LAUNCHES
+from .. import LAUNCHES, refuse_grad
 from .. import _build
 from .ref import (
     decode_attention_ref,
@@ -167,6 +167,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     device = q.device
     if not _on_cuda(name, device):
         return decode_attention_ref(q, k_cache, v_cache, kv_len)
+    refuse_grad(name, q, k_cache, v_cache)
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(f"decode_attention: q must be [B, Hq, D] and the caches "
                          f"[B, S, Hkv, D], got {tuple(q.shape)}, {tuple(k_cache.shape)}")
@@ -202,6 +203,7 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
     device = q.device
     if not _on_cuda(name, device):
         return paged_decode_attention_ref(q, pool_k, pool_v, page_table, kv_len)
+    refuse_grad(name, q, pool_k, pool_v)
     if q.dim() != 3 or pool_k.dim() != 4 or tuple(pool_v.shape) != tuple(pool_k.shape):
         raise ValueError(f"{name}: q must be [B, Hq, D] and both pools [P, bs, Hkv, D], "
                          f"got {tuple(q.shape)}, {tuple(pool_k.shape)}, "
@@ -240,6 +242,7 @@ def tree_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch
     if not _on_cuda(name, device):
         return tree_decode_attention_ref(q, k_cache, v_cache, k_spec, v_spec, kv_len,
                                          tree_mask)
+    refuse_grad(name, q, k_cache, v_cache, k_spec, v_spec)
     if q.dim() != 4 or k_cache.dim() != 4 or tuple(v_cache.shape) != tuple(k_cache.shape):
         raise ValueError(f"{name}: q must be [B, A, Hq, D] and both caches [B, S, Hkv, D], "
                          f"got {tuple(q.shape)}, {tuple(k_cache.shape)}, "
@@ -278,6 +281,7 @@ def paged_tree_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     if not _on_cuda(name, device):
         return paged_tree_decode_attention_ref(q, pool_k, pool_v, page_table, k_spec,
                                                v_spec, kv_len, tree_mask)
+    refuse_grad(name, q, pool_k, pool_v, k_spec, v_spec)
     if q.dim() != 4 or pool_k.dim() != 4 or tuple(pool_v.shape) != tuple(pool_k.shape):
         raise ValueError(f"{name}: q must be [B, A, Hq, D] and both pools "
                          f"[P, bs, Hkv, D], got {tuple(q.shape)}, {tuple(pool_k.shape)}, "

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from .. import LAUNCHES
+from .. import LAUNCHES, refuse_grad
 from .. import _build
 from .ref import check_chunk, ssd_scan_ref
 
@@ -71,6 +71,7 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torc
         return ssd_scan_ref(xdt, dA, Bmat, Cmat, chunk=chunk, return_state=return_state)
     if device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CPU or CUDA tensors, got {device}")
+    refuse_grad("ssd_scan", xdt, dA, Bmat, Cmat)
     if xdt.dim() != 4 or dA.dim() != 3 or Bmat.dim() != 3:
         raise ValueError(f"ssd_scan: xdt must be [B, S, H, P], dA [B, S, H] and B/C "
                          f"[B, S, N], got {tuple(xdt.shape)}, {tuple(dA.shape)}, "

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from .. import LAUNCHES
+from .. import LAUNCHES, refuse_grad
 from .. import _build
 from .ref import KINDS, tree_descend_ref, tree_select_ref
 
@@ -83,6 +83,7 @@ def tree_select(n_c, o_c, v_c, n_p, o_p, valid, vl_c=None, *,
                                kind=kind, beta=beta, r_vl=r_vl, n_vl=n_vl)
     if device.type != "cuda":
         raise ValueError(f"tree_select runs on CPU or CUDA tensors, got {device}")
+    refuse_grad("tree_select", n_c, o_c, v_c, n_p, o_p, vl_c)
     if n_c.dim() != 2:
         raise ValueError(f"tree_select: n_c must be [B, A], got {tuple(n_c.shape)}")
     b, a = n_c.shape
@@ -136,6 +137,7 @@ def tree_descend(children, N, O, V, VL, pending, terminal, depth, rngs, *,
                                 **params)
     if device.type != "cuda":
         raise ValueError(f"tree_descend runs on CPU or CUDA tensors, got {device}")
+    refuse_grad("tree_descend", N, O, V, VL)
     if children.dim() != 3:
         raise ValueError(f"tree_descend: children must be [B, M, A], got "
                          f"{tuple(children.shape)}")

@@ -65,8 +65,8 @@ _STORE = """      *reinterpret_cast<uint4*>(ob + row_offset(wf0 + r) + ch * 8) =
           *reinterpret_cast<const uint4*>(stage + r * kStride + ch * 8);
 """
 _WARPS = """      return Hq == Hkv
-          ? launch_bf16<D, 2>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s)
-          : launch_bf16<D, 4>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, s);"""
+          ? launch_bf16<D, 2>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s)
+          : launch_bf16<D, 4>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s);"""
 _WARPS_SWAPPED = _WARPS.replace("Hq == Hkv", "Hq != Hkv")
 _SHUFFLE = """      s[u][j] = dot;
     }
@@ -227,7 +227,7 @@ def graph_ms(fn, calls=50, replays=5):
 
 def _entry(lib, name, n_ints):
     fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = ([ctypes.c_void_p] * (5 if name == "decode_attention" else 4)
+    fn.argtypes = ([ctypes.c_void_p] * 5
                    + [ctypes.c_int] * n_ints
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -259,8 +259,8 @@ def _flash(libs, device, hq, hkv, d, b=8, s=160):
         if not name.startswith("flash"):
             continue
         fn = _entry(lib, "flash_attention", 7)
-        call = lambda: _ok(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-                              s, hq, hkv, d, 1, 1.0 / math.sqrt(d), 1, device.index,
+        call = lambda: _ok(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                              b, s, s, hq, hkv, d, 1, 1.0 / math.sqrt(d), 1, device.index,
                               torch.cuda.current_stream().cuda_stream))
         _report(name, graph_ms(call), out, ref)
 

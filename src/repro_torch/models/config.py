@@ -2,11 +2,13 @@
 
 One dataclass covers every family — dense, MoE, SSM (Mamba-2), hybrid
 (Zamba2), the VLM stub and enc-dec (Whisper) — with a torch ``dtype``.
-The reference's training- and mesh-only fields (``remat``,
-``scan_layers``, ``loss_chunk``, ``seq_shard_activations``) are not
-carried.  ``attn_impl`` stays so configurations carry across, but it does
-not choose the path: attention and the SSD scan on a CUDA tensor always
-run the port's kernels, on a CPU tensor their plain versions.
+The reference's training fields are carried: ``remat`` (each layer's body
+recomputed in the backward, ``torch.utils.checkpoint``) and ``loss_chunk``
+(the LM head and cross entropy chunked over the sequence).  Its dry-run
+and mesh fields (``scan_layers``, ``seq_shard_activations``) are not.
+``attn_impl`` stays so configurations carry across, but it does not choose
+the path: attention and the SSD scan on a CUDA tensor always run the
+port's kernels, on a CPU tensor their plain versions.
 """
 
 from __future__ import annotations
@@ -63,6 +65,10 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "xla"      # carried across; the device picks the path
     attn_chunk: int = 1024      # KV chunk of the plain chunked attention
+    remat: bool = True          # recompute each layer's body in the backward
+    # Chunked cross entropy: peak logits B*loss_chunk*V instead of B*S*V.
+    # 0 = unchunked.
+    loss_chunk: int = 0
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -142,6 +148,7 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=256,
         dtype=torch.float32,
         attn_chunk=64,
+        remat=False,
     )
     if cfg.family == "moe":
         base.update(num_experts=4, num_experts_per_tok=2, moe_d_ff=64,

@@ -184,7 +184,10 @@ def decode_attention(
 
 def normal(gen: torch.Generator, shape, std: float, dtype: torch.dtype) -> torch.Tensor:
     """``N(0, std²)`` drawn in float32 from ``gen`` on its device, then cast
-    (the reference draws float32 normals, scales, then casts)."""
+    (the reference draws float32 normals, scales, then casts).  A source on
+    the ``meta`` device (``lm.abstract_params``) gives shape and dtype only."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=gen.device)
     x = torch.randn(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
     return (x * std).to(dtype)
 

@@ -20,7 +20,14 @@ a leading ``[L]`` axis, the hybrid's ``shared_attn`` and the enc-dec's
 ``encoder.{blocks, final_norm}`` — so
 :func:`repro_torch.convert.params_from_numpy` carries the reference's
 parameters across leaf by leaf.  The layer loop is a Python loop over
-views of the stacked leaves.
+views of the stacked leaves; with ``cfg.remat`` and grad mode on, each
+layer's body runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``), so its activations are recomputed in the backward.
+
+Training: :func:`loss_fn` is the reference's next-token cross entropy, the
+LM head and cross entropy chunked over the sequence when
+``cfg.loss_chunk > 0``; :func:`abstract_params` gives the parameters'
+shapes and dtypes on the ``meta`` device without allocating them.
 
 Caches follow the reference's contract (:func:`init_cache`):
 
@@ -56,6 +63,8 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import ssm
 from .config import ModelConfig
@@ -185,6 +194,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return params
 
 
+class _MetaSource:
+    """Stands in for a generator in :func:`abstract_params`: parameters
+    drawn from it are ``meta`` tensors."""
+
+    device = torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameters' shapes and dtypes, as ``meta`` tensors (nothing is
+    allocated): the counterpart of the reference's ``jax.eval_shape`` of
+    ``init_params``."""
+    return init_params(cfg, _MetaSource())
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -252,6 +275,14 @@ def _embed_inputs(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, torch.
     return x, positions
 
 
+def _remat(cfg: ModelConfig, body: Callable) -> Callable:
+    """``body``, recomputed in the backward (``torch.utils.checkpoint``,
+    non-reentrant) when ``cfg.remat`` and grad mode is on."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
 def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """The enc-dec encoder over frame embeddings ``[B, Se, d]``:
     non-causal self attention (RoPE, :func:`layers.chunked_attention`) and
@@ -259,12 +290,16 @@ def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor
     x = frames.to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     enc = params["encoder"]
-    for layer in range(cfg.num_encoder_layers):
-        bp = tree_map(lambda a: a[layer], enc["blocks"])
+
+    def body(x, bp):
         h, _ = attention_block(bp["attn"], cfg, rms_norm(x, bp["attn_norm"], cfg.rms_eps),
                                positions, causal=False)
         x = x + h
-        x = x + mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps))
+        return x + mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps))
+
+    body = _remat(cfg, body)
+    for layer in range(cfg.num_encoder_layers):
+        x = body(x, tree_map(lambda a: a[layer], enc["blocks"]))
     return rms_norm(x, enc["final_norm"], cfg.rms_eps)
 
 
@@ -289,28 +324,98 @@ def forward(params: Params, cfg: ModelConfig, batch,
     attn_every == 0``; the enc-dec runs its encoder over
     ``batch["frame_embeds"]`` first.  Returns ``(logits | final hidden,
     aux)``, ``aux`` the MoE router loss summed over layers (0 for the
-    other families)."""
+    other families).  With ``cfg.remat`` and grad mode on, each layer's
+    body is recomputed in the backward."""
     CALLS["forward"] += 1
     x, positions = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     enc_out = (_run_encoder(params, cfg, batch["frame_embeds"]) if cfg.family == "encdec"
                else None)
+
+    def transformer(x, bp):
+        enc_kv = _enc_kv(cfg, bp["cross"], enc_out) if enc_out is not None else None
+        x, _, a = _transformer_body(cfg, bp, x, positions, None, enc_kv)
+        return x, a
+
+    def recurrent(x, bp, site):
+        if site:
+            # The shared transformer block (its weights the same at every site).
+            x, _, _ = _transformer_body(cfg, params["shared_attn"], x, positions, None)
+        return _ssm_body(cfg, bp, x)[0]
+
+    transformer, recurrent = _remat(cfg, transformer), _remat(cfg, recurrent)
     for layer in range(cfg.num_layers):
         bp = layer_params(params, layer)
         if cfg.family in TRANSFORMER_FAMILIES:
-            enc_kv = _enc_kv(cfg, bp["cross"], enc_out) if enc_out is not None else None
-            x, _, a = _transformer_body(cfg, bp, x, positions, None, enc_kv)
+            x, a = transformer(x, bp)
             if a is not None:
                 aux = aux + a
-            continue
-        if cfg.family == "hybrid" and layer % cfg.attn_every == 0:
-            # The shared transformer block (its weights the same at every site).
-            x, _, _ = _transformer_body(cfg, params["shared_attn"], x, positions, None)
-        x, _ = _ssm_body(cfg, bp, x)
+        else:
+            x = recurrent(x, bp, cfg.family == "hybrid" and layer % cfg.attn_every == 0)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     if return_hidden:
         return x, aux
     return unembed(params, x), aux
+
+
+def _ce_terms(pred: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor):
+    """(Σ nll, Σ mask) over a ``[B, S, V]`` float32 slab."""
+    logz = torch.logsumexp(pred, dim=-1)
+    gold = torch.gather(pred, -1, targets[..., None].to(torch.int64))[..., 0]
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy (text positions only for vlm), plus the MoE
+    router loss: ``(loss + aux, {"loss", "aux", "tokens"})``, step for step
+    the reference's.
+
+    With ``cfg.loss_chunk > 0`` the LM head and cross entropy run over
+    chunks of the sequence (padded to a multiple of the chunk), each chunk
+    recomputed in the backward, bounding the logits to ``B × loss_chunk ×
+    V`` instead of ``B × S × V``.
+    """
+    tokens = batch["tokens"]
+    mask = batch.get("loss_mask")
+    mask_full = (torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=tokens.device)
+                 if mask is None else mask[:, 1:])
+    targets = tokens[:, 1:]
+    n_patches = (batch["patch_embeds"].shape[1]
+                 if cfg.family == "vlm" and "patch_embeds" in batch else 0)
+
+    if cfg.loss_chunk <= 0:
+        logits, aux = forward(params, cfg, batch)
+        pred = logits[:, n_patches:][:, :-1].float()
+        nll, denom = _ce_terms(pred, targets, mask_full)
+        loss = nll / torch.clamp_min(denom, 1.0)
+        return loss + aux, {"loss": loss, "aux": aux, "tokens": denom}
+
+    hidden, aux = forward(params, cfg, batch, return_hidden=True)
+    hidden = hidden[:, n_patches:][:, :-1]
+    head = params.get("lm_head")
+    head = head if head is not None else params["embed"].T
+    c = cfg.loss_chunk
+    pad = (-hidden.shape[1]) % c
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask_full = F.pad(mask_full, (0, pad))
+
+    def chunk(h_c, t_c, m_c):
+        return _ce_terms((h_c @ head).float(), t_c, m_c)
+
+    if torch.is_grad_enabled():
+        chunk_fn = lambda *args: checkpoint(chunk, *args, use_reentrant=False)
+    else:
+        chunk_fn = chunk
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    denom = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(hidden.shape[1] // c):
+        part = slice(i * c, (i + 1) * c)
+        nll_c, den_c = chunk_fn(hidden[:, part], targets[:, part], mask_full[:, part])
+        nll, denom = nll + nll_c, denom + den_c
+    loss = nll / torch.clamp_min(denom, 1.0)
+    return loss + aux, {"loss": loss, "aux": aux, "tokens": denom}
 
 
 def logits_at(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

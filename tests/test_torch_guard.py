@@ -3,8 +3,9 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the
   JAX package ``repro`` (only the tests import both);
 * the entry points run on CUDA unless the caller asks for the CPU: on a
-  machine without a card, ``build_searcher``, ``play_episode`` and the
-  launcher raise instead of running on the CPU;
+  machine without a card, ``build_searcher``, ``play_episode``, the
+  launchers (search, train) and the examples raise instead of running on
+  the CPU, and the training data's prefetcher takes its device explicitly;
 * selection on a GPU always goes through the kernel;
 * each kernel is built with its own nvcc flags, and the library's name
   hashes them and the ``csrc/`` headers its source includes;
@@ -64,10 +65,16 @@ def test_port_files_exist():
     port = REPO / "src" / "repro_torch"
     for path in (port / "serving" / "search_service.py", port / "serving" / "admission.py",
                  port / "envs" / "random_mdp.py", port / "configs" / "wu_uct_paper.py",
-                 port / "core" / "baselines.py"):
+                 port / "core" / "baselines.py", port / "launch" / "train.py",
+                 port / "distributed" / "compress.py"):
         assert path in PORT_FILES, path
+    for module in ("optimizer", "train_step", "data", "checkpoint"):
+        assert port / "training" / f"{module}.py" in PORT_FILES, module
+    for module in ("quickstart", "passrate_prediction", "train_policy", "serve_search"):
+        assert port / "examples" / f"{module}.py" in PORT_FILES, module
     for kernel in ("tree_select", "decode_attention", "flash_attention",
-                   "paged_decode_attention", "tree_decode_attention", "ssd_scan"):
+                   "paged_decode_attention", "tree_decode_attention", "ssd_scan",
+                   "flash_attention_bwd"):
         assert (REPO / "src" / "repro_torch" / "csrc" / f"{kernel}.cu").exists()
 
 
@@ -126,6 +133,23 @@ def test_launcher_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_search.main(["--env", "bandit", "--batch", "2", "--simulations", "4",
                             "--workers", "2"])
+
+
+def test_train_launcher_and_prefetcher_default_to_cuda():
+    """``launch.train`` (its CLI and its loop) runs on CUDA unless asked for
+    the CPU; the prefetcher has no default device."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import Prefetcher, SyntheticStream, TrainConfig
+
+    with pytest.raises(TypeError, match="device"):
+        Prefetcher(SyntheticStream(16, 1, 4))
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--smoke", "--steps", "1", "--batch", "1", "--seq", "8"])
+    cfg, _ = _tiny_lm()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.train(cfg, TrainConfig(), steps=1, batch=1, seq=8)
 
 
 def test_unported_paths_raise_not_implemented():
@@ -255,7 +279,7 @@ def test_each_kernel_has_its_own_flags_and_they_name_its_library(monkeypatch):
     flags = {name: _build.nvcc_flags(name) for name in _build.KERNEL_FLAGS}
     assert "--fmad=false" in flags["tree_select"]
     for name in ("decode_attention", "flash_attention", "paged_decode_attention",
-                 "tree_decode_attention", "ssd_scan"):
+                 "tree_decode_attention", "ssd_scan", "flash_attention_bwd"):
         assert "--fmad=false" not in flags[name]
         assert "arch=compute_90a,code=sm_90a" in flags[name]
     assert "--use_fast_math" not in flags["ssd_scan"]     # accurate expf

@@ -16,7 +16,8 @@ Phases (any failure raises, so the script exits non-zero):
    CUDA cores), ``decode_attention`` (the key-split body),
    ``tree_decode_attention`` (the body over a shared-memory copy of the
    prefix), ``ssd_scan`` (bf16 B/C on the tensor cores, float32 and the
-   state pass on the CUDA cores) and ``flash_attention_bwd`` (CUDA cores);
+   state pass on the CUDA cores) and ``flash_attention_bwd`` (bf16 on the
+   tensor cores, float32 on the CUDA cores);
 3. hold each kernel against its plain PyTorch version on the card (the
    tree walk ``tree_descend``, bit for bit, on trees the port grows on the
    card: phase 4's tap cell at B=256 and B=1 and phase 5's bandit tree at
@@ -30,7 +31,8 @@ Phases (any failure raises, so the script exits non-zero):
    copy and A=32;
    ``flash_attention``'s log-sum-exp output and its backward
    ``flash_attention_bwd`` in float32 and bf16 (phase 24's shape among
-   them; ``out`` bit-equal with and without the log-sum-exp),
+   them, D=32 at G=8; ``out`` bit-equal with and without the log-sum-exp,
+   a second backward bit-equal to the first; the backward timed by kernel),
    ``ssd_scan`` with float32 and bfloat16 B/C over a grid, the driven
    shapes, and against the sequential recurrence too, and its final state
    (``return_state``) over the grid and phase 20's prefill shapes, timed
@@ -149,7 +151,9 @@ Phases (any failure raises, so the script exits non-zero):
     unchunked: every loss and grad norm finite, the last loss below the
     first, ``flash_attention`` = 2 × 8 launches a step (the forward and its
     recompute) and ``flash_attention_bwd`` = 8; step time, tokens/s, peak
-    memory; (b) ``repro_torch.examples.train_policy`` at its default size:
+    memory; then one more step under torch.profiler, device ms by group
+    (the backward's kernels, the forward flash kernels, GEMMs, AdamW, the
+    rest); (b) ``repro_torch.examples.train_policy`` at its default size:
     the restored run reaches its last step; and a grad-requiring input to
     ``ssd_scan`` and to ``decode_attention`` raises (they have no
     backward); 24.2 (last) one train step at 2 full-width float32 layers
@@ -360,19 +364,30 @@ def device_ms(fn, calls=50):
     return graph_ms(fn, calls=calls)
 
 
+def device_us_by_kernel(torch, device, fn, calls=1):
+    """Device µs of one ``fn()`` by kernel: the raw device events of
+    ``calls`` calls under torch.profiler, summed per kernel name (its
+    template arguments kept, its parameter list dropped)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync(device)
+    totals: dict[str, float] = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            name = evt.name().replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0]
+            totals[name] = totals.get(name, 0.0) + evt.duration_ns() * 1e-3 / calls
+    return totals
+
+
 def profiled_device_ms(torch, device, fn, calls):
     """Device time of one ``fn()`` in ms: the summed device time of the
     kernels of ``calls`` warm calls under torch.profiler, per call (for
     calls a CUDA graph cannot capture)."""
     fn()
     sync(device)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        sync(device)
-    ns = sum(evt.duration_ns() for evt in prof.profiler.kineto_results.events()
-             if evt.device_type() == torch.autograd.DeviceType.CUDA)
-    return ns * 1e-6 / calls
+    return sum(device_us_by_kernel(torch, device, fn, calls).values()) * 1e-3
 
 
 def check_tree_select(torch, device):
@@ -714,7 +729,8 @@ def check_flash_bwd(torch, device):
     """The forward's ``lse`` against ``flash_attention_lse_ref`` and its
     ``out`` bit-equal with and without ``lse``; ``flash_attention_bwd``
     against ``flash_attention_bwd_ref`` (float32 and bf16, causal and not,
-    GQA and MHA, D = 16, 64, 112, 128, ragged tiles).  Returns the max
+    GQA and MHA, D = 16, 32, 64, 112, 128, G up to 8, ragged tiles), and a
+    second call bit-equal to the first (no atomics).  Returns the max
     errors."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
@@ -723,7 +739,7 @@ def check_flash_bwd(torch, device):
     gen = torch.Generator(device=device).manual_seed(15)
     shapes = [(TRAIN_B, TRAIN_S, 32, 8, 128, True), (2, 160, 8, 2, 64, True),
               (2, 160, 32, 32, 112, True), (1, 33, 4, 1, 16, True), (2, 7, 8, 8, 64, True),
-              (2, 100, 8, 2, 128, False)]
+              (2, 100, 8, 2, 128, False), (2, 96, 16, 2, 32, True)]
     errs = {"lse": 0.0, "float32": 0.0, "bfloat16_share": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -741,7 +757,10 @@ def check_flash_bwd(torch, device):
                 raise AssertionError(f"{what}: lse differs by up to {float(diff.max())!r}")
             errs["lse"] = max(errs["lse"], float(diff.max()))
             got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+            again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
             sync(device)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{what}: a second call's gradients differ")
             ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
                                           dout.float(), lse, causal=causal)
             for grad, x, r in zip(("dq", "dk", "dv"), got, ref):
@@ -762,10 +781,11 @@ def check_flash_bwd(torch, device):
                         raise AssertionError(f"{what}: {grad} differs by {share!r} of its "
                                              f"largest value (bar {FLASH_BWD_BF16_SHARE})")
                     errs["bfloat16_share"] = max(errs["bfloat16_share"], share)
-            del q, k, v, dout, out, lse, got, ref
+            del q, k, v, dout, out, lse, got, again, ref
     print(f"flash_attention lse and backward match their plain versions: {len(shapes)} "
           f"shapes x (float32, bfloat16) {[sh[:5] for sh in shapes]}, out bit-equal with "
-          f"and without lse; max |lse - plain| {errs['lse']!r}, float32 max |d - plain| "
+          f"and without lse, a second backward bit-equal to the first; max |lse - plain| "
+          f"{errs['lse']!r}, float32 max |d - plain| "
           f"{errs['float32']!r}, bf16 max |d - plain| / max |plain| "
           f"{errs['bfloat16_share']!r}")
     return errs
@@ -793,6 +813,8 @@ def time_flash_bwd(torch, device, b=TRAIN_B, s=TRAIN_S, hq=32, hkv=8, d=128):
     lib = lambda: torch.autograd.grad(lib_out, (qs, ks, vs), dout_t, retain_graph=True)
     lib_ms = time_ms(torch, lib, 20)
     lib_dev = profiled_device_ms(torch, device, lib, calls=10)
+    # The backward's kernels (bf16: dQ with D, then dK/dV), profiled device time each.
+    by_kernel = device_us_by_kernel(torch, device, run, calls=10)
     elems_q, elems_kv = b * s * hq * d, b * s * hkv * d
     nbytes = 2 * (4 * elems_q + 4 * elems_kv) + 4 * b * hq * s
     ops = 10 * d * (s * (s + 1) // 2) * b * hq          # five products over the causal half
@@ -802,9 +824,11 @@ def time_flash_bwd(torch, device, b=TRAIN_B, s=TRAIN_S, hq=32, hkv=8, d=128):
     print(f"flash_attention_bwd bf16 B={b} S={s} {hq}/{hkv} D={d} causal: kernel "
           f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, SDPA "
           f"backward {lib_ms * 1e3!r} us (device {lib_dev * 1e3!r} us), bound "
-          f"{bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, {ops} flops)")
+          f"{bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, {ops} flops); by kernel "
+          f"(profiled device us a call): {by_kernel}")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "device_ms": k_dev, "library_device_ms": lib_dev}
+            "library_ms": lib_ms, "device_ms": k_dev, "library_device_ms": lib_dev,
+            "kernels_device_us": by_kernel}
 
 
 # The paged and tree-batched decode kernels (phases 10-12).
@@ -3055,8 +3079,57 @@ class RepeatedBatch:
         return self.batch
 
 
+# Phase 24(a)'s profiled step: device time by group, in this order (a
+# kernel goes to the first group one of whose name pieces it holds; the
+# optimizer's section is one group whatever its kernels).
+STEP_GROUPS = (("flash_attention_bwd", ("bwd_delta_kernel", "bwd_dkdv", "bwd_dq")),
+               ("flash_attention forward", ("flash_mma_kernel", "flash_attention_kernel")),
+               ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def profiled_step(torch, device, cfg, params, opt_state, batch):
+    """One more step of phase 24(a) under torch.profiler, as the train step
+    runs it (``grad_fn``, then AdamW in place), profiled in two sections so
+    that AdamW's elementwise passes, whose kernels share their names with
+    the model's, are told apart.  Prints and returns device ms by group."""
+    from repro_torch.training import AdamWConfig
+    from repro_torch.training.data import to_device
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.train_step import grad_fn
+
+    data = to_device(batch, device)
+    held = {}
+
+    def grads():
+        held["grads"] = grad_fn(params, cfg, data)[1]
+
+    sync(device)
+    t0 = time.perf_counter()
+    by_name = device_us_by_kernel(torch, device, grads)
+    opt = device_us_by_kernel(torch, device, lambda: adamw_update(
+        held.pop("grads"), opt_state, params, AdamWConfig(**TRAIN_OPT)))
+    wall = time.perf_counter() - t0
+    groups = {name: 0.0 for name, _ in STEP_GROUPS}
+    groups["AdamW"] = sum(opt.values()) * 1e-3
+    groups["the rest"] = 0.0
+    for name, us in by_name.items():
+        low = name.lower()
+        group = next((g for g, pieces in STEP_GROUPS if any(p in low for p in pieces)),
+                     "the rest")
+        groups[group] += us * 1e-3
+    busy = sum(groups.values())
+    print(f"24(a) one more step under torch.profiler: wall {wall!r} s (profiler included), "
+          f"device {busy!r} ms: " + ", ".join(f"{g} {ms!r} ms ({ms / busy:.4f})"
+                                             for g, ms in groups.items()))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print("  top kernels of the gradient section: "
+          + "; ".join(f"{us * 1e-3!r} ms {name[:90]}" for name, us in top))
+    return {"wall_s": wall, "device_ms": busy, "groups_ms": groups}
+
+
 def train_llama(torch, device):
-    """Phase 24(a): returns the kernels' launches."""
+    """Phase 24(a): returns the kernels' launches and the profiled step's
+    split."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3082,6 +3155,7 @@ def train_llama(torch, device):
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device)
     n_params = sum(x.numel() for x in leaves(params))
+    split = profiled_step(torch, device, cfg, params, opt_state, source.batch)
     del params, opt_state
     torch.cuda.empty_cache()
     for r in records:
@@ -3108,7 +3182,7 @@ def train_llama(torch, device):
           f"wall {wall!r} s (parameters made, 7 steps); launches per step: flash_attention "
           f"{launches['flash_attention'] / TRAIN_STEPS!r}, flash_attention_bwd "
           f"{launches['flash_attention_bwd'] / TRAIN_STEPS!r}")
-    return {k: launches[k] for k in want}
+    return {k: launches[k] for k in want}, split
 
 
 def train_policy_example(torch, device):
@@ -3405,7 +3479,8 @@ def main():
     family["23"] = stub_family(torch, device)
 
     phase("24. training on the card (llama3-8b 8 of 32 layers; train_policy; the grad guard)")
-    launches["flash_attention_bwd"] = train_llama(torch, device)["flash_attention_bwd"]
+    got, fields["flash_attention_bwd"]["train_step_profile"] = train_llama(torch, device)
+    launches["flash_attention_bwd"] = got["flash_attention_bwd"]
     family["24"] = train_policy_example(torch, device)
     grad_guard(torch, device)
 

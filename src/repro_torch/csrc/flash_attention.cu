@@ -56,7 +56,9 @@
 //
 // `mma.sync` rather than `wgmma`: the work is small (a 64-row `wgmma`
 // tile leaves three query tiles per head at S = 160) and `mma.sync`
-// reaches the tensor cores without descriptor-swizzled layouts.
+// reaches the tensor cores without descriptor-swizzled layouts.  The
+// cp.async, ldmatrix, mma and split primitives live in mma_tiles.cuh,
+// which the backward (flash_attention_bwd.cu) shares.
 //
 // float32 keeps the CUDA-core body below (one block per (batch * query
 // head, 32 queries), 32-key float32 tiles in shared memory, FMA loops).
@@ -77,7 +79,11 @@
 
 #include <type_traits>
 
+#include "mma_tiles.cuh"
+
 namespace {
+
+using namespace mma_tiles;
 
 // ---------------------------------------------------------------------------
 // float32: the CUDA-core body
@@ -237,65 +243,6 @@ template <int D, int W>
 constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * static_cast<size_t>(D + 8) *
          (16 * W + 2 * kStages * kMmaBlockK);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !full.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), packed as bf16x2 (x0 low).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
 // One block of W warps per (batch * KV head, tile of 16 * W query rows).

@@ -17,16 +17,62 @@
 //   dk[j]    = scale * sum_{t, heads} ds[t, j] q[t]
 //   dq[t]    = scale * sum_j ds[t, j] k[j]
 //
-// all in float32 from the inputs' type, rounded once to it at the end.
+// accumulated in float32 and rounded once to the inputs' type.  No
+// atomics, so two calls on the same inputs give the same bits: dk and dv
+// come from blocks that own a KV head's key tile and loop over its G query
+// heads (the GQA sum stays in registers), dq from blocks that own query
+// rows, and D for every row from its own launch (float32) or the dq blocks
+// (bf16).
 //
 // What bounds it: at the training shape (8 x 512 tokens, 32/8 heads,
 // D = 128, bf16, causal) the five products take 4.3e10 flops, 43 us on the
 // bf16 tensor cores, and reading q, k, v, o, do and writing dq, dk, dv
-// moves ~168 MB, 50 us at 3.35 TB/s: bytes bound it.  This first kernel
-// is the simple design that is right: CUDA-core float32 FMAs from shared
-// memory, three launches, no atomics.
+// moves ~168 MB, 50 us at 3.35 TB/s: bytes bound it, by little.  Each key
+// tile's s and dp are formed twice (once for dk/dv, once for dq), 1.4x
+// the flops, to keep the sums free of atomics.
 //
-// * `bwd_delta_kernel`: D for every row, one warp a row.
+// bf16: the tensor-core body, on the forward's primitives (mma_tiles.cuh);
+// two launches, dq first.
+//
+// * `bwd_dq_mma_kernel`: the forward's block shape, one block per (batch
+//   * KV head, 64 (position, query head) rows; 32 with 2 warps at G = 1),
+//   heaviest causal tiles first, so the G heads share each K/V tile the
+//   block loads.  It first forms its rows' D from O (device memory) and dO
+//   (its staged rows) and writes it for the dK/dV blocks: that saves the
+//   D launch's second read of dO (kDeltaInDq; 4 % of the backward's time).
+//   The warp's Q and dO rows are A fragments in registers; 32-key K and V
+//   tiles stream through a two-stage cp.async ring.  s = Q.K^T and
+//   dp = dO.V^T on mma.sync, ds formed in registers is the A fragment of
+//   dq += ds.K with K through ldmatrix.trans.
+// * `bwd_dkdv_mma_kernel`: one block of 4 warps per (batch, KV head, tile
+//   of 64 keys), 16 keys a warp, key tiles in order so the causal tiles
+//   with the most query tiles start first.  K and V stay bf16 in shared
+//   memory.  The block walks (query head, tile of 32 query rows) items
+//   from the key tile on (causal), the Q and dO tiles and their rows' lse
+//   and D streaming through a two-stage cp.async ring (zero-filled past
+//   Sq), so item i + 1 loads while item i computes.  s^T = K.Q^T and
+//   dp^T = V.dO^T run on mma.sync.m16n8k16 with the warp's K and V rows
+//   as the A operand (ldmatrix) and Q, dO as B; p^T and ds^T are formed on
+//   the accumulator fragments (log2 units, MUFU ex2; the mask on fragment
+//   coordinates), packed to bf16 and used directly as the A fragment of
+//   dv += p^T.dO and dk += ds^T.Q, with dO and Q through ldmatrix.trans:
+//   p and ds never touch shared memory.  dk and dv stay in float32
+//   registers across all G heads; dk is scaled, both are rounded once,
+//   staged in the warp's own K and V rows and written with 16-byte stores.
+//   A warp whose keys all lie in a query tile's future skips it.
+// * p and ds enter the bf16 products rounded once (kSplitP, kSplitDs
+//   false).  Unlike the forward's p.V, whose bar is per element, the
+//   backward is held to 2^-6 of each gradient's largest value.  A CPU
+//   model of this arithmetic (tests/test_torch_flash_bwd_numerics.py,
+//   which reads these two constants) stays within half of that with one
+//   rounding, which adds at most 2^-8 to the error of hi + lo (the final
+//   rounding to bf16 alone may take 2^-8): the split's second product in
+//   three of the five products is not worth its time.
+//
+// float32: the CUDA-core body, three launches (`bwd_delta_kernel`, one
+// warp a row, first).  TF32 on the tensor cores would break the float32
+// bar (1e-5 + 1e-4 |d|).
+//
 // * `bwd_dkdv_kernel`: one block per (batch, KV head, tile of 32 keys).
 //   Its K and V tiles stay in shared memory while it loops over the G query
 //   heads of the KV head and the query tiles at or after the key tile
@@ -41,14 +87,23 @@
 // ds goes to shared memory (rows padded to 33) for the products that
 // follow, in which a lane owns a key (dk, dv) or a row (dq) and a warp a
 // quarter of D.
+//
+// Which body runs is fixed by the dtype; neither falls back to the other.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
 
+using namespace mma_tiles;
 using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core body
+// ---------------------------------------------------------------------------
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -59,22 +114,8 @@ constexpr int kPad = kTile + 1;           // row stride of the p / ds tiles
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(bf16* p, float4 x) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&a);
-  u.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -352,6 +393,550 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core body
+// ---------------------------------------------------------------------------
+
+// p and ds enter the bf16 products rounded once (not split into hi + lo).
+constexpr bool kSplitP = false;
+constexpr bool kSplitDs = false;
+constexpr int kKvKeys = 64;            // keys per dK/dV block: 16 a warp
+constexpr int kKvWarps = kKvKeys / 16;
+constexpr int kQRows = 32;             // query rows per item of the dK/dV loop
+constexpr int kKeyTile = 32;           // keys per K/V tile of the dQ loop
+// D = sum dO.O of each row is formed by the dQ kernel, which holds the
+// rows' dO already and runs first, rather than by its own launch.
+constexpr bool kDeltaInDq = true;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the MUFU instruction alone (relative error ~2^-22; results below
+// 2^-126 flush to 0): exp2f's extra range handling costs 2 % of the
+// backward's time, and p is rounded to bf16 next.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (x0, x1) as the A-fragment pair of a bf16 product: hi = bf16(x) and, when
+// split, lo = bf16(x - hi).
+template <bool Split>
+__device__ __forceinline__ void to_operand(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (Split)
+    split_bf16(x0, x1, hi, lo);
+  else
+    hi = as_u32(__floats2bfloat162_rn(x0, x1));
+}
+
+// acc + the dot product of 8 bf16 pairs (16 bytes each), in float32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[i]));
+    const float2 yf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y[i]));
+    acc = fmaf(xf.x, yf.x, acc);
+    acc = fmaf(xf.y, yf.y, acc);
+  }
+  return acc;
+}
+
+// Shared memory of the dK/dV kernel: the K and V tiles, two stages of Q
+// and dO tiles (rows of D + 8 elements) and of their rows' lse and D.
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  return sizeof(bf16) * static_cast<size_t>(D + 8) * (2 * kKvKeys + 4 * kQRows) +
+         sizeof(float) * 4 * kQRows;
+}
+
+// Shared memory of the dQ kernel: the Q and dO rows of the block and two
+// stages of K and V tiles.
+template <int D, int W>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(bf16) * static_cast<size_t>(D + 8) * (2 * 16 * W + 4 * kKeyTile);
+}
+
+// dk, dv of one (batch, KV head, tile of kKvKeys keys).
+template <int D>
+__global__ void __launch_bounds__(kKvWarps * 32)
+bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ dlt,
+                    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+                    int Hq, int Hkv, int causal, float scale) {
+  constexpr int kThreadsKv = kKvWarps * 32;
+  constexpr int kStride = D + 8;          // elements per shared row
+  constexpr int kChunks = D / 8;          // 16-byte chunks per row
+  constexpr int kDSteps = D / 16;         // k16 steps over D (s^T, dp^T)
+  constexpr int kDTiles = D / 8;          // n8 tiles over D (dv, dk)
+  constexpr int kQTiles = kQRows / 8;     // n8 tiles over an item's rows
+  constexpr int kTileElems = kQRows * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [kKvKeys][kStride]
+  bf16* vs = ks + kKvKeys * kStride;               // [kKvKeys][kStride]
+  bf16* qs = vs + kKvKeys * kStride;               // [2][kQRows][kStride]
+  bf16* dos = qs + 2 * kTileElems;                 // [2][kQRows][kStride]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTileElems);  // [2][kQRows]
+  float* dlt_s = lse_s + 2 * kQRows;                              // [2][kQRows]
+
+  const int G = Hq / Hkv;
+  const int b = blockIdx.x / Hkv;
+  const int hk = blockIdx.x - b * Hkv;
+  const int k0 = blockIdx.y * kKvKeys;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const float scale2 = scale * kLog2e;
+  const long long q_stride = static_cast<long long>(Hq) * D;
+  const long long kv_stride = static_cast<long long>(Hkv) * D;
+  const long long kv_off = (static_cast<long long>(b) * Sk * Hkv + hk) * D;
+
+  // Group 0: the K and V tiles (zero past Sk).
+  for (int e = tid; e < kKvKeys * kChunks; e += kThreadsKv) {
+    const int r = e / kChunks;
+    const int ch = e - r * kChunks;
+    const bool in = k0 + r < Sk;
+    const long long off = kv_off + (in ? (k0 + r) * kv_stride + ch * 8 : 0);
+    cp_async16(smem_addr(ks + r * kStride + ch * 8), k + off, in);
+    cp_async16(smem_addr(vs + r * kStride + ch * 8), v + off, in);
+  }
+  cp_async_commit();
+
+  // Items (query head, tile of kQRows rows), heads outer; causal: the
+  // tiles from the key tile's first position on.
+  const int n_qt = (Sq + kQRows - 1) / kQRows;
+  const int qt0 = causal ? min(k0 / kQRows, n_qt) : 0;
+  const int per_head = n_qt - qt0;
+  const int items = G * per_head;
+  auto item_rows = [&](int item, int& h, int& q0) {
+    const int gh = item / per_head;
+    h = hk * G + gh;
+    q0 = (qt0 + item - gh * per_head) * kQRows;
+  };
+  auto load_item = [&](int item, int stage) {
+    int h, q0;
+    item_rows(item, h, q0);
+    const long long q_off = (static_cast<long long>(b) * Sq * Hq + h) * D;
+    bf16* qd = qs + stage * kTileElems;
+    bf16* od = dos + stage * kTileElems;
+    for (int e = tid; e < kQRows * kChunks; e += kThreadsKv) {
+      const int r = e / kChunks;
+      const int ch = e - r * kChunks;
+      const bool in = q0 + r < Sq;
+      const long long off = q_off + (in ? (q0 + r) * q_stride + ch * 8 : 0);
+      cp_async16(smem_addr(qd + r * kStride + ch * 8), q + off, in);
+      cp_async16(smem_addr(od + r * kStride + ch * 8), dout + off, in);
+    }
+    if (tid < kQRows) {
+      const bool in = q0 + tid < Sq;
+      const long long row =
+          (static_cast<long long>(b) * Hq + h) * Sq + (in ? q0 + tid : 0);
+      cp_async4(smem_addr(lse_s + stage * kQRows + tid), lse + row, in);
+      cp_async4(smem_addr(dlt_s + stage * kQRows + tid), dlt + row, in);
+    }
+  };
+  // Group 1: the first item.
+  if (items > 0) load_item(0, 0);
+  cp_async_commit();
+
+  // The warp's keys are kw + [0, 16); this thread's kw + g and kw + g + 8.
+  const int kw = k0 + 16 * warp;
+  const uint32_t k_rows = smem_addr(ks + (16 * warp + (lane & 15)) * kStride + (lane >> 4) * 8);
+  const uint32_t v_rows = smem_addr(vs + (16 * warp + (lane & 15)) * kStride + (lane >> 4) * 8);
+  // ldmatrix offsets (elements) of the B fragments of two n8 tiles: plain
+  // (rows are the n dimension) and transposed (rows are the k dimension).
+  const int b_plain = ((lane & 7) + (lane >> 4) * 8) * kStride + ((lane >> 3) & 1) * 8;
+  const int b_trans = ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride + (lane >> 4) * 8;
+
+  float dk_acc[kDTiles][4], dv_acc[kDTiles][4];
+#pragma unroll
+  for (int i = 0; i < kDTiles; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
+
+  for (int it = 0; it < items; ++it) {
+    // Item `it` (and, at it = 0, K and V) has landed, and every warp is
+    // done with item it - 1, whose stage the next load refills.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < items) load_item(it + 1, (it + 1) & 1);
+    cp_async_commit();
+
+    int h, q0;
+    item_rows(it, h, q0);
+    // Warp-uniform: keys past Sk, or every key in the rows' future.
+    if (kw >= Sk || (causal && kw > q0 + kQRows - 1)) continue;
+    const int stage = it & 1;
+    const bf16* qt = qs + stage * kTileElems;
+    const bf16* ot = dos + stage * kTileElems;
+
+    // s^T = K.Q^T and dp^T = V.dO^T: the warp's 16 keys by the item's rows.
+    float st[kQTiles][4], pt[kQTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kQTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = pt[nt][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < kDSteps; ++kd) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, k_rows + kd * 32);
+      ldsm_x4(av, v_rows + kd * 32);
+#pragma unroll
+      for (int np = 0; np < kQTiles / 2; ++np) {
+        const int off = np * 16 * kStride + kd * 16 + b_plain;
+        uint32_t bq[4], bo[4];
+        ldsm_x4(bq, smem_addr(qt + off));
+        ldsm_x4(bo, smem_addr(ot + off));
+        mma_bf16(st[2 * np], ak, bq[0], bq[1]);
+        mma_bf16(st[2 * np + 1], ak, bq[2], bq[3]);
+        mma_bf16(pt[2 * np], av, bo[0], bo[1]);
+        mma_bf16(pt[2 * np + 1], av, bo[2], bo[3]);
+      }
+    }
+
+    // p^T = exp2(s^T scale log2 e - lse log2 e), ds^T = p^T (dp^T - D), on
+    // the fragments: column (row of the item) nt * 8 + 2c + (e & 1), key
+    // kw + g + 8 (e >> 1).  Masked: the causal future and rows past Sq.
+    const float* ls = lse_s + stage * kQRows;
+    const float* dl = dlt_s + stage * kQRows;
+    const bool masked = q0 + kQRows > Sq || (causal && kw + 15 > q0);
+#pragma unroll
+    for (int nt = 0; nt < kQTiles; ++nt) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + nt * 8 + 2 * c);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + nt * 8 + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lse2 = ((e & 1) ? l2.y : l2.x) * kLog2e;
+        float p = ex2(fmaf(st[nt][e], scale2, -lse2));
+        if (masked) {
+          const int t = q0 + nt * 8 + 2 * c + (e & 1);
+          if (t >= Sq || (causal && kw + g + 8 * (e >> 1) > t)) p = 0.0f;
+        }
+        st[nt][e] = p;
+        pt[nt][e] = p * (pt[nt][e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+
+    // dv += p^T.dO and dk += ds^T.Q: the accumulators of n8 tiles 2kk and
+    // 2kk + 1 are the A fragment of k16 step kk; ldmatrix.trans of 16 rows
+    // x 16 dims gives the B fragments of two n8 dim tiles.
+#pragma unroll
+    for (int kk = 0; kk < kQTiles / 2; ++kk) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int nt = 2 * kk + (i >> 1);
+        const int e = 2 * (i & 1);
+        to_operand<kSplitP>(st[nt][e], st[nt][e + 1], ph[i], pl[i]);
+        to_operand<kSplitDs>(pt[nt][e], pt[nt][e + 1], sh[i], sl[i]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < kDTiles / 2; ++dp) {
+        const int off = kk * 16 * kStride + dp * 16 + b_trans;
+        uint32_t bo[4], bq[4];
+        ldsm_x4_trans(bo, smem_addr(ot + off));
+        ldsm_x4_trans(bq, smem_addr(qt + off));
+        mma_bf16(dv_acc[2 * dp], ph, bo[0], bo[1]);
+        mma_bf16(dv_acc[2 * dp + 1], ph, bo[2], bo[3]);
+        mma_bf16(dk_acc[2 * dp], sh, bq[0], bq[1]);
+        mma_bf16(dk_acc[2 * dp + 1], sh, bq[2], bq[3]);
+        if constexpr (kSplitP) {
+          mma_bf16(dv_acc[2 * dp], pl, bo[0], bo[1]);
+          mma_bf16(dv_acc[2 * dp + 1], pl, bo[2], bo[3]);
+        }
+        if constexpr (kSplitDs) {
+          mma_bf16(dk_acc[2 * dp], sl, bq[0], bq[1]);
+          mma_bf16(dk_acc[2 * dp + 1], sl, bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  // Epilogue: every copy into ks/vs has landed (with no item, none was
+  // waited for) and from here a warp touches only its own 16 rows: dk
+  // scaled, both rounded once, staged there, then 16-byte stores.
+  cp_async_wait<0>();
+  __syncthreads();
+  bf16* kst = ks + 16 * warp * kStride;
+  bf16* vst = vs + 16 * warp * kStride;
+#pragma unroll
+  for (int i = 0; i < kDTiles; ++i) {
+    const int col = i * 8 + 2 * c;
+    *reinterpret_cast<__nv_bfloat162*>(kst + g * kStride + col) =
+        __floats2bfloat162_rn(dk_acc[i][0] * scale, dk_acc[i][1] * scale);
+    *reinterpret_cast<__nv_bfloat162*>(kst + (g + 8) * kStride + col) =
+        __floats2bfloat162_rn(dk_acc[i][2] * scale, dk_acc[i][3] * scale);
+    *reinterpret_cast<__nv_bfloat162*>(vst + g * kStride + col) =
+        __floats2bfloat162_rn(dv_acc[i][0], dv_acc[i][1]);
+    *reinterpret_cast<__nv_bfloat162*>(vst + (g + 8) * kStride + col) =
+        __floats2bfloat162_rn(dv_acc[i][2], dv_acc[i][3]);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * kChunks; e += 32) {
+    const int r = e / kChunks;
+    const int ch = e - r * kChunks;
+    if (kw + r < Sk) {
+      const long long off = kv_off + (kw + r) * kv_stride + ch * 8;
+      *reinterpret_cast<uint4*>(dk + off) =
+          *reinterpret_cast<const uint4*>(kst + r * kStride + ch * 8);
+      *reinterpret_cast<uint4*>(dv + off) =
+          *reinterpret_cast<const uint4*>(vst + r * kStride + ch * 8);
+    }
+  }
+}
+
+// dq of one block of W warps: (batch * KV head, tile of 16 * W flat rows),
+// flat row f being position f / G of query head hk * G + f % G, as in the
+// forward's bf16 kernel.  Tile index reversed so the longest causal tiles
+// start first.  With kDeltaInDq it also forms and writes its rows' D.
+template <int D, int W>
+__global__ void __launch_bounds__(W * 32)
+bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ out,
+                  const bf16* __restrict__ dout, const float* __restrict__ lse,
+                  float* __restrict__ dlt, bf16* __restrict__ dq, int Sq, int Sk,
+                  int Hq, int Hkv, int causal, float scale) {
+  constexpr int kBlockRows = 16 * W;
+  constexpr int kStride = D + 8;
+  constexpr int kChunks = D / 8;
+  constexpr int kDSteps = D / 16;          // k16 steps over D (s, dp)
+  constexpr int kDTiles = D / 8;           // n8 tiles over D (dq)
+  constexpr int kKTiles = kKeyTile / 8;    // n8 tiles over a key tile
+  constexpr int kTileElems = kKeyTile * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBlockRows][kStride]
+  bf16* dos = qs + kBlockRows * kStride;          // [kBlockRows][kStride]
+  bf16* ks = dos + kBlockRows * kStride;          // [2][kKeyTile][kStride]
+  bf16* vs = ks + 2 * kTileElems;                 // [2][kKeyTile][kStride]
+
+  const int G = Hq / Hkv;
+  const int b = blockIdx.x / Hkv;
+  const int hk = blockIdx.x - b * Hkv;
+  const int n_rows = Sq * G;
+  const int f0 = (gridDim.y - 1 - blockIdx.y) * kBlockRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const float scale2 = scale * kLog2e;
+  const long long q_stride = static_cast<long long>(Hq) * D;
+  const long long kv_stride = static_cast<long long>(Hkv) * D;
+  const long long q_head0 =
+      (static_cast<long long>(b) * Sq * Hq + static_cast<long long>(hk) * G) * D;
+  const long long kv_off = (static_cast<long long>(b) * Sk * Hkv + hk) * D;
+  auto row_offset = [&](int f) -> long long {
+    const int t = f / G;
+    return t * q_stride + static_cast<long long>(f - t * G) * D;
+  };
+
+  // Group 0: the block's Q and dO rows (zero past Sq * G).
+  for (int e = tid; e < kBlockRows * kChunks; e += W * 32) {
+    const int r = e / kChunks;
+    const int ch = e - r * kChunks;
+    const bool in = f0 + r < n_rows;
+    const long long off = q_head0 + (in ? row_offset(f0 + r) + ch * 8 : 0);
+    cp_async16(smem_addr(qs + r * kStride + ch * 8), q + off, in);
+    cp_async16(smem_addr(dos + r * kStride + ch * 8), dout + off, in);
+  }
+  cp_async_commit();
+
+  auto load_kv = [&](int tile, int stage) {
+    const int t0 = tile * kKeyTile;
+    bf16* kd = ks + stage * kTileElems;
+    bf16* vd = vs + stage * kTileElems;
+    for (int e = tid; e < kKeyTile * kChunks; e += W * 32) {
+      const int r = e / kChunks;
+      const int ch = e - r * kChunks;
+      const bool in = t0 + r < Sk;
+      const long long off = kv_off + (in ? (t0 + r) * kv_stride + ch * 8 : 0);
+      cp_async16(smem_addr(kd + r * kStride + ch * 8), k + off, in);
+      cp_async16(smem_addr(vd + r * kStride + ch * 8), v + off, in);
+    }
+  };
+
+  // Keys the block needs: causal rows stop at the block's last position.
+  const int last_pos = (min(f0 + kBlockRows, n_rows) - 1) / G;
+  const int k_end = causal ? min(Sk, last_pos + 1) : Sk;
+  const int n_tiles = (k_end + kKeyTile - 1) / kKeyTile;
+  // Group 1: the first K/V tile.
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  // The warp's flat rows are wf0 + [0, 16); this thread's wf0 + g and
+  // wf0 + g + 8, at positions pos[0], pos[1], with their lse (log2 units)
+  // and D (0 past Sq * G, where Q and dO are zero; formed below with
+  // kDeltaInDq).
+  const int wf0 = f0 + 16 * warp;
+  const int warp_pos0 = wf0 / G;
+  const int pos[2] = {(wf0 + g) / G, (wf0 + g + 8) / G};
+  const int warp_k_end =
+      wf0 >= n_rows ? 0
+      : causal      ? min(Sk, (min(wf0 + 16, n_rows) - 1) / G + 1)
+                    : Sk;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int f = wf0 + g + 8 * i;
+    lse2[i] = dl[i] = 0.0f;
+    if (f < n_rows) {
+      const int t = f / G;
+      const long long row =
+          (static_cast<long long>(b) * Hq + hk * G + (f - t * G)) * Sq + t;
+      lse2[i] = lse[row] * kLog2e;
+      if constexpr (!kDeltaInDq) dl[i] = dlt[row];
+    }
+  }
+  const int b_plain = ((lane & 7) + (lane >> 4) * 8) * kStride + ((lane >> 3) & 1) * 8;
+  const int b_trans = ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride + (lane >> 4) * 8;
+
+  uint32_t qf[kDSteps][4], of[kDSteps][4];
+  float acc[kDTiles][4];
+#pragma unroll
+  for (int i = 0; i < kDTiles; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) & 1);
+    cp_async_commit();
+
+    if (it == 0) {
+      const int a_off = (16 * warp + (lane & 15)) * kStride + (lane >> 4) * 8;
+#pragma unroll
+      for (int kd = 0; kd < kDSteps; ++kd) {
+        ldsm_x4(qf[kd], smem_addr(qs + a_off + kd * 16));
+        ldsm_x4(of[kd], smem_addr(dos + a_off + kd * 16));
+      }
+      if constexpr (kDeltaInDq) {
+        // D of the warp's 16 rows: lane 2r + h sums half h of row r (O
+        // from device memory, dO from the staged rows), a shuffle adds the
+        // halves; the rows' owners in the fragment layout take theirs.
+        const int f = wf0 + (lane >> 1);
+        float d = 0.0f;
+        if (f < n_rows) {
+          const int half = (lane & 1) * (D / 2);
+          const bf16* orow = out + q_head0 + row_offset(f) + half;
+          const bf16* grow = dos + (16 * warp + (lane >> 1)) * kStride + half;
+#pragma unroll
+          for (int j = 0; j < D / 2; j += 8)
+            d = dot8(*reinterpret_cast<const uint4*>(orow + j),
+                     *reinterpret_cast<const uint4*>(grow + j), d);
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        if ((lane & 1) == 0 && f < n_rows) {
+          const int t = f / G;
+          dlt[(static_cast<long long>(b) * Hq + hk * G + (f - t * G)) * Sq + t] = d;
+        }
+        dl[0] = __shfl_sync(0xffffffffu, d, 2 * g);
+        dl[1] = __shfl_sync(0xffffffffu, d, 2 * (g + 8));
+      }
+    }
+    const int t0 = it * kKeyTile;
+    // Warp-uniform: a diagonal tile may lie wholly in this warp's future.
+    if (t0 >= warp_k_end) continue;
+    const bf16* kt = ks + (it & 1) * kTileElems;
+    const bf16* vt = vs + (it & 1) * kTileElems;
+    // Key n8 tiles this warp needs: those starting before warp_k_end.
+    const int live = min(kKTiles, (warp_k_end - t0 + 7) / 8);
+
+    // s = Q.K^T and dp = dO.V^T; a second pair of n8 key tiles wholly in
+    // the warp's future is skipped.
+    float s[kKTiles][4], dp[kKTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kKTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < kDSteps; ++kd) {
+#pragma unroll
+      for (int np = 0; np < kKTiles / 2; ++np) {
+        if (2 * np >= live) break;
+        const int off = np * 16 * kStride + kd * 16 + b_plain;
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, smem_addr(kt + off));
+        ldsm_x4(bv, smem_addr(vt + off));
+        mma_bf16(s[2 * np], qf[kd], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kd], bk[2], bk[3]);
+        mma_bf16(dp[2 * np], of[kd], bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], of[kd], bv[2], bv[3]);
+      }
+    }
+
+    // ds = p (dp - D) with p = exp2(s scale log2 e - lse log2 e): row
+    // g + 8 (e >> 1), key t0 + nt * 8 + 2c + (e & 1).  Masked: the causal
+    // future, keys past Sk, the key tiles skipped above.
+    const bool masked = t0 + kKeyTile > warp_k_end ||
+                        (causal && t0 + kKeyTile > warp_pos0 + 1);
+#pragma unroll
+    for (int nt = 0; nt < kKTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(s[nt][e], scale2, -lse2[e >> 1]));
+        if (masked) {
+          const int key = t0 + nt * 8 + 2 * c + (e & 1);
+          if (key >= warp_k_end || (causal && key > pos[e >> 1])) p = 0.0f;
+        }
+        s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
+      }
+    }
+
+    // dq += ds.K: the ds accumulators of key tiles 2kk, 2kk + 1 are the A
+    // fragment of k16 step kk; K through ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < kKTiles / 2; ++kk) {
+      if (2 * kk >= live) break;
+      uint32_t sh[4], sl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int nt = 2 * kk + (i >> 1);
+        const int e = 2 * (i & 1);
+        to_operand<kSplitDs>(s[nt][e], s[nt][e + 1], sh[i], sl[i]);
+      }
+#pragma unroll
+      for (int dpair = 0; dpair < kDTiles / 2; ++dpair) {
+        uint32_t bk[4];
+        ldsm_x4_trans(bk, smem_addr(kt + kk * 16 * kStride + dpair * 16 + b_trans));
+        mma_bf16(acc[2 * dpair], sh, bk[0], bk[1]);
+        mma_bf16(acc[2 * dpair + 1], sh, bk[2], bk[3]);
+        if constexpr (kSplitDs) {
+          mma_bf16(acc[2 * dpair], sl, bk[0], bk[1]);
+          mma_bf16(acc[2 * dpair + 1], sl, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+
+  // Epilogue: dq scaled and rounded once, staged in the warp's own Q rows
+  // (no other warp reads them), then 16-byte stores of the rows inside
+  // Sq * G.
+  bf16* stage = qs + 16 * warp * kStride;
+#pragma unroll
+  for (int i = 0; i < kDTiles; ++i) {
+    const int col = i * 8 + 2 * c;
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * kStride + col) =
+        __floats2bfloat162_rn(acc[i][0] * scale, acc[i][1] * scale);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * kStride + col) =
+        __floats2bfloat162_rn(acc[i][2] * scale, acc[i][3] * scale);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * kChunks; e += 32) {
+    const int r = e / kChunks;
+    const int ch = e - r * kChunks;
+    if (wf0 + r < n_rows)
+      *reinterpret_cast<uint4*>(dq + q_head0 + row_offset(wf0 + r) + ch * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * kStride + ch * 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -361,25 +946,31 @@ int allow_smem(Kernel kernel, size_t smem) {
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const float* lse, float* dlt, void* dq, void* dk,
-           void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
-           float scale, cudaStream_t stream) {
+int launch_delta(const void* out, const void* dout, float* dlt, int B, int Sq,
+                 int Hq, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * Sq * Hq;
+  const long long delta_blocks = (rows + kWarps - 1) / kWarps;
+  if (delta_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  bwd_delta_kernel<T, D><<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), dlt, Sq, Hq, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, float* dlt, void* dq, void* dk,
+               void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+               float scale, cudaStream_t stream) {
+  using T = float;
   constexpr size_t smem = smem_bytes<D>();
   int err = allow_smem(bwd_dkdv_kernel<T, D>, smem);
   if (err == 0) err = allow_smem(bwd_dq_kernel<T, D>, smem);
+  if (err == 0) err = launch_delta<T, D>(out, dout, dlt, B, Sq, Hq, stream);
   if (err != 0) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  const long long rows = static_cast<long long>(B) * Sq * Hq;
-  const long long delta_blocks = (rows + kWarps - 1) / kWarps;
-  if (delta_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  bwd_delta_kernel<T, D><<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(out), dot, dlt, Sq, Hq, rows);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
   const dim3 kv_grid(B * Hkv, (Sk + kTile - 1) / kTile);
   bwd_dkdv_kernel<T, D><<<kv_grid, kThreads, smem, stream>>>(
       qt, kt, vt, dot, lse, dlt, static_cast<T*>(dk), static_cast<T*>(dv), Sq,
@@ -393,6 +984,53 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, int W>
+int launch_dq_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
+                  const bf16* dout, const float* lse, float* dlt, bf16* dq, int B,
+                  int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
+                  cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D, W>();
+  const int err = allow_smem(bwd_dq_mma_kernel<D, W>, smem);
+  if (err != 0) return err;
+  const long long tiles =
+      (static_cast<long long>(Sq) * (Hq / Hkv) + 16 * W - 1) / (16 * W);
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B * Hkv, static_cast<unsigned>(tiles));
+  bwd_dq_mma_kernel<D, W><<<grid, W * 32, smem, stream>>>(
+      q, k, v, out, dout, lse, dlt, dq, Sq, Sk, Hq, Hkv, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, const void* out,
+                const void* dout, const float* lse, float* dlt, void* dq, void* dk,
+                void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                float scale, cudaStream_t stream) {
+  constexpr size_t smem = dkdv_smem_bytes<D>();
+  int err = allow_smem(bwd_dkdv_mma_kernel<D>, smem);
+  if (err == 0 && !kDeltaInDq) err = launch_delta<bf16, D>(out, dout, dlt, B, Sq, Hq, stream);
+  if (err != 0) return err;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* ot = static_cast<const bf16*>(out);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  // dq first (it writes D with kDeltaInDq): 4 warps of 16 (position,
+  // query head) rows a block; 2 where each row is its own position
+  // (G = 1), as in the forward.
+  err = Hq == Hkv
+      ? launch_dq_mma<D, 2>(qt, kt, vt, ot, dot, lse, dlt, static_cast<bf16*>(dq), B, Sq,
+                            Sk, Hq, Hkv, causal, scale, stream)
+      : launch_dq_mma<D, 4>(qt, kt, vt, ot, dot, lse, dlt, static_cast<bf16*>(dq), B, Sq,
+                            Sk, Hq, Hkv, causal, scale, stream);
+  if (err != 0) return err;
+  const dim3 kv_grid(B * Hkv, (Sk + kKvKeys - 1) / kKvKeys);
+  bwd_dkdv_mma_kernel<D><<<kv_grid, kKvWarps * 32, smem, stream>>>(
+      qt, kt, vt, dot, lse, dlt, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      Sq, Sk, Hq, Hkv, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, const void* out,
              const void* dout, const float* lse, float* dlt, void* dq,
@@ -400,11 +1038,11 @@ int launch_d(const void* q, const void* k, const void* v, const void* out,
              int causal, float scale, int dtype, cudaStream_t s) {
   switch (dtype) {
     case 0:
-      return launch<float, D>(q, k, v, out, dout, lse, dlt, dq, dk, dv, B, Sq,
-                              Sk, Hq, Hkv, causal, scale, s);
+      return launch_f32<D>(q, k, v, out, dout, lse, dlt, dq, dk, dv, B, Sq,
+                           Sk, Hq, Hkv, causal, scale, s);
     case 1:
-      return launch<bf16, D>(q, k, v, out, dout, lse, dlt, dq, dk, dv, B, Sq,
-                             Sk, Hq, Hkv, causal, scale, s);
+      return launch_bf16<D>(q, k, v, out, dout, lse, dlt, dq, dk, dv, B, Sq,
+                            Sk, Hq, Hkv, causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

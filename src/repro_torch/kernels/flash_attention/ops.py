@@ -109,7 +109,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` of :func:`flash_attention` on the card: the forward's
     inputs, its output ``out``, the output gradient ``dout`` (both ``[B,
     Sq, Hq, D]`` in q's dtype) and its ``lse [B, Hq, Sq]`` (float32).  The
-    gradients come in the inputs' dtype, accumulated in float32."""
+    gradients come in the inputs' dtype, accumulated in float32 (bf16 on
+    the tensor cores, float32 on the CUDA cores; no atomics, so a repeated
+    call gives the same bits)."""
     b, sq, sk, hq, hkv, d = _check(q, k, v, out=out, dout=dout)
     if tuple(out.shape) != tuple(q.shape) or tuple(dout.shape) != tuple(q.shape):
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} and dout "

@@ -1,20 +1,22 @@
-"""Time variants of the flash-, decode- and tree-decode-attention kernels
-and of the SSD scan on one GPU.
+"""Time variants of the flash-, decode- and tree-decode-attention kernels,
+of the flash-attention backward and of the SSD scan on one GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.attention_sweep [--only flash,decode,tree,ssd]
+    PYTHONPATH=src python -m repro_torch.launch.attention_sweep [--only flash,flash_bwd,decode,tree,ssd]
 
 Each variant is the shipped source of ``csrc/flash_attention.cu``,
-``csrc/decode_split.cuh``, ``csrc/tree_decode_attention.cu`` or
-``csrc/ssd_scan.cu`` with one text substitution (an ablation that drops a
-part of the work, or another block shape), built by ``nvcc`` with the
-kernel's own flags into ``build/repro_torch/sweep/`` and called through
-its C entry point.  At the main paths' shapes (phase 8's and phase 14's
-flash forwards, phase 7's decode step, phase 11's and 12's frontier
-forwards through both tree entry points, phase 13's and phase 14's scans;
-bf16) it prints, per variant, the device time of one call, from
-CUDA-graph replay of 50 back-to-back calls (10 for the scan), and the
-largest difference from the plain version (an ablation is not meant to be
-right).  The shipped wrappers and SDPA (for the tree kernels: a
+``csrc/flash_attention_bwd.cu``, ``csrc/decode_split.cuh``,
+``csrc/tree_decode_attention.cu`` or ``csrc/ssd_scan.cu`` with one text
+substitution (an ablation that drops a part of the work, or another block
+shape or rounding), built by ``nvcc`` with the kernel's own flags into
+``build/repro_torch/sweep/`` and called through its C entry point.  At the
+main paths' shapes (phase 8's and phase 14's flash forwards, phase 24's
+backward, phase 7's decode step, phase 11's and 12's frontier forwards
+through both tree entry points, phase 13's and phase 14's scans; bf16) it
+prints, per variant, the device time of one call, from CUDA-graph replay
+of 50 back-to-back calls (10 for the backward and the scan), and the
+largest difference from the plain version (for the backward, the largest
+over dq, dk and dv as a share of that gradient's largest value; an
+ablation is not meant to be right).  The shipped wrappers and SDPA (for the tree kernels: a
 concatenation of prefix and tail, a gather of the pages first when paged,
 and masked SDPA) are timed the same way beside them.  For the decode and
 tree kinds it also prints, from ``cuobjdump -sass`` of the shipped
@@ -46,7 +48,13 @@ from ..kernels.decode_attention import (
     tree_decode_attention,
     tree_decode_attention_ref,
 )
-from ..kernels.flash_attention import flash_attention, flash_attention_ref
+from ..kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
+from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
 SWEEP_DIR = _build.BUILD_DIR / "sweep"
@@ -112,6 +120,11 @@ _GROUPS = "constexpr int kGroups = 2;"
 _CANDIDATES = "constexpr int kCandidates = 32;"
 _OVERLAP = "constexpr bool kOverlap = true;"
 
+# The backward's block shapes.
+_KV_KEYS = "constexpr int kKvKeys = 64;"
+_Q_ROWS = "constexpr int kQRows = 32;"
+_DQ_WARPS = "      : launch_dq_mma<D, 4>("
+
 # name -> (library, edited file, [(old, new), ...])
 VARIANTS = {
     "flash shipped": ("flash_attention", "flash_attention.cu", []),
@@ -123,6 +136,32 @@ VARIANTS = {
                                     [(_STORE, "      ;\n")]),
     "flash 4 warps at G=1, 2 at G>1": ("flash_attention", "flash_attention.cu",
                                        [(_WARPS, _WARPS_SWAPPED)]),
+    "flash_bwd shipped": ("flash_attention_bwd", "flash_attention_bwd.cu", []),
+    "flash_bwd 32 keys per dK/dV block (2 warps)": (
+        "flash_attention_bwd", "flash_attention_bwd.cu", [(_KV_KEYS, _KV_KEYS.replace("64", "32"))]),
+    "flash_bwd 128 keys per dK/dV block (8 warps)": (
+        "flash_attention_bwd", "flash_attention_bwd.cu", [(_KV_KEYS, _KV_KEYS.replace("64", "128"))]),
+    "flash_bwd 16 query rows per dK/dV item": (
+        "flash_attention_bwd", "flash_attention_bwd.cu", [(_Q_ROWS, _Q_ROWS.replace("32", "16"))]),
+    "flash_bwd 32 rows per dQ block (2 warps)": (
+        "flash_attention_bwd", "flash_attention_bwd.cu", [(_DQ_WARPS, _DQ_WARPS.replace("4", "2"))]),
+    "flash_bwd 128 rows per dQ block (8 warps)": (
+        "flash_attention_bwd", "flash_attention_bwd.cu", [(_DQ_WARPS, _DQ_WARPS.replace("4", "8"))]),
+    "flash_bwd dK/dV at 3 blocks per SM": (
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        [("__launch_bounds__(kKvWarps * 32)", "__launch_bounds__(kKvWarps * 32, 3)")]),
+    "flash_bwd dQ at 3 blocks per SM": (
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        [("__launch_bounds__(W * 32)", "__launch_bounds__(W * 32, 3)")]),
+    "flash_bwd D in its own launch": (
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        [("constexpr bool kDeltaInDq = true;", "constexpr bool kDeltaInDq = false;")]),
+    "flash_bwd p by exp2f, not ex2.approx": ("flash_attention_bwd", "flash_attention_bwd.cu",
+                                              [("ex2(fmaf(", "exp2f(fmaf(")]),
+    "flash_bwd p and ds split hi + lo": (
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        [("constexpr bool kSplitP = false;", "constexpr bool kSplitP = true;"),
+         ("constexpr bool kSplitDs = false;", "constexpr bool kSplitDs = true;")]),
     "decode shipped": ("decode_attention", "decode_split.cuh", []),
     "decode 2 warps": ("decode_attention", "decode_split.cuh",
                        [("constexpr int kWarps = 4;", "constexpr int kWarps = 2;")]),
@@ -256,13 +295,49 @@ def _flash(libs, device, hq, hkv, d, b=8, s=160):
     _report("SDPA", graph_ms(sdpa), sdpa().transpose(1, 2), ref)
     out = torch.empty_like(q)
     for name, lib in libs.items():
-        if not name.startswith("flash"):
+        if name.split()[0] != "flash":
             continue
         fn = _entry(lib, "flash_attention", 7)
         call = lambda: _ok(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
                               b, s, s, hq, hkv, d, 1, 1.0 / math.sqrt(d), 1, device.index,
                               torch.cuda.current_stream().cuda_stream))
         _report(name, graph_ms(call), out, ref)
+
+
+def _grad_share(grads, ref):
+    return max(float((x.float() - r).abs().max()) / float(r.abs().max())
+               for x, r in zip(grads, ref))
+
+
+def _flash_bwd(libs, device, b=8, s=512, hq=32, hkv=8, d=128):
+    """Phase 24's backward: 8 x 512 tokens, 32/8 heads, D=128, bf16, causal."""
+    gen = torch.Generator(device=device).manual_seed(16)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+                     for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+    out, lse = flash_ops._forward(q, k, v, True, with_lse=True)
+    ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), dout.float(), lse)
+    print(f"-- flash_attention_bwd bf16 B={b} S={s} {hq}/{hkv} D={d} causal")
+    run = lambda: flash_attention_bwd(q, k, v, out, dout, lse)
+    ms = graph_ms(run, calls=10)
+    print(f"wrapper: {ms * 1e3!r} us (max share |d - plain| / max |plain| "
+          f"{_grad_share(run(), ref)!r})")
+    grads = [torch.empty_like(x) for x in (q, k, v)]
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=device)
+    for name, lib in libs.items():
+        if name.split()[0] != "flash_bwd":
+            continue
+        fn = lib.flash_attention_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        call = lambda: _ok(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                              *(x.data_ptr() for x in grads), b, s, s, hq, hkv, d, 1,
+                              1.0 / math.sqrt(d), 1, device.index,
+                              torch.cuda.current_stream().cuda_stream))
+        ms = graph_ms(call, calls=10)
+        print(f"{name}: {ms * 1e3!r} us (max share |d - plain| / max |plain| "
+              f"{_grad_share(grads, ref)!r})")
 
 
 def _decode(libs, device, n=128, s=160, hq=32, hkv=8, d=128):
@@ -392,6 +467,27 @@ def _sass_mix(library):
           + ", ".join(f"{op} {n}" for op, n in mix))
 
 
+def _resource_usage(library):
+    """Registers, stack, spills and shared memory of every kernel of the
+    shipped ``library``, from ``cuobjdump --dump-resource-usage``."""
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    dump = subprocess.run([cuobjdump, "--dump-resource-usage",
+                           str(_build.build([library])[library])],
+                          capture_output=True, text=True, check=True).stdout
+    demangle = shutil.which("c++filt")
+    name = None
+    for line in dump.splitlines():
+        if "Function" in line:
+            name = line.split("Function", 1)[1].split(":")[0].strip()
+            if demangle:
+                name = subprocess.run([demangle, name], capture_output=True, text=True,
+                                      check=True).stdout.strip() or name
+                name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+                name = name.split("(")[0]
+        if "REG:" in line:
+            print(f"{library} {name}: {line[line.index('REG:'):].strip()}")
+
+
 def _ssd(libs, device, b, h, p, n, s=160):
     """Phase 13's (b=128, h=80, n=128) or phase 14's (b=8, h=112, n=64)
     scan: one chunk of 160 tokens, P=64, bf16 B/C."""
@@ -419,8 +515,9 @@ def _ssd(libs, device, b, h, p, n, s=160):
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="flash,decode,tree,ssd",
-                        help="comma-separated kernels to sweep: flash, decode, tree, ssd")
+    parser.add_argument("--only", default="flash,flash_bwd,decode,tree,ssd",
+                        help="comma-separated kernels to sweep: flash, flash_bwd, decode, "
+                             "tree, ssd")
     kinds = set(parser.parse_args(argv).only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("attention_sweep needs a CUDA device")
@@ -430,6 +527,8 @@ def main(argv=None) -> None:
     print(f"card: {card}")
     device = torch.device("cuda", 0)
     libs = _build_variants(kinds)
+    if "flash_bwd" in kinds:
+        _resource_usage("flash_attention_bwd")
     for library in ("decode_attention", "tree_decode_attention"):
         if library.split("_")[0] in kinds:
             _build.build([library])
@@ -438,6 +537,8 @@ def main(argv=None) -> None:
         if "flash" in kinds:
             _flash(libs, device, 32, 8, 128)
             _flash(libs, device, 32, 32, 112)
+        if "flash_bwd" in kinds:
+            _flash_bwd(libs, device)
         if "decode" in kinds:
             _decode(libs, device)
         if "tree" in kinds:

@@ -8,7 +8,8 @@
   against ``torch.logsumexp`` and autograd;
 * the guard of the kernels without a backward (``refuse_grad``);
 * on a card (``cuda``-marked), the backward kernel against its plain
-  version, the ``lse`` output, and autograd through ``flash_attention``.
+  version (and a second call bit-equal to the first), the ``lse`` output,
+  and autograd through ``flash_attention``.
 
 JAX is imported by the ``jx`` fixture only, so the file also runs on the
 card's machine, which has no JAX (``pytest -m cuda``).
@@ -125,7 +126,8 @@ def test_cuda_backward_kernel_matches_plain_version(dtype):
 
     dev = torch.device("cuda")
     for causal in (True, False):
-        for shape in SHAPES + [(2, 160, 32, 8, 128), (1, 70, 32, 32, 112), (2, 40, 8, 2, 64)]:
+        for shape in SHAPES + [(2, 160, 32, 8, 128), (1, 70, 32, 32, 112), (2, 40, 8, 2, 64),
+                               (2, 96, 16, 2, 32)]:
             q, k, v, dout = (torch.from_numpy(x).to(dev, dtype) for x in _inputs(4, *shape))
             out, lse = flash_ops._forward(q, k, v, causal, with_lse=True)
             assert torch.equal(out, flash_attention(q, k, v, causal=causal))
@@ -134,6 +136,8 @@ def test_cuda_backward_kernel_matches_plain_version(dtype):
             before = LAUNCHES["flash_attention_bwd"]
             got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
             assert LAUNCHES["flash_attention_bwd"] == before + 1
+            again = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))   # no atomics
             ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
                                           dout.float(), lse, causal=causal)
             for a, r in zip(got, ref):

@@ -7,17 +7,19 @@ Phases (any failure raises, so the script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``); require CUDA;
 2. build the port's CUDA libraries from ``src/repro_torch/csrc`` with
-   nvcc, one process per library, all at once (nine kernels in seven
+   nvcc, one process per library, all at once (ten kernels in eight
    libraries: ``tree_select`` holds the walk and the per-level kernel,
    ``tree_decode_attention`` the dense and the paged tree kernel;
-   ``flash_attention_bwd`` the three launches of the attention backward),
+   ``flash_attention_bwd`` the launches of the attention backward,
+   ``ssd_scan_bwd`` the three of the scan's backward),
    and summarise ptxas's registers, spills and static shared memory of
    ``tree_select``, ``flash_attention`` (bf16 on the tensor cores, float32 on the
    CUDA cores), ``decode_attention`` (the key-split body),
    ``tree_decode_attention`` (the body over a shared-memory copy of the
    prefix), ``ssd_scan`` (bf16 B/C on the tensor cores, float32 and the
-   state pass on the CUDA cores) and ``flash_attention_bwd`` (bf16 on the
-   tensor cores, float32 on the CUDA cores);
+   state pass on the CUDA cores), ``flash_attention_bwd`` (bf16 on the
+   tensor cores, float32 on the CUDA cores) and ``ssd_scan_bwd`` (CUDA
+   cores);
 3. hold each kernel against its plain PyTorch version on the card (the
    tree walk ``tree_descend``, bit for bit, on trees the port grows on the
    card: phase 4's tap cell at B=256 and B=1 and phase 5's bandit tree at
@@ -36,7 +38,11 @@ Phases (any failure raises, so the script exits non-zero):
    ``ssd_scan`` with float32 and bfloat16 B/C over a grid, the driven
    shapes, and against the sequential recurrence too, and its final state
    (``return_state``) over the grid and phase 20's prefill shapes, timed
-   at mamba2's and zamba2's), and time kernel,
+   at mamba2's and zamba2's; its backward ``ssd_scan_bwd`` over the grid
+   and phase 24(c)'s training shapes in both types, a second call
+   bit-equal, autograd through ``ssd_scan`` (``y`` bit-equal to the
+   no-grad call), timed at both training shapes, and
+   ``flash_attention_bwd`` also at zamba2's D=112), and time kernel,
    plain version and one PyTorch library call at the main paths' shapes
    (the paged and tree kernels have no single library call: a gather or
    concatenation plus SDPA is timed beside them as a two- or three-call
@@ -153,11 +159,19 @@ Phases (any failure raises, so the script exits non-zero):
     recompute) and ``flash_attention_bwd`` = 8; step time, tokens/s, peak
     memory; then one more step under torch.profiler, device ms by group
     (the backward's kernels, the forward flash kernels, GEMMs, AdamW, the
-    rest); (b) ``repro_torch.examples.train_policy`` at its default size:
-    the restored run reaches its last step; and a grad-requiring input to
-    ``ssd_scan`` and to ``decode_attention`` raises (they have no
-    backward); 24.2 (last) one train step at 2 full-width float32 layers
-    (vocabulary cut to 4096) on the card against the port on the CPU;
+    rest); (c) mamba2-2.7b at full width and depth (64 blocks) and
+    zamba2-7b at full width, 24 of its 81 blocks (its shared block at 4
+    sites), bf16, 8 × 512 tokens a step, 5 and 3 steps (1 warm-up): the
+    same checks, ``ssd_scan`` = 2 × blocks and ``ssd_scan_bwd`` = blocks a
+    step (zamba2 also ``flash_attention`` = 2 × 4, ``flash_attention_bwd``
+    = 4), then one more mamba2 step profiled by group; (b)
+    ``repro_torch.examples.train_policy`` at its default size: the restored
+    run reaches its last step; and a grad-requiring input to
+    ``ssd_scan(return_state=True)`` and to ``decode_attention`` raises
+    (they have no backward); 24.2 one train step at 2 full-width float32
+    layers (vocabulary cut to 4096) on the card against the port on the
+    CPU; 24.3 (last) the same for mamba2-2.7b and, its gradients only,
+    zamba2-7b (its site-0 shared block included);
 9. agreement on the card: cached prefill vs flash forward vs decode step
    logits (full width, 2 layers, float32), the reduced model's cached and
    paged frontier searches on the GPU against the port on the CPU,
@@ -171,7 +185,7 @@ Phases (any failure raises, so the script exits non-zero):
 Phases 15 and 16 run after phase 6; phases 10-12 and 17-19 before phase
 9, while phase 7's model is loaded; phases 13 and 14, each followed by its
 phase 20, after it is freed, then 21-23 and 24, one model at a time;
-17.2 with 18.2, then 19.2, 20.2, 21.2-23.2 and 24.2 last.  Phase
+17.2 with 18.2, then 19.2, 20.2, 21.2-23.2, 24.2 and 24.3 last.  Phase
 10 must choose phase 7's action on at least 7 of 8 trees and phase 12
 phase 11's.  Phase 11 prints its agreement with phase 7 without holding
 it: in bf16 over 32 random layers the frontier forward, the decode step
@@ -182,7 +196,7 @@ least 90 % of rows, frontier and paged frontier actions at least 7 of 8
 equal to the cached search's), and phase 9.3 holds frontier to cached
 decisions in float32.  The line before
 the last is a JSON object with each kernel's launches on its main path
-(phase 4, 7, 8, 10, 11, 12, 13 or 24; the ``tree_select`` row reports the
+(phase 4, 7, 8, 10, 11, 12, 13, 24(a) or 24(c); the ``tree_select`` row reports the
 walk that replaced its per-level launches on the main path, and the
 per-level kernel under ``level_*`` keys), error against its plain version, time,
 plain time, bound, library time and ``bound_share`` (bound / time), and
@@ -220,10 +234,10 @@ TRACE_B = 256                 # phase 16's traced bandit forest
 KINDS = ("wu_uct", "uct", "treep", "treep_vc")
 KERNELS = ("tree_select", "decode_attention", "flash_attention", "paged_decode_attention",
            "tree_decode_attention", "paged_tree_decode_attention", "ssd_scan",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "ssd_scan_bwd")
 # The library (``csrc/<name>.cu``) of each kernel, and the TPU kernel it
-# replaces (the backward: the forward's, which has no Pallas backward; the
-# reference differentiates XLA's chunked attention).
+# replaces (the backwards: the forward's, which has no Pallas backward; the
+# reference differentiates XLA's chunked attention and ``ssd_chunked``).
 SOURCES = {name: name for name in KERNELS}
 SOURCES["paged_tree_decode_attention"] = "tree_decode_attention"
 REPLACES = {
@@ -237,6 +251,7 @@ REPLACES = {
         "src/repro/kernels/decode_attention/tree_decode_attention.py:259",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:99",
     "flash_attention_bwd": "src/repro/kernels/flash_attention/flash_attention.py:120",
+    "ssd_scan_bwd": "src/repro/kernels/ssd_scan/ssd_scan.py:99",
 }
 # The model-guided paths (phases 7 and 8): llama3-8b, a 128-token prompt,
 # 160-token sequences, top-8 actions, EOS token 1.
@@ -312,7 +327,7 @@ def select_inputs(torch, rs, b, a, device):
 # scan on the tensor cores, the key-split decode, the tree kernels over a
 # staged prefix).
 PTXAS_SUMMARY = ("tree_select", "flash_attention", "decode_attention", "tree_decode_attention",
-                 "ssd_scan", "flash_attention_bwd")
+                 "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd")
 
 
 def ptxas_summary(log):
@@ -1289,6 +1304,147 @@ def time_ssd_state(torch, device, shape):
           f"{nbytes} bytes, {flops} flops); device bound share {bound_ms / k_dev!r}")
     return {"shape": list(shape), "ms": k_ms, "device_ms": k_dev, "stateless_device_ms": y_dev,
             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# ssd_scan_bwd against its plain version (phase 3), per tensor as a share
+# of the plain version's largest value: ddA is a difference of row and
+# column sums through exp(cum_i - cum_j), which cancels, so an elementwise
+# bar says nothing there.  float32: the same float32 formulas summed in
+# another order.  bf16 B/C: against the float32 plain version on the same
+# (upcast) inputs; dB and dC are rounded once to bf16 (at most 2^-8
+# relative).
+SSD_BWD_F32_SHARE = 1e-4
+SSD_BWD_BF16_SHARE = 2.0 ** -7
+# The training shapes of phase 24(c): 8 rows of 512 tokens, two chunks of
+# 256 (``models.ssm.kernel_chunk``); mamba2-2.7b (H=80, P=64, N=128) and
+# zamba2-7b (H=112, P=64, N=64).
+SSD_TRAIN_SHAPES = [(TRAIN_B, TRAIN_S, 80, 64, 128, 256), (TRAIN_B, TRAIN_S, 112, 64, 64, 256)]
+
+
+def check_ssd_bwd(torch, device):
+    """ssd_scan_bwd against ssd_scan_bwd_ref with float32 and bfloat16 B/C
+    over the grid and the training shapes, a second call bit-equal to the
+    first (no atomics); autograd through ``ssd_scan`` gives the forward's
+    ``y`` bit for bit and the direct call's gradients.  Returns the max
+    shares of the largest value (float32; bf16 dB/dC) and the float32 max
+    absolute error."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_ref
+
+    gen = torch.Generator(device=device).manual_seed(45)
+    errs = {"float32_share": 0.0, "bfloat16_share": 0.0, "float32_abs": 0.0}
+    worst = {}
+    names = ("dxdt", "ddA", "dB", "dC")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for b, s, h, p, n, q in SSD_GRID + SSD_TRAIN_SHAPES:
+            what = f"ssd_scan_bwd B/C {name} (b, s, h, p, n, Q) = {(b, s, h, p, n, q)}"
+            args = ssd_inputs(torch, gen, b, s, h, p, n, dtype, device)
+            dy = torch.randn((b, s, h, p), generator=gen, device=device)
+            before = LAUNCHES["ssd_scan_bwd"]
+            got = ssd_scan_bwd(*args, dy, chunk=q)
+            again = ssd_scan_bwd(*args, dy, chunk=q)
+            sync(device)
+            if LAUNCHES["ssd_scan_bwd"] != before + 2:
+                raise AssertionError(f"{what}: launches {LAUNCHES['ssd_scan_bwd'] - before}")
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{what}: a second call's gradients differ")
+            xdt, dA, bm, cm = args
+            ref = ssd_scan_bwd_ref(xdt, dA, bm.float(), cm.float(), dy, chunk=q)
+            for grad, x, r, want in zip(names, got, ref, (torch.float32, torch.float32,
+                                                          dtype, dtype)):
+                if x.dtype != want or not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"{what}: {grad} is {x.dtype} or not finite")
+                diff = float((x.float() - r).abs().max())
+                share = diff / max(float(r.abs().max()), 1e-30)
+                rounded = dtype == torch.bfloat16 and grad in ("dB", "dC")
+                bar = SSD_BWD_BF16_SHARE if rounded else SSD_BWD_F32_SHARE
+                if share > bar:
+                    raise AssertionError(f"{what}: {grad} differs by {share!r} of its "
+                                         f"largest value (bar {bar})")
+                key = "bfloat16_share" if rounded else "float32_share"
+                errs[key] = max(errs[key], share)
+                if not rounded:
+                    errs["float32_abs"] = max(errs["float32_abs"], diff)
+                    worst[grad] = max(worst.get(grad, 0.0), share)
+            del args, dy, got, again, ref
+    # Autograd through ssd_scan: y bit-equal to the no-grad call, the
+    # gradients bit-equal to the direct call's, one launch each way.
+    for b, s, h, p, n, q in ((2, 128, 4, 32, 16, 32), SSD_TRAIN_SHAPES[0]):
+        xdt, dA, bm, cm = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16, device)
+        dy = torch.randn((b, s, h, p), generator=gen, device=device)
+        with torch.no_grad():
+            y0 = ssd_scan(xdt, dA, bm, cm, chunk=q)
+        leaves = [x.detach().clone().requires_grad_() for x in (xdt, dA, bm, cm)]
+        before = dict(LAUNCHES)
+        y = ssd_scan(*leaves, chunk=q)
+        y.backward(dy)
+        sync(device)
+        direct = ssd_scan_bwd(xdt, dA, bm, cm, dy, chunk=q)
+        if not torch.equal(y.detach(), y0):
+            raise AssertionError(f"ssd_scan under grad at {(b, s, h, p, n, q)}: y differs")
+        if not all(torch.equal(x.grad, d) for x, d in zip(leaves, direct)):
+            raise AssertionError(f"ssd_scan autograd at {(b, s, h, p, n, q)}: the gradients "
+                                 "differ from ssd_scan_bwd's")
+        if (LAUNCHES["ssd_scan"] - before["ssd_scan"],
+                LAUNCHES["ssd_scan_bwd"] - before["ssd_scan_bwd"]) != (1, 2):
+            raise AssertionError(f"ssd_scan autograd: launches {LAUNCHES} from {before}")
+        del xdt, dA, bm, cm, dy, y, y0, leaves, direct
+    print(f"ssd_scan_bwd matches its plain version: (b, s, h, p, n, Q) in {SSD_GRID} and the "
+          f"training shapes {SSD_TRAIN_SHAPES}, B/C float32 and bfloat16, a second call "
+          f"bit-equal; max |d - plain| / max |plain| float32 {errs['float32_share']!r} (bar "
+          f"{SSD_BWD_F32_SHARE}; by gradient {worst}), bf16 dB/dC "
+          f"{errs['bfloat16_share']!r} (bar {SSD_BWD_BF16_SHARE}); float32 max |d - plain| "
+          f"{errs['float32_abs']!r}; autograd through ssd_scan: y bit-equal to the no-grad "
+          f"call, gradients bit-equal to the direct call")
+    return errs
+
+
+def ssd_bwd_bound(b, s, h, p, n, q, bc_bytes):
+    """(bound_ms, bound_by, bytes, flops) of one ssd_scan_bwd: xdt and dy
+    read, dxdt written in float32, dA read and ddA written, B and C read
+    and dB and dC written once.  Flops, each product once: per (row, chunk)
+    the lower triangle of C.Bᵀ (Q(Q+1)N); per (row, head) and chunk the
+    causal halves of dM = dy xdtᵀ and Mᵀ dy (Q(Q+1)P each), dG B and dGᵀ C
+    (Q(Q+1)N each), and 7 operations on each entry of the half (the decay's
+    subtract and exp, M, dG, dM∘M and its row and column sums); per (row,
+    head) and chunk boundary the state products h C, hᵀ dy, g B, gᵀ xdt and
+    the two state passes (2QPN each), and <g, h> (2PN) per chunk with both."""
+    nc = s // q
+    tri = q * (q + 1)
+    nbytes = 3 * 4 * b * s * h * p + 2 * 4 * b * s * h + 4 * bc_bytes * b * s * n
+    flops = (nc * b * tri * n
+             + nc * b * h * (tri * (2 * p + 2 * n) + 7 * tri // 2)
+             + (nc - 1) * b * h * 6 * 2 * q * p * n + max(nc - 2, 0) * b * h * 2 * p * n)
+    b_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_OPS_PER_S}
+    by = max(b_s, key=b_s.get)
+    return b_s[by] * 1e3, by, nbytes, flops
+
+
+def time_ssd_bwd(torch, device, shape):
+    """The backward kernel and its plain version at a training shape with
+    bf16 B/C (phase 24(c)'s): paced and by CUDA-graph replay, the device
+    time by kernel, and the bound; no single PyTorch call computes it."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_ref
+
+    b, s, h, p, n, q = shape
+    gen = torch.Generator(device=device).manual_seed(46)
+    args = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16, device)
+    dy = torch.randn((b, s, h, p), generator=gen, device=device)
+    run = lambda: ssd_scan_bwd(*args, dy, chunk=q)
+    k_ms = time_ms(torch, run, 10)
+    k_dev = device_ms(run, calls=5)
+    p_ms = time_ms(torch, lambda: ssd_scan_bwd_ref(*args, dy, chunk=q), 3)
+    by_kernel = device_us_by_kernel(torch, device, run, calls=3)
+    bound_ms, bound_by, nbytes, flops = ssd_bwd_bound(b, s, h, p, n, q, 2)
+    print(f"ssd_scan_bwd (b, s, h, p, n, Q) = {shape}, bf16 B/C: kernel {k_ms * 1e3!r} us "
+          f"(device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us "
+          f"(by {bound_by}: {nbytes} bytes, {flops} flops); device bound share "
+          f"{bound_ms / k_dev!r}; by kernel (profiled device us a call): {by_kernel}; no "
+          f"single PyTorch call computes it: library_ms is null")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "device_ms": k_dev, "library_device_ms": None,
+            "kernels_device_us": by_kernel}
 
 
 def main_path(torch, device):
@@ -3063,6 +3219,7 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
 # little of the gradients: they are held directly, leaf by leaf, before the
 # step, and through the new moments (m = 0.1 g, v = 0.05 g^2) after it.
 PARITY_TRAIN = dict(b=2, s=64, vocab=4096, lr=1e-6)
+PARITY_SSD_CHUNK = 16         # 24.3: four chunks of the 64 tokens, so the state pass runs
 LOSS_RTOL = 1e-5
 PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
 GRAD_SHARE = 1e-4             # max |g_gpu - g_cpu| <= this x max |g_cpu|, per leaf
@@ -3084,11 +3241,13 @@ class RepeatedBatch:
 # optimizer's section is one group whatever its kernels).
 STEP_GROUPS = (("flash_attention_bwd", ("bwd_delta_kernel", "bwd_dkdv", "bwd_dq")),
                ("flash_attention forward", ("flash_mma_kernel", "flash_attention_kernel")),
+               ("ssd_scan_bwd", ("ssd_bwd_",)),
+               ("ssd_scan forward", ("ssd_mma_kernel", "ssd_scan_kernel")),
                ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def profiled_step(torch, device, cfg, params, opt_state, batch):
-    """One more step of phase 24(a) under torch.profiler, as the train step
+def profiled_step(torch, device, cfg, params, opt_state, batch, what="24(a)"):
+    """One more step of phase 24(a) or (c) under torch.profiler, as the train step
     runs it (``grad_fn``, then AdamW in place), profiled in two sections so
     that AdamW's elementwise passes, whose kernels share their names with
     the model's, are told apart.  Prints and returns device ms by group."""
@@ -3118,7 +3277,7 @@ def profiled_step(torch, device, cfg, params, opt_state, batch):
                      "the rest")
         groups[group] += us * 1e-3
     busy = sum(groups.values())
-    print(f"24(a) one more step under torch.profiler: wall {wall!r} s (profiler included), "
+    print(f"{what} one more step under torch.profiler: wall {wall!r} s (profiler included), "
           f"device {busy!r} ms: " + ", ".join(f"{g} {ms!r} ms ({ms / busy:.4f})"
                                              for g, ms in groups.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -3185,6 +3344,86 @@ def train_llama(torch, device):
     return {k: launches[k] for k in want}, split
 
 
+# Phase 24(c): the SSM and hybrid families at full width, 8 x 512 tokens a
+# step (two chunks of 256), remat, unchunked loss, AdamW as 24(a).  mamba2
+# at full depth (2.7e9 parameters, ~16 bytes each with AdamW's state);
+# zamba2 at 24 of its 81 blocks (2.3e9; all 81 are 6.7e9, ~107 GB), its
+# shared 32/32, D=112 block at 4 sites (blocks 0, 6, 12, 18).
+SSM_TRAIN = (("mamba2-2.7b", 64, 5), ("zamba2-7b", 24, 3))   # name, blocks, steps
+
+
+def train_ssm(torch, device):
+    """Phase 24(c): each of :data:`SSM_TRAIN` through ``launch.train.train``
+    on a repeated batch (1 warm-up step): finite losses and grad norms, the
+    loss falling, and the launch identities of remat (non-reentrant
+    checkpoint: each block's scan runs in the forward and in the backward's
+    recompute, its backward once; likewise the shared attention block)
+    held exactly, no other kernel launched.  mamba2's run is followed by
+    one profiled step.  Returns ``(launches by arch, mamba2's step split)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import train
+    from repro_torch.training import AdamWConfig, SyntheticStream, TrainConfig
+    from repro_torch.training.optimizer import leaves
+
+    out, split = {}, None
+    for name, layers, steps in SSM_TRAIN:
+        cfg = dataclasses.replace(get_config(name), num_layers=layers)
+        if not (cfg.remat and cfg.loss_chunk == 0 and cfg.dtype == torch.bfloat16):
+            raise AssertionError(f"24(c) trains the reference's {name} settings: {cfg}")
+        opt = AdamWConfig(lr=TRAIN_OPT["lr"], warmup_steps=1, total_steps=steps)
+        source = RepeatedBatch(SyntheticStream(cfg.vocab_size, TRAIN_B, TRAIN_S,
+                                               seed=3).batch_at(0))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        params, opt_state, records = train(
+            cfg, TrainConfig(optimizer=opt), steps=steps, batch=TRAIN_B, seq=TRAIN_S, seed=1,
+            device=device, source=source, log_every=1)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(device)
+        n_params = sum(x.numel() for x in leaves(params))
+        if cfg.family == "ssm":
+            split = profiled_step(torch, device, cfg, params, opt_state, source.batch,
+                                  what=f"24(c) {name}")
+        del params, opt_state
+        torch.cuda.empty_cache()
+        for r in records:
+            if not (math.isfinite(r.loss) and math.isfinite(r.grad_norm)):
+                raise AssertionError(f"24(c) {name}: step {r.step} loss {r.loss}, grad norm "
+                                     f"{r.grad_norm}")
+        if not records[-1].loss < records[0].loss:
+            raise AssertionError(f"24(c) {name}: the loss did not fall on the repeated batch: "
+                                 f"{[r.loss for r in records]}")
+        sites = -(-layers // cfg.attn_every) if cfg.family == "hybrid" else 0
+        want = {"ssd_scan": 2 * layers * steps, "ssd_scan_bwd": layers * steps}
+        if sites:
+            want.update(flash_attention=2 * sites * steps, flash_attention_bwd=sites * steps)
+        others = {k: n for k, n in launches.items() if k not in want and n}
+        if any(launches[k] != n for k, n in want.items()) or others:
+            raise AssertionError(f"24(c) {name}: launches {launches}, expected {want} and no "
+                                 "other")
+        timed = [r.seconds for r in records[1:]]
+        step_s = sum(timed) / len(timed)
+        print(f"24(c) train {name} full width, {layers} of {get_config(name).num_layers} "
+              f"blocks ({sites} shared-block sites), bf16, {n_params} parameters, {TRAIN_B} x "
+              f"{TRAIN_S} tokens a step, remat, loss unchunked, on "
+              f"{torch.cuda.get_device_name(device)}: losses {[r.loss for r in records]}, grad "
+              f"norms {[r.grad_norm for r in records]}; step times "
+              f"{[r.seconds for r in records]} s (first: warm-up); mean of the {len(timed)} "
+              f"timed {step_s!r} s, {TRAIN_B * TRAIN_S / step_s!r} tokens/s; peak memory "
+              f"{peak / 2**30!r} GiB; wall {wall!r} s (parameters made, {steps} steps); "
+              f"launches per step: " + ", ".join(f"{k} {launches[k] / steps!r}" for k in want))
+        out[name] = {k: launches[k] for k in want}
+    return out, split
+
+
 def train_policy_example(torch, device):
     """Phase 24(b): the example at its default size on the card."""
     from repro_torch.examples import train_policy
@@ -3211,7 +3450,9 @@ def train_policy_example(torch, device):
 
 
 def grad_guard(torch, device):
-    """A grad-requiring input to a kernel with no backward raises."""
+    """A grad-requiring input to a kernel with no backward raises:
+    ``ssd_scan(return_state=True)`` (the cache-producing prefill) and
+    ``decode_attention``."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -3220,7 +3461,8 @@ def grad_guard(torch, device):
     bc = torch.randn((1, 16, 16), device=device)
     q = torch.randn((2, 8, 64), device=device).to(torch.bfloat16).requires_grad_()
     cache = torch.randn((2, 32, 2, 64), device=device).to(torch.bfloat16)
-    for what, call in (("ssd_scan", lambda: ssd_scan(x, da, bc, bc, chunk=16)),
+    for what, call in (("ssd_scan(return_state=True)",
+                        lambda: ssd_scan(x, da, bc, bc, chunk=16, return_state=True)),
                        ("decode_attention", lambda: decode_attention(q, cache, cache, 32))):
         try:
             call()
@@ -3229,17 +3471,24 @@ def grad_guard(torch, device):
                 raise
         else:
             raise AssertionError(f"{what} took a grad-requiring input without raising")
-    print("ssd_scan and decode_attention raise for a grad-requiring input on the card")
+    print("ssd_scan(return_state=True) and decode_attention raise for a grad-requiring input "
+          "on the card")
 
 
-def train_parity_f32(torch, device):
-    """24.2: the gradients and one train step at 2 full-width float32
-    layers (no TF32) on the card and on the CPU, from the same parameters
-    and batch."""
+def train_parity_f32(torch, device, name="llama3-8b", with_step=True, label="24.2"):
+    """24.2 (llama3-8b) and 24.3 (mamba2-2.7b, zamba2-7b): the gradients
+    and, with ``with_step``, one train step at 2 full-width float32 layers (no
+    TF32) on the card and on the CPU, from the same parameters and batch.
+    For the recurrent families the scan runs in :data:`PARITY_SSD_CHUNK`-token
+    chunks, and the card's gradients must have run the scan's backward
+    kernel once per block (and the attention backward once per shared-block
+    site)."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import init_params
+    from repro_torch.models.ssm import kernel_chunk
     from repro_torch.models.lm import tree_map
     from repro_torch.training import (AdamWConfig, SyntheticStream, TrainConfig, adamw_init,
                                       make_train_step)
@@ -3250,25 +3499,56 @@ def train_parity_f32(torch, device):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     pt = PARITY_TRAIN
-    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=2, vocab_size=pt["vocab"],
+    cfg = dataclasses.replace(get_config(name), num_layers=2, vocab_size=pt["vocab"],
                               dtype=torch.float32)
+    if cfg.family in ("ssm", "hybrid"):
+        # One chunk of 64 would skip the kernel's state pass and its
+        # carried-state terms, which 24(c) trains through at 2 chunks.
+        cfg = dataclasses.replace(cfg, ssd_chunk=PARITY_SSD_CHUNK)
     step = make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(
         lr=pt["lr"], warmup_steps=1, total_steps=10)))
     batch = SyntheticStream(cfg.vocab_size, pt["b"], pt["s"], seed=4).batch_at(0)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(5))
     cpu_params = tree_map(lambda x: x.to("cpu", copy=True), params)   # the step writes in place
+    reset_launches()
     _, g_grads = grad_fn(params, cfg, to_device(batch, device))
+    sync(device)
+    if cfg.family in ("ssm", "hybrid"):
+        sites = -(-cfg.num_layers // cfg.attn_every) if cfg.family == "hybrid" else 0
+        if (LAUNCHES["ssd_scan_bwd"], LAUNCHES["flash_attention_bwd"]) != (cfg.num_layers,
+                                                                           sites):
+            raise AssertionError(f"{label} {name}: the card's gradients launched {LAUNCHES}")
+        chunks = pt["s"] // kernel_chunk(cfg, pt["s"])
+        if chunks < 2:
+            raise AssertionError(f"{label} {name}: the scan ran in {chunks} chunk")
+        scan = f", the scan in {chunks} chunks"
+    else:
+        scan = ""
+    t_cpu = time.perf_counter()
     _, c_grads = grad_fn(cpu_params, cfg, to_device(batch, "cpu"))
+    t_cpu = time.perf_counter() - t_cpu
     worst_grad, grad_rel = 0.0, []
     for i, (g_leaf, c_leaf) in enumerate(zip(leaves(g_grads), leaves(c_grads))):
+        bad = [int((~torch.isfinite(x)).sum()) for x in (g_leaf, c_leaf)]
+        if any(bad):
+            raise AssertionError(f"{label} {name}: gradient leaf {i} {tuple(c_leaf.shape)} has "
+                                 f"{bad[0]} non-finite entries on the card, {bad[1]} on the CPU")
         diff = (g_leaf.cpu() - c_leaf).abs()
         share = float(diff.max()) / max(float(c_leaf.abs().max()), 1e-30)
         if share > GRAD_SHARE:
-            raise AssertionError(f"24.2: gradient leaf {i} {tuple(c_leaf.shape)} differs by "
-                                 f"{share!r} of its largest value (bar {GRAD_SHARE})")
+            raise AssertionError(f"{label} {name}: gradient leaf {i} {tuple(c_leaf.shape)} "
+                                 f"differs by {share!r} of its largest value (bar "
+                                 f"{GRAD_SHARE})")
         worst_grad = max(worst_grad, share)
         grad_rel.append(float(diff.norm()) / max(float(c_leaf.norm()), 1e-30))
     del g_grads, c_grads
+    grads_line = (f"gradients within {worst_grad!r} of their largest value per leaf (bar "
+                  f"{GRAD_SHARE}; largest relative norm of the difference {max(grad_rel)!r})")
+    if not with_step:
+        print(f"{label} the gradients, {name} full width, 2 layers, float32, vocabulary "
+              f"{cfg.vocab_size}, {pt['b']} x {pt['s']} tokens{scan}, card against CPU: "
+              f"{grads_line}; the CPU's took {t_cpu!r} s")
+        return
     t0 = time.perf_counter()
     gp, gs, gm = step(params, adamw_init(params), to_device(batch, device))
     sync(device)
@@ -3277,14 +3557,14 @@ def train_parity_f32(torch, device):
     t2 = time.perf_counter()
     loss_rel = abs(gm["loss"] - cm["loss"]) / abs(cm["loss"])
     if loss_rel > LOSS_RTOL:
-        raise AssertionError(f"24.2: loss {gm['loss']!r} on the card, {cm['loss']!r} on the "
-                             f"CPU (relative {loss_rel!r})")
+        raise AssertionError(f"{label} {name}: loss {gm['loss']!r} on the card, {cm['loss']!r} "
+                             f"on the CPU (relative {loss_rel!r})")
     worst_param, worst_moment = 0.0, 0.0
     for g_leaf, c_leaf in zip(leaves(gp), leaves(cp)):
         diff = (g_leaf.cpu() - c_leaf).abs()
         bound = PARAM_TOL["atol"] + PARAM_TOL["rtol"] * c_leaf.abs()
         if bool((diff > bound).any()):
-            raise AssertionError(f"24.2: updated parameters differ by up to "
+            raise AssertionError(f"{label} {name}: updated parameters differ by up to "
                                  f"{float(diff.max())!r} ({int((diff > bound).sum())} elements "
                                  f"out of {PARAM_TOL})")
         worst_param = max(worst_param, float((diff / bound).max()))
@@ -3292,15 +3572,14 @@ def train_parity_f32(torch, device):
         share = float((g_leaf.cpu() - c_leaf).abs().max()) / max(float(c_leaf.abs().max()),
                                                                  1e-30)
         if share > MOMENT_SHARE:
-            raise AssertionError(f"24.2: a moment differs by {share!r} of its largest value")
+            raise AssertionError(f"{label} {name}: a moment differs by {share!r} of its "
+                                 "largest value")
         worst_moment = max(worst_moment, share)
-    print(f"24.2 one train step, llama3-8b full width, 2 layers, float32, vocabulary "
-          f"{cfg.vocab_size}, {pt['b']} x {pt['s']} tokens, lr {pt['lr']}: loss card "
+    print(f"{label} one train step, {name} full width, 2 layers, float32, vocabulary "
+          f"{cfg.vocab_size}, {pt['b']} x {pt['s']} tokens{scan}, lr {pt['lr']}: loss card "
           f"{gm['loss']!r} CPU {cm['loss']!r} (relative {loss_rel!r}), grad norm card "
-          f"{gm['grad_norm']!r} CPU {cm['grad_norm']!r}; gradients within {worst_grad!r} of "
-          f"their largest value per leaf (bar {GRAD_SHARE}; largest relative norm of the "
-          f"difference {max(grad_rel)!r}); parameters within the bar (worst "
-          f"{worst_param!r} of it), moments within {worst_moment!r} of their largest value; "
+          f"{gm['grad_norm']!r} CPU {cm['grad_norm']!r}; {grads_line}; parameters within the "
+          f"bar (worst {worst_param!r} of it), moments within {worst_moment!r} of their largest value; "
           f"step {t1 - t0!r} s on the card, {t2 - t1!r} s on the CPU")
 
 
@@ -3364,6 +3643,11 @@ def main():
                                      "bf16_max_err_share": bwd_errs["bfloat16_share"],
                                      "lse_max_abs_err": bwd_errs["lse"],
                                      **time_flash_bwd(torch, device)}
+    # zamba2's shared block in phase 24(c): 8 x 512 tokens, 32/32, D=112.
+    t0 = time.perf_counter()
+    fields["flash_attention_bwd"]["zamba2_d112"] = time_flash_bwd(torch, device, hq=32, hkv=32,
+                                                                  d=112)
+    print(f"flash_attention_bwd timed at D=112 in {time.perf_counter() - t0!r} s")
     # Phases 10-12 drive 128 slots over 10 blocks of 16 with A = 8 candidates
     # at full width; phase 9.2 32 slots over 5 blocks of 4, 4/2 heads, D=16.
     n_main, npg_main = ASYNC_B * ASYNC_W, -(-MAX_LEN // BLOCK)
@@ -3398,6 +3682,14 @@ def main():
                                                                      SSD_STATE_DRIVEN)
     fields["ssd_scan"]["return_state"] = [time_ssd_state(torch, device, shape)
                                           for shape in SSD_STATE_DRIVEN[:2]]
+    t0 = time.perf_counter()
+    bwd_errs = check_ssd_bwd(torch, device)
+    fields["ssd_scan_bwd"] = {"max_abs_err": bwd_errs["float32_abs"],
+                              "f32_max_err_share": bwd_errs["float32_share"],
+                              "bf16_max_err_share": bwd_errs["bfloat16_share"],
+                              **time_ssd_bwd(torch, device, SSD_TRAIN_SHAPES[0])}
+    fields["ssd_scan_bwd"]["zamba2"] = time_ssd_bwd(torch, device, SSD_TRAIN_SHAPES[1])
+    print(f"ssd_scan_bwd checked and timed in {time.perf_counter() - t0!r} s")
 
     phase("4. main path")
     got = main_path(torch, device)
@@ -3478,9 +3770,15 @@ def main():
     phase("23. the stubs (llava-next-mistral-7b, whisper-small: prefill, decode, forward)")
     family["23"] = stub_family(torch, device)
 
-    phase("24. training on the card (llama3-8b 8 of 32 layers; train_policy; the grad guard)")
+    phase("24. training on the card (llama3-8b 8 of 32 layers; mamba2-2.7b, zamba2-7b 24 of 81 "
+          "blocks; train_policy; the grad guard)")
     got, fields["flash_attention_bwd"]["train_step_profile"] = train_llama(torch, device)
     launches["flash_attention_bwd"] = got["flash_attention_bwd"]
+    phase("24(c) mamba2-2.7b (64 blocks) and zamba2-7b (24 of 81 blocks) training")
+    got, fields["ssd_scan_bwd"]["train_step_profile"] = train_ssm(torch, device)
+    launches["ssd_scan_bwd"] = got["mamba2-2.7b"]["ssd_scan_bwd"]
+    family["24(c) mamba2-2.7b"], family["24(c) zamba2-7b"] = got["mamba2-2.7b"], got["zamba2-7b"]
+    phase("24(b) train_policy and the grad guard")
     family["24"] = train_policy_example(torch, device)
     grad_guard(torch, device)
 
@@ -3506,6 +3804,11 @@ def main():
 
     phase("24.2 one train step on the card against the CPU (float32, 2 layers)")
     train_parity_f32(torch, device)
+
+    phase("24.3 mamba2-2.7b and zamba2-7b gradients (and a mamba2 train step) on the card "
+          "against the CPU (float32, 2 layers)")
+    train_parity_f32(torch, device, "mamba2-2.7b", label="24.3")
+    train_parity_f32(torch, device, "zamba2-7b", with_step=False, label="24.3")
 
     kernels = [{
         "name": name,

@@ -4,11 +4,13 @@ Each wrapper adds one to its entry in :data:`LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show that its main path went
 through the kernels.
 
-Only ``flash_attention`` has a backward on the card (its autograd function
-launches ``flash_attention_bwd``).  The other wrappers' kernels compute
-values only: on a CUDA tensor each calls :func:`refuse_grad` first, so a
-loss taken through one of them raises instead of silently losing the
-gradient.  Their plain versions on the CPU keep autograd.
+Two kernels have a backward on the card: ``flash_attention`` (its
+autograd function launches ``flash_attention_bwd``) and ``ssd_scan``
+without ``return_state`` (``ssd_scan_bwd``).  The other wrappers' kernels,
+and ``ssd_scan(return_state=True)``, compute values only: on a CUDA tensor
+each calls :func:`refuse_grad` first, so a loss taken through one of them
+raises instead of silently losing the gradient.  Their plain versions on
+the CPU keep autograd.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ LAUNCHES: dict[str, int] = {
     "tree_decode_attention": 0,
     "paged_tree_decode_attention": 0,
     "ssd_scan": 0,
+    "ssd_scan_bwd": 0,
 }
 
 

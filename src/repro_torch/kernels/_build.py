@@ -44,9 +44,10 @@ KERNEL_FLAGS: dict[str, tuple[str, ...]] = {
     "flash_attention_bwd": (),
     "paged_decode_attention": (),
     "tree_decode_attention": (),
-    # Accurate expf (no --use_fast_math); held to its plain version within
-    # a float32 tolerance.
+    # Accurate expf (no --use_fast_math); held to their plain versions
+    # within a float32 tolerance.
     "ssd_scan": (),
+    "ssd_scan_bwd": (),
 }
 
 

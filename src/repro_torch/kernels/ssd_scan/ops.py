@@ -1,40 +1,58 @@
-"""Wrapper of the SSD scan kernel (``csrc/ssd_scan.cu``).
+"""Wrapper of the SSD scan kernel (``csrc/ssd_scan.cu``) and of its
+backward (``csrc/ssd_scan_bwd.cu``).
 
-CPU tensors go to the plain version (:mod:`.ref`).  CUDA tensors go to the
-hand-written kernel, or the call raises: there is no fallback.  The type of
-B and C picks the body: bfloat16 the tensor-core body (followed, with more
-than one chunk or with ``return_state``, by its state pass), float32 the
-CUDA-core body.  With ``return_state`` the kernel also writes the state
-after the last chunk, which a cache-producing prefill needs.  The kernel
-launches on PyTorch's current stream, and each call that launches it adds
-one to ``repro_torch.kernels.LAUNCHES["ssd_scan"]``.
+CPU tensors go to the plain versions (:mod:`.ref`), which autograd
+differentiates.  CUDA tensors go to the hand-written kernels, or the call
+raises: there is no fallback.  The type of B and C picks the forward's
+body: bfloat16 the tensor-core body (followed, with more than one chunk or
+with ``return_state``, by its state pass), float32 the CUDA-core body.
+With ``return_state`` the kernel also writes the state after the last
+chunk, which a cache-producing prefill needs; that call has no backward.
+When grad mode is on and an input requires grad, a CUDA call without
+``return_state`` runs through :class:`SsdScan`, whose backward launches the
+backward kernel.  The kernels launch on PyTorch's current stream; each
+forward call that launches adds one to
+``repro_torch.kernels.LAUNCHES["ssd_scan"]``, each backward call one to
+``LAUNCHES["ssd_scan_bwd"]`` (however many launches it makes).
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
 from .. import LAUNCHES, refuse_grad
 from .. import _build
-from .ref import check_chunk, ssd_scan_ref
+from .ref import check_chunk, ssd_scan_bwd_ref, ssd_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# What the kernel's shared memory and register tiles hold (csrc/ssd_scan.cu).
+# What the kernels' shared memory and register tiles hold (csrc/ssd_scan.cu,
+# csrc/ssd_scan_bwd.cu).
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 256, 128, 256
-_C_FUNCTION = None
-_C_GROUP = None
+_C_FUNCTIONS: dict = {}
 
 
-def _launcher():
-    global _C_FUNCTION
-    if _C_FUNCTION is None:
-        fn = _build.load("ssd_scan").ssd_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def _launcher(name: str):
+    fn = _C_FUNCTIONS.get(name)
+    if fn is None:
+        if name == "ssd_scan":
+            fn = _build.load(name).ssd_scan_launch
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        elif name == "ssd_scan_bwd":
+            fn = _build.load(name).ssd_scan_bwd_launch
+            fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        else:
+            fn = _build.load("ssd_scan").ssd_scan_heads_per_block
+            fn.argtypes = [ctypes.c_int] * 7
         fn.restype = ctypes.c_int
-        _C_FUNCTION = fn
-    return _C_FUNCTION
+        _C_FUNCTIONS[name] = fn
+    return fn
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
 
 
 def heads_per_block(b: int, s: int, h: int, p: int, n: int, chunk: int,
@@ -42,36 +60,20 @@ def heads_per_block(b: int, s: int, h: int, p: int, n: int, chunk: int,
     """Heads that one block of the tensor-core body (bfloat16 B/C) takes at
     this shape on the CUDA ``device``: the kernel sizes the group from the
     shape and the card's SM count."""
-    global _C_GROUP
-    if _C_GROUP is None:
-        fn = _build.load("ssd_scan").ssd_scan_heads_per_block
-        fn.argtypes = [ctypes.c_int] * 7
-        fn.restype = ctypes.c_int
-        _C_GROUP = fn
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    group = _C_GROUP(b, s, h, p, n, check_chunk(s, chunk), index)
+    group = _launcher("heads_per_block")(b, s, h, p, n, check_chunk(s, chunk),
+                                          _device_index(device))
     if group < 1:
         raise ValueError(f"ssd_scan: the kernel refuses (b, s, h, p, n, chunk) = "
                          f"{(b, s, h, p, n, chunk)}")
     return group
 
 
-def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
-             *, chunk: int = 256, return_state: bool = False):
-    """The chunked SSD scan: ``xdt [B, S, H, P]`` and ``dA [B, S, H]`` in
-    float32, ``Bmat``/``Cmat [B, S, N]`` (one type, float32 or bfloat16,
-    shared by all heads) -> ``y [B, S, H, P]`` in float32, or with
-    ``return_state`` ``(y, h_final [B, H, P, N])`` in float32, the state
-    after the last chunk from a zero initial state.  The chunk is
-    ``min(chunk, S)`` and must divide ``S``; on the card it is at most
-    :data:`MAX_CHUNK`, ``P`` at most :data:`MAX_HEAD_DIM` and ``N`` at most
-    :data:`MAX_STATE`."""
+def _check(xdt, dA, Bmat, Cmat, chunk: int, **more) -> tuple:
+    """Shapes ``(b, s, h, p, n, q)`` of a CUDA call, after checking what the
+    kernels take; ``more`` are further float32 tensors shaped as ``xdt``."""
     device = xdt.device
-    if device.type == "cpu":
-        return ssd_scan_ref(xdt, dA, Bmat, Cmat, chunk=chunk, return_state=return_state)
     if device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CPU or CUDA tensors, got {device}")
-    refuse_grad("ssd_scan", xdt, dA, Bmat, Cmat)
     if xdt.dim() != 4 or dA.dim() != 3 or Bmat.dim() != 3:
         raise ValueError(f"ssd_scan: xdt must be [B, S, H, P], dA [B, S, H] and B/C "
                          f"[B, S, N], got {tuple(xdt.shape)}, {tuple(dA.shape)}, "
@@ -91,25 +93,114 @@ def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torc
     if Bmat.dtype not in _DTYPES or Cmat.dtype != Bmat.dtype:
         raise TypeError(f"ssd_scan: B and C must share one type, float32 or bfloat16, got "
                         f"{Bmat.dtype}, {Cmat.dtype}")
-    for name, x in (("xdt", xdt), ("dA", dA), ("B", Bmat), ("C", Cmat)):
+    for name, x in (("xdt", xdt), ("dA", dA), ("B", Bmat), ("C", Cmat), *more.items()):
         if x.device != device:
             raise ValueError(f"ssd_scan: {name} is on {x.device}, expected {device}")
         if not x.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous")
+    for name, x in more.items():
+        if tuple(x.shape) != (b, s, h, p) or x.dtype != torch.float32:
+            raise ValueError(f"ssd_scan: {name} must be float32 {(b, s, h, p)}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    return b, s, h, p, n, q
+
+
+def _forward(xdt, dA, Bmat, Cmat, *, chunk: int, return_state: bool = False):
+    """The forward kernel: ``y``, or ``(y, h_final)`` with ``return_state``."""
+    b, s, h, p, n, q = _check(xdt, dA, Bmat, Cmat, chunk)
+    device = xdt.device
     y = torch.empty_like(xdt)
     h_final = (torch.empty((b, h, p, n), dtype=torch.float32, device=device)
                if return_state else None)
     if b * h == 0:
         return (y, h_final) if return_state else y
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _launcher()(
+    err = _launcher("ssd_scan")(
         xdt.data_ptr(), dA.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), y.data_ptr(),
         h_final.data_ptr() if return_state else None,
-        b, s, h, p, n, q, _DTYPES[Bmat.dtype],
-        device.index if device.index is not None else torch.cuda.current_device(),
-        stream,
+        b, s, h, p, n, q, _DTYPES[Bmat.dtype], _device_index(device),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
     LAUNCHES["ssd_scan"] += 1
     return (y, h_final) if return_state else y
+
+
+def ssd_scan_bwd(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
+                 dy: torch.Tensor, *, chunk: int = 256):
+    """The gradient of :func:`ssd_scan`'s ``y`` (without ``return_state``)
+    for the output gradient ``dy [B, S, H, P]`` (float32): ``(dxdt, ddA,
+    dB, dC)``, ``dxdt`` and ``ddA`` in float32, ``dB``/``dC`` in B's and C's
+    type (summed in float32 over the heads and rounded once).  On the card
+    CUDA-core float32 arithmetic and no atomics, so a repeated call gives
+    the same bits; CPU tensors take :func:`.ref.ssd_scan_bwd_ref`."""
+    if xdt.device.type == "cpu":
+        return ssd_scan_bwd_ref(xdt, dA, Bmat, Cmat, dy, chunk=chunk)
+    b, s, h, p, n, q = _check(xdt, dA, Bmat, Cmat, chunk, dy=dy)
+    device = xdt.device
+    dxdt, ddA = torch.empty_like(xdt), torch.empty_like(dA)
+    dB, dC = torch.empty_like(Bmat), torch.empty_like(Cmat)
+    if b * h == 0:
+        return dxdt, ddA, dB.zero_(), dC.zero_()
+    nc = s // q
+    f32 = dict(dtype=torch.float32, device=device)
+    # Scratch: the states entering and the state gradients leaving each
+    # chunk, and each head's part of dB and dC.
+    states = [torch.empty((b, nc, h, p, n), **f32) if nc > 1 else None for _ in range(2)]
+    parts = [torch.empty((b, h, s, n), **f32) for _ in range(2)]
+    err = _launcher("ssd_scan_bwd")(
+        xdt.data_ptr(), dA.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), dy.data_ptr(),
+        dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        *(x.data_ptr() if x is not None else None for x in states),
+        parts[0].data_ptr(), parts[1].data_ptr(),
+        b, s, h, p, n, q, _DTYPES[Bmat.dtype], _device_index(device),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError {err}")
+    LAUNCHES["ssd_scan_bwd"] += 1
+    return dxdt, ddA, dB, dC
+
+
+# The two launches of :class:`SsdScan`, looked up at each call: the CPU
+# tests point them at the plain versions to run the Function's wiring.
+KERNEL = types.SimpleNamespace(forward=_forward, backward=ssd_scan_bwd)
+
+
+class SsdScan(torch.autograd.Function):
+    """The forward kernel, its inputs saved; the backward kernel for their
+    gradients (``None`` for ``chunk``)."""
+
+    @staticmethod
+    def forward(ctx, xdt, dA, Bmat, Cmat, chunk):
+        ctx.save_for_backward(xdt, dA, Bmat, Cmat)
+        ctx.chunk = chunk
+        return KERNEL.forward(xdt, dA, Bmat, Cmat, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xdt, dA, Bmat, Cmat = ctx.saved_tensors
+        grads = KERNEL.backward(xdt, dA, Bmat, Cmat, dy.contiguous(), chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def ssd_scan(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
+             *, chunk: int = 256, return_state: bool = False):
+    """The chunked SSD scan: ``xdt [B, S, H, P]`` and ``dA [B, S, H]`` in
+    float32, ``Bmat``/``Cmat [B, S, N]`` (one type, float32 or bfloat16,
+    shared by all heads) -> ``y [B, S, H, P]`` in float32, or with
+    ``return_state`` ``(y, h_final [B, H, P, N])`` in float32, the state
+    after the last chunk from a zero initial state.  The chunk is
+    ``min(chunk, S)`` and must divide ``S``; on the card it is at most
+    :data:`MAX_CHUNK`, ``P`` at most :data:`MAX_HEAD_DIM` and ``N`` at most
+    :data:`MAX_STATE`.  Differentiable without ``return_state``: on the card
+    through :class:`SsdScan` and the backward kernel; with it, a
+    grad-requiring input raises on the card."""
+    device = xdt.device
+    if device.type == "cpu":
+        return ssd_scan_ref(xdt, dA, Bmat, Cmat, chunk=chunk, return_state=return_state)
+    if return_state:
+        refuse_grad("ssd_scan(return_state=True)", xdt, dA, Bmat, Cmat)
+    elif torch.is_grad_enabled() and any(x.requires_grad for x in (xdt, dA, Bmat, Cmat)):
+        return SsdScan.apply(xdt, dA, Bmat, Cmat, chunk)
+    return _forward(xdt, dA, Bmat, Cmat, chunk=chunk, return_state=return_state)

@@ -13,8 +13,12 @@ On the GPU (``--device`` defaults to ``cuda``; without a card the launcher
 raises unless ``--device cpu`` is given) any ported architecture trains at
 its published width; the loop is :func:`train`, which ``chip_smoke.py``
 calls with llama3-8b cut to 8 layers (the full model's AdamW state does
-not fit one card).  mamba2 and zamba2 raise on the card: ``ssd_scan`` has
-no backward there yet.
+not fit one card), mamba2-2.7b at full depth and zamba2-7b cut to 24 of
+its 81 blocks: at full depth zamba2-7b, like llama3-8b, needs more than
+one card for its AdamW state.  The SSM scan trains through ``ssd_scan``'s
+backward kernel, attention through ``flash_attention``'s:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+      --steps 5 --batch 8 --seq 512
 """
 
 from __future__ import annotations

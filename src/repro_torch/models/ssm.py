@@ -7,8 +7,10 @@ inter-chunk state pass.  :func:`ssm_block` runs the ``ssd_scan`` kernel on
 a CUDA tensor and its plain version on a CPU tensor, whatever
 ``attn_impl`` says:
 
-* cache-free (``forward``): the reference kernel path's chunk rule
-  (:func:`kernel_chunk`);
+* cache-free (``forward``, and under grad ``loss_fn``): the reference
+  kernel path's chunk rule (:func:`kernel_chunk`); differentiable on the
+  card too, through ``ssd_scan``'s autograd function and the backward
+  kernel ``ssd_scan_bwd``;
 * ``return_cache`` (the prefill that starts a decode cache): the chunking
   of the reference's ``ssd_chunked``, ``Q = min(ssd_chunk, S)`` with ``S``
   padded to a multiple of ``Q`` by ``dt = 0`` tokens (exact), and the
@@ -133,7 +135,10 @@ def ssd_chunked(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
     cb = torch.einsum("bcin,bcjn->bcij", cc, bc)                      # [B,nc,Q,Q]
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]               # [B,nc,Q,Q,H]
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xdt.device))
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    # The reference's where(tri, exp(seg), 0) with the masked differences
+    # set to -inf before the exp: the same values, and no 0 * inf (NaN) in
+    # the gradient where the positive ones above the diagonal overflow.
+    decay = torch.exp(seg.masked_fill(~tri[None, None, :, :, None], -torch.inf))
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * decay, xdt)
 
     # Inter-chunk state pass: each chunk's contribution decayed to its end.
@@ -196,7 +201,8 @@ def ssm_block(p: dict, cfg, u: torch.Tensor, *, cache=None,
     ``cache`` (a block's decode cache) with ``S == 1`` takes the O(1)
     recurrence and returns the advanced cache.  Without a cache the scan
     goes through ``ssd_scan`` (the kernel on a CUDA tensor): cache-free
-    with the chunk of :func:`kernel_chunk` (``new_cache`` is ``None``), or
+    with the chunk of :func:`kernel_chunk` (``new_cache`` is ``None``;
+    differentiable, on the card through the backward kernel), or
     with ``return_cache`` with ``ssd_chunked``'s chunking and the final
     state, returning the cache a decode continues from.  ``xdt`` and
     ``dA`` are float32, ``B`` and ``C`` stay in the model's dtype."""

@@ -74,7 +74,7 @@ def test_port_files_exist():
         assert port / "examples" / f"{module}.py" in PORT_FILES, module
     for kernel in ("tree_select", "decode_attention", "flash_attention",
                    "paged_decode_attention", "tree_decode_attention", "ssd_scan",
-                   "flash_attention_bwd"):
+                   "flash_attention_bwd", "ssd_scan_bwd"):
         assert (REPO / "src" / "repro_torch" / "csrc" / f"{kernel}.cu").exists()
 
 
@@ -279,10 +279,11 @@ def test_each_kernel_has_its_own_flags_and_they_name_its_library(monkeypatch):
     flags = {name: _build.nvcc_flags(name) for name in _build.KERNEL_FLAGS}
     assert "--fmad=false" in flags["tree_select"]
     for name in ("decode_attention", "flash_attention", "paged_decode_attention",
-                 "tree_decode_attention", "ssd_scan", "flash_attention_bwd"):
+                 "tree_decode_attention", "ssd_scan", "flash_attention_bwd", "ssd_scan_bwd"):
         assert "--fmad=false" not in flags[name]
         assert "arch=compute_90a,code=sm_90a" in flags[name]
-    assert "--use_fast_math" not in flags["ssd_scan"]     # accurate expf
+    for name in ("ssd_scan", "ssd_scan_bwd"):
+        assert "--use_fast_math" not in flags[name]       # accurate expf
     before = _build.library_path("decode_attention")
     monkeypatch.setitem(_build.KERNEL_FLAGS, "decode_attention", ("--use_fast_math",))
     after = _build.library_path("decode_attention")

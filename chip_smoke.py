@@ -11,15 +11,15 @@ Phases (any failure raises, so the script exits non-zero):
    libraries: ``tree_select`` holds the walk and the per-level kernel,
    ``tree_decode_attention`` the dense and the paged tree kernel;
    ``flash_attention_bwd`` the launches of the attention backward,
-   ``ssd_scan_bwd`` the three of the scan's backward),
+   ``ssd_scan_bwd`` the launches of the scan's backward),
    and summarise ptxas's registers, spills and static shared memory of
    ``tree_select``, ``flash_attention`` (bf16 on the tensor cores, float32 on the
    CUDA cores), ``decode_attention`` (the key-split body),
    ``tree_decode_attention`` (the body over a shared-memory copy of the
    prefix), ``ssd_scan`` (bf16 B/C on the tensor cores, float32 and the
    state pass on the CUDA cores), ``flash_attention_bwd`` (bf16 on the
-   tensor cores, float32 on the CUDA cores) and ``ssd_scan_bwd`` (CUDA
-   cores);
+   tensor cores, float32 on the CUDA cores) and ``ssd_scan_bwd`` (bf16
+   B/C on the tensor cores, float32 on the CUDA cores);
 3. hold each kernel against its plain PyTorch version on the card (the
    tree walk ``tree_descend``, bit for bit, on trees the port grows on the
    card: phase 4's tap cell at B=256 and B=1 and phase 5's bandit tree at
@@ -41,7 +41,9 @@ Phases (any failure raises, so the script exits non-zero):
    at mamba2's and zamba2's; its backward ``ssd_scan_bwd`` over the grid
    and phase 24(c)'s training shapes in both types, a second call
    bit-equal, autograd through ``ssd_scan`` (``y`` bit-equal to the
-   no-grad call), timed at both training shapes, and
+   no-grad call), timed at both training shapes beside the float32 body
+   on the same B/C upcast, by kernel, with the tensor-core kernels'
+   registers and spills, and
    ``flash_attention_bwd`` also at zamba2's D=112), and time kernel,
    plain version and one PyTorch library call at the main paths' shapes
    (the paged and tree kernels have no single library call: a gather or
@@ -1400,51 +1402,82 @@ def check_ssd_bwd(torch, device):
     return errs
 
 
-def ssd_bwd_bound(b, s, h, p, n, q, bc_bytes):
+def ssd_bwd_bound(b, s, h, p, n, q, bc_bytes, per_head=False):
     """(bound_ms, bound_by, bytes, flops) of one ssd_scan_bwd: xdt and dy
     read, dxdt written in float32, dA read and ddA written, B and C read
-    and dB and dC written once.  Flops, each product once: per (row, chunk)
-    the lower triangle of C.Bᵀ (Q(Q+1)N); per (row, head) and chunk the
-    causal halves of dM = dy xdtᵀ and Mᵀ dy (Q(Q+1)P each), dG B and dGᵀ C
-    (Q(Q+1)N each), and 7 operations on each entry of the half (the decay's
-    subtract and exp, M, dG, dM∘M and its row and column sums); per (row,
-    head) and chunk boundary the state products h C, hᵀ dy, g B, gᵀ xdt and
-    the two state passes (2QPN each), and <g, h> (2PN) per chunk with both."""
+    and dB and dC written once.  Flops, each product once: D = Σ_h dG is one
+    causal [Q, Q] matrix per (row, chunk) and dB, dC are linear in it, so
+    per (row, chunk) the lower triangles of G = C·Bᵀ, D·B and Dᵀ·C
+    (Q(Q+1)N each); per (row, head) and chunk the causal halves of dM = dy
+    xdtᵀ and Mᵀ dy (Q(Q+1)P each) and 8 operations on each entry of the half
+    (the decay's subtract and exp, M, dG, dM∘M, its row and column sums, dG
+    into D); per (row, head) and chunk boundary the state products h C,
+    hᵀ dy, g B, gᵀ xdt and the two state passes (2QPN each), and <g, h>
+    (2PN) per chunk with both.  ``per_head``: the count of a body that
+    forms dG B and dGᵀ C per head (Q(Q+1)N each; 7 operations an entry), as
+    the float32 body does."""
     nc = s // q
     tri = q * (q + 1)
     nbytes = 3 * 4 * b * s * h * p + 2 * 4 * b * s * h + 4 * bc_bytes * b * s * n
-    flops = (nc * b * tri * n
-             + nc * b * h * (tri * (2 * p + 2 * n) + 7 * tri // 2)
-             + (nc - 1) * b * h * 6 * 2 * q * p * n + max(nc - 2, 0) * b * h * 2 * p * n)
+    state = (nc - 1) * b * h * 6 * 2 * q * p * n + max(nc - 2, 0) * b * h * 2 * p * n
+    if per_head:
+        flops = nc * b * tri * n + nc * b * h * (tri * (2 * p + 2 * n) + 7 * tri // 2) + state
+    else:
+        flops = 3 * nc * b * tri * n + nc * b * h * (2 * tri * p + 8 * tri // 2) + state
     b_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_OPS_PER_S}
     by = max(b_s, key=b_s.get)
     return b_s[by] * 1e3, by, nbytes, flops
 
 
 def time_ssd_bwd(torch, device, shape):
-    """The backward kernel and its plain version at a training shape with
-    bf16 B/C (phase 24(c)'s): paced and by CUDA-graph replay, the device
-    time by kernel, and the bound; no single PyTorch call computes it."""
+    """The backward at a training shape (phase 24(c)'s) in one call: the
+    tensor-core body on bf16 B/C and the CUDA-core float32 body on the
+    same B/C upcast, in turns (bf16, float32, float32, bf16), by CUDA-graph
+    replay; paced time, the plain version, the device time by kernel (bf16
+    must run the tensor-core kernels, float32 the CUDA-core ones), the
+    bound (and the per-head count beside it) and the tensor-core kernels'
+    registers and spills; no single PyTorch call computes it."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan.ops import bwd_heads_per_block
 
     b, s, h, p, n, q = shape
     gen = torch.Generator(device=device).manual_seed(46)
     args = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16, device)
     dy = torch.randn((b, s, h, p), generator=gen, device=device)
+    upcast = (*args[:2], args[2].float(), args[3].float())
     run = lambda: ssd_scan_bwd(*args, dy, chunk=q)
+    run_f32 = lambda: ssd_scan_bwd(*upcast, dy, chunk=q)
     k_ms = time_ms(torch, run, 10)
-    k_dev = device_ms(run, calls=5)
+    turns = [(name, device_ms(fn, calls=5)) for name, fn in
+             (("bf16", run), ("float32", run_f32), ("float32", run_f32), ("bf16", run))]
+    k_dev = min(ms for name, ms in turns if name == "bf16")
+    f32_dev = min(ms for name, ms in turns if name == "float32")
     p_ms = time_ms(torch, lambda: ssd_scan_bwd_ref(*args, dy, chunk=q), 3)
     by_kernel = device_us_by_kernel(torch, device, run, calls=3)
+    f32_by_kernel = device_us_by_kernel(torch, device, run_f32, calls=1)
+    if not any("mma" in k or "finish" in k for k in by_kernel) or \
+            any("mma" in k or "finish" in k for k in f32_by_kernel):
+        raise AssertionError(f"ssd_scan_bwd at {shape}: bf16 ran {sorted(by_kernel)}, float32 "
+                             f"ran {sorted(f32_by_kernel)}")
     bound_ms, bound_by, nbytes, flops = ssd_bwd_bound(b, s, h, p, n, q, 2)
-    print(f"ssd_scan_bwd (b, s, h, p, n, Q) = {shape}, bf16 B/C: kernel {k_ms * 1e3!r} us "
-          f"(device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us "
-          f"(by {bound_by}: {nbytes} bytes, {flops} flops); device bound share "
-          f"{bound_ms / k_dev!r}; by kernel (profiled device us a call): {by_kernel}; no "
-          f"single PyTorch call computes it: library_ms is null")
+    old_ms, _, _, old_flops = ssd_bwd_bound(b, s, h, p, n, q, 2, per_head=True)
+    registers = [line.strip() for line in ptxas_summary(_build.BUILD_LOGS.get("ssd_scan_bwd", ""))
+                 if "mma_kernel" in line or "finish_kernel" in line]
+    group = bwd_heads_per_block(b, s, h, p, n, q, device)
+    print(f"ssd_scan_bwd (b, s, h, p, n, Q) = {shape}: bf16 B/C (tensor-core body, {group} heads "
+          f"per chunk block) kernel {k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), the "
+          f"float32 body on the upcast B/C device {f32_dev * 1e3!r} us (turns: {turns}), plain "
+          f"{p_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, "
+          f"{flops} flops; counted per head {old_flops} flops, {old_ms * 1e3!r} us); device "
+          f"bound share {bound_ms / k_dev!r} (float32 body {bound_ms / f32_dev!r}); by kernel "
+          f"(profiled device us a call): bf16 {by_kernel}, float32 {f32_by_kernel}; registers "
+          f"and spills: {registers}; no single PyTorch call computes it: library_ms is null")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "device_ms": k_dev, "library_device_ms": None,
-            "kernels_device_us": by_kernel}
+            "kernels_device_us": by_kernel, "heads_per_block": group,
+            "per_head_count_bound_ms": old_ms, "f32_body_device_ms": f32_dev,
+            "f32_body_kernels_device_us": f32_by_kernel, "registers": registers}
 
 
 def main_path(torch, device):

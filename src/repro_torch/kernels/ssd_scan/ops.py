@@ -3,9 +3,10 @@ backward (``csrc/ssd_scan_bwd.cu``).
 
 CPU tensors go to the plain versions (:mod:`.ref`), which autograd
 differentiates.  CUDA tensors go to the hand-written kernels, or the call
-raises: there is no fallback.  The type of B and C picks the forward's
-body: bfloat16 the tensor-core body (followed, with more than one chunk or
-with ``return_state``, by its state pass), float32 the CUDA-core body.
+raises: there is no fallback.  The type of B and C picks the body of the
+forward and of the backward: bfloat16 the tensor-core body (the forward's
+followed, with more than one chunk or with ``return_state``, by its state
+pass), float32 the CUDA-core body.
 With ``return_state`` the kernel also writes the state after the last
 chunk, which a cache-producing prefill needs; that call has no backward.
 When grad mode is on and an input requires grad, a CUDA call without
@@ -42,11 +43,17 @@ def _launcher(name: str):
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         elif name == "ssd_scan_bwd":
             fn = _build.load(name).ssd_scan_bwd_launch
-            fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        elif name == "bwd_scratch":
+            fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_scratch_floats
+            fn.argtypes = [ctypes.c_int] * 8
+        elif name == "bwd_heads_per_block":
+            fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_heads_per_block
+            fn.argtypes = [ctypes.c_int] * 7
         else:
             fn = _build.load("ssd_scan").ssd_scan_heads_per_block
             fn.argtypes = [ctypes.c_int] * 7
-        fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_longlong if name == "bwd_scratch" else ctypes.c_int
         _C_FUNCTIONS[name] = fn
     return fn
 
@@ -64,6 +71,18 @@ def heads_per_block(b: int, s: int, h: int, p: int, n: int, chunk: int,
                                           _device_index(device))
     if group < 1:
         raise ValueError(f"ssd_scan: the kernel refuses (b, s, h, p, n, chunk) = "
+                         f"{(b, s, h, p, n, chunk)}")
+    return group
+
+
+def bwd_heads_per_block(b: int, s: int, h: int, p: int, n: int, chunk: int,
+                        device: torch.device) -> int:
+    """Heads that one chunk-kernel block of the backward's tensor-core body
+    (bfloat16 B/C) takes at this shape on the CUDA ``device``."""
+    group = _launcher("bwd_heads_per_block")(b, s, h, p, n, check_chunk(s, chunk),
+                                              _device_index(device))
+    if group < 1:
+        raise ValueError(f"ssd_scan_bwd: the kernel refuses (b, s, h, p, n, chunk) = "
                          f"{(b, s, h, p, n, chunk)}")
     return group
 
@@ -132,8 +151,10 @@ def ssd_scan_bwd(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: 
     for the output gradient ``dy [B, S, H, P]`` (float32): ``(dxdt, ddA,
     dB, dC)``, ``dxdt`` and ``ddA`` in float32, ``dB``/``dC`` in B's and C's
     type (summed in float32 over the heads and rounded once).  On the card
-    CUDA-core float32 arithmetic and no atomics, so a repeated call gives
-    the same bits; CPU tensors take :func:`.ref.ssd_scan_bwd_ref`."""
+    no atomics, so a repeated call gives the same bits: bfloat16 B/C the
+    tensor-core body (bf16 products, float32 operands split hi + lo, the
+    products the heads share once per row and chunk), float32 B/C the
+    CUDA-core float32 body; CPU tensors take :func:`.ref.ssd_scan_bwd_ref`."""
     if xdt.device.type == "cpu":
         return ssd_scan_bwd_ref(xdt, dA, Bmat, Cmat, dy, chunk=chunk)
     b, s, h, p, n, q = _check(xdt, dA, Bmat, Cmat, chunk, dy=dy)
@@ -143,18 +164,19 @@ def ssd_scan_bwd(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: 
     if b * h == 0:
         return dxdt, ddA, dB.zero_(), dC.zero_()
     nc = s // q
+    dtype, index = _DTYPES[Bmat.dtype], _device_index(device)
     f32 = dict(dtype=torch.float32, device=device)
     # Scratch: the states entering and the state gradients leaving each
-    # chunk, and each head's part of dB and dC.
+    # chunk, and what the body passes between its launches (float32: each
+    # head's part of dB and dC; bfloat16: G^T and each head group's D,
+    # exp(cum) and w, the parts of dB and dC), sized by the library.
     states = [torch.empty((b, nc, h, p, n), **f32) if nc > 1 else None for _ in range(2)]
-    parts = [torch.empty((b, h, s, n), **f32) for _ in range(2)]
+    scratch = torch.empty(_launcher("bwd_scratch")(b, s, h, p, n, q, dtype, index), **f32)
     err = _launcher("ssd_scan_bwd")(
         xdt.data_ptr(), dA.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), dy.data_ptr(),
         dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        *(x.data_ptr() if x is not None else None for x in states),
-        parts[0].data_ptr(), parts[1].data_ptr(),
-        b, s, h, p, n, q, _DTYPES[Bmat.dtype], _device_index(device),
-        torch.cuda.current_stream(device).cuda_stream,
+        *(x.data_ptr() if x is not None else None for x in states), scratch.data_ptr(),
+        b, s, h, p, n, q, dtype, index, torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError {err}")

@@ -204,10 +204,10 @@ VARIANTS = {
 }
 
 
-def _build_variants(kinds):
+def _build_variants(kinds, variants=None):
     # Every substitution is checked before any nvcc starts.
     jobs = {}
-    for name, (library, edited, subs) in VARIANTS.items():
+    for name, (library, edited, subs) in (VARIANTS if variants is None else variants).items():
         if name.split()[0] not in kinds:
             continue
         where = SWEEP_DIR / name.replace(" ", "_").replace("/", "").replace(".", "")

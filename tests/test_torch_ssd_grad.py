@@ -283,7 +283,10 @@ def test_cuda_backward_kernel_matches_plain_version(bc_dtype):
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 
     dev = torch.device("cuda")
-    for shape in SSD_SHAPES + [(2, 512, 80, 64, 128, 256), (1, 130, 11, 64, 128, 65),
+    # mamba2's and zamba2's training shapes cut to 2 rows, four chunks of
+    # 64, and ragged Q, P and N.
+    for shape in SSD_SHAPES + [(2, 512, 80, 64, 128, 256), (2, 512, 112, 64, 64, 256),
+                               (2, 256, 5, 64, 128, 64), (1, 130, 11, 64, 128, 65),
                                (2, 33, 3, 18, 12, 11), (1, 256, 5, 128, 256, 256)]:
         *dims, chunk = shape
         xdt, dA, bm, cm, dy = (x.to(dev) for x in _tensors(_ssd_inputs(6, *dims), bc_dtype))

@@ -16,8 +16,8 @@ Phases (any failure raises, so the script exits non-zero):
    ``tree_select``, ``flash_attention`` (bf16 on the tensor cores, float32 on the
    CUDA cores), ``decode_attention`` (the key-split body),
    ``tree_decode_attention`` (the body over a shared-memory copy of the
-   prefix), ``ssd_scan`` (bf16 B/C on the tensor cores, float32 and the
-   state pass on the CUDA cores), ``flash_attention_bwd`` (bf16 on the
+   prefix), ``ssd_scan`` (bf16 B/C on the tensor cores: the chunk kernel
+   and the state kernel; float32 on the CUDA cores), ``flash_attention_bwd`` (bf16 on the
    tensor cores, float32 on the CUDA cores) and ``ssd_scan_bwd`` (bf16
    B/C on the tensor cores, float32 on the CUDA cores);
 3. hold each kernel against its plain PyTorch version on the card (the
@@ -36,14 +36,18 @@ Phases (any failure raises, so the script exits non-zero):
    them, D=32 at G=8; ``out`` bit-equal with and without the log-sum-exp,
    a second backward bit-equal to the first; the backward timed by kernel),
    ``ssd_scan`` with float32 and bfloat16 B/C over a grid, the driven
-   shapes, and against the sequential recurrence too, and its final state
+   shapes and phase 24(c)'s training shapes, and against the sequential
+   recurrence too, and its final state
    (``return_state``) over the grid and phase 20's prefill shapes, timed
-   at mamba2's and zamba2's; its backward ``ssd_scan_bwd`` over the grid
+   at mamba2's and zamba2's; the forward also timed at both training
+   shapes, by kernel (no CUDA-core kernel may run for bf16 B/C); its
+   backward ``ssd_scan_bwd`` over the grid
    and phase 24(c)'s training shapes in both types, a second call
    bit-equal, autograd through ``ssd_scan`` (``y`` bit-equal to the
-   no-grad call), timed at both training shapes beside the float32 body
+   no-grad call, the backward on the forward's saved states), timed at
+   both training shapes beside the float32 body
    on the same B/C upcast, by kernel, with the tensor-core kernels'
-   registers and spills, and
+   registers and spills, and given the saved states, and
    ``flash_attention_bwd`` also at zamba2's D=112), and time kernel,
    plain version and one PyTorch library call at the main paths' shapes
    (the paged and tree kernels have no single library call: a gather or
@@ -1211,29 +1215,40 @@ def ssd_bound(b, s, h, p, n, q, bc_bytes, state=False):
 
 
 def time_ssd(torch, device, shape):
-    """Kernel and plain version at a driven scan shape with bf16 B/C:
-    phase 13's (mamba2-2.7b, 128 rows x 160 tokens) or phase 14's
-    (zamba2-7b, 8 rows); no single PyTorch call computes it."""
+    """Kernel and plain version at a scan shape with bf16 B/C: phase 13's
+    (mamba2-2.7b, 128 rows x 160 tokens) or phase 14's (zamba2-7b, 8 rows),
+    one chunk, or 24(c)'s training shapes (8 rows x 512 tokens, two chunks
+    of 256), where the state kernel runs before the chunk kernel and no
+    CUDA-core kernel may run; device µs by kernel under torch.profiler; no
+    single PyTorch call computes it."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     from repro_torch.kernels.ssd_scan.ops import heads_per_block
 
     b, s, h, p, n, q = shape
     gen = torch.Generator(device=device).manual_seed(42)
     args = ssd_inputs(torch, gen, b, s, h, p, n, torch.bfloat16, device)
-    err = ssd_err(torch, ssd_scan(*args, chunk=q), ssd_scan_ref(*args, chunk=q), SSD_TOL,
-                  "timed ssd_scan")
-    k_ms = time_ms(torch, lambda: ssd_scan(*args, chunk=q), 20)
-    k_dev = device_ms(lambda: ssd_scan(*args, chunk=q), calls=10)
+    run = lambda: ssd_scan(*args, chunk=q)
+    err = ssd_err(torch, run(), ssd_scan_ref(*args, chunk=q), SSD_TOL, "timed ssd_scan")
+    k_ms = time_ms(torch, run, 20)
+    k_dev = device_ms(run, calls=10)
     p_ms = time_ms(torch, lambda: ssd_scan_ref(*args, chunk=q), 5)
+    by_kernel = device_us_by_kernel(torch, device, run, calls=3)
+    bf16_kernels = ("ssd_mma_kernel", "ssd_fwd_state_mma_kernel") if s > q else ("ssd_mma_kernel",)
+    if any("ssd_scan_kernel" in k for k in by_kernel) or \
+            not all(any(want in k for k in by_kernel) for want in bf16_kernels):
+        raise AssertionError(f"ssd_scan at {shape}, bf16 B/C, ran {sorted(by_kernel)}: expected "
+                             f"{bf16_kernels} and no CUDA-core ssd_scan_kernel")
     bound_ms, bound_by, nbytes, flops = ssd_bound(b, s, h, p, n, q, 2)
     print(f"ssd_scan (b, s, h, p, n, Q) = {shape}, bf16 B/C, "
           f"{heads_per_block(b, s, h, p, n, q, device)} heads per block: kernel "
           f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, bound "
           f"{bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, {flops} flops); device "
-          f"bound share {bound_ms / k_dev!r}; |kernel - plain| {err!r}; no single PyTorch "
-          f"call computes it: library_ms is null")
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "device_ms": k_dev, "library_device_ms": None}
+          f"bound share {bound_ms / k_dev!r}; by kernel (profiled device us a call) "
+          f"{by_kernel}; |kernel - plain| {err!r}; no single PyTorch call computes it: "
+          f"library_ms is null")
+    return {"shape": list(shape), "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "device_ms": k_dev,
+            "library_device_ms": None, "kernels_device_us": by_kernel}
 
 
 # ssd_scan's final state (return_state): the prefills phase 20 drives
@@ -1326,8 +1341,10 @@ SSD_TRAIN_SHAPES = [(TRAIN_B, TRAIN_S, 80, 64, 128, 256), (TRAIN_B, TRAIN_S, 112
 def check_ssd_bwd(torch, device):
     """ssd_scan_bwd against ssd_scan_bwd_ref with float32 and bfloat16 B/C
     over the grid and the training shapes, a second call bit-equal to the
-    first (no atomics); autograd through ``ssd_scan`` gives the forward's
-    ``y`` bit for bit and the direct call's gradients.  Returns the max
+    first (no atomics); autograd through ``ssd_scan`` (whose backward takes
+    the states the bf16 forward kernel saved, at the training shape) gives
+    the forward's ``y`` bit for bit and the direct call's gradients, which
+    recompute the states.  Returns the max
     shares of the largest value (float32; bf16 dB/dC) and the float32 max
     absolute error."""
     from repro_torch.kernels import LAUNCHES
@@ -1436,10 +1453,12 @@ def time_ssd_bwd(torch, device, shape):
     replay; paced time, the plain version, the device time by kernel (bf16
     must run the tensor-core kernels, float32 the CUDA-core ones), the
     bound (and the per-head count beside it) and the tensor-core kernels'
-    registers and spills; no single PyTorch call computes it."""
+    registers and spills; then the bf16 call given the states the forward
+    kernel keeps under grad (its state kernel's backward direction alone),
+    device time and by kernel; no single PyTorch call computes it."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_ref
-    from repro_torch.kernels.ssd_scan.ops import bwd_heads_per_block
+    from repro_torch.kernels.ssd_scan.ops import _forward, bwd_heads_per_block
 
     b, s, h, p, n, q = shape
     gen = torch.Generator(device=device).manual_seed(46)
@@ -1460,6 +1479,10 @@ def time_ssd_bwd(torch, device, shape):
             any("mma" in k or "finish" in k for k in f32_by_kernel):
         raise AssertionError(f"ssd_scan_bwd at {shape}: bf16 ran {sorted(by_kernel)}, float32 "
                              f"ran {sorted(f32_by_kernel)}")
+    _, states = _forward(*args, chunk=q, keep_states=True)
+    run_saved = lambda: ssd_scan_bwd(*args, dy, chunk=q, states=states)
+    saved_dev = device_ms(run_saved, calls=5)
+    saved_by_kernel = device_us_by_kernel(torch, device, run_saved, calls=3)
     bound_ms, bound_by, nbytes, flops = ssd_bwd_bound(b, s, h, p, n, q, 2)
     old_ms, _, _, old_flops = ssd_bwd_bound(b, s, h, p, n, q, 2, per_head=True)
     registers = [line.strip() for line in ptxas_summary(_build.BUILD_LOGS.get("ssd_scan_bwd", ""))
@@ -1471,13 +1494,16 @@ def time_ssd_bwd(torch, device, shape):
           f"{p_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, "
           f"{flops} flops; counted per head {old_flops} flops, {old_ms * 1e3!r} us); device "
           f"bound share {bound_ms / k_dev!r} (float32 body {bound_ms / f32_dev!r}); by kernel "
-          f"(profiled device us a call): bf16 {by_kernel}, float32 {f32_by_kernel}; registers "
-          f"and spills: {registers}; no single PyTorch call computes it: library_ms is null")
+          f"(profiled device us a call): bf16 {by_kernel}, float32 {f32_by_kernel}; given the "
+          f"forward's states: device {saved_dev * 1e3!r} us, by kernel {saved_by_kernel}; "
+          f"registers and spills: {registers}; no single PyTorch call computes it: library_ms "
+          f"is null")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "device_ms": k_dev, "library_device_ms": None,
             "kernels_device_us": by_kernel, "heads_per_block": group,
             "per_head_count_bound_ms": old_ms, "f32_body_device_ms": f32_dev,
-            "f32_body_kernels_device_us": f32_by_kernel, "registers": registers}
+            "f32_body_kernels_device_us": f32_by_kernel, "registers": registers,
+            "saved_states_device_ms": saved_dev, "saved_states_kernels_device_us": saved_by_kernel}
 
 
 def main_path(torch, device):
@@ -1993,7 +2019,7 @@ def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):
 # profile_call prints whether or not they are among the top entries.
 PORT_KERNEL_NAMES = ("tree_select_kernel", "tree_descend_kernel", "split_kernel",
                      "tree_kernel", "flash_mma_kernel", "flash_attention_kernel",
-                     "ssd_mma_kernel", "ssd_scan_kernel")
+                     "ssd_mma_kernel", "ssd_fwd_state_mma_kernel", "ssd_scan_kernel")
 
 
 def profile_call(torch, device, fn, what, top=10):
@@ -3275,7 +3301,8 @@ class RepeatedBatch:
 STEP_GROUPS = (("flash_attention_bwd", ("bwd_delta_kernel", "bwd_dkdv", "bwd_dq")),
                ("flash_attention forward", ("flash_mma_kernel", "flash_attention_kernel")),
                ("ssd_scan_bwd", ("ssd_bwd_",)),
-               ("ssd_scan forward", ("ssd_mma_kernel", "ssd_scan_kernel")),
+               ("ssd_scan forward", ("ssd_mma_kernel", "ssd_fwd_state_mma_kernel",
+                                     "ssd_scan_kernel")),
                ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
@@ -3706,11 +3733,13 @@ def main():
     # the reduced models' 32 slots of 20 tokens (H=8, P=N=16, Q=4).
     mamba2_scan = (ASYNC_B * ASYNC_W, MAX_LEN, 80, 64, 128, MAX_LEN)
     zamba2_scan = (WAVE_B * WAVE_W, MAX_LEN, 112, 64, 64, MAX_LEN)
+    # 24(c) trains through SSD_TRAIN_SHAPES (two chunks of 256).
     err = check_ssd(torch, device, [mamba2_scan, zamba2_scan,
                                     (4, MAX_LEN, 80, 64, 128, MAX_LEN), (4, 384, 80, 64, 128, 128),
-                                    (8 * 4, REDUCED_MAX_LEN, 8, 16, 16, 4)])
+                                    (8 * 4, REDUCED_MAX_LEN, 8, 16, 16, 4), *SSD_TRAIN_SHAPES])
     fields["ssd_scan"] = {"max_abs_err": err, **time_ssd(torch, device, mamba2_scan)}
     time_ssd(torch, device, zamba2_scan)
+    fields["ssd_scan"]["train"] = [time_ssd(torch, device, shape) for shape in SSD_TRAIN_SHAPES]
     fields["ssd_scan"]["return_state_max_abs_err"] = check_ssd_state(torch, device,
                                                                      SSD_STATE_DRIVEN)
     fields["ssd_scan"]["return_state"] = [time_ssd_state(torch, device, shape)

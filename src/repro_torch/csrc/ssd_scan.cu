@@ -56,11 +56,36 @@
 //   meets it.  Tiles above the diagonal are never formed.
 // * Shared memory at phase 13's shape: 43 KB of C . B^T, 10 KB of cum, 2 x
 //   26 KB of xdt rings and splits: two blocks (16 warps) per SM.
-// * No state buffer: the block sees one chunk.  With more than one chunk,
-//   or when the final state is asked for, a second launch, the CUDA-core
-//   body below in its state-only form (one block per (batch, head), the
-//   state in shared memory), walks the chunks in order, adds exp(cum_i)
-//   C_i . h^T to y from the second chunk on and carries h.
+// * With more than one chunk, or when the final state is asked for, the
+//   state kernel follows (`ssd_fwd_state_mma_kernel`, the body of
+//   ssd_state.cuh that the backward's state pass also runs): one block of 8
+//   warps per (batch, head, 64 state rows) walks the chunks in order, h <-
+//   exp(total) h + (w o xdt)^T B as an MMA over 32-token slabs through a
+//   3-deep cp.async ring (w o xdt split hi + lo, B exact), and writes the
+//   state entering each chunk to float32 `states` [B, nc, H, P, N], the
+//   layout the backward reads (autograd saves it, so the backward runs only
+//   its reverse direction), and the final state to hout.  From the second
+//   chunk on it first adds exp(cum_i) C_i . h^T to y for its 64 columns of
+//   P: the state it holds in registers is staged split hi + lo in shared
+//   memory, and each warp forms 16 tokens at a time against it (C rows and
+//   y read from global memory, C exact: two products per k16 step, K = N)
+//   while its ring brings in the chunk's first slabs.  y is read back once
+//   for those chunks.
+// * The other place for that term, kept for launch/ssd_fwd_sweep.py
+//   (kInterInChunk): the state kernel first, then the chunk kernel starting
+//   each head's accumulators of a chunk c > 0 at exp(cum_i) C_i . h_c^T, h_c
+//   read from `states` and split as it is read.  y is then written once,
+//   but every warp reads all of h_c from global memory in 8-byte pieces
+//   that each touch 8 rows, and nothing hides their latency: at 24(c)'s
+//   mamba2 shape the term costs ~310 us of the chunk kernel, against ~84 us
+//   in the state kernel (H100, launch/ssd_fwd_sweep.py).  One chunk without
+//   hout launches the chunk kernel alone, its code unchanged by the term (a
+//   template flag).
+// * At 24(c)'s training shape (8 rows x 512 tokens, two chunks of 256,
+//   mamba2-2.7b's heads) the least work is 1.10e10 float32 flops, 164 us
+//   at 67 TFLOP/s (its 171 MB take 51 us); the chunk kernel's shared memory
+//   (129 KB at Q = 256) holds it to one block an SM there, and the state
+//   kernel runs one block an SM (its registers).
 //
 // float32 B and C: the CUDA-core body (`ssd_scan_kernel`), one block of 256
 // threads per (batch, head) walking its chunks with the [P][N + 4] state in
@@ -80,6 +105,9 @@
 
 #include <type_traits>
 
+#include "mma_tiles.cuh"
+#include "ssd_state.cuh"
+
 namespace {
 
 constexpr int kMaxChunk = 256;
@@ -91,26 +119,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Inclusive scan of cum[0, len) in place by one warp, 32 entries at a
-// time; entries [len, round32(len)) get the running total.
-__device__ __forceinline__ void warp_scan(float* cum, int len, int lane) {
-  float carry = 0.0f;
-  for (int base = 0; base < len; base += 32) {
-    const int i = base + lane;
-    float v = i < len ? cum[i] : 0.0f;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += u;
-    }
-    v += carry;
-    cum[i] = v;
-    carry = __shfl_sync(0xffffffffu, v, 31);
-  }
-}
+using ssd_state::ld_bf16x2;
+using ssd_state::ld_f2;
+using ssd_state::warp_scan;
 
 // ---------------------------------------------------------------------------
-// The CUDA-core body: float32 B/C, and the state pass of bf16 B/C
+// The CUDA-core body: float32 B/C
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
@@ -175,9 +189,6 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 }
 
 // One block of 256 threads per (batch, head), walking the chunks in order.
-// kIntra: the whole scan (float32 B/C).  !kIntra: the state pass that
-// follows the tensor-core body (which wrote the part of y inside each
-// chunk): y += exp(cum_i) C_i . h^T from the second chunk on, and the state.
 //
 // A chunk does not fit in shared memory at Q = 256 (a float32 [Q, N] tile
 // of B or C alone is 128 KB), so it is streamed in 32-row tiles: cum is a
@@ -191,7 +202,7 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 // the grid).  Warp w owns
 // tile rows w, w + 8, w + 16, w + 24; lane l owns score column l and output
 // columns l + 32k.
-template <typename T, bool kIntra>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
                 const T* __restrict__ Bm, const T* __restrict__ Cm,
@@ -232,8 +243,7 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
     __syncthreads();
     if (warp == 0) warp_scan(cum, Q, lane);
 
-    // The state pass has nothing to add to y in the first chunk.
-    for (int it = 0; it < ((kIntra || ci > 0) ? n_tiles : 0); ++it) {
+    for (int it = 0; it < n_tiles; ++it) {
       const int r0 = it * kTile;
       __syncthreads();  // cum is written; the last tile's readers are done
       load_rows(cs, cb, t0 + r0, min(kTile, Q - r0), N, ns);
@@ -244,7 +254,7 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
 #pragma unroll
         for (int pp = 0; pp < kMaxPK; ++pp) acc[k][pp] = 0.0f;
 
-      for (int jt = 0; jt <= (kIntra ? it : -1); ++jt) {
+      for (int jt = 0; jt <= it; ++jt) {
         const int c0 = jt * kTile;
         const int nc = min(kTile, Q - c0);
         if (jt > 0) __syncthreads();  // the last (i, j) is done with bs, xs, ss
@@ -294,7 +304,6 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
           }
         }
       }
-      if (!kIntra) __syncthreads();  // C_i is in
 
       // The state term C_i . h^T (the state is zero in the first chunk).
       float inter[kRowsPerWarp][kMaxPK];
@@ -329,7 +338,7 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
 #pragma unroll
         for (int pp = 0; pp < kMaxPK; ++pp) {
           const int p = lane + 32 * pp;
-          if (p < P) yrow[p] = (kIntra ? acc[k][pp] : yrow[p]) + inter[k][pp] * e;
+          if (p < P) yrow[p] = acc[k][pp] + inter[k][pp] * e;
         }
       }
     }
@@ -395,25 +404,25 @@ ssd_scan_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
   }
 }
 
-template <typename T, bool kIntra>
+template <typename T>
 int launch_scan(const float* xdt, const float* dA, const void* Bm, const void* Cm,
                 float* y, float* hout, int B, int S, int H, int P, int N, int Q,
                 cudaStream_t stream) {
   const size_t smem = smem_bytes(P, N, Q, S / Q > 1 || hout != nullptr);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_scan_kernel<T, kIntra>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  ssd_scan_kernel<T, kIntra><<<B * H, kThreads, smem, stream>>>(
+  ssd_scan_kernel<T><<<B * H, kThreads, smem, stream>>>(
       xdt, dA, static_cast<const T*>(Bm), static_cast<const T*>(Cm), y, hout, S, H,
       P, N, Q);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body: bf16 B/C, the part of y inside each chunk
+// The tensor-core body: bf16 B/C
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -426,6 +435,11 @@ constexpr int kHalfThreads = 32 * kRowWarps;
 constexpr int kRows = 16 * kRowWarps;   // chunk rows per block
 constexpr int kSlab = 32;               // chunk columns per B slab / xdt stage
 constexpr int kMaxGroup = 16;           // heads per block
+// Where the inter-chunk term exp(cum_i) C_i . h^T is added
+// (launch/ssd_fwd_sweep.py times both): false, the state kernel, after the
+// chunk kernel, from the state it holds; true, the chunk kernel, after the
+// state kernel, reading the state from global memory.
+constexpr bool kInterInChunk = false;
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -468,62 +482,14 @@ __device__ __forceinline__ void half_sync(int half) {
     asm volatile("bar.sync 2, %0;\n" ::"n"(kHalfThreads) : "memory");
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !full.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), packed as bf16x2 (x0 low).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
+using mma_tiles::cp_async16;
+using mma_tiles::cp_async_commit;
+using mma_tiles::cp_async_wait;
+using mma_tiles::ldsm_x4;
+using mma_tiles::ldsm_x4_trans;
+using mma_tiles::mma_bf16;
+using mma_tiles::smem_addr;
+using mma_tiles::split_bf16;
 
 // Two adjacent float32 outputs of one y row: a float2 store where P is even.
 __device__ __forceinline__ void store2(float* dst, float v0, float v1, int p, int P,
@@ -560,18 +526,54 @@ __device__ __forceinline__ void load_bc(bf16* dst, const bf16* src, int r_begin,
   }
 }
 
+// acc[nt] += rows r and r + 8 of C . h^T (this thread's rows g and g + 8
+// of a 16-row tile), columns p_begin + 8 nt + [0, 8) of P: c_a and c_b
+// the two rows of C (bf16, length N, zero where !ok), h [P, N] float32 in
+// global memory (row stride N).  C exact, h split hi + lo as it is read
+// (two products per k16 step and n8 tile), or rounded once when !kSplit.
+template <int NT, bool kSplit>
+__device__ __forceinline__ void state_term(float (&acc)[NT][4], const bf16* c_a,
+                                           const bf16* c_b, bool ok_a, bool ok_b,
+                                           const float* h, int p_begin, int P, int N,
+                                           int lane) {
+  const int g = lane >> 2;
+  const int c2 = 2 * (lane & 3);
+#pragma unroll 2
+  for (int k0 = 0; k0 < N; k0 += 16) {
+    const uint32_t a[4] = {ld_bf16x2(c_a, k0 + c2, N, ok_a), ld_bf16x2(c_b, k0 + c2, N, ok_b),
+                           ld_bf16x2(c_a, k0 + c2 + 8, N, ok_a),
+                           ld_bf16x2(c_b, k0 + c2 + 8, N, ok_b)};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int p = p_begin + 8 * nt + g;   // the B fragment's column n = g
+      const float* row = h + static_cast<size_t>(p) * N;
+      const float2 v0 = ld_f2(row, k0 + c2, N, p < P);
+      const float2 v1 = ld_f2(row, k0 + c2 + 8, N, p < P);
+      uint32_t h0, l0, h1, l1;
+      split_bf16(v0.x, v0.y, h0, l0);
+      split_bf16(v1.x, v1.y, h1, l1);
+      mma_bf16(acc[nt], a, h0, h1);
+      if (kSplit) mma_bf16(acc[nt], a, l0, l1);
+    }
+  }
+}
+
 // One block of kMmaWarps warps per (batch, chunk, tile of kRows chunk rows,
 // group of `group` heads).  Warp w owns tile rows [16 r, 16 r + 16), r = w %
 // kRowWarps; the block's warps form C . B^T together, then its kHalves
 // halves walk alternate heads independently, each with its own xdt ring and
 // barrier.  Fragment coordinates (PTX m16n8k16): lane = 4 * g + c; a thread holds
 // rows g and g + 8 of every 16 x 8 accumulator, columns 2c and 2c + 1.
-template <int PT>
+// kInter (more than one chunk): from the second chunk on, a head's
+// accumulators start at exp(cum_i) C_i . h^T, h the state entering the
+// chunk in `states` [B, nc, H, P, N] (the state kernel's), C exact and h
+// split hi + lo (kSplitH) as it is read from global memory.
+template <int PT, bool kInter>
 __global__ void __launch_bounds__(kMmaThreads, PT <= 4 ? 2 : 1)
 ssd_mma_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
                const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
-               float* __restrict__ y, int S, int H, int P, int N, int Q, int group,
-               int vec_x, int vec_bc) {
+               const float* __restrict__ states, float* __restrict__ y, int S, int H, int P,
+               int N, int Q, int group, int vec_x, int vec_bc) {
   constexpr int kPp = 16 * PT;   // P padded to the mma tiles
   constexpr int kXs = kPp + 4;   // floats per staged xdt row
   constexpr int kXb = kPp + 8;   // bf16 per hi / lo row: ldmatrix rows on distinct banks
@@ -635,7 +637,7 @@ ssd_mma_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
       load_bc(bs, b_src, s * kSlab, kSlab, cols, N, sh.np, vec_bc);
       cp_async_commit();
     }
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();
     if (!live) continue;
 #pragma unroll
@@ -702,7 +704,7 @@ ssd_mma_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
   for (int it = 0; it < items; ++it) {
     const int hh = half + kHalves * (it / n_slabs);
     const int s = it % n_slabs;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     // Stage it & 1 is in; every warp of the half is done with the last split.
     half_sync(half);
     if (it + 1 < items) issue_x(it + 1, (it + 1) & 1);
@@ -729,6 +731,22 @@ ssd_mma_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
       for (int nt = 0; nt < 2 * PT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
       cum_a = ch[ia];
       cum_b = ch[ib];
+      if (kInter && chunk > 0) {
+        const bf16* c_a = Cm + (tok0 + ia) * N;
+        state_term<2 * PT, ssd_state::kSplitH>(
+            acc, c_a, c_a + 8 * N, ia < Q, ib < Q,
+            states + ((static_cast<size_t>(b) * n_chunks + chunk) * H + h0 + hh) * P * N, 0, P,
+            N, lane);
+        const float ea = expf(cum_a);
+        const float eb = expf(cum_b);
+#pragma unroll
+        for (int nt = 0; nt < 2 * PT; ++nt) {
+          acc[nt][0] *= ea;
+          acc[nt][1] *= ea;
+          acc[nt][2] *= eb;
+          acc[nt][3] *= eb;
+        }
+      }
     }
     // The k16 steps of this slab up to the warp's diagonal tile: all their
     // scores first (independent expf chains), then their products.
@@ -818,19 +836,19 @@ int heads_per_block(int B, int S, int H, int Q, int device) {
   return 1;
 }
 
-template <int PT>
+template <int PT, bool kInter>
 int launch_mma_pt(const float* xdt, const float* dA, const bf16* Bm, const bf16* Cm,
-                  float* y, int B, int S, int H, int P, int N, int Q, int group,
-                  cudaStream_t stream) {
+                  const float* states, float* y, int B, int S, int H, int P, int N, int Q,
+                  int group, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<PT>(N, Q, group);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_mma_kernel<PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_mma_kernel<PT, kInter>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     // Two blocks of 106 KB per SM at the main path's shape need the
     // largest shared-memory carveout.
-    err = cudaFuncSetAttribute(ssd_mma_kernel<PT>,
+    err = cudaFuncSetAttribute(ssd_mma_kernel<PT, kInter>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -841,30 +859,92 @@ int launch_mma_pt(const float* xdt, const float* dA, const bf16* Bm, const bf16*
   const int vec_x = P % 4 == 0 && reinterpret_cast<uintptr_t>(xdt) % 16 == 0;
   const int vec_bc = N % 8 == 0 && reinterpret_cast<uintptr_t>(Bm) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(Cm) % 16 == 0;
-  ssd_mma_kernel<PT><<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(
-      xdt, dA, Bm, Cm, y, S, H, P, N, Q, group, vec_x, vec_bc);
+  ssd_mma_kernel<PT, kInter><<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(
+      xdt, dA, Bm, Cm, states, y, S, H, P, N, Q, group, vec_x, vec_bc);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bf16(const float* xdt, const float* dA, const void* Bm, const void* Cm,
-                float* y, float* hout, int B, int S, int H, int P, int N, int Q,
-                int device, cudaStream_t stream) {
+template <bool kInter>
+int launch_mma(const float* xdt, const float* dA, const bf16* Bm, const bf16* Cm,
+               const float* states, float* y, int B, int S, int H, int P, int N, int Q,
+               int device, cudaStream_t stream) {
   const int group = heads_per_block(B, S, H, Q, device);
+  if (P <= 16)
+    return launch_mma_pt<1, kInter>(xdt, dA, Bm, Cm, states, y, B, S, H, P, N, Q, group, stream);
+  if (P <= 32)
+    return launch_mma_pt<2, kInter>(xdt, dA, Bm, Cm, states, y, B, S, H, P, N, Q, group, stream);
+  if (P <= 64)
+    return launch_mma_pt<4, kInter>(xdt, dA, Bm, Cm, states, y, B, S, H, P, N, Q, group, stream);
+  return launch_mma_pt<8, kInter>(xdt, dA, Bm, Cm, states, y, B, S, H, P, N, Q, group, stream);
+}
+
+// The forward direction of ssd_state.cuh's state body: one block of 8
+// warps per (batch, head, 64 state rows) writes the state entering each
+// chunk c = 1 .. nc - 1 into hs [B, nc, H, P, N], and the state after the
+// last chunk into hout when given.  kAddY: it also adds exp(cum_i) C_i .
+// h^T to y (!kInterInChunk).
+template <int NPW, bool kAddY>
+__global__ void __launch_bounds__(ssd_state::kStThreads, 1)
+ssd_fwd_state_mma_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
+                         const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+                         float* __restrict__ hs, float* __restrict__ hout,
+                         float* __restrict__ y, int S, int H, int P, int N, int Q, int vec_bc,
+                         int vec_u) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ssd_state::state_pass<NPW, kAddY>(smem_raw, xdt, dA, Bm, Cm, nullptr, hs, nullptr, hout, y,
+                                    false, S, H, P, N, Q, vec_bc, vec_u);
+}
+
+template <bool kAddY>
+int launch_state(const float* xdt, const float* dA, const bf16* Bm, const bf16* Cm, float* hs,
+                 float* hout, float* y, int B, int S, int H, int P, int N, int Q,
+                 cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(B) * H * ((P + 63) / 64);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_bc = N % 8 == 0 && reinterpret_cast<uintptr_t>(Bm) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(Cm) % 16 == 0;
+  const int vec_u = P % 4 == 0 && reinterpret_cast<uintptr_t>(xdt) % 16 == 0;
+  return static_cast<int>(ssd_state::with_npw(N, [&](auto npw) {
+    constexpr int NPW = decltype(npw)::value;
+    const size_t smem = ssd_state::state_smem_bytes(N, Q, kAddY);
+    if (smem > 48 * 1024) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(ssd_fwd_state_mma_kernel<NPW, kAddY>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    ssd_fwd_state_mma_kernel<NPW, kAddY>
+        <<<static_cast<unsigned>(blocks), ssd_state::kStThreads, smem, stream>>>(
+            xdt, dA, Bm, Cm, hs, hout, y, S, H, P, N, Q, vec_bc, vec_u);
+    return cudaGetLastError();
+  }));
+}
+
+// bf16 B/C: the chunk kernel, then, with more than one chunk or a final
+// state to write, the state kernel, which writes the state entering each
+// chunk into `states` (and the final state into hout) and adds exp(cum_i)
+// C_i . h^T to y from the second chunk on.  Nothing is launched on the CUDA
+// cores.
+int launch_bf16(const float* xdt, const float* dA, const void* Bm, const void* Cm, float* y,
+                float* hout, float* states, int B, int S, int H, int P, int N, int Q,
+                int device, cudaStream_t stream) {
   const bf16* b = static_cast<const bf16*>(Bm);
   const bf16* c = static_cast<const bf16*>(Cm);
-  int err;
-  if (P <= 16)
-    err = launch_mma_pt<1>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
-  else if (P <= 32)
-    err = launch_mma_pt<2>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
-  else if (P <= 64)
-    err = launch_mma_pt<4>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
-  else
-    err = launch_mma_pt<8>(xdt, dA, b, c, y, B, S, H, P, N, Q, group, stream);
-  if (err != 0 || (S == Q && hout == nullptr)) return err;
-  // More than one chunk: the state pass adds exp(cum_i) C_i . h^T; it also
-  // writes the final state when asked.
-  return launch_scan<bf16, false>(xdt, dA, Bm, Cm, y, hout, B, S, H, P, N, Q, stream);
+  const bool inter = S / Q > 1;   // the inter-chunk term exp(cum_i) C_i . h^T
+  const bool state_pass = inter || hout != nullptr;
+  int err = 0;
+  if (kInterInChunk) {
+    if (state_pass)
+      err = launch_state<false>(xdt, dA, b, c, states, hout, nullptr, B, S, H, P, N, Q, stream);
+    if (err != 0) return err;
+    return inter ? launch_mma<true>(xdt, dA, b, c, states, y, B, S, H, P, N, Q, device, stream)
+                 : launch_mma<false>(xdt, dA, b, c, states, y, B, S, H, P, N, Q, device, stream);
+  }
+  err = launch_mma<false>(xdt, dA, b, c, states, y, B, S, H, P, N, Q, device, stream);
+  if (err != 0 || !state_pass) return err;
+  return inter ? launch_state<true>(xdt, dA, b, c, states, hout, y, B, S, H, P, N, Q, stream)
+               : launch_state<false>(xdt, dA, b, c, states, hout, nullptr, B, S, H, P, N, Q,
+                                     stream);
 }
 
 bool bad_shape(int B, int S, int H, int P, int N, int Q) {
@@ -877,23 +957,27 @@ bool bad_shape(int B, int S, int H, int P, int N, int Q) {
 // xdt and y [B, S, H, P] float32, dA [B, S, H] float32, Bm and Cm [B, S, N]
 // (dtype 0: float32, 1: bfloat16), all contiguous; 1 <= Q <= 256 divides S,
 // P <= 128, N <= 256.  hout [B, H, P, N] float32 receives the final state,
-// or is null.  Launches on `stream` (PyTorch's current stream): float32 B/C
-// the CUDA-core body; bf16 the tensor-core body, then, with more than one
-// chunk or a final state to write, the state pass.  Returns the cudaError_t
-// of the launches; 0 means they were queued.
+// or is null.  states [B, S / Q, H, P, N] float32 (bf16 with more than one
+// chunk; else may be null) receives the state entering each chunk c >= 1
+// (entry 0 is not written), which ssd_scan_bwd_launch can take.  Launches
+// on `stream` (PyTorch's current stream): float32 B/C the CUDA-core body;
+// bf16 the tensor-core kernels (the state kernel, with more than one chunk
+// or a final state to write, then the chunk kernel).  Returns the
+// cudaError_t of the launches; 0 means they were queued.
 extern "C" int ssd_scan_launch(const float* xdt, const float* dA, const void* Bm,
-                               const void* Cm, float* y, float* hout, int B, int S,
-                               int H, int P, int N, int Q, int dtype, int device,
+                               const void* Cm, float* y, float* hout, float* states, int B,
+                               int S, int H, int P, int N, int Q, int dtype, int device,
                                void* stream) {
-  if (bad_shape(B, S, H, P, N, Q)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(B, S, H, P, N, Q) || (dtype == 1 && S / Q > 1 && states == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_scan<float, true>(xdt, dA, Bm, Cm, y, hout, B, S, H, P, N, Q, s);
+      return launch_scan<float>(xdt, dA, Bm, Cm, y, hout, B, S, H, P, N, Q, s);
     case 1:
-      return launch_bf16(xdt, dA, Bm, Cm, y, hout, B, S, H, P, N, Q, device, s);
+      return launch_bf16(xdt, dA, Bm, Cm, y, hout, states, B, S, H, P, N, Q, device, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

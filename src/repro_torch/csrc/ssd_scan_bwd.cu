@@ -39,14 +39,17 @@
 // float32 bar on ddA and dxdt (tests/test_torch_ssd_bwd_numerics.py, which
 // reads kSplitDm and kSplitM).  Four launches:
 //
-// 1. `ssd_bwd_state_mma_kernel` (only with more than one chunk): one block
-//    of 8 warps per (batch, head, 64 state rows) and direction walks the
-//    chunks, forward writing the state entering each chunk, backward the
-//    gradient of the state leaving it: state <- exp(total) state + (wt o
-//    u)^T v, an MMA with K = Q over 32-token slabs (u = xdt or dy, v = B or
-//    C) that a 3-deep cp.async ring brings in raw; the A fragments are read
-//    from the raw slab, scaled and split.  Float32 scratch [B, nc, H, P, N]
-//    each.
+// 1. `ssd_bwd_state_mma_kernel` (only with more than one chunk), the body
+//    of ssd_state.cuh that the forward's `ssd_fwd_state_mma_kernel` also
+//    runs: one block of 8 warps per (batch, head, 64 state rows) and
+//    direction walks the chunks, forward writing the state entering each
+//    chunk, backward the gradient of the state leaving it: state <-
+//    exp(total) state + (wt o u)^T v, an MMA with K = Q over 32-token slabs
+//    (u = xdt or dy, v = B or C) that a 3-deep cp.async ring brings in raw;
+//    the A fragments are read from the raw slab, scaled and split.  Float32
+//    [B, nc, H, P, N] each.  Where the forward kernel saved its states
+//    (autograd through `SsdScan`), only the backward direction runs, on the
+//    same body: the gradients are bit-equal to a call that recomputes them.
 // 2. `ssd_bwd_chunk_mma_kernel`: one block of 8 warps per (batch, chunk,
 //    group of heads), the group sized from the shape and the SM count
 //    (mamba2's and zamba2's training shapes: 8 groups of 10 and of 14
@@ -84,8 +87,8 @@
 // 1. `ssd_bwd_state_kernel` (only with more than one chunk): one block
 //    per (batch, head, 32 rows of P) and direction.  Forward, it walks the
 //    chunks in order and writes the state entering each chunk (the
-//    forward's state pass, recomputed: the forward kernel keeps its y
-//    bit-equal and saves nothing); backward, it walks them in reverse and
+//    float32 forward's state pass, recomputed: that forward saves
+//    nothing); backward, it walks them in reverse and
 //    writes g, the gradient of the state leaving each chunk.  Float32
 //    scratch [B, nc, H, P, N] each.
 // 2. `ssd_bwd_chunk_kernel`: one block of 256 threads per (batch, chunk,
@@ -130,8 +133,11 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "ssd_state.cuh"
 
 namespace {
+
+using ssd_state::warp_scan;
 
 // bf16 body: dM = dy xdt^T and M^T dy with both operands split hi + lo.
 constexpr bool kSplitDm = true;
@@ -178,24 +184,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Inclusive scan of a[0, len) in place by one warp, 32 entries at a time
-// (the forward's); entries [len, round32(len)) get the running total.
-__device__ __forceinline__ void warp_scan(float* a, int len, int lane) {
-  float carry = 0.0f;
-  for (int base = 0; base < len; base += 32) {
-    const int i = base + lane;
-    float v = i < len ? a[i] : 0.0f;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += u;
-    }
-    v += carry;
-    a[i] = v;
-    carry = __shfl_sync(0xffffffffu, v, 31);
-  }
 }
 
 // Reverse inclusive scan of a[0, len) in place by one warp: a[i] <- sum of
@@ -773,14 +761,22 @@ constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kSlab = 32;                     // tokens (or state rows) per staged slab
 constexpr int kFinRows = 64;                  // tokens per finish block
 constexpr int kGk = 64;                       // columns of N per pass of the G formation
-constexpr int kUld = 64 + 4;                  // floats per raw u row (state kernel)
-constexpr int kStStages = 3;                  // depth of the state kernel's cp.async ring
 constexpr int kAld = kSlab + 8;               // bf16 per staged A row (finish kernel)
 constexpr int kRawA = kSlab + 4;              // floats per raw A row in the finish ring
 constexpr int kFinStages = 3;                 // depth of the finish kernel's cp.async ring
 
-__host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
-__host__ __device__ __forceinline__ int round32(int x) { return (x + 31) & ~31; }
+using ssd_state::a_addr;
+using ssd_state::b_kn_addr;
+using ssd_state::b_nk_addr;
+using ssd_state::ld_bf16x2;
+using ssd_state::ld_f2;
+using ssd_state::mma2;
+using ssd_state::round16;
+using ssd_state::round32;
+using ssd_state::split_frag;
+using ssd_state::st_f2;
+using ssd_state::stage_bf16_rows;
+
 __host__ __device__ __forceinline__ int tri_count(int nt) { return nt * (nt + 1) / 2; }
 // Index of the causal 16 x 16 tile (row tile r >= column tile k).
 __device__ __forceinline__ int tri_index(int r, int k) { return r * (r + 1) / 2 + k; }
@@ -804,89 +800,12 @@ __device__ __forceinline__ void store_frag(float* tile, int lane, const float (&
 __device__ __forceinline__ float frag_at(const float* tile, int r, int k) {
   return tile[(k >> 3) * 128 + (4 * (r & 7) + ((k & 7) >> 1)) * 4 + (r >> 3) * 2 + (k & 1)];
 }
-__device__ __forceinline__ void split_frag(const float (&v)[8], uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) tc::split_bf16(v[2 * k], v[2 * k + 1], hi[k], lo[k]);
-}
-
-// Elements n, n + 1 of a bf16 row of length N as a packed pair; zero past N
-// or when !ok.
-__device__ __forceinline__ uint32_t ld_bf16x2(const bf16* row, int n, int N, bool ok) {
-  if (!ok || n >= N) return 0u;
-  if ((N & 1) == 0) return *reinterpret_cast<const uint32_t*>(row + n);
-  const uint16_t* r16 = reinterpret_cast<const uint16_t*>(row);
-  return static_cast<uint32_t>(r16[n]) |
-         (n + 1 < N ? static_cast<uint32_t>(r16[n + 1]) << 16 : 0u);
-}
-// Elements p, p + 1 of a float32 row of length P; zero past P or when !ok.
-__device__ __forceinline__ float2 ld_f2(const float* row, int p, int P, bool ok) {
-  if (!ok || p >= P) return make_float2(0.0f, 0.0f);
-  if ((P & 1) == 0) return *reinterpret_cast<const float2*>(row + p);
-  return make_float2(row[p], p + 1 < P ? row[p + 1] : 0.0f);
-}
 // Elements p .. p + 3 of a float32 row of length P; zero past P or when !ok.
 __device__ __forceinline__ float4 ld_f4(const float* row, int p, int P, bool ok) {
   if (!ok || p >= P) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if ((P & 3) == 0) return *reinterpret_cast<const float4*>(row + p);
   return make_float4(row[p], p + 1 < P ? row[p + 1] : 0.0f, p + 2 < P ? row[p + 2] : 0.0f,
                      p + 3 < P ? row[p + 3] : 0.0f);
-}
-// Stores elements p, p + 1 (those below P) of a float32 row.
-__device__ __forceinline__ void st_f2(float* row, int p, int P, float v0, float v1) {
-  if (p >= P) return;
-  if ((P & 1) == 0) {
-    *reinterpret_cast<float2*>(row + p) = make_float2(v0, v1);
-  } else {
-    row[p] = v0;
-    if (p + 1 < P) row[p + 1] = v1;
-  }
-}
-
-// Rows [r_begin, r_begin + rows) of a chunk's [Q, N] bf16 matrix into
-// dst[rows][ld], columns [0, np16); zero at rows >= valid and columns >=
-// N.  16-byte cp.async where `vec` (N % 8 == 0, 16-byte aligned rows);
-// the caller commits and waits.
-__device__ __forceinline__ void stage_bf16_rows(bf16* dst, int ld, const bf16* src, int r_begin,
-                                                int rows, int valid, int N, int np16, bool vec,
-                                                int tid, int nthreads) {
-  const int chunks = np16 / 8;
-  for (int e = tid; e < rows * chunks; e += nthreads) {
-    const int r = e / chunks;
-    const int n = (e - r * chunks) * 8;
-    const int row = r_begin + r;
-    bf16* d = dst + r * ld + n;
-    if (vec) {
-      const bool in = row < valid && n < N;
-      tc::cp_async16(tc::smem_addr(d), in ? src + static_cast<size_t>(row) * N + n : src, in);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        d[k] = (row < valid && n + k < N) ? src[static_cast<size_t>(row) * N + n + k]
-                                          : __float2bfloat16(0.0f);
-    }
-  }
-}
-
-// ldmatrix addresses of the fragments of a 16 x 16 bf16 tile at `base`
-// (row stride `ld` elements): the A fragment from [m][k] storage, and the
-// B fragments of two n8 tiles from [n][k] storage (`nk`) or, transposed,
-// from [k][n] storage (`kn`).
-__device__ __forceinline__ uint32_t a_addr(const bf16* base, int ld, int lane) {
-  return tc::smem_addr(base + (lane & 15) * ld + (lane >> 4) * 8);
-}
-__device__ __forceinline__ uint32_t b_nk_addr(const bf16* base, int ld, int lane) {
-  return tc::smem_addr(base + ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8);
-}
-__device__ __forceinline__ uint32_t b_kn_addr(const bf16* base, int ld, int lane) {
-  return tc::smem_addr(base + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8);
-}
-
-// c += (hi + lo) b with b exact: two products.
-__device__ __forceinline__ void mma2(float (&c)[4], const uint32_t (&hi)[4],
-                                     const uint32_t (&lo)[4], uint32_t b0, uint32_t b1) {
-  tc::mma_bf16(c, hi, b0, b1);
-  tc::mma_bf16(c, lo, b0, b1);
 }
 // c += (a_hi + a_lo)(b_hi + b_lo) without lo.lo: three products, or one
 // of the rounded operands when !kSplit.
@@ -901,182 +820,21 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
   }
 }
 
-// 1. The states entering each chunk and the state gradients leaving it.
-//
-// Block (batch b, head h, state rows [p0, p0 + 64)), blockIdx.y = 0: h_c
-// for c = 1 .. nc - 1 into hs (h_0 = 0 is never read); 1: g_c for c = nc -
-// 2 .. 0 into gs.  Each step: state <- exp(total) state + (wt o u)^T v over
-// the chunk's tokens, with (u, v, wt) = (xdt, B, exp(total - cum)) forward
-// and (dy, C, exp(cum)) backward: u wt split (two terms), v exact.  32-token
-// slabs of raw u and of v come in through a kStStages-deep cp.async ring;
-// the A fragments of (wt o u)^T are read from the raw slab, scaled and
-// split.  Warp w owns state rows p0 + 16 (w & 3) + [0, 16) and half the
-// 16-column pairs of N.
+// 1. The states entering each chunk and the state gradients leaving it:
+// ssd_state.cuh's body, blockIdx.y + rev0 = 0 forward (h_c for c = 1 ..
+// nc - 1 into hs), 1 backward (g_c for c = nc - 2 .. 0 into gs).  rev0 = 1
+// with one row of blocks runs the backward direction alone, when the
+// forward kernel saved its states.
 template <int NPW>
 __global__ void __launch_bounds__(kTcThreads, 1)
 ssd_bwd_state_mma_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
                          const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
                          const float* __restrict__ dy, float* __restrict__ hs,
                          float* __restrict__ gs, int S, int H, int P, int N, int Q,
-                         int vec_bc, int vec_u) {
+                         int vec_bc, int vec_u, int rev0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int np16 = round16(N);
-  const int ldv = np16 + 8;
-  const int qp = round32(Q);
-  float* cum = reinterpret_cast<float*>(smem_raw);   // [qp]
-  float* wt = cum + qp;                               // [qp]
-  float* ring = wt + qp;                              // [kStStages][kSlab][kUld]  raw u
-  // [kStStages][kSlab][ldv]  v
-  bf16* vring = reinterpret_cast<bf16*>(ring + kStStages * kSlab * kUld);
-
-  const bool rev = blockIdx.y == 1;
-  const int p_groups = (P + 63) / 64;
-  int idx = blockIdx.x;
-  const int p0 = 64 * (idx % p_groups);
-  idx /= p_groups;
-  const int h = idx % H;
-  const int b = idx / H;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int c4 = lane & 3;
-  const int nc = S / Q;
-  const int pairs = np16 / 16;
-  const int ppw = (pairs + 1) / 2;
-  const int pbeg = (warp >> 2) * ppw;
-  const int pend = min(pairs, pbeg + ppw);
-  const int pm = p0 + 16 * (warp & 3);                // the warp's first state row
-  const bool live = pm < P;
-  const size_t x_tok = static_cast<size_t>(H) * P;
-  const float* ub =
-      (rev ? dy : xdt) + static_cast<size_t>(b) * S * x_tok + static_cast<size_t>(h) * P;
-  const bf16* vb = (rev ? Cm : Bm) + static_cast<size_t>(b) * S * N;
-  const float* ab = dA + static_cast<size_t>(b) * S * H + h;
-  float* out = rev ? gs : hs;
-  const int n_slabs = (Q + kSlab - 1) / kSlab;
-
-  float state[NPW][2][4];
-#pragma unroll
-  for (int i = 0; i < NPW; ++i)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) state[i][hf][k] = 0.0f;
-
-  for (int step = 0; step + 1 < nc; ++step) {
-    const int ch = rev ? nc - 1 - step : step;
-    const size_t t0 = static_cast<size_t>(ch) * Q;
-    auto fetch = [&](int s) {
-      float* ru = ring + (s % kStStages) * kSlab * kUld;
-      const int ks = kSlab * s;
-      for (int e = tid; e < kSlab * 16; e += kTcThreads) {
-        const int r = e >> 4;
-        const int p = 4 * (e & 15);
-        const int t = ks + r;
-        const float* src = ub + (t0 + t) * x_tok + p0 + p;
-        const uint32_t dst = tc::smem_addr(ru + r * kUld + p);
-        if (vec_u) {
-          const bool in = t < Q && p0 + p < P;
-          tc::cp_async16(dst, in ? src : ub, in);
-        } else {
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const bool in = t < Q && p0 + p + u < P;
-            tc::cp_async4(dst + 4 * u, in ? src + u : ub, in);
-          }
-        }
-      }
-      stage_bf16_rows(vring + (s % kStStages) * kSlab * ldv, ldv, vb + t0 * N, ks, kSlab, Q, N,
-                      np16, vec_bc, tid, kTcThreads);
-    };
-    __syncthreads();  // the last step's readers of cum, wt and the ring are done
-#pragma unroll
-    for (int s = 0; s < kStStages - 1; ++s) {
-      if (s < n_slabs) fetch(s);
-      tc::cp_async_commit();
-    }
-    for (int i = tid; i < Q; i += kTcThreads) cum[i] = ab[(t0 + i) * H];
-    __syncthreads();
-    if (warp == 0) warp_scan(cum, Q, lane);
-    __syncthreads();
-    const float total = cum[Q - 1];
-    for (int i = tid; i < qp; i += kTcThreads)
-      wt[i] = i < Q ? (rev ? expf(cum[i]) : expf(total - cum[i])) : 0.0f;
-
-    float acc[NPW][2][4];
-#pragma unroll
-    for (int i = 0; i < NPW; ++i)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][hf][k] = 0.0f;
-    for (int s = 0; s < n_slabs; ++s) {
-      tc::cp_async_wait<kStStages - 2>();
-      __syncthreads();  // slab s is in (and wt); the last slab's readers are done
-      if (s + kStStages - 1 < n_slabs) fetch(s + kStStages - 1);
-      tc::cp_async_commit();
-      if (!live) continue;
-      const float* ru = ring + (s % kStStages) * kSlab * kUld;
-      const bf16* vs = vring + (s % kStStages) * kSlab * ldv;
-#pragma unroll
-      for (int kk = 0; kk < kSlab / 16; ++kk) {
-        // A = (wt o u)^T: element (state row m, token k) is u[k][m] wt[k].
-        const int k0 = 16 * kk + 2 * c4;
-        const int m0 = 16 * (warp & 3) + g;
-        const float* w = wt + kSlab * s + k0;
-        float v[8];
-        v[0] = ru[k0 * kUld + m0] * w[0];
-        v[1] = ru[(k0 + 1) * kUld + m0] * w[1];
-        v[2] = ru[k0 * kUld + m0 + 8] * w[0];
-        v[3] = ru[(k0 + 1) * kUld + m0 + 8] * w[1];
-        v[4] = ru[(k0 + 8) * kUld + m0] * w[8];
-        v[5] = ru[(k0 + 9) * kUld + m0] * w[9];
-        v[6] = ru[(k0 + 8) * kUld + m0 + 8] * w[8];
-        v[7] = ru[(k0 + 9) * kUld + m0 + 8] * w[9];
-        uint32_t ah[4], al[4];
-        split_frag(v, ah, al);
-#pragma unroll
-        for (int i = 0; i < NPW; ++i) {
-          const int np = pbeg + i;
-          if (np < pend) {
-            uint32_t bk[4];
-            tc::ldsm_x4_trans(bk, b_kn_addr(vs + 16 * kk * ldv + 16 * np, ldv, lane));
-            mma2(acc[i][0], ah, al, bk[0], bk[1]);
-            mma2(acc[i][1], ah, al, bk[2], bk[3]);
-          }
-        }
-      }
-    }
-    tc::cp_async_wait<0>();
-    if (!live) continue;
-    const float keep = expf(total);
-    const int c_out = rev ? ch - 1 : ch + 1;
-    float* dst = out + ((static_cast<size_t>(b) * nc + c_out) * H + h) * P * N;
-#pragma unroll
-    for (int i = 0; i < NPW; ++i) {
-      const int np = pbeg + i;
-      if (np >= pend) continue;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int n = 16 * np + 8 * hf + 2 * c4;
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int p = pm + g + 8 * rr;
-          float& s0 = state[i][hf][2 * rr];
-          float& s1 = state[i][hf][2 * rr + 1];
-          s0 = s0 * keep + acc[i][hf][2 * rr];
-          s1 = s1 * keep + acc[i][hf][2 * rr + 1];
-          if (p < P) st_f2(dst + static_cast<size_t>(p) * N, n, N, s0, s1);
-        }
-      }
-    }
-  }
-}
-
-size_t state_mma_smem(int N, int Q) {
-  return sizeof(float) * (2 * round32(Q) + kStStages * kSlab * kUld) +
-         sizeof(bf16) * kStStages * kSlab * (round16(N) + 8);
+  ssd_state::state_pass<NPW, false>(smem_raw, xdt, dA, Bm, Cm, dy, hs, gs, nullptr, nullptr,
+                                    blockIdx.y + rev0 == 1, S, H, P, N, Q, vec_bc, vec_u);
 }
 
 // 2. One chunk of a group of heads: G once, then per head dxdt, ddA and the
@@ -1902,17 +1660,22 @@ int launch_chunk_mma(const float* xdt, const float* dA, const bf16* Bm, const bf
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NPW>
+// The state kernel, both directions, or the backward's alone when the
+// forward's states are given (`hs_given`).
 cudaError_t launch_state(const float* xdt, const float* dA, const bf16* Bm, const bf16* Cm,
                          const float* dy, float* hs, float* gs, int S, int H, int P, int N,
-                         int Q, long long blocks, int vec_bc, int vec_u, cudaStream_t stream) {
-  const size_t smem = state_mma_smem(N, Q);
-  cudaError_t err = allow_smem(ssd_bwd_state_mma_kernel<NPW>, smem);
-  if (err != cudaSuccess) return err;
-  ssd_bwd_state_mma_kernel<NPW><<<dim3(static_cast<unsigned>(blocks), 2), kTcThreads, smem,
-                                  stream>>>(xdt, dA, Bm, Cm, dy, hs, gs, S, H, P, N, Q, vec_bc,
-                                            vec_u);
-  return cudaGetLastError();
+                         int Q, long long blocks, int vec_bc, int vec_u, int hs_given,
+                         cudaStream_t stream) {
+  return ssd_state::with_npw(N, [&](auto npw) {
+    constexpr int NPW = decltype(npw)::value;
+    const size_t smem = ssd_state::state_smem_bytes(N, Q, false);
+    cudaError_t err = allow_smem(ssd_bwd_state_mma_kernel<NPW>, smem);
+    if (err != cudaSuccess) return err;
+    ssd_bwd_state_mma_kernel<NPW>
+        <<<dim3(static_cast<unsigned>(blocks), hs_given ? 1 : 2), kTcThreads, smem, stream>>>(
+            xdt, dA, Bm, Cm, dy, hs, gs, S, H, P, N, Q, vec_bc, vec_u, hs_given ? 1 : 0);
+    return cudaGetLastError();
+  });
 }
 
 template <int NPW>
@@ -1937,7 +1700,7 @@ int launch_finish(const float* xdt, const float* dy, const bf16* Bm, const bf16*
 int launch_bwd_bf16(const float* xdt, const float* dA, const void* Bv, const void* Cv,
                     const float* dy, float* dx, float* ddA, void* dBv, void* dCv, float* hs,
                     float* gs, float* scratch, int B, int S, int H, int P, int N, int Q,
-                    int device, cudaStream_t stream) {
+                    int hs_given, int device, cudaStream_t stream) {
   const bf16* Bm = static_cast<const bf16*>(Bv);
   const bf16* Cm = static_cast<const bf16*>(Cv);
   const int vec_bc = N % 8 == 0 && reinterpret_cast<uintptr_t>(Bm) % 16 == 0 &&
@@ -1945,24 +1708,14 @@ int launch_bwd_bf16(const float* xdt, const float* dA, const void* Bv, const voi
   const Bf16Plan plan = bf16_plan(B, S, H, P, N, Q, device);
   if (plan.blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  const int ppw = (round16(N) / 16 + 1) / 2;   // 16-column pairs per warp (state, finish)
+  const int ppw = (round16(N) / 16 + 1) / 2;   // 16-column pairs per warp (finish)
   if (S / Q > 1) {
     const long long blocks = static_cast<long long>(B) * H * ((P + 63) / 64);
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     const int vec_u = P % 4 == 0 && reinterpret_cast<uintptr_t>(xdt) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(dy) % 16 == 0;
-    if (ppw <= 1)
-      err = launch_state<1>(xdt, dA, Bm, Cm, dy, hs, gs, S, H, P, N, Q, blocks, vec_bc, vec_u,
-                            stream);
-    else if (ppw <= 2)
-      err = launch_state<2>(xdt, dA, Bm, Cm, dy, hs, gs, S, H, P, N, Q, blocks, vec_bc, vec_u,
-                            stream);
-    else if (ppw <= 4)
-      err = launch_state<4>(xdt, dA, Bm, Cm, dy, hs, gs, S, H, P, N, Q, blocks, vec_bc, vec_u,
-                            stream);
-    else
-      err = launch_state<8>(xdt, dA, Bm, Cm, dy, hs, gs, S, H, P, N, Q, blocks, vec_bc, vec_u,
-                            stream);
+    err = launch_state(xdt, dA, Bm, Cm, dy, hs, gs, S, H, P, N, Q, blocks, vec_bc, vec_u,
+                       hs_given, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   float* gsc = scratch;
@@ -2036,17 +1789,19 @@ extern "C" int ssd_scan_bwd_heads_per_block(int B, int S, int H, int P, int N, i
 
 // The gradient of ssd_scan_launch's y.  xdt, dy, dx [B, S, H, P] and dA,
 // ddA [B, S, H] float32; Bm, Cm, dB, dC [B, S, N] (dtype 0: float32, 1:
-// bfloat16); all contiguous.  Scratch, float32: hs and gs [B, S / Q, H, P,
-// N] (may be null with one chunk) and `scratch` of
+// bfloat16); all contiguous.  Float32 hs and gs [B, S / Q, H, P, N] (may
+// be null with one chunk): scratch, or with `hs_given` (bf16 only) hs holds
+// the states entering chunks 1 .. nc - 1 as ssd_scan_launch's `states`
+// leaves them, and only the state gradients are computed.  `scratch` of
 // ssd_scan_bwd_scratch_floats floats.  Launches on `stream` (PyTorch's
 // current stream).  Returns the cudaError_t of the launches; 0 means they
 // were queued.
 extern "C" int ssd_scan_bwd_launch(const float* xdt, const float* dA, const void* Bm,
                                    const void* Cm, const float* dy, float* dx, float* ddA,
                                    void* dB, void* dC, float* hs, float* gs, float* scratch,
-                                   int B, int S, int H, int P, int N, int Q, int dtype,
-                                   int device, void* stream) {
-  if (bad_shape(B, S, H, P, N, Q) || scratch == nullptr)
+                                   int B, int S, int H, int P, int N, int Q, int hs_given,
+                                   int dtype, int device, void* stream) {
+  if (bad_shape(B, S, H, P, N, Q) || scratch == nullptr || (hs_given && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (S / Q > 1 && (hs == nullptr || gs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2060,7 +1815,7 @@ extern "C" int ssd_scan_bwd_launch(const float* xdt, const float* dA, const void
                                device, s);
     case 1:
       return launch_bwd_bf16(xdt, dA, Bm, Cm, dy, dx, ddA, dB, dC, hs, gs, scratch, B, S, H, P,
-                             N, Q, device, s);
+                             N, Q, hs_given, device, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

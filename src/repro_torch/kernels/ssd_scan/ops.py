@@ -5,13 +5,14 @@ CPU tensors go to the plain versions (:mod:`.ref`), which autograd
 differentiates.  CUDA tensors go to the hand-written kernels, or the call
 raises: there is no fallback.  The type of B and C picks the body of the
 forward and of the backward: bfloat16 the tensor-core body (the forward's
-followed, with more than one chunk or with ``return_state``, by its state
-pass), float32 the CUDA-core body.
+chunk kernel, then, with more than one chunk or with ``return_state``, its
+state kernel), float32 the CUDA-core body.
 With ``return_state`` the kernel also writes the state after the last
 chunk, which a cache-producing prefill needs; that call has no backward.
 When grad mode is on and an input requires grad, a CUDA call without
 ``return_state`` runs through :class:`SsdScan`, whose backward launches the
-backward kernel.  The kernels launch on PyTorch's current stream; each
+backward kernel on the states the forward kernel kept (bfloat16 B/C, more
+than one chunk).  The kernels launch on PyTorch's current stream; each
 forward call that launches adds one to
 ``repro_torch.kernels.LAUNCHES["ssd_scan"]``, each backward call one to
 ``LAUNCHES["ssd_scan_bwd"]`` (however many launches it makes).
@@ -40,10 +41,10 @@ def _launcher(name: str):
     if fn is None:
         if name == "ssd_scan":
             fn = _build.load(name).ssd_scan_launch
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         elif name == "ssd_scan_bwd":
             fn = _build.load(name).ssd_scan_bwd_launch
-            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         elif name == "bwd_scratch":
             fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_scratch_floats
             fn.argtypes = [ctypes.c_int] * 8
@@ -124,29 +125,37 @@ def _check(xdt, dA, Bmat, Cmat, chunk: int, **more) -> tuple:
     return b, s, h, p, n, q
 
 
-def _forward(xdt, dA, Bmat, Cmat, *, chunk: int, return_state: bool = False):
-    """The forward kernel: ``y``, or ``(y, h_final)`` with ``return_state``."""
+def _forward(xdt, dA, Bmat, Cmat, *, chunk: int, return_state: bool = False,
+             keep_states: bool = False):
+    """The forward kernel: ``y``, with ``return_state`` also ``h_final``,
+    with ``keep_states`` also the states entering each chunk ``[B, nc, H,
+    P, N]`` (entry 0 unwritten), which the backward kernel takes, or None
+    where the kernel forms none (float32 B/C, one chunk)."""
     b, s, h, p, n, q = _check(xdt, dA, Bmat, Cmat, chunk)
     device = xdt.device
+    f32 = dict(dtype=torch.float32, device=device)
     y = torch.empty_like(xdt)
-    h_final = (torch.empty((b, h, p, n), dtype=torch.float32, device=device)
-               if return_state else None)
-    if b * h == 0:
-        return (y, h_final) if return_state else y
-    err = _launcher("ssd_scan")(
-        xdt.data_ptr(), dA.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), y.data_ptr(),
-        h_final.data_ptr() if return_state else None,
-        b, s, h, p, n, q, _DTYPES[Bmat.dtype], _device_index(device),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
-    LAUNCHES["ssd_scan"] += 1
-    return (y, h_final) if return_state else y
+    h_final = torch.empty((b, h, p, n), **f32) if return_state else None
+    # The state kernel's output (bf16 B/C): scratch, or kept for the backward.
+    states = (torch.empty((b, s // q, h, p, n), **f32)
+              if Bmat.dtype == torch.bfloat16 and s > q else None)
+    if b * h:
+        err = _launcher("ssd_scan")(
+            xdt.data_ptr(), dA.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), y.data_ptr(),
+            h_final.data_ptr() if return_state else None,
+            states.data_ptr() if states is not None else None,
+            b, s, h, p, n, q, _DTYPES[Bmat.dtype], _device_index(device),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {err}")
+        LAUNCHES["ssd_scan"] += 1
+    out = (y, *((h_final,) if return_state else ()), *((states,) if keep_states else ()))
+    return out if len(out) > 1 else y
 
 
 def ssd_scan_bwd(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
-                 dy: torch.Tensor, *, chunk: int = 256):
+                 dy: torch.Tensor, *, chunk: int = 256, states: torch.Tensor | None = None):
     """The gradient of :func:`ssd_scan`'s ``y`` (without ``return_state``)
     for the output gradient ``dy [B, S, H, P]`` (float32): ``(dxdt, ddA,
     dB, dC)``, ``dxdt`` and ``ddA`` in float32, ``dB``/``dC`` in B's and C's
@@ -154,9 +163,12 @@ def ssd_scan_bwd(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: 
     no atomics, so a repeated call gives the same bits: bfloat16 B/C the
     tensor-core body (bf16 products, float32 operands split hi + lo, the
     products the heads share once per row and chunk), float32 B/C the
-    CUDA-core float32 body; CPU tensors take :func:`.ref.ssd_scan_bwd_ref`."""
+    CUDA-core float32 body; CPU tensors take :func:`.ref.ssd_scan_bwd_ref`.
+    ``states`` (``[B, nc, H, P, N]`` float32, the states entering the
+    chunks as the forward kernel keeps them, bfloat16 B/C only) spare the
+    kernel their recomputation, with the same bits."""
     if xdt.device.type == "cpu":
-        return ssd_scan_bwd_ref(xdt, dA, Bmat, Cmat, dy, chunk=chunk)
+        return ssd_scan_bwd_ref(xdt, dA, Bmat, Cmat, dy, chunk=chunk, states=states)
     b, s, h, p, n, q = _check(xdt, dA, Bmat, Cmat, chunk, dy=dy)
     device = xdt.device
     dxdt, ddA = torch.empty_like(xdt), torch.empty_like(dA)
@@ -166,17 +178,29 @@ def ssd_scan_bwd(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor, Cmat: 
     nc = s // q
     dtype, index = _DTYPES[Bmat.dtype], _device_index(device)
     f32 = dict(dtype=torch.float32, device=device)
-    # Scratch: the states entering and the state gradients leaving each
-    # chunk, and what the body passes between its launches (float32: each
-    # head's part of dB and dC; bfloat16: G^T and each head group's D,
-    # exp(cum) and w, the parts of dB and dC), sized by the library.
-    states = [torch.empty((b, nc, h, p, n), **f32) if nc > 1 else None for _ in range(2)]
+    if states is not None and (Bmat.dtype != torch.bfloat16 or nc == 1
+                               or tuple(states.shape) != (b, nc, h, p, n)
+                               or states.dtype != torch.float32 or states.device != device
+                               or not states.is_contiguous()):
+        raise ValueError(f"ssd_scan_bwd: states must be contiguous float32 {(b, nc, h, p, n)} "
+                         f"on {device}, with bfloat16 B/C and more than one chunk; got "
+                         f"{states.dtype} {tuple(states.shape)} on {states.device}, B/C "
+                         f"{Bmat.dtype}")
+    # Scratch: the states entering (unless given) and the state gradients
+    # leaving each chunk, and what the body passes between its launches
+    # (float32: each head's part of dB and dC; bfloat16: G^T and each head
+    # group's D, exp(cum) and w, the parts of dB and dC), sized by the
+    # library.
+    hs, gs = (None, None) if nc == 1 else (
+        states if states is not None else torch.empty((b, nc, h, p, n), **f32),
+        torch.empty((b, nc, h, p, n), **f32))
     scratch = torch.empty(_launcher("bwd_scratch")(b, s, h, p, n, q, dtype, index), **f32)
     err = _launcher("ssd_scan_bwd")(
         xdt.data_ptr(), dA.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), dy.data_ptr(),
         dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        *(x.data_ptr() if x is not None else None for x in states), scratch.data_ptr(),
-        b, s, h, p, n, q, dtype, index, torch.cuda.current_stream(device).cuda_stream,
+        *(x.data_ptr() if x is not None else None for x in (hs, gs)), scratch.data_ptr(),
+        b, s, h, p, n, q, int(states is not None), dtype, index,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd kernel launch failed: cudaError {err}")
@@ -190,19 +214,21 @@ KERNEL = types.SimpleNamespace(forward=_forward, backward=ssd_scan_bwd)
 
 
 class SsdScan(torch.autograd.Function):
-    """The forward kernel, its inputs saved; the backward kernel for their
-    gradients (``None`` for ``chunk``)."""
+    """The forward kernel, its inputs and the states it formed saved; the
+    backward kernel for their gradients (``None`` for ``chunk``)."""
 
     @staticmethod
     def forward(ctx, xdt, dA, Bmat, Cmat, chunk):
-        ctx.save_for_backward(xdt, dA, Bmat, Cmat)
+        y, states = KERNEL.forward(xdt, dA, Bmat, Cmat, chunk=chunk, keep_states=True)
+        ctx.save_for_backward(xdt, dA, Bmat, Cmat, states)
         ctx.chunk = chunk
-        return KERNEL.forward(xdt, dA, Bmat, Cmat, chunk=chunk)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        xdt, dA, Bmat, Cmat = ctx.saved_tensors
-        grads = KERNEL.backward(xdt, dA, Bmat, Cmat, dy.contiguous(), chunk=ctx.chunk)
+        xdt, dA, Bmat, Cmat, states = ctx.saved_tensors
+        grads = KERNEL.backward(xdt, dA, Bmat, Cmat, dy.contiguous(), chunk=ctx.chunk,
+                                states=states)
         return (*grads, None)
 
 

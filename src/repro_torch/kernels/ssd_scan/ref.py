@@ -38,39 +38,63 @@ def check_chunk(s: int, chunk: int) -> int:
     return q
 
 
+def _states(x: torch.Tensor, a: torch.Tensor, bm: torch.Tensor, q: int, count: int) -> list:
+    """The float32 states ``[B, H, P, N]`` entering chunks ``0 .. count - 1``
+    (entry ``nc`` the one after the last chunk), from a zero state:
+    ``h <- exp(total) h + Σ_j exp(total - cum_j) xdt_jᵀ B_j``."""
+    b, _, h, p = x.shape
+    states = [torch.zeros((b, h, p, bm.shape[-1]), dtype=torch.float32, device=x.device)]
+    for c0 in range(0, (count - 1) * q, q):
+        cum = torch.cumsum(a[:, c0:c0 + q], dim=1)                      # [B, Q, H]
+        w_end = torch.exp(cum[:, -1:] - cum)
+        states.append(states[-1] * torch.exp(cum[:, -1])[..., None, None]
+                      + torch.einsum("bqhp,bqn->bhpn", x[:, c0:c0 + q] * w_end[..., None],
+                                     bm[:, c0:c0 + q]))
+    return states
+
+
+def ssd_chunk_states_ref(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
+                         Cmat: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """The states entering each chunk, ``[B, nc, H, P, N]`` in float32
+    (entry 0 is the zero initial state): what the kernel's state pass
+    computes and what :func:`ssd_scan_bwd_ref` and the backward kernel take
+    as ``states``.  The state entering chunk c is the final state of the
+    scan over the first c·Q tokens.  ``Cmat`` is not read; it is taken so
+    that the call reads as the scan's."""
+    q = check_chunk(xdt.shape[1], chunk)
+    return torch.stack(_states(xdt.float(), dA.float(), Bmat.float(), q, xdt.shape[1] // q), 1)
+
+
 def ssd_scan_ref(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
                  Cmat: torch.Tensor, *, chunk: int = 256, return_state: bool = False):
     """``xdt [B, S, H, P]``, ``dA [B, S, H]``, ``Bmat``/``Cmat [B, S, N]``
     (shared by all heads) -> ``y [B, S, H, P]`` in float32, or with
     ``return_state`` ``(y, h_final [B, H, P, N])``: the state after the last
-    chunk, as ``repro.models.ssm.ssd_chunked`` returns it."""
-    b, s, h, p = xdt.shape
-    n = Bmat.shape[-1]
+    chunk, as ``repro.models.ssm.ssd_chunked`` returns it.  The states come
+    first, as in the kernel: the state entering each chunk, then each
+    chunk's y."""
+    s = xdt.shape[1]
     q = check_chunk(s, chunk)
     x, a = xdt.float(), dA.float()
     bm, cm = Bmat.float(), Cmat.float()
+    states = _states(x, a, bm, q, s // q + 1 if return_state else s // q)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xdt.device))
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)
     ys = []
-    for c0 in range(0, s, q):
+    for c0, state in zip(range(0, s, q), states):
         xc, bc, cc = x[:, c0:c0 + q], bm[:, c0:c0 + q], cm[:, c0:c0 + q]
         cum = torch.cumsum(a[:, c0:c0 + q], dim=1)                      # [B, Q, H]
-        total = cum[:, -1]                                              # [B, H]
         cb = torch.einsum("bin,bjn->bij", cc, bc)                       # [B, Q, Q]
         seg = cum[:, :, None, :] - cum[:, None, :, :]                   # [B, Q, Q, H]
         decay = torch.exp(seg.masked_fill(~tri[None, :, :, None], -torch.inf))
         y = torch.einsum("bijh,bjhp->bihp", cb[..., None] * decay, xc)
-        y = y + torch.einsum("bin,bhpn->bihp", cc, state) * torch.exp(cum)[..., None]
-        ys.append(y)
-        w_end = torch.exp(total[:, None, :] - cum)                      # [B, Q, H]
-        s_chunk = torch.einsum("bqhp,bqn->bhpn", xc * w_end[..., None], bc)
-        state = state * torch.exp(total)[..., None, None] + s_chunk
+        ys.append(y + torch.einsum("bin,bhpn->bihp", cc, state) * torch.exp(cum)[..., None])
     y = torch.cat(ys, dim=1)
-    return (y, state) if return_state else y
+    return (y, states[-1]) if return_state else y
 
 
 def ssd_scan_bwd_ref(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
-                     Cmat: torch.Tensor, dy: torch.Tensor, *, chunk: int = 256):
+                     Cmat: torch.Tensor, dy: torch.Tensor, *, chunk: int = 256,
+                     states: torch.Tensor | None = None):
     """The gradient of :func:`ssd_scan_ref`'s ``y`` (no final state) for
     the output gradient ``dy [B, S, H, P]``: ``(dxdt, ddA, dB, dC)``,
     ``dxdt`` and ``ddA`` in float32, ``dB``/``dC`` in B's and C's dtype,
@@ -88,7 +112,11 @@ def ssd_scan_bwd_ref(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
     * ``dcum_i = Σ_j (dM ∘ M)_ij - Σ_j (dM ∘ M)_ji + dy_i · exp(cum_i) h C_i
       - w_i xdt_i · g B_i``, and the last entry also takes ``d total =
       exp(total) <g, h> + Σ_j w_j xdt_j · g B_j``;
-    * ``ddA`` is the reverse running sum of ``dcum`` within the chunk."""
+    * ``ddA`` is the reverse running sum of ``dcum`` within the chunk.
+
+    ``states`` (``[B, nc, H, P, N]``, as :func:`ssd_chunk_states_ref` gives
+    them) are taken as the states entering the chunks instead of being
+    recomputed; entry 0 is not read."""
     b, s, h, p = xdt.shape
     n = Bmat.shape[-1]
     q = check_chunk(s, chunk)
@@ -97,12 +125,11 @@ def ssd_scan_bwd_ref(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xdt.device))
     chunks = [slice(c0, c0 + q) for c0 in range(0, s, q)]
     # The state entering each chunk (the forward's state pass).
-    states = [torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)]
-    for c in chunks[:-1]:
-        cum = torch.cumsum(a[:, c], dim=1)                              # [B, Q, H]
-        w_end = torch.exp(cum[:, -1:] - cum)
-        states.append(states[-1] * torch.exp(cum[:, -1])[..., None, None]
-                      + torch.einsum("bqhp,bqn->bhpn", x[:, c] * w_end[..., None], bm[:, c]))
+    if states is None:
+        states = _states(x, a, bm, q, len(chunks))
+    else:
+        states = [torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)] + [
+            states[:, c].float() for c in range(1, len(chunks))]
     dx, ddA = torch.empty_like(x), torch.empty_like(a)
     dB, dC = torch.empty_like(bm), torch.empty_like(cm)
     dh = torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)

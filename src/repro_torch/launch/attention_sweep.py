@@ -505,10 +505,10 @@ def _ssd(libs, device, b, h, p, n, s=160):
         if not name.startswith("ssd"):
             continue
         fn = lib.ssd_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         call = lambda: _ok(fn(xdt.data_ptr(), dA.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                              out.data_ptr(), None, b, s, h, p, n, s, 1, device.index,
+                              out.data_ptr(), None, None, b, s, h, p, n, s, 1, device.index,
                               torch.cuda.current_stream().cuda_stream))
         _report(name, graph_ms(call, calls=10), out, ref)
 

@@ -2,9 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.ssd_bwd_sweep [--only NAME,NAME]
 
-Each variant is the shipped ``csrc/ssd_scan_bwd.cu`` with text
-substitutions (an ablation that drops a part of the work, or another head
-group), built by ``nvcc`` with the kernel's flags into
+Each variant is the shipped ``csrc/ssd_scan_bwd.cu`` (or the state body it
+includes, ``csrc/ssd_state.cuh``) with text substitutions (an ablation
+that drops a part of the work, or another head group), built by ``nvcc``
+with the kernel's flags into
 ``build/repro_torch/sweep/`` (``attention_sweep``'s builder) and called
 through its C entry point.  At phase 24(c)'s training shapes (8 rows of 512
 tokens, two chunks of 256: mamba2-2.7b H=80, P=64, N=128 and zamba2-7b
@@ -29,6 +30,7 @@ from ..kernels.ssd_scan import ssd_scan_bwd
 from .attention_sweep import _build_variants, _ok, graph_ms
 
 _SRC = "ssd_scan_bwd.cu"
+_STATE = "ssd_state.cuh"
 _G_FORM = "      for (int it = jt; it < nT; ++it) {\n        const int ia = 16 * it + g;"
 _DM_MMA = ("          mma3<kSplitDm>(dm0, xa_h[kk], xa_l[kk], bh[0], bh[1], bl[0], bl[1]);\n"
            "          mma3<kSplitDm>(dm1, xa_h[kk], xa_l[kk], bh[2], bh[3], bl[2], bl[3]);\n")
@@ -81,9 +83,10 @@ VARIANTS = {
     "ssd_bwd finish without D part": (
         "ssd_scan_bwd", _SRC, [("for (int kt0 = kt_begin; kt0 < kt_end;",
                                 "for (int kt0 = kt_end; kt0 < kt_end;")]),
-    "ssd_bwd state pass without mma": ("ssd_scan_bwd", _SRC, [(_ST_MMA, "")]),
+    "ssd_bwd state pass without mma": ("ssd_scan_bwd", _STATE, [(_ST_MMA, "")]),
     "ssd_bwd state pass 2-stage ring": (
-        "ssd_scan_bwd", _SRC, [("constexpr int kStStages = 3;", "constexpr int kStStages = 2;")]),
+        "ssd_scan_bwd", _STATE,
+        [("constexpr int kStStages = 3;", "constexpr int kStStages = 2;")]),
 }
 
 SHAPES = {"mamba2-2.7b": (8, 512, 80, 64, 128, 256), "zamba2-7b": (8, 512, 112, 64, 64, 256)}
@@ -126,12 +129,12 @@ def _shape(libs, device, name, shape):
         scratch = torch.empty(scratch_floats(b, s, h, p, n, q, 1, device.index),
                               dtype=torch.float32, device=device)
         fn = lib.ssd_scan_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         call = lambda: _ok(fn(xdt.data_ptr(), dA.data_ptr(), bm.data_ptr(), cm.data_ptr(),
                               dy.data_ptr(), *(x.data_ptr() for x in outs),
                               *(x.data_ptr() for x in states), scratch.data_ptr(),
-                              b, s, h, p, n, q, 1, device.index,
+                              b, s, h, p, n, q, 0, 1, device.index,
                               torch.cuda.current_stream().cuda_stream))
         ms = graph_ms(call, calls=5, replays=3)
         shares = [float((o.float() - r.float()).abs().max()) / float(r.float().abs().max())

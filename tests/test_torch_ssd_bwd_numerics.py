@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref
+from test_torch_ssd_numerics import bf16_mm as _mm
 from test_torch_ssd_numerics import warp_scan
 
 torch.set_num_threads(2)
@@ -76,30 +77,6 @@ KERNEL = _kernel_setting()
 SHAPES = [(1, 512, 3, 64, 128, 256), (1, 512, 3, 64, 64, 256),
           (1, 130, 5, 64, 128, 65), (2, 33, 3, 18, 12, 11)]
 NAMES = ("dxdt", "ddA", "dB", "dC")
-
-
-def _bf16(x):
-    return x.to(torch.bfloat16).float()
-
-
-def _split(x):
-    """``(hi, lo)``: ``hi = bf16(x)``, ``lo = bf16(x - hi)``, as float32."""
-    hi = _bf16(x)
-    return hi, _bf16(x - hi)
-
-
-def _mm(eq, a, b, split_a, split_b):
-    """``einsum(eq, a, b)`` as the kernel's bf16 products form it: each
-    split operand ``hi + lo``, each unsplit one rounded once (or exact,
-    where it is already bf16); a split pair drops ``lo·lo``."""
-    a_hi, a_lo = _split(a) if split_a else (_bf16(a), None)
-    b_hi, b_lo = _split(b) if split_b else (_bf16(b), None)
-    out = torch.einsum(eq, a_hi, b_hi)
-    if a_lo is not None:
-        out = out + torch.einsum(eq, a_lo, b_hi)
-    if b_lo is not None:
-        out = out + torch.einsum(eq, a_hi, b_lo)
-    return out
 
 
 def warp_scan_rev(a):

@@ -37,7 +37,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import ssd_chunk_states_ref, ssd_scan_bwd_ref, ssd_scan_ref
 
 torch.set_num_threads(2)
 
@@ -189,17 +189,19 @@ def test_the_reference_gradient_overflows_where_the_port_does_not(jx):
 
 @pytest.fixture
 def plain_kernels(monkeypatch):
-    """``SsdScan``'s launches pointed at the plain forward and backward,
-    counted."""
+    """``SsdScan``'s launches pointed at the plain forward (with the states
+    it keeps) and backward, counted."""
     calls = {"forward": 0, "backward": 0}
 
-    def forward(xdt, dA, bm, cm, *, chunk):
+    def forward(xdt, dA, bm, cm, *, chunk, keep_states):
         calls["forward"] += 1
-        return ssd_scan_ref(xdt, dA, bm, cm, chunk=chunk)
+        assert keep_states
+        return (ssd_scan_ref(xdt, dA, bm, cm, chunk=chunk),
+                ssd_chunk_states_ref(xdt, dA, bm, cm, chunk))
 
-    def backward(*args, chunk):
+    def backward(*args, chunk, states):
         calls["backward"] += 1
-        return ssd_scan_bwd_ref(*args, chunk=chunk)
+        return ssd_scan_bwd_ref(*args, chunk=chunk, states=states)
 
     monkeypatch.setattr(ssd_ops.KERNEL, "forward", forward)
     monkeypatch.setattr(ssd_ops.KERNEL, "backward", backward)
@@ -220,7 +222,7 @@ def test_autograd_function_wiring(plain_kernels, bc_dtype):
         assert leaf.grad.dtype == w.dtype, name
         assert torch.equal(leaf.grad, w), name
     assert leaves[2].grad.dtype == bc_dtype
-    ctx = types.SimpleNamespace(saved_tensors=(xdt, dA, bm, cm), chunk=chunk)
+    ctx = types.SimpleNamespace(saved_tensors=(xdt, dA, bm, cm, None), chunk=chunk)
     grads = ssd_ops.SsdScan.backward(ctx, dy)
     assert len(grads) == 5 and grads[-1] is None
 

@@ -1,20 +1,26 @@
-"""What the bf16 ``ssd_scan`` kernel computes, modelled on the CPU.
+"""What the bf16 ``ssd_scan`` kernels compute, modelled on the CPU.
 
-With bfloat16 B and C, ``csrc/ssd_scan.cu`` runs the part of y inside each
-chunk on the tensor cores: C·Bᵀ is a float32 sum of exact bf16 products;
-``cum`` is a warp scan of dA, 32 entries at a time; each head's scores are
-``C_i·B_j · exp(cum_i - cum_j)`` in float32 under the causal mask; both the
-scores and xdt are split into ``hi = bf16(x)`` and ``lo = bf16(x - hi)``,
-and y is ``hi·hi + hi·lo + lo·hi`` accumulated in float32.  With more than
-one chunk the state pass adds ``exp(cum_i) C_i·hᵀ`` and carries the state in
-float32.  This file models that arithmetic in plain PyTorch and holds it
-against the plain version ``ssd_scan_ref`` and the sequential recurrence
-within the bars that ``chip_smoke.py`` holds the kernel to (``SSD_TOL``,
-``SSD_SEQ_TOL``).  It also pins that rounding the scores or xdt once to
-bf16 breaks the first bar, which is why the kernel splits both.
+With bfloat16 B and C, ``csrc/ssd_scan.cu`` runs on the tensor cores.  The
+chunk kernel forms the part of y inside each chunk: C·Bᵀ is a float32 sum
+of exact bf16 products; ``cum`` is a warp scan of dA, 32 entries at a time;
+each head's scores are ``C_i·B_j · exp(cum_i - cum_j)`` in float32 under
+the causal mask; both the scores and xdt are split into ``hi = bf16(x)``
+and ``lo = bf16(x - hi)``, and y is ``hi·hi + hi·lo + lo·hi`` accumulated
+in float32.  With more than one chunk (or the final state asked for) the
+state kernel then forms the state entering each chunk, ``h <- exp(total)
+h + Σ_j (exp(total - cum_j) xdt_j)ᵀ B_j`` with the weighted xdt split (two
+terms) and B exact, and from the second chunk on adds ``exp(cum_i)
+C_i·hᵀ`` to y, C exact and h split (``kSplitH``, two terms).  This file models that arithmetic in plain
+PyTorch and holds it against the plain version ``ssd_scan_ref`` and the
+sequential recurrence within the bars that ``chip_smoke.py`` holds the
+kernel to (``SSD_TOL``, ``SSD_SEQ_TOL``), the final state too.  It also
+pins that rounding the scores, xdt or the state once to bf16 breaks the
+first bar, which is why the kernels split all three; the kernel's choice
+for the state is read from its source.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import pytest
@@ -27,6 +33,7 @@ from test_torch_ssm import SSD_SHAPES, _ssd_inputs
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
+SOURCE = REPO / "src" / "repro_torch" / "csrc" / "ssd_state.cuh"
 SCAN_WIDTH = 32       # entries per step of the kernel's warp scan of dA
 
 
@@ -42,6 +49,19 @@ SSD_TOL, SSD_SEQ_TOL = _CS.SSD_TOL, _CS.SSD_SEQ_TOL
 # Phase 13's scan per row (mamba2-2.7b: Q=160, P=64, N=128) and phase 14's
 # (zamba2-7b: N=64), cut to a few rows and heads.
 DRIVEN = [(4, 160, 8, 64, 128, 160), (2, 160, 8, 64, 64, 160)]
+# Phase 24(c)'s scans (mamba2-2.7b, zamba2-7b: 512 tokens in two chunks of
+# 256) cut to one row and three heads, and phase 3's three chunks of 128.
+TRAIN = [(1, 512, 3, 64, 128, 256), (1, 512, 3, 64, 64, 256), (1, 384, 4, 64, 128, 128)]
+
+
+def _split_h():
+    """``kSplitH`` as the kernel's source sets it."""
+    found = re.search(r"constexpr bool kSplitH = (true|false);", SOURCE.read_text())
+    assert found, "the kernel no longer states its rounding of the state"
+    return found.group(1) == "true"
+
+
+SPLIT_H = _split_h()
 
 
 def _bf16(x):
@@ -70,9 +90,32 @@ def warp_scan(a):
     return out
 
 
-def kernel_model(xdt, dA, Bmat, Cmat, *, chunk, split_scores=True, split_x=True):
-    """The bf16 kernel's arithmetic: ``y [B, S, H, P]`` in float32.
-    ``split_scores``/``split_x`` False round that operand once to bf16."""
+def split(x):
+    """``(hi, lo)``: ``hi = bf16(x)``, ``lo = bf16(x - hi)``, as float32."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def bf16_mm(eq, a, b, split_a, split_b):
+    """``einsum(eq, a, b)`` as the kernels' bf16 products form it: each
+    split operand ``hi + lo``, each unsplit one rounded once (or exact,
+    where it is already bf16); a split pair drops ``lo·lo``."""
+    a_hi, a_lo = split(a) if split_a else (_bf16(a), None)
+    b_hi, b_lo = split(b) if split_b else (_bf16(b), None)
+    out = torch.einsum(eq, a_hi, b_hi)
+    if a_lo is not None:
+        out = out + torch.einsum(eq, a_lo, b_hi)
+    if b_lo is not None:
+        out = out + torch.einsum(eq, a_hi, b_lo)
+    return out
+
+
+def kernel_model(xdt, dA, Bmat, Cmat, *, chunk, split_scores=True, split_x=True, split_h=True,
+                 return_state=False):
+    """The bf16 kernels' arithmetic: ``y [B, S, H, P]`` in float32, or
+    with ``return_state`` ``(y, h_final [B, H, P, N])``.
+    ``split_scores``/``split_x``/``split_h`` False round that operand once
+    to bf16."""
     b, s, h, p = xdt.shape
     n = Bmat.shape[-1]
     q = min(chunk, s)
@@ -92,17 +135,24 @@ def kernel_model(xdt, dA, Bmat, Cmat, *, chunk, split_scores=True, split_x=True)
         y = y + torch.einsum("bchij,bcjhp->bcihp", s_hi, x_lo)
     if split_scores:
         y = y + torch.einsum("bchij,bcjhp->bcihp", s_lo, x_hi)
-    # The state pass, in float32 (the CUDA-core body's arithmetic).
-    state = torch.zeros((b, h, p, n))
-    ys = []
-    for c in range(nc):
+    # The state kernel: the state entering each chunk (and, with
+    # return_state, the one after the last) in float32, its update
+    # exp(total - cum_j) xdt_j split (two terms) against B exact.
+    total = cum[..., -1]                                                    # [B, c, H]
+    w_end = torch.exp(total[..., None] - cum).permute(0, 1, 3, 2)[..., None]
+    states = [torch.zeros((b, h, p, n))]
+    for c in range(nc if return_state else nc - 1):
+        upd = bf16_mm("bqhp,bqn->bhpn", w_end[:, c] * xc[:, c], bc[:, c], True, False)
+        states.append(states[-1] * torch.exp(total[:, c])[..., None, None] + upd)
+    # From the second chunk on, exp(cum_i) C_i . h^T (C exact, h split: two
+    # terms) added to the chunk's own part of y.
+    ys = [y[:, 0]]
+    for c in range(1, nc):
         decay = torch.exp(cum[:, c]).transpose(1, 2)[..., None]            # [B, Q, H, 1]
-        ys.append(y[:, c] + torch.einsum("bin,bhpn->bihp", cc[:, c], state) * decay)
-        total = cum[:, c, :, -1]
-        w_end = torch.exp(total[..., None] - cum[:, c])                    # [B, H, Q]
-        state = state * torch.exp(total)[..., None, None] + torch.einsum(
-            "bqhp,bhq,bqn->bhpn", xc[:, c], w_end, bc[:, c])
-    return torch.stack(ys, dim=1).reshape(b, s, h, p)
+        inter = bf16_mm("bin,bhpn->bihp", cc[:, c], states[c], False, split_h)
+        ys.append(inter * decay + y[:, c])
+    out = torch.stack(ys, dim=1).reshape(b, s, h, p)
+    return (out, states[-1]) if return_state else out
 
 
 def _inputs(shape):
@@ -127,19 +177,24 @@ def test_warp_scan_is_a_running_sum():
     torch.testing.assert_close(warp_scan(a), torch.cumsum(a, -1), rtol=1e-6, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", DRIVEN + SSD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", DRIVEN + SSD_SHAPES + TRAIN, ids=lambda s: "x".join(map(str, s)))
 def test_split_model_meets_the_bars(shape):
     args = _inputs(shape)
     q = shape[-1]
-    out = kernel_model(*args, chunk=q)
-    ref = ssd_scan_ref(*args, chunk=q)
-    seq, _ = ssd_sequential_ref(*args)
+    out, state = kernel_model(*args, chunk=q, split_h=SPLIT_H, return_state=True)
+    ref, ref_state = ssd_scan_ref(*args, chunk=q, return_state=True)
+    seq, seq_state = ssd_sequential_ref(*args)
     assert out.shape == ref.shape and out.dtype == torch.float32
+    assert torch.equal(out, kernel_model(*args, chunk=q, split_h=SPLIT_H))
     bad, worst = _outside(out, ref, SSD_TOL)
     bad_seq, worst_seq = _outside(out, seq, SSD_SEQ_TOL)
-    print(f"{shape}: max |model - plain| {worst!r}, max |model - sequential| {worst_seq!r}")
+    bad_state, worst_state = _outside(state, ref_state, SSD_TOL)
+    bad_seq_state, _ = _outside(state, seq_state, SSD_SEQ_TOL)
+    print(f"{shape}: max |model - plain| {worst!r}, max |model - sequential| {worst_seq!r}, "
+          f"final state max |model - plain| {worst_state!r}")
     assert bad == 0, f"{bad} of {out.numel()} outside SSD_TOL (max |err| {worst})"
     assert bad_seq == 0, f"{bad_seq} of {out.numel()} outside SSD_SEQ_TOL (max |err| {worst_seq})"
+    assert bad_state == 0 and bad_seq_state == 0, (bad_state, bad_seq_state)
 
 
 @pytest.mark.parametrize("split_scores,split_x", [(False, True), (True, False), (False, False)],
@@ -158,3 +213,23 @@ def test_one_bf16_rounding_breaks_the_bar(split_scores, split_x):
           f"outside SSD_TOL (max |err| {worst!r})")
     assert bad_split == 0
     assert bad_once > ref.numel() // 10, (bad_once, ref.numel())
+
+
+@pytest.mark.parametrize("shape", TRAIN[:2], ids=lambda s: "x".join(map(str, s)))
+def test_one_bf16_rounding_of_the_state_breaks_the_bar(shape):
+    """At the cut training shapes, the state entering the second chunk
+    rounded once to bf16 in exp(cum_i) C_i·hᵀ misses SSD_TOL against the
+    plain scan and SSD_SEQ_TOL against the recurrence; the split (what the
+    kernel ships) meets both on the same inputs."""
+    args = _inputs(shape)
+    q = shape[-1]
+    ref = ssd_scan_ref(*args, chunk=q)
+    seq, _ = ssd_sequential_ref(*args)
+    once = kernel_model(*args, chunk=q, split_h=False)
+    bad_once, worst = _outside(once, ref, SSD_TOL)
+    bad_seq, _ = _outside(once, seq, SSD_SEQ_TOL)
+    print(f"{shape}: the state rounded once: {bad_once} of {ref.numel()} outside SSD_TOL, "
+          f"{bad_seq} outside SSD_SEQ_TOL (max |err| {worst!r})")
+    assert bad_once > 0 and bad_seq > 0
+    assert _outside(kernel_model(*args, chunk=q), ref, SSD_TOL)[0] == 0
+    assert SPLIT_H

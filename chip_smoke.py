@@ -178,6 +178,21 @@ Phases (any failure raises, so the script exits non-zero):
     layers (vocabulary cut to 4096) on the card against the port on the
     CPU; 24.3 (last) the same for mamba2-2.7b and, its gradients only,
     zamba2-7b (its site-0 shared block included);
+25. the multi-device layer at world size 1 (last): a one-rank NCCL process
+    group (an in-memory store, no sockets) and a ``(1, 1)`` ``('data',
+    'model')`` mesh; (a) llama3-8b at 24(a)'s setup (full width, 8 of 32
+    layers, bf16, 8 × 512 tokens): one plain train step from a seeded
+    init, then the same step from the same seed on parameters placed by
+    ``distribute_params`` (AdamW's state in its ZeRO placement) under
+    ``tp`` and under ``fsdp``: loss, grad norm and every updated parameter
+    bit-equal, the same ``flash_attention``/``flash_attention_bwd``
+    launches; (d) mamba2-2.7b at 4 of its 64 blocks under ``tp`` likewise
+    (``ssd_scan``/``ssd_scan_bwd``); (b) qwen2-moe-a2.7b's MoE block at
+    full width, ``_moe_block_sharded`` on the mesh against
+    ``_moe_block_local`` on 8 × 512 bf16 tokens, bit-equal; (c) the search
+    cell at its defaults (wave 256, T=1024, d_mlp 8192, bf16 MLP): one
+    wave on the mesh against the same wave without one, the tree
+    bit-equal, 256 ``tree_descend`` launches;
 9. agreement on the card: cached prefill vs flash forward vs decode step
    logits (full width, 2 layers, float32), the reduced model's cached and
    paged frontier searches on the GPU against the port on the CPU,
@@ -191,7 +206,7 @@ Phases (any failure raises, so the script exits non-zero):
 Phases 15 and 16 run after phase 6; phases 10-12 and 17-19 before phase
 9, while phase 7's model is loaded; phases 13 and 14, each followed by its
 phase 20, after it is freed, then 21-23 and 24, one model at a time;
-17.2 with 18.2, then 19.2, 20.2, 21.2-23.2, 24.2 and 24.3 last.  Phase
+17.2 with 18.2, then 19.2, 20.2, 21.2-23.2, 24.2, 24.3 and 25 last.  Phase
 10 must choose phase 7's action on at least 7 of 8 trees and phase 12
 phase 11's.  Phase 11 prints its agreement with phase 7 without holding
 it: in bf16 over 32 random layers the frontier forward, the decode step
@@ -208,7 +223,7 @@ per-level kernel under ``level_*`` keys), error against its plain version, time,
 plain time, bound, library time and ``bound_share`` (bound / time), and
 the device times by graph replay (``device_ms``, ``library_device_ms``,
 ``device_bound_share``), the launches on phases 21-23's paths
-(``family_launches``; phase 24's too) and ``decode_attention`` timed at qwen2.5-32b's and
+(``family_launches``; phases 24's and 25's too) and ``decode_attention`` timed at qwen2.5-32b's and
 qwen3-moe's decode shapes (``family_shapes``); the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -3643,6 +3658,216 @@ def train_parity_f32(torch, device, name="llama3-8b", with_step=True, label="24.
           f"step {t1 - t0!r} s on the card, {t2 - t1!r} s on the CPU")
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer at world size 1 (phase 25)
+# ---------------------------------------------------------------------------
+
+SHARDED_SSM_BLOCKS = 4        # 25(d): mamba2-2.7b blocks (of 64)
+CELL_SEED = 6
+
+
+def process_group(torch, device):
+    """A one-rank process group with an in-memory store (no sockets): NCCL
+    on the card, gloo on the CPU (the rehearsal)."""
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                                device_id=device)
+    else:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+
+
+def one_step(torch, device, cfg, batch, seed, mesh=None, strategy="tp"):
+    """One train step from the parameters of ``seed``: plain, or placed on
+    ``mesh`` under ``strategy`` (``distribute_params``, AdamW's ZeRO
+    state).  Returns the metrics, a copy of the updated parameters (this
+    rank's blocks: at one rank, the whole), the kernels' launches, the
+    step's wall and peak memory."""
+    from repro_torch.distributed.sharding import (distribute_params, opt_state_shardings,
+                                                  param_partition_specs)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.training import AdamWConfig, TrainConfig, adamw_init, make_train_step
+    from repro_torch.training.optimizer import leaves
+
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(seed))
+    if mesh is None:
+        opt_state = adamw_init(params)
+    else:
+        params = distribute_params(params, param_partition_specs(cfg, params, mesh, strategy),
+                                   mesh)
+        opt_state = adamw_init(params, opt_state_shardings(cfg, params, mesh, None, strategy).m)
+    step = make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(**TRAIN_OPT)), mesh=mesh,
+                           strategy=strategy)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    params, opt_state, metrics = step(params, opt_state, batch)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated(device)
+    out = [(x.to_local() if mesh is not None else x).detach().clone() for x in leaves(params)]
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return metrics, out, launches, wall, peak
+
+
+def same_step(torch, label, plain, placed):
+    """The placed step against the plain one: loss, grad norm and every
+    updated parameter bit for bit, and the same kernel launches."""
+    (m0, p0, l0, _, _), (m1, p1, l1, _, _) = plain, placed
+    if l1 != l0:
+        raise AssertionError(f"{label}: launches {l1}, the plain step's {l0}")
+    unequal = [i for i, (a, b) in enumerate(zip(p0, p1)) if not torch.equal(a, b)]
+    worst = max((float((a.float() - b.float()).abs().max()) for a, b in zip(p0, p1)),
+                default=0.0)
+    if m1["loss"] != m0["loss"] or m1["grad_norm"] != m0["grad_norm"] or unequal:
+        raise AssertionError(f"{label}: loss {m1['loss']!r} / {m0['loss']!r}, grad norm "
+                             f"{m1['grad_norm']!r} / {m0['grad_norm']!r}, {len(unequal)} of "
+                             f"{len(p0)} parameters differ (largest {worst!r})")
+
+
+def sharded_training(torch, device, mesh, name, layers, strategies, label):
+    """25(a)/(d): a plain step of ``name`` cut to ``layers`` layers, then the
+    same step from the same seed placed on the one-rank ``mesh`` under each
+    of ``strategies``: bit-equal.  Returns the launches of the placed
+    steps (summed) and the printed numbers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import SyntheticStream
+    from repro_torch.training.data import to_device
+
+    cfg = dataclasses.replace(get_config(name), num_layers=layers)
+    batch = to_device(SyntheticStream(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=3).batch_at(0),
+                      device)
+    plain = one_step(torch, device, cfg, batch, seed=1)
+    walls, peaks, launches = {"plain": plain[3]}, {"plain": plain[4]}, {}
+    for strategy in strategies:
+        placed = one_step(torch, device, cfg, batch, seed=1, mesh=mesh, strategy=strategy)
+        same_step(torch, f"{label} {name} {strategy}", plain, placed)
+        walls[strategy], peaks[strategy] = placed[3], placed[4]
+        for k, n in placed[2].items():
+            launches[k] = launches.get(k, 0) + n
+        del placed
+    print(f"{label} {name} full width, {layers} layers, bf16, {TRAIN_B} x {TRAIN_S} tokens: one "
+          f"step plain and on the (1, 1) mesh under {', '.join(strategies)}, bit-equal (loss "
+          f"{plain[0]['loss']!r}, grad norm {plain[0]['grad_norm']!r}, {len(plain[1])} "
+          f"parameters); step walls {walls} s; peak memory "
+          f"{ {k: v / 2**30 for k, v in peaks.items()} } GiB; launches a step "
+          f"{plain[2]} (each placed step the same)")
+    return launches
+
+
+def sharded_moe(torch, device, mesh):
+    """25(b): qwen2-moe-a2.7b's MoE block at full width, ``_moe_block_sharded``
+    on the one-rank mesh (plus the shared experts) against
+    ``_moe_block_local`` on 8 x 512 bf16 tokens: bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import (_moe_block_local, _moe_block_sharded, init_moe,
+                                           mlp_block)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2-moe-a2.7b")
+    gen = torch.Generator(device=device).manual_seed(2)
+    p = init_moe(gen, cfg, torch.bfloat16)
+    x = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    def sharded():
+        out, aux = _moe_block_sharded(p, cfg, x, mesh)
+        return out + mlp_block(p["shared"], x), aux
+
+    with torch.no_grad():
+        want, aux0 = _moe_block_local(p, cfg, x)
+        got, aux1 = sharded()       # the first call also starts NCCL's communicator
+        ms = {"local": time_ms(torch, lambda: _moe_block_local(p, cfg, x), 5),
+              "sharded": time_ms(torch, sharded, 5)}
+    if not (torch.equal(got, want) and torch.equal(aux1, aux0)):
+        raise AssertionError(f"25(b): the sharded MoE block differs by "
+                             f"{float((got.float() - want.float()).abs().max())!r}, aux "
+                             f"{float(aux1)!r} / {float(aux0)!r}")
+    print(f"25(b) qwen2-moe-a2.7b MoE block ({cfg.num_experts} experts, top "
+          f"{cfg.num_experts_per_tok}, shared {cfg.shared_expert_d_ff}) on {TRAIN_B} x "
+          f"{TRAIN_S} bf16 tokens: _moe_block_sharded on the (1, 1) mesh bit-equal to "
+          f"_moe_block_local (aux {float(aux0)!r}); paced {ms['sharded']!r} ms sharded, "
+          f"{ms['local']!r} ms local")
+
+
+def sharded_search_cell(torch, device, mesh):
+    """25(c): the search cell at its defaults (wave 256, T=1024, d_mlp=8192,
+    bf16 MLP): one wave step on the one-rank mesh against the same step
+    without a mesh, the tree bit-equal.  Returns the placed step's
+    ``tree_descend`` launches."""
+    from repro_torch import rng
+    from repro_torch.core.batched_tree import init_batched_tree
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.search_cell import build_search_cell, place_params
+
+    cell = build_search_cell(mesh)
+    gen = torch.Generator(device=device).manual_seed(CELL_SEED)
+    params = {k: (0.02 * torch.randn(v.shape, generator=gen, device=device)).to(v.dtype)
+              for k, v in cell.arg_specs[0].items()}
+    root = cell.env.init(rng.PRNGKey(0, device=device)[None])
+    capacity = cell.cfg.num_simulations + cell.cfg.wave_size + 1
+    key = rng.PRNGKey(1, device=device)
+    trees, walls, launches = {}, {}, {}
+    for label, p in (("plain", params), ("mesh", place_params(params, mesh))):
+        tree = init_batched_tree(root, capacity, cell.env.num_actions)
+        reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        trees[label] = cell.fn(p, tree, key)
+        sync(device)
+        walls[label] = 1e3 * (time.perf_counter() - t0)
+        launches[label] = dict(LAUNCHES)
+    a, b = trees["plain"], trees["mesh"]
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        pairs = zip(x, y) if f == "states" else [(x, y)]
+        if not all(torch.equal(u, v) for u, v in pairs):
+            raise AssertionError(f"25(c): the tree's {f} differs with the mesh")
+    if launches["mesh"] != launches["plain"] or launches["mesh"]["tree_descend"] != \
+            cell.cfg.wave_size:
+        raise AssertionError(f"25(c): launches {launches}")
+    print(f"25(c) search cell (wave {cell.cfg.wave_size}, T={cell.cfg.num_simulations}, "
+          f"d_mlp {cell.arg_specs[0]['w1'].shape[1]}, bf16 MLP): one wave step on the (1, 1) "
+          f"mesh bit-equal to the step without a mesh ({int(b.size[0])} nodes, root N "
+          f"{float(b.N[0, 0])!r}); wave step {walls['mesh']!r} ms on the mesh, "
+          f"{walls['plain']!r} ms without (first calls); tree_descend "
+          f"{launches['mesh']['tree_descend']} launches a wave")
+    return launches["mesh"]["tree_descend"]
+
+
+def multi_device(torch, device):
+    """Phase 25: the multi-device layer at world size 1, through the sharded
+    code path on a ``(1, 1)`` ``('data', 'model')`` mesh.  Returns the
+    kernels' launches."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import abstract_mesh
+    from repro_torch.launch.mesh import device_mesh
+
+    t0 = time.perf_counter()
+    process_group(torch, device)
+    try:
+        mesh = device_mesh(abstract_mesh((1, 1), ("data", "model")),
+                           None if device.type == "cuda" else "cpu")
+        launches = sharded_training(torch, device, mesh, "llama3-8b", TRAIN_LAYERS,
+                                    ("tp", "fsdp"), "25(a)")
+        launches.update(sharded_training(torch, device, mesh, "mamba2-2.7b",
+                                         SHARDED_SSM_BLOCKS, ("tp",), "25(d)"))
+        sharded_moe(torch, device, mesh)
+        launches["tree_descend"] = sharded_search_cell(torch, device, mesh)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 25 took {time.perf_counter() - t0!r} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -3871,6 +4096,12 @@ def main():
           "against the CPU (float32, 2 layers)")
     train_parity_f32(torch, device, "mamba2-2.7b", label="24.3")
     train_parity_f32(torch, device, "zamba2-7b", with_step=False, label="24.3")
+
+    phase("25. the multi-device layer at world size 1 (NCCL, a (1, 1) mesh): llama3-8b and "
+          "mamba2-2.7b train steps placed under tp and fsdp, the expert-parallel MoE block, "
+          "the search cell")
+    got = multi_device(torch, device)
+    family["25"] = {("tree_select" if k == "tree_descend" else k): n for k, n in got.items()}
 
     kernels = [{
         "name": name,

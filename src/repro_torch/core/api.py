@@ -19,7 +19,7 @@ async engine only).
 from __future__ import annotations
 
 import functools
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -109,7 +109,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def build_searcher(env: Environment, spec: SearchSpec, *,
-                   evaluator: Optional[Evaluator] = None, device=None):
+                   evaluator: Optional[Evaluator] = None, device=None,
+                   constrain: Optional[Callable[[Any], Any]] = None):
     """Build the searcher described by ``spec`` for ``env``.
 
     Returns a plain callable that moves its inputs to ``device`` (default
@@ -131,6 +132,12 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
     Selection on a GPU always runs the ``tree_descend`` kernel (one launch
     walks every tree), and on the CPU always its plain version, so
     ``spec.use_kernel=False`` is accepted only with a CPU device.
+
+    ``constrain`` is phase 2's hook on the slot batch and its results
+    (:func:`repro_torch.distributed.sharding.constrain_search_batch` splits
+    the slots over the data axes of the ambient mesh); the single-root
+    async engine and the baselines ``leafp``/``rootp`` take none, as in the
+    reference.
     """
     cfg = as_search_config(spec)
     if spec.batch < 0:
@@ -165,7 +172,9 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
         run = run_search_batched
     else:
         run = {"leafp": run_leafp, "rootp": run_rootp}.get(spec.algo, run_search)
-    fn = functools.partial(run, env, cfg, evaluator=evaluator)
+    takes = spec.batch > 0 or (spec.engine != "async" and spec.algo not in ("leafp", "rootp"))
+    hook = {"constrain": constrain} if constrain is not None and takes else {}
+    fn = functools.partial(run, env, cfg, evaluator=evaluator, **hook)
 
     def search(root_states: State, rngs: torch.Tensor) -> SearchResult:
         return fn(map_state(lambda x: torch.as_tensor(x, device=dev), root_states),

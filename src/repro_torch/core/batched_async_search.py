@@ -48,7 +48,7 @@ only the rows concerned, by index.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -136,8 +136,10 @@ class BatchedAsyncEngine:
     """
 
     def __init__(self, env: Environment, cfg: SearchConfig, batch: int, *,
-                 evaluator: Optional[Evaluator] = None):
+                 evaluator: Optional[Evaluator] = None,
+                 constrain: Optional[Callable[[Any], Any]] = None):
         self.env = env
+        self.constrain = constrain
         self.cfg = cfg
         self.B = int(batch)
         self.W = cfg.wave_size
@@ -232,7 +234,10 @@ class BatchedAsyncEngine:
 
     def _tick(self, slots: _BatchedAsyncSlots, rngs: torch.Tensor, aux):
         """Advance every busy slot by one env step, as one flat ``[B·W]``
-        batch through the evaluator."""
+        batch through the evaluator.  ``constrain`` is applied to that batch
+        and to the results (the reference's hook): under a mesh each rank
+        ticks its own slots.  The evaluator aux stays outside it, so only an
+        evaluator without slot aux (the rollouts') takes a split batch."""
         from .. import rng
 
         B, W = self.B, self.W
@@ -241,11 +246,19 @@ class BatchedAsyncEngine:
         def flat(x):
             return x.reshape((B * W,) + tuple(x.shape[2:]))
 
-        out, aux = self.evaluator.tick(
-            self.cfg, flat(slots.kind), flat(slots.act), map_state(flat, slots.state),
-            flat(slots.rollout_done), flat(slots.acc), flat(slots.disc),
-            flat(slots.steps), keys, aux,
-        )
+        args = (flat(slots.kind), flat(slots.act), map_state(flat, slots.state),
+                flat(slots.rollout_done), flat(slots.acc), flat(slots.disc),
+                flat(slots.steps), keys)
+        if self.constrain is None:
+            out, aux = self.evaluator.tick(self.cfg, *args, aux)
+        else:
+            from ..distributed.sharding import local_apply
+
+            if aux != ():
+                raise NotImplementedError("constrain splits the slots; an evaluator "
+                                          "with slot aux runs without it")
+            out = self.constrain(local_apply(
+                lambda *a: self.evaluator.tick(self.cfg, *a, aux)[0], self.constrain(args)))
 
         def unflat(x):
             return x.reshape((B, W) + tuple(x.shape[1:]))
@@ -604,7 +617,8 @@ class BatchedAsyncEngine:
 
 def run_async_search_batched(env: Environment, cfg: SearchConfig, root_states: State,
                              rngs: torch.Tensor, trace_ticks: int = 0,
-                             evaluator: Optional[Evaluator] = None):
+                             evaluator: Optional[Evaluator] = None,
+                             constrain: Optional[Callable[[Any], Any]] = None):
     """Run ``B`` independent async-slot searches; every field of the
     returned :class:`SearchResult` carries a leading ``[B]`` axis.
 
@@ -614,5 +628,6 @@ def run_async_search_batched(env: Environment, cfg: SearchConfig, root_states: S
     ``trace_ticks > 0`` returns ``(SearchResult, AsyncTickTrace)``
     (:meth:`BatchedAsyncEngine.run`).
     """
-    engine = BatchedAsyncEngine(env, cfg, rngs.shape[0], evaluator=evaluator)
+    engine = BatchedAsyncEngine(env, cfg, rngs.shape[0], evaluator=evaluator,
+                                constrain=constrain)
     return engine.run(root_states, rngs, trace_ticks)

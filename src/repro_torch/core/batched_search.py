@@ -20,7 +20,8 @@ four dilations.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+import functools
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -181,11 +182,32 @@ def _phase1_select(tree: BatchedTree, rngs: torch.Tensor,
     return tree, slots, dups
 
 
+def _slot_work(env: Environment, cfg: SearchConfig, evaluator: Evaluator, parent_state,
+               sim_state, sim_done, kind, act, keys):
+    """The parallel part over a flat batch of slots: the expansion env-step
+    from each slot's parent, then the simulation rollout from its child
+    (expansions) or its node."""
+    child_state, r_edge, done_child = env.step(parent_state, act)
+    is_exp = kind == KIND_EXPAND
+    start_state = where_state(is_exp, child_state, sim_state)
+    start_done = torch.where(is_exp, done_child, sim_done)
+    rets = evaluator.rollout(cfg, start_state, start_done, keys)
+    return child_state, r_edge, done_child, rets
+
+
 def _phase2_work(env: Environment, cfg: SearchConfig, tree: BatchedTree,
                  slots: _BatchedSlots, rngs: torch.Tensor,
-                 evaluator: Optional[Evaluator] = None):
+                 evaluator: Optional[Evaluator] = None,
+                 constrain: Optional[Callable[[Any], Any]] = None):
     """Expansion env-step + simulation rollout for all B × W slots at once,
-    flattened to one ``[B·W]`` batch."""
+    flattened to one ``[B·W]`` batch.
+
+    The master gathers each slot's states from the (replicated) forest;
+    ``constrain`` (e.g. ``repro_torch.distributed.sharding.
+    constrain_search_batch``) is applied to the slot batch and to the
+    results, as the reference applies its sharding constraint: under a
+    mesh each rank then runs the rollouts of its own slots
+    (``local_apply``) and the results come back to every rank."""
     B, W = tree.batch_size, cfg.wave_size
     evaluator = evaluator if evaluator is not None else RolloutEvaluator(env)
     keys = rng.split(rngs, W).reshape(B * W, 2)
@@ -194,12 +216,17 @@ def _phase2_work(env: Environment, cfg: SearchConfig, tree: BatchedTree,
     def at(nodes):
         return map_state(lambda x: x[b, nodes].flatten(0, 1), tree.states)
 
-    child_state, r_edge, done_child = env.step(at(slots.stop_node),
-                                               slots.act.flatten())
-    is_exp = slots.kind.flatten() == KIND_EXPAND
-    start_state = where_state(is_exp, child_state, at(slots.sim_node))
-    start_done = torch.where(is_exp, done_child, tree.terminal[b, slots.sim_node].flatten())
-    rets = evaluator.rollout(cfg, start_state, start_done, keys)
+    args = (at(slots.stop_node), at(slots.sim_node),
+            tree.terminal[b, slots.sim_node].flatten(), slots.kind.flatten(),
+            slots.act.flatten(), keys)
+    work = functools.partial(_slot_work, env, cfg, evaluator)
+    if constrain is None:
+        out = work(*args)
+    else:
+        from ..distributed.sharding import local_apply
+
+        out = constrain(local_apply(work, constrain(args)))
+    child_state, r_edge, done_child, rets = out
 
     def unflat(x):
         return x.reshape((B, W) + tuple(x.shape[1:]))
@@ -231,13 +258,15 @@ def _phase3_settle(tree: BatchedTree, cfg: SearchConfig, slots: _BatchedSlots,
 
 def run_search_batched(env: Environment, cfg: SearchConfig, root_states: State,
                        rngs: torch.Tensor,
-                       evaluator: Optional[Evaluator] = None) -> SearchResult:
+                       evaluator: Optional[Evaluator] = None,
+                       constrain: Optional[Callable[[Any], Any]] = None) -> SearchResult:
     """Run ``B`` independent searches; every field of the returned
     :class:`SearchResult` carries a leading ``[B]`` axis.
 
     ``root_states`` leaves lead with ``[B]``; ``rngs`` is key data
     ``[B, 2]`` (e.g. ``rng.split(key, B)``), one stream per tree.  Runs on
-    the device the inputs are on.
+    the device the inputs are on.  ``constrain`` is phase 2's hook
+    (:func:`_phase2_work`).
     """
     if cfg.num_simulations % cfg.wave_size != 0:
         raise ValueError("num_simulations must be divisible by wave_size")
@@ -253,7 +282,7 @@ def run_search_batched(env: Environment, cfg: SearchConfig, root_states: State,
         tree, slots, dups = _phase1_select(tree, k_sel, cfg)
         max_o = torch.maximum(max_o, tree.O[:, 0])
         child_states, r_edge, done_child, rets = _phase2_work(
-            env, cfg, tree, slots, k_sim, evaluator
+            env, cfg, tree, slots, k_sim, evaluator, constrain
         )
         tree = _phase3_settle(tree, cfg, slots, child_states, r_edge, done_child, rets)
         dup_acc = dup_acc + dups

@@ -74,13 +74,16 @@ def traverse(tree, rng_key: torch.Tensor, cfg: SearchConfig) -> torch.Tensor:
 
 def run_search(env: Environment, cfg: SearchConfig, root_state: State,
                rng_key: torch.Tensor,
-               evaluator: Optional[Evaluator] = None) -> SearchResult:
+               evaluator: Optional[Evaluator] = None,
+               constrain: Optional[Callable[[Any], Any]] = None) -> SearchResult:
     """Full search from ``root_state`` (leaves without a batch axis) with
-    key data ``rng_key[2]``; returns the move decision + stats."""
+    key data ``rng_key[2]``; returns the move decision + stats.
+    ``constrain`` is phase 2's hook on the ``W`` slots (the reference's
+    ``_phase2_work``; here the batched engine's at ``B = 1``)."""
     from .batched_search import run_search_batched
 
     res = run_search_batched(env, cfg, map_state(_lift, root_state), rng_key[None],
-                             evaluator=evaluator)
+                             evaluator=evaluator, constrain=constrain)
     return SearchResult(*(x[0] for x in res))
 
 

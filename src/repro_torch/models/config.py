@@ -4,8 +4,10 @@ One dataclass covers every family — dense, MoE, SSM (Mamba-2), hybrid
 (Zamba2), the VLM stub and enc-dec (Whisper) — with a torch ``dtype``.
 The reference's training fields are carried: ``remat`` (each layer's body
 recomputed in the backward, ``torch.utils.checkpoint``) and ``loss_chunk``
-(the LM head and cross entropy chunked over the sequence).  Its dry-run
-and mesh fields (``scan_layers``, ``seq_shard_activations``) are not.
+(the LM head and cross entropy chunked over the sequence), and so is
+``seq_shard_activations`` (the residual stream split over the sequence
+and ``model`` at block boundaries under a mesh).  Its dry-run field
+``scan_layers`` is not: the port's layer loop is always unrolled.
 ``attn_impl`` stays so configurations carry across, but it does not choose
 the path: attention and the SSD scan on a CUDA tensor always run the
 port's kernels, on a CPU tensor their plain versions.
@@ -69,6 +71,10 @@ class ModelConfig:
     # Chunked cross entropy: peak logits B*loss_chunk*V instead of B*S*V.
     # 0 = unchunked.
     loss_chunk: int = 0
+    # Megatron-style sequence parallelism: the residual stream split over
+    # (batch over the data axes, seq over model) at block boundaries.  No-op
+    # outside a mesh or where seq does not divide.
+    seq_shard_activations: bool = False
 
     def __post_init__(self):
         if self.head_dim is None:

@@ -23,6 +23,14 @@ online-softmax path, as the reference does.  The MoE layer
 (:func:`moe_block`) is plain tensor ops, as in the reference, where no
 Pallas kernel runs.
 
+Under a ``DeviceMesh`` (``repro_torch.distributed.sharding.use_mesh``)
+with parameters placed as DTensors, DTensor propagates the placements
+through these functions; attention (the flash kernel, which reads raw
+pointers, and the plain chunked path) runs on each rank's heads and rows
+through ``local_map`` (:func:`on_head_shards`), a placed cache is
+written on each rank's rows, and the MoE layer runs its experts where
+they live (:func:`_moe_block_sharded`).
+
 **In place:** :func:`attention_block` writes the new K/V into the cache
 tensors (or pools) it is given and returns them; a caller that needs the
 old cache keeps a copy.
@@ -78,6 +86,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows ``embed[tokens]`` (``F.embedding``).
+
+    On DTensors, where the rules split the vocabulary over a mesh dim that
+    does not split the tokens (``tp``'s ``model``), each rank looks up the
+    tokens in its own block of rows and zeroes the others, and the partial
+    sums add up over that dim (Megatron's vocab-parallel embedding); where
+    the tokens are split too (``fsdp``), the table is gathered first.  The
+    lookup runs on each rank's blocks through ``local_map``: DTensor's own
+    rules fail here (``F.embedding`` from a split table on torch 2.13, the
+    index backward's ``index_put`` on 2.11).
+    """
+    if not is_placed(embed):
+        return F.embedding(tokens, embed)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = embed.device_mesh
+    if not is_placed(tokens):     # whole on every rank
+        from ..distributed.sharding import distribute_leaf
+
+        tokens = distribute_leaf(tokens, (Replicate(),) * mesh.ndim, mesh)
+    tok_pl = tokens.placements
+    split = [p == Shard(0) and not isinstance(t, Shard)
+             for p, t in zip(embed.placements, tok_pl)]
+    w_pl = tuple(Shard(0) if s else Replicate() for s in split)
+    w_grad = tuple(Shard(0) if s else Partial() if isinstance(t, Shard) else Replicate()
+                   for s, t in zip(split, tok_pl))
+    out_pl = tuple(t if isinstance(t, Shard) else Partial() if s else Replicate()
+                   for s, t in zip(split, tok_pl))
+
+    def lookup(tok, w):
+        (w,) = local_inputs(w)
+        if not any(split):
+            return F.embedding(tok, w)
+        block = 0
+        for i, s in enumerate(split):
+            if s:
+                block = block * mesh.size(i) + mesh.get_local_rank(i)
+        lo = block * w.shape[0]
+        mine = (tok >= lo) & (tok < lo + w.shape[0])
+        out = F.embedding(torch.where(mine, tok - lo, 0), w)
+        return out * mine[..., None].to(out.dtype)
+
+    return local_map(lookup, out_placements=[*out_pl], in_placements=(tok_pl, w_pl),
+                     in_grad_placements=(tok_pl, w_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, embed)
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +208,81 @@ def chunked_attention(
     out = acc / torch.clamp_min(l, 1e-20)[..., None]
     out = out.reshape(b, hq, sq, d).transpose(1, 2)                     # [B,Sq,Hq,D]
     return out.to(q.dtype)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient comes out contiguous: DTensor's view rules
+    read the global strides, so a local gradient in another layout (the
+    plain attention's, a kernel's) would fail a ``view`` upstream."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def is_placed(x) -> bool:
+    # The distributed package imports the models, so its import waits for a call.
+    from ..distributed.sharding import is_placed as placed
+
+    return placed(x)
+
+
+def rows_here(x, placements, mesh):
+    """``x`` (offsets or lengths: a scalar or one per row, placed or whole)
+    as a plain tensor for this rank's rows of a tensor placed as
+    ``placements``: a scalar whole, a ``[B]`` vector split as the rows."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..distributed.sharding import distribute_leaf
+
+    if not isinstance(x, torch.Tensor):
+        return x
+    x = x.full_tensor() if is_placed(x) else x
+    if x.dim() != 1:
+        return x
+    rows = tuple(p if p == Shard(0) else Replicate() for p in placements)
+    return distribute_leaf(x, rows, mesh).to_local()
+
+
+def local_inputs(*xs):
+    """The local tensors of a ``local_map`` body, their gradients made
+    contiguous (:class:`_ContiguousGrad`)."""
+    return tuple(_ContiguousGrad.apply(x) if x.requires_grad else x for x in xs)
+
+
+def on_head_shards(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` for a kernel over ``[B, S, H, D]`` heads.
+
+    On plain tensors this is the call itself.  On DTensors it runs on each
+    rank's shards through ``local_map``: rows split as q's rows are (over
+    the data axes), heads as q's heads are (over ``model`` where the rules
+    shard ``wq``), the rest whole.  Where the KV heads do not split as the
+    q heads do (``num_kv_heads`` not divisible by the model axis while
+    ``num_heads`` is), each q head gets its own copy of its KV head first,
+    so every rank holds the KV heads its q heads read.
+    """
+    if not is_placed(q):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in q.placements)
+    kw = {name: rows_here(x, pl, mesh) for name, x in kw.items()}   # offsets, lengths
+    head_parts = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(2))
+    if k.shape[2] % head_parts:
+        group = q.shape[2] // k.shape[2]
+        k, v = k.repeat_interleave(group, dim=2), v.repeat_interleave(group, dim=2)
+    call = local_map(lambda *a: fn(*local_inputs(*a), **kw).contiguous(),
+                     out_placements=list(pl),
+                     in_placements=(pl, pl, pl), in_grad_placements=(pl, pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)
+    return call(q, k, v)
 
 
 def decode_attention(
@@ -241,7 +373,15 @@ def _write_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
       reference's ``mode="drop"`` scatter drops them.  ``index_put_``
       would raise on them, so they are sent to position ``start[b] - 1``,
       which no valid write of the row touches, with its own old value.
+
+    A placed cache (DTensors) is written on each rank's rows: the new K/V
+    are brought to the cache's placement and the write runs on the local
+    blocks, which are the cache's storage.
     """
+    if is_placed(kc):
+        mesh, pl = kc.device_mesh, kc.placements
+        k, v = (x.redistribute(mesh, pl).to_local() for x in (k, v))
+        return _write_cache(kc.to_local(), vc.to_local(), k, v, rows_here(start, pl, mesh))
     big_s, s = kc.shape[1], k.shape[1]
     if s > big_s:
         raise ValueError(f"cannot write {s} positions into a cache of length {big_s}")
@@ -335,9 +475,10 @@ def attention_block(
         return out, dict(cache, k=kc, v=vc)
     if cache is None:
         if causal and q.shape[1] == k.shape[1]:
-            out = flash_attention(q, k, v, causal=True)
+            out = on_head_shards(flash_attention, q, k, v, causal=True)
         else:
-            out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+            out = on_head_shards(chunked_attention, q, k, v, causal=causal,
+                                 chunk=cfg.attn_chunk)
         new_cache = None
     else:
         kc, vc = cache["k"], cache["v"]
@@ -348,10 +489,8 @@ def attention_block(
             # The decode kernel takes scalar or per-row [B] cache lengths.
             out = decode_attention_kernel(q[:, 0].contiguous(), kc, vc, new_len)[:, None]
         else:
-            out = chunked_attention(
-                q, kc, vc, causal=causal, q_offset=start, kv_len=new_len,
-                chunk=cfg.attn_chunk,
-            )
+            out = on_head_shards(chunked_attention, q, kc, vc, causal=causal, q_offset=start,
+                                 kv_len=new_len, chunk=cfg.attn_chunk)
         new_cache = {"k": kc, "v": vc, "len": new_len}
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p["wo"]
     return out, new_cache
@@ -366,8 +505,8 @@ def cross_attention_block(p, cfg, x, enc_kv):
     q = (x @ p["wq"]).reshape(b, s, hq, hd)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(hq, hd)
-    out = chunked_attention(q, enc_kv["k"], enc_kv["v"], causal=False,
-                            chunk=min(cfg.attn_chunk, enc_kv["k"].shape[1]))
+    out = on_head_shards(chunked_attention, q, enc_kv["k"], enc_kv["v"], causal=False,
+                         chunk=min(cfg.attn_chunk, enc_kv["k"].shape[1]))
     return out.reshape(b, s, hq * hd) @ p["wo"]
 
 
@@ -449,33 +588,50 @@ def init_moe(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
 
 
 def moe_block(p, cfg, x):
-    """MoE layer, ``x [B, S, d] -> (out [B, S, d], aux [])``.  On one
-    device this is :func:`_moe_block_local`; the reference's expert-parallel
-    path under a mesh (``_moe_block_sharded``) is not ported."""
+    """MoE layer, ``x [B, S, d] -> (out [B, S, d], aux [])``.
+
+    Under a ``DeviceMesh`` whose ``model`` axis is larger than 1 and
+    divides ``num_experts``, the routed experts run expert-parallel
+    (:func:`_moe_block_sharded`); otherwise (no mesh, one device) the
+    local dense-buffer path :func:`_moe_block_local` runs.
+    """
+    from ..distributed.sharding import _is_device_mesh, ambient_abstract_mesh
+
+    mesh = ambient_abstract_mesh()
+    if mesh is not None and _is_device_mesh(mesh) and "model" in mesh.mesh_dim_names:
+        tp = mesh.size(mesh.mesh_dim_names.index("model"))
+        if tp > 1 and cfg.num_experts % tp == 0:
+            out, aux = _moe_block_sharded(p, cfg, x, mesh)
+            if "shared" in p:
+                out = out + mlp_block(p["shared"], x)
+            return out, aux
     return _moe_block_local(p, cfg, x)
 
 
-def _moe_block_local(p, cfg, x):
-    """Single-device MoE with the reference's dense scatter dispatch.
+def _routed_experts(cfg, x, router, w_gate, w_up, w_down, e_off: int = 0):
+    """Route the ``T = B·S`` tokens of ``x [B, S, d]`` over all ``E``
+    experts and run those held here, ``w_* [E_loc, ...]`` for experts
+    ``e_off .. e_off + E_loc - 1``: ``(out [T, d], aux [])``, ``out`` the
+    gate-weighted sum over the local experts' outputs.
 
-    All ``T = B·S`` tokens of the call route together, so the expert
-    capacity ``ceil(T·k / E · capacity_factor)`` and which tokens overflow
-    depend on the call's ``[B, S]``, padding and idle rows included.  The
-    router product is float32 (the caller keeps TF32 off on the card: a
-    flipped top-k sends a token to another expert).  Each (token, choice)
-    in row-major ``[T, k]`` order takes the next free place of its expert
-    (an exclusive cumsum of the one-hot); one past the capacity goes to the
-    overflow bin ``E·C`` and is dropped.  Experts run as batched products
-    ``[E, C, d] @ [E, d, f]``; outputs gather back weighted by the
-    renormalised top-k gates.  ``aux`` is the Switch-style load-balancing
-    loss.
+    The router product is float32 (the caller keeps TF32 off on the card:
+    a flipped top-k sends a token to another expert).  The capacity
+    ``ceil(T·k / E · capacity_factor)`` counts the call's tokens.  Each
+    (token, choice) for a local expert, in row-major ``[T, k]`` order,
+    takes the next free place of its expert (an exclusive cumsum of the
+    one-hot); one past the capacity, or a choice of a remote expert, goes to
+    the overflow bin ``E_loc·C`` and is dropped.  Experts run as batched
+    products ``[E_loc, C, d] @ [E_loc, d, f]``; outputs gather back
+    weighted by the renormalised top-k gates.  ``aux`` is the Switch-style
+    load-balancing loss.
     """
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
+    e_loc = w_gate.shape[0]
     t = b * s
     xt = x.reshape(t, d)
 
-    logits = xt.float() @ p["router"]                           # [T, E]
+    logits = xt.float() @ router                                # [T, E]
     if cfg.num_experts_real is not None and cfg.num_experts_real < e:
         dead = torch.arange(e, device=x.device) >= cfg.num_experts_real
         logits = torch.where(dead, NEG_INF, logits)
@@ -488,25 +644,92 @@ def _moe_block_local(p, cfg, x):
 
     capacity = int(max(1, math.ceil(t * k / e * cfg.capacity_factor)))
     flat_expert = expert_idx.reshape(-1)                        # [T*k]
-    onehot = F.one_hot(flat_expert, e)                          # [T*k, E]
-    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat_expert[:, None])[:, 0]
-    keep = pos < capacity
-    slot = torch.where(keep, flat_expert * capacity + torch.clamp_max(pos, capacity - 1),
-                       e * capacity)                            # overflow bin
+    local = (flat_expert >= e_off) & (flat_expert < e_off + e_loc)
+    local_e = torch.clamp(flat_expert - e_off, 0, e_loc - 1)
+    onehot = torch.where(local[:, None], F.one_hot(local_e, e_loc), 0)   # [T*k, E_loc]
+    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, local_e[:, None])[:, 0]
+    keep = local & (pos < capacity)
+    slot = torch.where(keep, local_e * capacity + torch.clamp_max(pos, capacity - 1),
+                       e_loc * capacity)                        # overflow bin
 
     # Kept slots are distinct; only the overflow bin takes several writes.
-    buf = x.new_zeros((e * capacity + 1, d))
+    buf = x.new_zeros((e_loc * capacity + 1, d))
     buf.index_copy_(0, slot, xt.repeat_interleave(k, dim=0))
-    expert_in = buf[: e * capacity].reshape(e, capacity, d)
+    expert_in = buf[: e_loc * capacity].reshape(e_loc, capacity, d)
 
-    h = F.silu(torch.bmm(expert_in, p["w_gate"])) * torch.bmm(expert_in, p["w_up"])
-    expert_out = torch.bmm(h, p["w_down"])
+    h = F.silu(torch.bmm(expert_in, w_gate)) * torch.bmm(expert_in, w_up)
+    expert_out = torch.bmm(h, w_down)
 
-    flat_out = torch.cat([expert_out.reshape(e * capacity, d), x.new_zeros((1, d))])
+    flat_out = torch.cat([expert_out.reshape(e_loc * capacity, d), x.new_zeros((1, d))])
     gathered = flat_out[slot].reshape(t, k, d)
     gates = (gate_vals * keep.reshape(t, k)).to(x.dtype)
-    out = torch.einsum("tkd,tk->td", gathered, gates).reshape(b, s, d)
+    return torch.einsum("tkd,tk->td", gathered, gates), aux
 
+
+def _moe_block_sharded(p, cfg, x, mesh):
+    """Expert parallelism: the routed experts of ``p`` (without the shared
+    ones) over the ``DeviceMesh`` ``mesh``, the reference's ``shard_map``.
+
+    Tokens stay split over the data axes and whole over ``model``; the
+    experts split on their leading axis over ``model``.  Each rank routes
+    its rows' tokens over all experts, with the capacity of its own token
+    count, and runs its own experts (:func:`_routed_experts`); the combine
+    is one all-reduce over ``model``, and ``aux`` is the mean of the ranks'
+    over the data axes.  Plain tensors (whole on every rank) are placed
+    first, and then the results come back whole.  Returns ``(out [B, S,
+    d], aux [])``.
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import distribute_leaf
+
+    names = mesh.mesh_dim_names
+    data = [a in ("pod", "data") for a in names]
+    model = [a == "model" for a in names]
+    parts = math.prod(mesh.size(i) for i, a in enumerate(names) if data[i] or model[i])
+
+    def pl(on_data, on_model, other=Replicate()):
+        return tuple(on_data if dt else on_model if md else other
+                     for dt, md in zip(data, model))
+
+    tok, tok_grad = pl(Shard(0), Replicate()), pl(Shard(0), Partial())
+    rep, rep_grad = pl(Replicate(), Replicate()), pl(Partial(), Partial())
+    exp, exp_grad = pl(Replicate(), Shard(0)), pl(Partial(), Shard(0))
+    out_pl = pl(Shard(0), Partial())
+    aux_pl = pl(Partial(), Partial())
+    model_dim = model.index(True)
+
+    def inner(xb, router, wg, wu, wd):
+        bl, sl, d = xb.shape
+        e_off = mesh.get_local_rank(model_dim) * wg.shape[0]
+        out, aux = _routed_experts(cfg, *local_inputs(xb, router, wg, wu, wd), e_off)
+        # Each rank's share of the mean: summed over every rank below.
+        return out.reshape(bl, sl, d), aux / parts
+
+    plain = not is_placed(x)
+    args = [x, p["router"], p["w_gate"], p["w_up"], p["w_down"]]
+    wants = (tok, rep, exp, exp, exp)
+    args = [a if is_placed(a) else distribute_leaf(a, w, mesh) for a, w in zip(args, wants)]
+    out, aux = local_map(inner, out_placements=(out_pl, aux_pl), in_placements=wants,
+                         in_grad_placements=(tok_grad, rep_grad, exp_grad, exp_grad,
+                                             exp_grad),
+                         device_mesh=mesh, redistribute_inputs=True)(*args)
+    out, aux = out.redistribute(mesh, tok), aux.redistribute(mesh, rep)   # EP combine
+    if plain:
+        return out.full_tensor(), aux.full_tensor()
+    return out, aux
+
+
+def _moe_block_local(p, cfg, x):
+    """Single-device MoE with the reference's dense scatter dispatch: every
+    expert here (:func:`_routed_experts`), all ``T = B·S`` tokens of the
+    call routed together, so the expert capacity and which tokens overflow
+    depend on the call's ``[B, S]``, padding and idle rows included; plus
+    the shared experts."""
+    b, s, d = x.shape
+    out, aux = _routed_experts(cfg, x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
+    out = out.reshape(b, s, d)
     if "shared" in p:
         out = out + mlp_block(p["shared"], x)
     return out, aux

@@ -71,6 +71,7 @@ from .config import ModelConfig
 from .layers import (
     attention_block,
     cross_attention_block,
+    embed_tokens,
     init_attention,
     init_mlp,
     init_moe,
@@ -213,14 +214,29 @@ def abstract_params(cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h``.  On DTensors partial sums (a row-parallel product's) are
+    then reduced, so the residual stream leaves each block whole over
+    ``model``, as in a Megatron block: left partial, DTensor carries the
+    sums on into ever odder layouts, and on a three-axis mesh its
+    redistribution planner took minutes to place one MLP."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    x = x + h
+    if isinstance(x, DTensor) and any(isinstance(p, Partial) for p in x.placements):
+        x = x.redistribute(x.device_mesh, tuple(Replicate() if isinstance(p, Partial) else p
+                                                for p in x.placements))
+    return x
+
+
 def _ffn(cfg, bp, x):
     """A transformer block's MLP half: ``(x + h, aux)``, ``aux`` the MoE
     router loss (``None`` for a dense MLP)."""
     xn = rms_norm(x, bp["mlp_norm"], cfg.rms_eps)
     if cfg.family == "moe":
         h, aux = moe_block(bp["moe"], cfg, xn)
-        return x + h, aux
-    return x + mlp_block(bp["mlp"], xn), None
+        return _residual(x, h), aux
+    return _residual(x, mlp_block(bp["mlp"], xn)), None
 
 
 def _transformer_body(cfg, bp, x, positions, cache, enc_kv=None):
@@ -230,10 +246,11 @@ def _transformer_body(cfg, bp, x, positions, cache, enc_kv=None):
         bp["attn"], cfg, rms_norm(x, bp["attn_norm"], cfg.rms_eps),
         positions, cache=cache,
     )
-    x = x + h
+    x = _residual(x, h)
     if enc_kv is not None:
-        x = x + cross_attention_block(bp["cross"], cfg,
-                                      rms_norm(x, bp["cross_norm"], cfg.rms_eps), enc_kv)
+        x = _residual(x, cross_attention_block(bp["cross"], cfg,
+                                               rms_norm(x, bp["cross_norm"], cfg.rms_eps),
+                                               enc_kv))
     x, aux = _ffn(cfg, bp, x)
     return x, new_cache, aux
 
@@ -241,7 +258,7 @@ def _transformer_body(cfg, bp, x, positions, cache, enc_kv=None):
 def _ssm_body(cfg, bp, x, cache=None, return_cache=False):
     h, new_cache = ssm_block(bp["ssm"], cfg, rms_norm(x, bp["norm"], cfg.rms_eps),
                              cache=cache, return_cache=return_cache)
-    return x + h, new_cache
+    return _residual(x, h), new_cache
 
 
 def _num_attn_sites(cfg: ModelConfig) -> int:
@@ -266,7 +283,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, torch.
     """Token embeddings, behind the patch embeddings for vlm, and their
     positions (``batch["positions"]`` or ``0..S-1``)."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = embed_tokens(params["embed"], tokens)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     positions = batch.get("positions")
@@ -294,8 +311,8 @@ def _run_encoder(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor
     def body(x, bp):
         h, _ = attention_block(bp["attn"], cfg, rms_norm(x, bp["attn_norm"], cfg.rms_eps),
                                positions, causal=False)
-        x = x + h
-        return x + mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps))
+        x = _residual(x, h)
+        return _residual(x, mlp_block(bp["mlp"], rms_norm(x, bp["mlp_norm"], cfg.rms_eps)))
 
     body = _remat(cfg, body)
     for layer in range(cfg.num_encoder_layers):
@@ -334,6 +351,10 @@ def forward(params: Params, cfg: ModelConfig, batch,
 
     def transformer(x, bp):
         enc_kv = _enc_kv(cfg, bp["cross"], enc_out) if enc_out is not None else None
+        if cfg.seq_shard_activations:
+            from ..distributed.sharding import constrain
+
+            x = constrain(x, ("pod", "data"), "model", None)
         x, _, a = _transformer_body(cfg, bp, x, positions, None, enc_kv)
         return x, a
 
@@ -358,8 +379,22 @@ def forward(params: Params, cfg: ModelConfig, batch,
     return unembed(params, x), aux
 
 
+def _whole_last_dim(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last dim whole on every rank: a DTensor split there
+    (logits over the vocab under ``model``) is gathered, since DTensor's
+    rule for a ``gather`` along a split dim fails."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    last = Shard(x.dim() - 1)
+    pl = tuple(Replicate() if p == last else p for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
 def _ce_terms(pred: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor):
     """(Σ nll, Σ mask) over a ``[B, S, V]`` float32 slab."""
+    pred = _whole_last_dim(pred)
     logz = torch.logsumexp(pred, dim=-1)
     gold = torch.gather(pred, -1, targets[..., None].to(torch.int64))[..., 0]
     return torch.sum((logz - gold) * mask), torch.sum(mask)
@@ -485,6 +520,10 @@ def _step_with_cache(params, cfg: ModelConfig, batch, cache,
                            "len": cur_len}
             enc_kv = ({"k": cache["cross"]["k"][layer], "v": cache["cross"]["v"][layer]}
                       if cfg.family == "encdec" else None)
+            if cfg.seq_shard_activations and s > 1:
+                from ..distributed.sharding import constrain
+
+                x = constrain(x, ("pod", "data"), "model", None)
             x, _, _ = _transformer_body(cfg, layer_params(params, layer), x, positions,
                                         layer_cache, enc_kv)
     else:

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan.ops import ssd_scan
-from .layers import normal, rms_norm
+from .layers import local_inputs, normal, rms_norm
 
 # Leaves of an SSM block that the reference keeps in float32 whatever the
 # model's dtype (``repro/models/ssm.py`` ``init_ssm_block``).
@@ -68,7 +68,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     accumulated in ``x``'s dtype tap by tap from ``i = 0``, as the
     reference does."""
     k, s = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, k - 1, 0))
+    # Zeros concatenated, not ``F.pad``: the same values and gradient, and
+    # on placed tensors a backward that DTensor places right on torch 2.11
+    # (``F.pad``'s comes back with one placement on a two-axis mesh).
+    pad = torch.cat([torch.zeros_like(x[:, :1]).expand(-1, k - 1, -1), x], dim=1)
     out = torch.zeros_like(x)
     for i in range(k):
         out = out + pad[:, i:i + s, :] * w[i]
@@ -176,6 +179,35 @@ def ssd_sequential_ref(xdt: torch.Tensor, dA: torch.Tensor, Bmat: torch.Tensor,
     return torch.stack(ys, dim=1), state
 
 
+def _scan_on_shards(fn, xdt, dA, bm, cm, **kw):
+    """``fn(xdt, dA, bm, cm, **kw)`` for ``ssd_scan``: the call itself on
+    plain tensors; on DTensors each rank's shards through ``local_map``,
+    rows split as ``xdt``'s are over the data axes and heads as its heads
+    are over ``model``, ``B``/``C`` whole over ``model``, so their
+    gradients are each rank's part of the sum over heads.  With
+    ``return_state`` the final state ``[B, H, P, N]`` splits as ``y``'s rows
+    and heads."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(xdt, DTensor):
+        return fn(xdt, dA, bm, cm, **kw)
+    mesh = xdt.device_mesh
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in xdt.placements)
+    bc = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    bc_grad = tuple(Partial() if p == Shard(2) else q for p, q in zip(pl, bc))
+    out_pl = list(pl)     # a list: one output
+    if kw.get("return_state"):
+        state = tuple(Shard(1) if p == Shard(2) else p for p in pl)
+        out_pl = (pl, state)
+    call = local_map(lambda *a: fn(*local_inputs(*a), **kw), out_placements=out_pl,
+                     in_placements=(pl, pl, bc, bc),
+                     in_grad_placements=(pl, pl, bc_grad, bc_grad),
+                     device_mesh=mesh, redistribute_inputs=True)
+    return call(xdt, dA, bm, cm)
+
+
 def _scan_with_state(cfg, xdt, dA, bm, cm):
     """The cache-producing prefill's scan: ``ssd_chunked``'s chunking
     (``Q = min(ssd_chunk, S)``, ``S`` padded to a multiple of ``Q`` with
@@ -190,7 +222,7 @@ def _scan_with_state(cfg, xdt, dA, bm, cm):
         dA = F.pad(dA, (0, 0, 0, pad))
         bm = F.pad(bm, (0, 0, 0, pad))
         cm = F.pad(cm, (0, 0, 0, pad))
-    y, h_final = ssd_scan(xdt, dA, bm, cm, chunk=q, return_state=True)
+    y, h_final = _scan_on_shards(ssd_scan, xdt, dA, bm, cm, chunk=q, return_state=True)
     return y[:, :s], h_final
 
 
@@ -235,7 +267,7 @@ def ssm_block(p: dict, cfg, u: torch.Tensor, *, cache=None,
         if return_cache:
             y, new_cache["state"] = _scan_with_state(cfg, xdt, dt * a, bm, cm)
         else:
-            y = ssd_scan(xdt, dt * a, bm, cm, chunk=kernel_chunk(cfg, s))
+            y = _scan_on_shards(ssd_scan, xdt, dt * a, bm, cm, chunk=kernel_chunk(cfg, s))
     else:
         # The O(1) decode step.
         packed = torch.cat([x[:, 0], bm[:, 0], cm[:, 0]], dim=-1)

@@ -13,6 +13,15 @@ and parameters into the tensors it is given and returns them, as the
 reference's jitted step does into its donated buffers: at llama3-8b's
 width a second copy of the float32 state would not fit the card.  A caller
 that needs the old values keeps a copy.
+
+**Placed parameters** (DTensors, ``repro_torch.distributed.sharding``):
+the state takes the ZeRO placement of ``opt_state_shardings`` (the
+parameter's spec plus a split over the data axes), so each rank keeps and
+updates its own slice.  The update reduce-scatters each gradient into its
+moment's placement, computes the norm there, and all-gathers the new
+parameters back into theirs (in the parameters' dtype); DTensor has no rule
+that would do either inside an in-place update, so both are explicit
+redistributions.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..distributed.sharding import is_placed
 from ..models.lm import tree_map
 
 Tree = Any
@@ -57,19 +67,35 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * scale
 
 
-def adamw_init(params: Tree) -> AdamWState:
+def adamw_init(params: Tree, placements: Tree = None) -> AdamWState:
     """Zero moments and a float32 master copy of ``params`` (a copy, never
-    an alias of a float32 parameter: the update writes it in place)."""
-    device = next(iter(leaves(params))).device
+    an alias of a float32 parameter: the update writes it in place).
 
-    def zeros(x):
-        return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    For placed parameters ``placements`` is the moments' placement tree
+    (``opt_state_shardings(...).m``): each rank then allocates its own
+    slice, and the master is its block of the parameter upcast (a split,
+    no communication)."""
+    device = next(iter(leaves(params))).device
+    if placements is None:
+        placements = tree_map(lambda x: None, params)
+
+    def zeros(x, pl):
+        if pl is None:
+            return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        from torch.distributed.tensor import zeros as placed_zeros
+
+        return placed_zeros(x.shape, dtype=torch.float32, device_mesh=x.device_mesh,
+                            placements=pl)
+
+    def master(x, pl):
+        up = x.detach().to(torch.float32, copy=True)
+        return up if pl is None else up.redistribute(x.device_mesh, pl)
 
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=device),
-        m=tree_map(zeros, params),
-        v=tree_map(zeros, params),
-        master=tree_map(lambda x: x.detach().to(torch.float32, copy=True), params),
+        m=tree_map(zeros, params, placements),
+        v=tree_map(zeros, params, placements),
+        master=tree_map(master, params, placements),
     )
 
 
@@ -96,6 +122,11 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree,
     metrics)`` with the parameters, moments and master weights written into
     the given tensors; ``metrics`` holds the ``grad_norm`` (before
     clipping) and the ``lr`` as float32 tensors."""
+    placed = is_placed(leaves(state.m)[0])
+    if placed:
+        # Reduce-scatter: each gradient into its moment's (ZeRO) placement.
+        grads = tree_map(lambda g, m: g.redistribute(m.device_mesh, m.placements),
+                         grads, state.m)
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     step = state.step + 1
@@ -113,6 +144,10 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree,
         del denom
         step_dir.add_(master * cfg.weight_decay)
         master.sub_(step_dir.mul_(lr))                          # master - lr (...)
-        p.copy_(master)
+        if placed:
+            # All-gather the new values into the parameter's placement.
+            p.copy_(master.to(p.dtype).redistribute(p.device_mesh, p.placements))
+        else:
+            p.copy_(master)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, AdamWState(step=step, m=state.m, v=state.v, master=state.master), metrics

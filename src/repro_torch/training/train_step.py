@@ -11,6 +11,15 @@ the reference's ``lax.scan`` does, and updates the parameters and state
 ``donate_argnums``).  The metrics leave the device once a step, through
 :func:`repro_torch.sync.host_read`: ``loss``, ``grad_norm`` and ``lr`` as
 Python floats.
+
+**On placed parameters** (``make_train_step(..., mesh=, strategy=)``,
+parameters from ``repro_torch.distributed.sharding.distribute_params`` and
+the state from ``adamw_init(params, opt_state_shardings(...).m)``): the
+step places a whole batch as ``batch_spec`` says (rows over the data axes,
+or over every axis under ``fsdp`` when they divide), runs under
+``use_mesh(mesh)``, where DTensor reduces the gradients over the data axes
+as it propagates them, and the update reduce-scatters them into the ZeRO
+placement of the moments (:func:`.optimizer.adamw_update`).
 """
 
 from __future__ import annotations
@@ -53,7 +62,30 @@ def _unflatten(tree: Tree, it) -> Tree:
     return next(it)
 
 
-def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig = TrainConfig()):
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig = TrainConfig(),
+                    mesh=None, strategy: str = "tp"):
+    if mesh is None:
+        return _make_step(model_cfg, train_cfg)
+    from ..distributed.sharding import batch_shardings, distribute_leaf, use_mesh
+
+    step = _make_step(model_cfg, train_cfg)
+
+    def train_step(params, opt_state, batch):
+        pl = batch_shardings(mesh, batch, strategy, batch["tokens"].shape[0])
+        placed = {k: distribute_leaf(x, pl[k], mesh) for k, x in batch.items()}
+        with use_mesh(mesh):
+            return step(params, opt_state, placed)
+
+    return train_step
+
+
+def _make_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
     opt_cfg = train_cfg.optimizer
     mb = train_cfg.microbatches
 
@@ -68,8 +100,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig = TrainConfig
 
             micro = {k: split(x) for k, x in batch.items()}
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for i in range(mb):
                 loss_i, grads_i = grad_fn(params, model_cfg, {k: x[i] for k, x in micro.items()})
                 loss = loss + loss_i
@@ -86,8 +117,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig = TrainConfig
 
         params, opt_state, opt_metrics = adamw_update(grads, opt_state, params, opt_cfg)
         del grads
-        values = host_read(torch.stack([loss.to(torch.float32), opt_metrics["grad_norm"],
-                                        opt_metrics["lr"].to(torch.float32)]))
+        values = host_read(torch.stack([_whole(loss).to(torch.float32),
+                                        _whole(opt_metrics["grad_norm"]),
+                                        _whole(opt_metrics["lr"]).to(torch.float32)]))
         metrics = {"loss": float(values[0]), "grad_norm": float(values[1]),
                    "lr": float(values[2])}
         return params, opt_state, metrics

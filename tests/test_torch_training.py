@@ -116,7 +116,7 @@ def test_loss_mask_counts_only_masked_positions():
     assert float(tm["tokens"]) == float(jm["tokens"]) == batch["loss_mask"][:, 1:].sum()
 
 
-@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "hybrid"])
+@pytest.mark.parametrize("family", ["dense", "moe", "ssm", "hybrid", "vlm", "encdec"])
 def test_grads_match_the_reference(family):
     jcfg, jp, cfg, p = _setup(family)
     batch = _batch(cfg, 4)

@@ -30,7 +30,11 @@ Phases (any failure raises, so the script exits non-zero):
    64/8, 16/16 at D=128 and 64/4, 12/12 at D=64), ``flash_attention``
    also at zamba2's D=112,
    the tree kernels also with prefixes longer than their shared-memory
-   copy and A=32;
+   copy and A=32; ``decode_attention``'s options for placed caches, its
+   log-sum-exp output (``out`` float32 and ``lse`` against the plain
+   version, the output without it bit-equal to that ``out`` rounded once)
+   and its head window (whole groups, part of a group, across two groups:
+   bit-equal to those heads of the whole call);
    ``flash_attention``'s log-sum-exp output and its backward
    ``flash_attention_bwd`` in float32 and bf16 (phase 24's shape among
    them, D=32 at G=8; ``out`` bit-equal with and without the log-sum-exp,
@@ -111,7 +115,7 @@ Phases (any failure raises, so the script exits non-zero):
     every busy slot's cache depth equals its prefix, the pool's working set
     stays within its blocks;
 17. host-paced serving, while llama3-8b is loaded (after phase 12), over
-    its first 16 layers (``SERVE_LAYERS``; cut from full depth for time):
+    its first 12 layers (``SERVE_LAYERS``; cut from full depth for time):
     ``SearchService(fused=False)`` in phase 7's cell drains 16 ragged
     prompts arriving in two bursts of 8, dense then paged (phase 10's
     pool): one valid action each, one decode-kernel launch per layer and decode
@@ -125,7 +129,7 @@ Phases (any failure raises, so the script exits non-zero):
     fused = host-paced at 2 float32 layers in the four evaluator modes
     (dense, paged, frontier, paged frontier: action, root_n and ticks
     equal, root_v within 1e-6);
-19. LM serving: ``ServingEngine`` over phase 17's 16 layers of llama3-8b,
+19. LM serving: ``ServingEngine`` over phase 17's 12 layers of llama3-8b,
     8 slots, 16 ragged prompts, at most 32 new tokens, greedy, dense then
     paged: one decode-kernel launch per layer and decode step, every request done,
     no block in use after; 19.2 (after 18.2) at 2 float32 layers, at least
@@ -192,7 +196,18 @@ Phases (any failure raises, so the script exits non-zero):
     ``_moe_block_local`` on 8 × 512 bf16 tokens, bit-equal; (c) the search
     cell at its defaults (wave 256, T=1024, d_mlp 8192, bf16 MLP): one
     wave on the mesh against the same wave without one, the tree
-    bit-equal, 256 ``tree_descend`` launches;
+    bit-equal, 256 ``tree_descend`` launches; (e), after (a), the decode
+    cell: llama3-8b at (a)'s setup over one data rank's share of
+    ``decode_32k`` (8 rows of a 32,768-deep bf16 cache at ``len`` 32,767):
+    ``decode_step`` plain, then the cell's function on the mesh with its
+    arguments placed by ``place_args`` in the ``batch`` and the split-KV
+    ``batch+seq_model`` modes, logits and caches bit-equal, 8
+    ``decode_attention`` launches a step, 0 wire bytes counted by
+    ``CollectiveCounter``; the kernel with its log-sum-exp on 2 and on 4
+    parts of S, merged by ``layers.merge_by_lse``, against the unsplit
+    kernel (bf16 within one bf16 ulp, float32 within 2e-6 of the row's
+    largest |out|); the kernel timed at that shape beside its bound (the
+    kernels line's ``decode_attention.decode_32k``);
 9. agreement on the card: cached prefill vs flash forward vs decode step
    logits (full width, 2 layers, float32), the reduced model's cached and
    paged frontier searches on the GPU against the port on the CPU,
@@ -277,10 +292,10 @@ REPLACES = {
 # The model-guided paths (phases 7 and 8): llama3-8b, a 128-token prompt,
 # 160-token sequences, top-8 actions, EOS token 1.
 LM_LAYERS = 32                # full depth (phases 7-12)
-# Phases 17-19 serve the first 16 of those layers (cut for time: they are
+# Phases 17-19 serve the first 12 of those layers (cut for time: they are
 # host-bound, a layer's launches at a time, and the whole run has to fit
-# 900 s with phase 24 added on a slow host).
-SERVE_LAYERS = 16
+# 900 s with phases 24 and 25 added on a slow host; 16 until phase 25(e)).
+SERVE_LAYERS = 12
 PROMPT_LEN, MAX_LEN, TOP_K, EOS = 128, 160, 8, 1
 ASYNC_B, ASYNC_W = 8, 16
 WAVE_B, WAVE_W = 2, 4
@@ -637,6 +652,71 @@ def check_decode(torch, device, lm_shapes):
           f"(32/8, 8/8, 4/1), D in (64, 128), kv_len covering 0, 1, S and off-tile, "
           f"plus the driven shapes {lm_shapes}; max |kernel - plain| = {max_err!r}")
     return max_err
+
+
+# decode_attention's options for placed caches (phase 3): (N, S, model
+# heads, KV heads, D) and head windows (first head, heads) of each, whole
+# groups, part of a group, across two groups' halves, one head.
+DECODE_OPTION_SHAPES = [(9, 160, 32, 8, 128), (9, 70, 8, 1, 64), (5, 33, 4, 4, 16),
+                        (128, 160, 32, 8, 128), (8, 4096, 40, 8, 128)]
+
+
+def decode_windows(nh, hkv):
+    g = nh // hkv
+    wins = {(0, nh), (0, g), (g // 2, max(1, g // 2)), (g // 2, g), (nh - 1, 1)}
+    return sorted((h0, hq) for h0, hq in wins if h0 + hq <= nh)
+
+
+def check_decode_options(torch, device):
+    """decode_attention's log-sum-exp output and head window against the
+    plain version, float32 and bf16: ``out`` (float32, unrounded) within
+    the float32 bar, ``lse`` within 1e-5 of the plain version's; the bf16
+    output without the option bit-equal to the float32 ``out`` rounded once;
+    a window's heads bit-equal to those heads of the whole call and within
+    the bar of the plain window.  Returns the max errors."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    err = {"out_f32": 0.0, "lse": 0.0, "window": 0.0}
+    windows = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for n, s, nh, hkv, d in DECODE_OPTION_SHAPES:
+            q, k, v, lens = decode_inputs(torch, gen, n, s, nh, hkv, d, dtype, device)
+            out, lse = decode_attention(q, k, v, lens, return_lse=True)
+            plain = decode_attention(q, k, v, lens)
+            ref, ref_lse = decode_attention_ref(q, k, v, lens, return_lse=True)
+            sync(device)
+            what = f"decode_attention return_lse {name} N={n} S={s} {nh}/{hkv} D={d}"
+            err["out_f32"] = max(err["out_f32"], attention_err(torch, out, ref, "float32", what))
+            both_inf = torch.isneginf(lse) & torch.isneginf(ref_lse)
+            lse_diff = torch.where(both_inf, 0.0, (lse - ref_lse).abs())
+            if bool((lse_diff > 1e-5 + 1e-5 * ref_lse.abs()).any()) or bool(lse_diff.isnan().any()):
+                raise AssertionError(f"{what}: lse differs by {float(lse_diff.max())!r}")
+            err["lse"] = max(err["lse"], float(lse_diff.max()))
+            if not torch.equal(plain, out.to(dtype)):
+                raise AssertionError(f"{what}: the output without lse is not the float32 out "
+                                     f"rounded once")
+            for h0, hq in decode_windows(nh, hkv):
+                win = q[:, h0:h0 + hq].contiguous()
+                got = decode_attention(win, k, v, lens, q_head0=h0, num_heads=nh)
+                sync(device)
+                # The kernel's heads compute alone (the CPU rehearsal's plain
+                # version batches them differently).
+                if device.type == "cuda" and not torch.equal(got, plain[:, h0:h0 + hq]):
+                    raise AssertionError(f"{what}: heads {h0}..{h0 + hq - 1} as a window differ "
+                                         f"from the whole call's")
+                ref_w = decode_attention_ref(win, k, v, lens, q_head0=h0, num_heads=nh)
+                err["window"] = max(err["window"], attention_err(
+                    torch, got, ref_w, name, f"{what} window {h0}+{hq}"))
+                windows += 1
+            del q, k, v
+    print(f"decode_attention's options match the plain version: {len(DECODE_OPTION_SHAPES)} "
+          f"shapes x (float32, bfloat16) with return_lse (out float32 within the float32 bar, "
+          f"lse within 1e-5, the output without it = out rounded once, bit for bit) and "
+          f"{windows} head windows (whole groups, part of a group, across two groups, one "
+          f"head: bit-equal to the whole call's heads); max errors {err}")
+    return err
 
 
 def check_flash(torch, device, lm_shapes):
@@ -3842,6 +3922,186 @@ def sharded_search_cell(torch, device, mesh):
     return launches["mesh"]["tree_descend"]
 
 
+# 25(e): one data rank's share of the reference's decode_32k cell on the
+# production (16, 16) mesh, 128 rows over 16: 8 rows of a 32,768-deep bf16
+# cache, full but for the last position (the reference's cell "pretends
+# the cache is full"), llama3-8b at 25(a)'s setup.
+DECODE_CELL_ROWS, DECODE_CELL_S = 8, 32768
+SPLIT_PARTS = (2, 4)
+
+
+def bf16_ulp(torch, x):
+    """One bf16 unit in the last place at each |x| (float32)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def split_merge_check(torch, q, k, v, lens):
+    """The kernel with ``return_lse`` on 2 and on 4 parts of S, merged by
+    ``merge_by_lse``, against the unsplit kernel: bf16 within one bf16 ulp
+    of the row's largest |out| (both round the same float32 sums, taken
+    in another order, once: near zero an element's own ulp is below that
+    float32 noise); float32 (the same cache upcast) within 2e-6 of the
+    row's largest attention over |V| (``out`` of random V over 32,767 keys
+    cancels to ~1/40 of the summands' scale, on which float32 rounding
+    acts).  Returns the worst of each."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models.layers import merge_by_lse
+
+    s = k.shape[1]
+    worst = {"bfloat16_ulps": 0.0, "float32_share": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (x.to(dtype) for x in (q, k, v))
+        whole = decode_attention(qd, kd, vd, lens).float()
+        if dtype == torch.float32:
+            scale = decode_attention(qd, kd, vd.abs(), lens).amax(dim=(1, 2))
+        for parts in SPLIT_PARTS:
+            step = s // parts
+            outs, lses = zip(*(decode_attention(
+                qd, kd[:, i * step:(i + 1) * step].contiguous(),
+                vd[:, i * step:(i + 1) * step].contiguous(),
+                torch.clamp(lens - i * step, 0, step), return_lse=True) for i in range(parts)))
+            merged, _ = merge_by_lse(torch.stack(outs), torch.stack(lses))
+            if dtype == torch.bfloat16:
+                ulps = float(((merged.to(dtype).float() - whole).abs().amax(dim=(1, 2))
+                              / bf16_ulp(torch, whole.abs().amax(dim=(1, 2)))).max())
+                worst["bfloat16_ulps"] = max(worst["bfloat16_ulps"], ulps)
+                ok = ulps <= 1.0
+            else:
+                share = float(((merged - whole).abs().amax(dim=(1, 2)) / scale).max())
+                worst["float32_share"] = max(worst["float32_share"], share)
+                ok = share <= 2e-6
+            if not ok:
+                raise AssertionError(f"25(e): {parts} parts of S merged by merge_by_lse "
+                                     f"differ from the unsplit kernel ({dtype}): {worst}")
+        del qd, kd, vd
+    return worst
+
+
+def time_decode_cell(torch, device, q, k, v, lens):
+    """decode_attention at 25(e)'s shape: kernel (paced and by graph
+    replay), plain version, SDPA, and the bound: each valid K/V byte read
+    once, q read and out written once, at 3.35 TB/s."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+
+    n, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    k_ms = time_ms(torch, lambda: decode_attention(q, k, v, lens), 50)
+    k_dev = device_ms(lambda: decode_attention(q, k, v, lens), calls=20)
+    p_ms = time_ms(torch, lambda: decode_attention_ref(q, k, v, lens), 3)
+    mask = (torch.arange(s, device=device)[None, :] < lens[:, None])[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    lib_ms = time_ms(torch, lib, 10)
+    valid = int(lens.sum())
+    nbytes = 2 * (2 * n * hq * d + 2 * valid * hkv * d) + 4 * n
+    ops = 4 * d * hq * valid
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+    print(f"25(e) decode_attention bf16 N={n} S={s} {hq}/{hkv} D={d} (kv_len {valid // n}): "
+          f"kernel {k_ms * 1e3!r} us paced, {k_dev * 1e3!r} us device; plain {p_ms * 1e3!r} "
+          f"us, SDPA {lib_ms * 1e3!r} us; bound {bound_ms * 1e3!r} us ({nbytes} bytes at "
+          f"3.35 TB/s; {ops} flops); device share of the bound {bound_ms / k_dev!r}; "
+          f"{n * hkv} blocks on 132 SMs")
+    return {"shape": [n, s, hq, hkv, d], "kv_len": valid // n, "ms": k_ms, "device_ms": k_dev,
+            "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "device_bound_share": bound_ms / k_dev}
+
+
+def sharded_decode(torch, device, mesh):
+    """25(e): llama3-8b at 25(a)'s setup over one data rank's share of the
+    decode_32k cell (``DECODE_CELL_ROWS`` rows of a ``DECODE_CELL_S``-deep
+    bf16 cache at ``len`` S - 1): ``decode_step`` plain, then the cell's
+    ``fn`` on the (1, 1) mesh with its arguments placed by ``place_args``
+    in the ``batch`` and the split-KV ``batch+seq_model`` modes: logits and
+    caches bit-equal, one ``decode_attention`` launch a layer, 0 wire bytes
+    counted; the split merged on one card against the unsplit kernel; the
+    kernel timed.  Returns (the launches of the placed steps, the timing
+    fields for the kernels line)."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import CollectiveCounter
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.cells import build_cell, place_args
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.lm import tree_map
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=TRAIN_LAYERS)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(1))
+    b, s, hkv, d = DECODE_CELL_ROWS, DECODE_CELL_S, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(7)
+    shape = (cfg.num_layers, b, s, hkv, d)
+    cache = {"kv": {"k": torch.randn(shape, generator=gen, device=device, dtype=cfg.dtype),
+                    "v": torch.randn(shape, generator=gen, device=device, dtype=cfg.dtype)},
+             "len": torch.tensor(s - 1, dtype=torch.int32, device=device)}
+    token = torch.randint(2, cfg.vocab_size, (b,), generator=gen, device=device)
+    over = {"num_layers": cfg.num_layers}
+    runs, launches, walls = {}, {}, {}
+    with torch.no_grad():
+        for mode in ("plain", "batch", "batch+seq_model"):
+            fresh = tree_map(torch.clone, cache)
+            if mode == "plain":
+                fn, args = (lambda p, t, c: decode_step(p, cfg, t, c)), (params, token, fresh)
+            else:
+                cell = build_cell("llama3-8b", "decode_32k", mesh, cfg_overrides=over,
+                                  kv_mode=mode)
+                fn, args = cell.fn, place_args(cell, mesh, (params, token, fresh))
+            reset_launches()
+            sync(device)
+            t1 = time.perf_counter()
+            scope = contextlib.nullcontext() if mode == "plain" else use_mesh(mesh)
+            with scope, CollectiveCounter() as counter:
+                logits, out_cache = fn(*args)
+            sync(device)
+            walls[mode] = time.perf_counter() - t1
+            launches[mode] = {k: n for k, n in LAUNCHES.items() if n}
+            wire = counter.result()
+            local = lambda x: x.to_local() if hasattr(x, "to_local") else x
+            runs[mode] = (local(logits), {k: local(out_cache["kv"][k]) for k in ("k", "v")})
+            if mode != "plain":
+                want_logits, want_cache = runs["plain"]
+                same = torch.equal(runs[mode][0], want_logits) and all(
+                    torch.equal(runs[mode][1][k], want_cache[k]) for k in ("k", "v"))
+                if not same:
+                    raise AssertionError(f"25(e) {mode}: the placed decode step differs from "
+                                         f"the plain one (logits by "
+                                         f"{float((runs[mode][0].float() - want_logits.float()).abs().max())!r})")
+                if wire["total"] != 0:
+                    raise AssertionError(f"25(e) {mode}: {wire} wire bytes at world size 1")
+                print(f"25(e) {mode}: collectives at world size 1 {wire}")
+            if launches[mode] != {"decode_attention": cfg.num_layers}:
+                raise AssertionError(f"25(e) {mode}: launches {launches[mode]}, want "
+                                     f"{cfg.num_layers} decode_attention")
+            del fresh, args
+            if mode != "plain":
+                del runs[mode]
+    del runs
+    torch.cuda.empty_cache()
+    # The split over S on one card, and the kernel's time, on layer 0.
+    q = torch.randn((b, cfg.num_heads, d), generator=gen, device=device).to(cfg.dtype)
+    k, v = cache["kv"]["k"][0], cache["kv"]["v"][0]
+    lens = torch.full((b,), s - 1, dtype=torch.int32, device=device)
+    worst = split_merge_check(torch, q, k, v, lens)
+    timing = time_decode_cell(torch, device, q, k, v, lens)
+    print(f"25(e) llama3-8b full width, {cfg.num_layers} layers, bf16, {b} rows x {s} cache "
+          f"at len {s - 1}: decode_step plain and the decode_32k cell on the (1, 1) mesh in "
+          f"batch and batch+seq_model, logits and caches bit-equal; decode_attention "
+          f"{cfg.num_layers} launches a step; walls {walls} s (first calls); the kernel with "
+          f"return_lse on {SPLIT_PARTS} parts of S merged by merge_by_lse against the unsplit "
+          f"kernel: worst {worst} (bf16: in ulps of the row's largest |out|, bar 1; float32: "
+          f"share of the row's largest attention over |V|, bar 2e-6); 25(e) took {time.perf_counter() - t0!r} s")
+    del cache, params, q
+    torch.cuda.empty_cache()
+    placed = {k: launches["batch"].get(k, 0) + launches["batch+seq_model"].get(k, 0)
+              for k in launches["batch"]}
+    return placed, {**timing, "launches": launches["batch"]["decode_attention"],
+                    "split_merge": worst}
+
+
 def multi_device(torch, device):
     """Phase 25: the multi-device layer at world size 1, through the sharded
     code path on a ``(1, 1)`` ``('data', 'model')`` mesh.  Returns the
@@ -3858,6 +4118,8 @@ def multi_device(torch, device):
                            None if device.type == "cuda" else "cpu")
         launches = sharded_training(torch, device, mesh, "llama3-8b", TRAIN_LAYERS,
                                     ("tp", "fsdp"), "25(a)")
+        got, decode_cell = sharded_decode(torch, device, mesh)
+        launches.update(got)
         launches.update(sharded_training(torch, device, mesh, "mamba2-2.7b",
                                          SHARDED_SSM_BLOCKS, ("tp",), "25(d)"))
         sharded_moe(torch, device, mesh)
@@ -3865,7 +4127,7 @@ def multi_device(torch, device):
     finally:
         dist.destroy_process_group()
     print(f"phase 25 took {time.perf_counter() - t0!r} s")
-    return launches
+    return launches, decode_cell
 
 
 def main():
@@ -3901,7 +4163,8 @@ def main():
                       (2, 576 + PARITY_PROMPT + 8, 32, 8, 128)]
     err = check_decode(torch, device, [(4, 24, 32, 8, 128),
                                        (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)] + family_decode)
-    fields["decode_attention"] = {"max_abs_err": err, **time_decode(torch, device)}
+    fields["decode_attention"] = {"max_abs_err": err, **time_decode(torch, device),
+                                  "options_max_err": check_decode_options(torch, device)}
     # qwen2.5-32b's and qwen3-moe's ServingEngine decode (phases 21, 22):
     # 8 slots of 160, lengths 65-160.
     fields["decode_attention"]["family_shapes"] = {
@@ -4100,7 +4363,7 @@ def main():
     phase("25. the multi-device layer at world size 1 (NCCL, a (1, 1) mesh): llama3-8b and "
           "mamba2-2.7b train steps placed under tp and fsdp, the expert-parallel MoE block, "
           "the search cell")
-    got = multi_device(torch, device)
+    got, fields["decode_attention"]["decode_32k"] = multi_device(torch, device)
     family["25"] = {("tree_select" if k == "tree_descend" else k): n for k, n in got.items()}
 
     kernels = [{

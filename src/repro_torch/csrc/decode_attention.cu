@@ -32,32 +32,49 @@
 // at bf16 D = 128); the per-warp states merge in 8 KB of shared memory at
 // the end, so several blocks share an SM.  D must be a multiple of 16
 // bytes' worth of elements and at most 256.
+//
+// Two options serve a cache placed on a device mesh (models/layers.py,
+// on_cache_shards): a head window, q holding some of the model's heads
+// (a rank's under tensor parallelism), each reading its KV head from the
+// whole cache in place (one block per row and KV head the window spans);
+// and a log-sum-exp output beside a float32 out, by which the parts of a
+// cache split over S merge (the split-KV decode cell).
 
 #include "decode_split.cuh"
 
-// q [B, Hkv * G, D], k and v [B, S, Hkv, D], out [B, Hkv * G, D], all
-// contiguous, of one type (dtype 0: float32, 1: bfloat16) and 16-byte
-// aligned; D a multiple of 16 / sizeof(type), at most 256; kv_len int32
-// [B].  Launches on `stream` (PyTorch's current stream).  Returns the
+// k and v [B, S, Hkv, D]; q and out [B, Hq, D], the model's query heads
+// q_head0 .. q_head0 + Hq - 1 of Hkv * G (all of them: Hq = Hkv * G,
+// q_head0 = 0); all contiguous, q, k, v of one type (dtype 0: float32, 1:
+// bfloat16) and 16-byte aligned; D a multiple of 16 / sizeof(type), at
+// most 256; kv_len int32 [B].  lse null: out in q's type.  lse not null:
+// out float32 (normalised, not rounded) and lse float32 [B, Hq], each
+// head's log-sum-exp of its scaled scores (the merge of a cache split
+// over S).  Launches on `stream` (PyTorch's current stream).  Returns the
 // cudaError_t of the launch; 0 means it was queued.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const int32_t* kv_len,
-                                       void* out, int B, int S, int Hkv, int G,
-                                       int D, float scale, int dtype,
+                                       void* out, float* lse, int B, int S,
+                                       int Hkv, int G, int D, int Hq,
+                                       int q_head0, float scale, int dtype,
                                        int device, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || D <= 0)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || G <= 0 || D <= 0 || Hq <= 0 ||
+      q_head0 < 0 || q_head0 + Hq > Hkv * G)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const decode_tiles::DenseRows rows{S};
+  const decode_split::Window win{Hq, q_head0, lse};
   switch (dtype) {
     case 0:
-      return decode_split::launch<float>(q, k, v, kv_len, out, rows, B, Hkv,
-                                         G, D, scale, s);
+      return decode_split::launch<float, float>(q, k, v, kv_len, out, rows, B,
+                                                Hkv, G, D, scale, win, s);
     case 1:
-      return decode_split::launch<__nv_bfloat16>(q, k, v, kv_len, out, rows,
-                                                 B, Hkv, G, D, scale, s);
+      if (lse != nullptr)
+        return decode_split::launch<__nv_bfloat16, float>(
+            q, k, v, kv_len, out, rows, B, Hkv, G, D, scale, win, s);
+      return decode_split::launch<__nv_bfloat16, __nv_bfloat16>(
+          q, k, v, kv_len, out, rows, B, Hkv, G, D, scale, win, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

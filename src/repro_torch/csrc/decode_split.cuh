@@ -278,6 +278,30 @@ __device__ __forceinline__ void key_step(
   }
 }
 
+// Which query heads a decode call's q holds, and whether it wants their
+// log-sum-exp: q and out [B, hq, D] hold heads head0 .. head0 + hq - 1 of
+// the model's Hkv * G (a rank's heads under tensor parallelism; hq < 0:
+// all of them, head0 = 0); lse, where not null, receives each head's
+// log-sum-exp of its scaled scores [B, hq] in float32 (-inf for a row with
+// no valid key), for a merge of the parts of a cache split over S.
+struct Window {
+  int hq, head0;
+  float* lse;
+};
+
+// A chunk of E outputs to 16 bytes of TO (TO = T: the kernel's own
+// rounding), or, for a float32 out of a bf16 body, to 32 bytes of float32.
+template <typename TO, int E>
+__device__ __forceinline__ void store_chunk(TO* dst, const float (&o)[E]) {
+  if constexpr (sizeof(TO) * E == 16) {
+    *reinterpret_cast<uint4*>(dst) = narrow(o);
+  } else {
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    d4[0] = make_float4(o[0], o[1], o[2], o[3]);
+    d4[1] = make_float4(o[4], o[5], o[6], o[7]);
+  }
+}
+
 // The whole block (the decode kernels: one group per block).
 struct BlockSync {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
@@ -293,8 +317,9 @@ inline size_t smem_bytes(int GT, int D) {
 // head's G, on one group of kWarps warps: tid is the thread's index in the
 // group, smem the group's merge buffer (smem_bytes), sync a barrier of the
 // group's threads.  q [B, A, Hkv * G, D] and out alike (A = tail.A, 1 for
-// a decode step); an inactive group (active false) reads no q and writes
-// no output.  Logical keys: the row's len prefix keys, keys t < st.n from
+// a decode step), or, for a decode step, the heads of `win` in q and out
+// [B, win.hq, D], out in TO; an inactive group (active false) reads no q
+// and writes no output.  Logical keys: the row's len prefix keys, keys t < st.n from
 // shared memory (kStaged), the others through `rows`; then, with kTail,
 // the n_visible tail entries `visible` lists, in order of j.  With the
 // identity mask, candidate a's keys are exactly those of a plain step over
@@ -307,14 +332,14 @@ inline size_t smem_bytes(int GT, int D) {
 // every FMA adds a zero).  L = D / E chunks per key, lp_log2 = log2 of the
 // lanes per key (the power of two >= L / NC).
 template <typename T, int GT, int NC, class Rows, bool kTail, bool kStaged,
-          class Sync>
+          class Sync, typename TO = T>
 __device__ __forceinline__ void split_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, const Rows& rows, const Tail<T>& tail,
+    TO* __restrict__ out, const Rows& rows, const Tail<T>& tail,
     const Staged& st, int& landed, const unsigned char* visible,
     int n_visible, int n_bound, bool active, int b, int h, int a, int len,
     int Hkv, int G, int g0, int ng, int D, int L, int lp_log2, float scale,
-    int tid, float* smem, Sync sync) {
+    int tid, float* smem, Sync sync, Window win = Window{-1, 0, nullptr}) {
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int U = kUnroll / NC;
   float* acc_s = smem;                      // [kWarps][GT][D]
@@ -333,10 +358,12 @@ __device__ __forceinline__ void split_body(
   const float scale2 = scale * 1.4426950408889634f;
   const int n_keys = len + (kTail ? n_visible : 0);
 
-  // q row of query (g0 + j): q[b, a, h * G + g0 + j, :].
-  const long long q_row =
-      ((static_cast<long long>(b) * A + a) * Hq + h * G + g0) *
-      static_cast<long long>(D);
+  // q row of query (g0 + j): q[b, a, h * G + g0 + j - head0, :], among the
+  // q_heads heads q holds.
+  const int q_heads = win.hq < 0 ? Hq : win.hq;
+  const long long q_head =
+      (static_cast<long long>(b) * A + a) * q_heads + h * G + g0 - win.head0;
+  const long long q_row = q_head * static_cast<long long>(D);
   bool live[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) live[i] = sub + i * lp < L;
@@ -511,30 +538,40 @@ __device__ __forceinline__ void split_body(
     const float denom = fmaxf(lt, 1e-20f);
 #pragma unroll
     for (int e = 0; e < E; ++e) o[e] /= denom;
-    *reinterpret_cast<uint4*>(out + q_row + static_cast<long long>(j) * D +
-                              ch * E) = narrow(o);
+    store_chunk(out + q_row + static_cast<long long>(j) * D + ch * E, o);
+    // lse = ln(sum_t e^s_t) = (mt + log2 lt) ln 2 in the scores' log2 units.
+    if (win.lse != nullptr && ch == 0)
+      win.lse[q_head + j] = lt > 0.0f ? (mt + log2f(lt)) * 0.6931471805599453f
+                                      : __int_as_float(0xff800000);  // -inf
   }
 }
 
-// The decode kernels: q and out [B, Hkv * G, D], keys from `rows`.  One
-// block of kWarps warps per (row, KV head) = blockIdx.x and query group =
-// blockIdx.y.
-template <typename T, int GT, int NC, class Rows>
+// The decode kernels: q and out [B, win.hq, D], keys from `rows`.  One
+// block of kWarps warps per (row, KV head of the window's heads) =
+// blockIdx.x and query group = blockIdx.y; a block whose group holds none
+// of the window's heads returns at once.
+template <typename T, typename TO, int GT, int NC, class Rows>
 __global__ void __launch_bounds__(kWarps * 32)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int32_t* __restrict__ kv_len,
-             T* __restrict__ out, Rows rows, int Hkv, int G, int D, int L,
-             int lp_log2, float scale) {
+             TO* __restrict__ out, Rows rows, int Hkv, int G, int D, int L,
+             int lp_log2, float scale, Window win) {
   extern __shared__ float smem[];
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x - b * Hkv;
-  const int g0 = blockIdx.y * GT;
+  const int h_lo = win.head0 / G;
+  const int nh = (win.head0 + win.hq - 1) / G - h_lo + 1;
+  const int b = blockIdx.x / nh;
+  const int h = h_lo + static_cast<int>(blockIdx.x) - b * nh;
+  // The block's queries g0 .. g1 - 1 of head h's G: its group's, in the window.
+  const int y0 = static_cast<int>(blockIdx.y) * GT;
+  const int g0 = max(y0, win.head0 - h * G);
+  const int g1 = min(min(y0 + GT, G), win.head0 + win.hq - h * G);
+  if (g0 >= g1) return;
   const int len = max(0, min(kv_len[b], rows.limit()));
   int landed = 0;
   split_body<T, GT, NC, Rows, false, false>(
       q, k, v, out, rows, Tail<T>{nullptr, nullptr, nullptr, 1}, Staged{},
-      landed, nullptr, 0, len, true, b, h, 0, len, Hkv, G, g0,
-      min(GT, G - g0), D, L, lp_log2, scale, threadIdx.x, smem, BlockSync{});
+      landed, nullptr, 0, len, true, b, h, 0, len, Hkv, G, g0, g1 - g0, D, L,
+      lp_log2, scale, threadIdx.x, smem, BlockSync{}, win);
 }
 
 // The body's shape for D and G: calls f.run<GT, NC>(L, lp_log2) with GT
@@ -565,7 +602,7 @@ int with_shape(int G, int D, const F& f) {
   return with_gt<NC>(G, f, L, 5);
 }
 
-template <typename T, class Rows>
+template <typename T, typename TO, class Rows>
 struct DecodeLaunch {
   const void *q, *k, *v;
   const int32_t* kv_len;
@@ -573,27 +610,39 @@ struct DecodeLaunch {
   Rows rows;
   int B, Hkv, G, D;
   float scale;
+  Window win;
   cudaStream_t stream;
 
   template <int GT, int NC>
   int run(int L, int lp_log2) const {
-    const dim3 grid(B * Hkv, (G + GT - 1) / GT);
-    split_kernel<T, GT, NC, Rows><<<grid, kWarps * 32, smem_bytes(GT, D), stream>>>(
+    const int nh = (win.head0 + win.hq - 1) / G - win.head0 / G + 1;
+    const dim3 grid(B * nh, (G + GT - 1) / GT);
+    split_kernel<T, TO, GT, NC, Rows><<<grid, kWarps * 32, smem_bytes(GT, D), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), kv_len, static_cast<T*>(out), rows, Hkv, G,
-        D, L, lp_log2, scale);
+        static_cast<const T*>(v), kv_len, static_cast<TO*>(out), rows, Hkv, G,
+        D, L, lp_log2, scale, win);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-// A decode step on `stream`: B * Hkv x ceil(G / GT) blocks.  Returns the
+// A decode step on `stream` over the heads of `win` (win.hq > 0): B * (the
+// KV heads they span) x ceil(G / GT) blocks, out in TO.  Returns the
 // cudaError_t of the launch (0: queued).
+template <typename T, typename TO, class Rows>
+int launch(const void* q, const void* k, const void* v, const int32_t* kv_len,
+           void* out, Rows rows, int B, int Hkv, int G, int D, float scale,
+           Window win, cudaStream_t stream) {
+  return with_shape<T>(G, D, DecodeLaunch<T, TO, Rows>{q, k, v, kv_len, out, rows, B,
+                                                       Hkv, G, D, scale, win, stream});
+}
+
+// A decode step over all Hkv * G heads, out in T.
 template <typename T, class Rows>
 int launch(const void* q, const void* k, const void* v, const int32_t* kv_len,
            void* out, Rows rows, int B, int Hkv, int G, int D, float scale,
            cudaStream_t stream) {
-  return with_shape<T>(G, D, DecodeLaunch<T, Rows>{q, k, v, kv_len, out, rows,
-                                                   B, Hkv, G, D, scale, stream});
+  return launch<T, T>(q, k, v, kv_len, out, rows, B, Hkv, G, D, scale,
+                      Window{Hkv * G, 0, nullptr}, stream);
 }
 
 }  // namespace decode_split

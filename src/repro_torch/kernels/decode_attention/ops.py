@@ -40,8 +40,8 @@ MAX_DECODE_HEAD_DIM = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, kv_len, out; B, S, Hkv, G, D
-    "decode_attention": ("decode_attention", [_P] * 5 + [_I] * 5),
+    # q, k, v, kv_len, out, lse; B, S, Hkv, G, D, Hq, q_head0
+    "decode_attention": ("decode_attention", [_P] * 6 + [_I] * 7),
     # q, pool_k, pool_v, table, kv_len, out; B, P, bs, n_pages, Hkv, G, D
     "paged_decode_attention": ("paged_decode_attention",
                                [_P] * 6 + [_I] * 7),
@@ -156,17 +156,28 @@ def _spec_shape(name: str, k_spec, v_spec, b: int, a: int, hkv: int, d: int) -> 
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+                     v_cache: torch.Tensor, kv_len, *, q_head0: int = 0,
+                     num_heads: int | None = None, return_lse: bool = False):
     """One-token GQA attention: ``q [B, Hq, D]`` over the first ``kv_len``
     entries of ``k_cache``/``v_cache [B, S, Hkv, D]``; ``kv_len`` is an int
     or an integer tensor ``[]``/``[B]``.  Returns ``[B, Hq, D]`` in
     ``q``'s dtype (float32 or bfloat16, float32 accumulation).  On the card
     ``D`` is a multiple of 16 bytes' worth of elements (8 bf16, 4 float32)
-    and at most 256, and the operands are 16-byte aligned."""
+    and at most 256, and the operands are 16-byte aligned.
+
+    ``q_head0`` and ``num_heads``: ``q`` holds heads ``q_head0 .. q_head0 +
+    Hq - 1`` of a model of ``num_heads`` query heads (default: ``Hq``, all
+    of them); each reads its KV head from the whole cache in place.
+    ``return_lse``: returns ``(out, lse)``, ``out`` float32 (normalised,
+    not rounded to ``q``'s dtype) and ``lse [B, Hq]`` float32, each head's
+    log-sum-exp of its scaled scores (``-inf`` where ``kv_len`` is 0);
+    without it the output is the same as before the option existed, bit
+    for bit."""
     name = "decode_attention"
     device = q.device
     if not _on_cuda(name, device):
-        return decode_attention_ref(q, k_cache, v_cache, kv_len)
+        return decode_attention_ref(q, k_cache, v_cache, kv_len, q_head0=q_head0,
+                                    num_heads=num_heads, return_lse=return_lse)
     refuse_grad(name, q, k_cache, v_cache)
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(f"decode_attention: q must be [B, Hq, D] and the caches "
@@ -176,19 +187,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.shape[0] != b:
         raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} do not fit "
                          f"q {tuple(q.shape)}")
-    hkv, group = _heads(name, hq, k_cache.shape, d)
+    total = hq if num_heads is None else num_heads
+    hkv, group = _heads(name, total, k_cache.shape, d)
+    if not 0 <= q_head0 <= total - hq:
+        raise ValueError(f"{name}: heads {q_head0} .. {q_head0 + hq - 1} are not among the "
+                         f"model's {total}")
     if tuple(v_cache.shape) != tuple(k_cache.shape):
         raise ValueError("decode_attention: k_cache and v_cache differ in shape")
     _check(name, q, q=q, k_cache=k_cache, v_cache=v_cache)
     _chunked(name, d, q=q, k_cache=k_cache, v_cache=v_cache)
     lens = _lengths(name, kv_len, b, device)
-    out = torch.empty_like(q)
-    if b == 0:
-        return out
+    if return_lse:
+        out = torch.empty(q.shape, dtype=torch.float32, device=device)
+        lse = torch.empty((b, hq), dtype=torch.float32, device=device)
+    else:
+        out, lse = torch.empty_like(q), None
+    if b == 0 or hq == 0:
+        return (out, lse) if return_lse else out
     _launch(name, device, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), b, s, hkv, group, d, 1.0 / math.sqrt(d),
-            _DTYPES[q.dtype])
-    return out
+            lens.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, s,
+            hkv, group, d, hq, q_head0, 1.0 / math.sqrt(d), _DTYPES[q.dtype])
+    return (out, lse) if return_lse else out
 
 
 def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,

@@ -19,20 +19,34 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+                         v_cache: torch.Tensor, kv_len, *, q_head0: int = 0,
+                         num_heads: int | None = None, return_lse: bool = False):
     """``q [B, Hq, D]``, caches ``[B, S, Hkv, D]``, ``kv_len`` int ``[]``
-    or ``[B]`` -> ``[B, Hq, D]`` in ``q``'s dtype."""
+    or ``[B]`` -> ``[B, Hq, D]`` in ``q``'s dtype.
+
+    A head window: ``q`` holds heads ``q_head0 .. q_head0 + Hq - 1`` of a
+    model of ``num_heads`` query heads (default ``Hq``: all of them), head
+    ``j`` reading KV head ``j // (num_heads / Hkv)`` of the whole cache.
+    With ``return_lse`` the result is ``(out, lse)``: ``out`` float32 (not
+    rounded to ``q``'s dtype) and ``lse [B, Hq]`` float32, each head's
+    log-sum-exp of its scaled scores over the valid keys (``-inf`` for a
+    row with none, whose ``out`` is 0)."""
     b, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    group = hq // hkv
+    group = (hq if num_heads is None else num_heads) // hkv
     scale = 1.0 / math.sqrt(d)
-    qf = q.float().reshape(b, hkv, group, d)
-    scores = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float()) * scale
+    # The KV heads the window spans, and q padded to their whole groups.
+    h_lo, h_hi = q_head0 // group, (q_head0 + hq - 1) // group + 1
+    pad_lo, pad_hi = q_head0 - h_lo * group, h_hi * group - q_head0 - hq
+    qf = F.pad(q.float(), (0, 0, pad_lo, pad_hi)).reshape(b, h_hi - h_lo, group, d)
+    kc, vc = k_cache[:, :, h_lo:h_hi], v_cache[:, :, h_lo:h_hi]
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, kc.float()) * scale
     pos = torch.arange(s, device=q.device)
     lens = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)
     valid = (pos[None, :] < lens)[:, None, None, :]          # [B or 1, 1, 1, S]
@@ -40,9 +54,13 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(scores - m), 0.0)
     l = p.sum(dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    out = torch.einsum("bhgs,bshd->bhgd", p, vc.float())
     out = out / torch.clamp_min(l, 1e-20)[..., None]
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = out.reshape(b, -1, d)[:, pad_lo:pad_lo + hq]
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(l), -torch.inf)
+    return out, lse.reshape(b, -1)[:, pad_lo:pad_lo + hq]
 
 
 def _gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

@@ -358,10 +358,11 @@ def _decode(libs, device, n=128, s=160, hq=32, hkv=8, d=128):
     for name, lib in libs.items():
         if not name.startswith("decode"):
             continue
-        fn = _entry(lib, "decode_attention", 5)
+        fn = _tree_entry(lib, "decode_attention", 6, 7)
         call = lambda: _ok(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                              out.data_ptr(), n, s, hkv, hq // hkv, d, 1.0 / math.sqrt(d), 1,
-                              device.index, torch.cuda.current_stream().cuda_stream))
+                              out.data_ptr(), None, n, s, hkv, hq // hkv, d, hq, 0,
+                              1.0 / math.sqrt(d), 1, device.index,
+                              torch.cuda.current_stream().cuda_stream))
         _report(name, graph_ms(call), out, ref)
 
 

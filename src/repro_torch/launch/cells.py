@@ -11,13 +11,15 @@ Each LM cell carries:
   PartitionSpec` trees; on a live ``DeviceMesh`` the placements are
   ``spec_placements`` of them).
 
-Train and prefill cells run on a live ``DeviceMesh``: :func:`place_args`
-places whole arguments (the cell's shapes, or a cut of them with the
-same specs) by the cell's specs, and ``cell.fn`` runs on them under
-``use_mesh``.  Decode cells are built, and only the dry run reads them:
-the decode kernels do not take placed caches yet.  ``long_500k`` runs
-only for sub-quadratic archs (ssm/hybrid); the skip is recorded, not
-silent.
+Every cell runs on a live ``DeviceMesh``: :func:`place_args` places
+whole arguments (the cell's shapes, or a cut of them with the same
+specs) by the cell's specs, and ``cell.fn`` runs on them under
+``use_mesh``.  A decode cell places the token and the cache by
+:func:`_cache_shardings`' mode; its attention runs the ``decode_attention``
+kernel on each rank's rows, heads and slice of S, the slices merged by
+their log-sum-exps (``models.layers.on_cache_shards``), so no cache
+crosses the wire.  ``long_500k`` runs only for sub-quadratic archs
+(ssm/hybrid); the skip is recorded, not silent.
 """
 
 from __future__ import annotations
@@ -212,8 +214,9 @@ def build_cell(arch: str, shape: str, mesh, cfg_overrides: Optional[dict] = None
 def place_args(cell: Cell, mesh, args: tuple) -> tuple:
     """``args`` (trees of whole tensors, each rank holding all of them)
     placed on the ``DeviceMesh`` by ``cell.in_shardings``: every leaf a
-    DTensor of its spec, the optimizer state's moments and master in their
-    ZeRO placement, its step whole."""
+    DTensor of its spec (a decode cell's token and cache, the cache by its
+    mode), the optimizer state's moments and master in their ZeRO
+    placement, its step whole."""
     out = []
     for arg, specs in zip(args, cell.in_shardings):
         if isinstance(arg, AdamWState):

@@ -10,8 +10,11 @@ published peaks of one NVIDIA H100 SXM, not from measurements.  Skipped
 cells are listed with their reason.
 
 The reference's dry run also compiles each cell and reads the collectives'
-bytes from the partitioned HLO (``collective_bytes``, ``_shape_bytes``);
-the port has no compiled program to read, so it has no counterpart.
+bytes from the partitioned HLO (``collective_bytes``, ``_shape_bytes``).
+The port has no compiled program to read; its :func:`collective_bytes`
+runs one call of a cell on a live ``DeviceMesh`` and counts what is
+issued (:mod:`repro_torch.distributed.collectives`), in the reference's
+dict.  The command line stays meta-only.
 
 Usage::
 
@@ -28,8 +31,11 @@ import math
 import os
 from typing import Optional
 
-from ..distributed.sharding import _entry_names, _mesh_axis_sizes
-from .cells import SHAPES, all_cells, build_cell, skip_reason
+import torch
+
+from ..distributed.collectives import CollectiveCounter
+from ..distributed.sharding import _entry_names, _mesh_axis_sizes, use_mesh
+from .cells import SHAPES, all_cells, build_cell, place_args, skip_reason
 from .mesh import make_production_mesh, make_test_mesh
 
 # NVIDIA H100 SXM5, published peaks (datasheet), not measurements.
@@ -83,6 +89,19 @@ def model_flops(cell, mesh_devices: int) -> float:
     if cell.kind == "train":
         return 6.0 * n * cell.tokens_per_step
     return 2.0 * n * cell.tokens_per_step
+
+
+def collective_bytes(cell, mesh, args) -> dict:
+    """Per-rank wire bytes of each collective kind, their ``total`` and
+    ``counts``, of one call of ``cell.fn`` on the live ``DeviceMesh``
+    ``mesh``: ``args`` (whole tensors, as for ``cells.place_args``) are
+    placed by the cell's specs and the call runs under ``use_mesh`` (with
+    no grad but for a train cell), counted as issued."""
+    placed = place_args(cell, mesh, args)
+    grad = torch.enable_grad() if cell.kind == "train" else torch.no_grad()
+    with grad, use_mesh(mesh), CollectiveCounter() as counter:
+        cell.fn(*placed)
+    return counter.result()
 
 
 def run_cell(arch: str, shape: str, mesh, mesh_name: str, overrides: Optional[dict] = None,

@@ -27,9 +27,11 @@ Under a ``DeviceMesh`` (``repro_torch.distributed.sharding.use_mesh``)
 with parameters placed as DTensors, DTensor propagates the placements
 through these functions; attention (the flash kernel, which reads raw
 pointers, and the plain chunked path) runs on each rank's heads and rows
-through ``local_map`` (:func:`on_head_shards`), a placed cache is
-written on each rank's rows, and the MoE layer runs its experts where
-they live (:func:`_moe_block_sharded`).
+through ``local_map`` (:func:`on_head_shards`), single-token decode on
+each rank's rows, heads and slice of S of a placed cache, the slices
+merged by their log-sum-exps (:func:`on_cache_shards`), a placed cache is
+written on each rank's rows and slice of S, and the MoE layer runs its
+experts where they live (:func:`_moe_block_sharded`).
 
 **In place:** :func:`attention_block` writes the new K/V into the cache
 tensors (or pools) it is given and returns them; a caller that needs the
@@ -285,6 +287,117 @@ def on_head_shards(fn, q, k, v, **kw):
     return call(q, k, v)
 
 
+def _block_index(mesh, dims) -> int:
+    """This rank's block of a tensor dim split over the mesh dims ``dims``
+    (in mesh order, the first major), as DTensor splits it."""
+    idx = 0
+    for i in dims:
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
+def _merge(out, lse, amax, total):
+    """The merge of attention parts by their log-sum-exps, ``amax`` and
+    ``total`` reducing over the parts: each part weighted by ``exp(lse -
+    max lse)``, numerators and weights reduced together."""
+    m = amax(lse)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    w = torch.exp(lse - m)
+    packed = total(torch.cat([w[..., None] * out, w[..., None]], dim=-1))
+    den = packed[..., -1]
+    return packed[..., :-1] / torch.clamp_min(den, 1e-30)[..., None], m + torch.log(den)
+
+
+def merge_by_lse(outs: torch.Tensor, lses: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention over a cache split into ``n`` parts along S, from each
+    part's result: ``outs [n, ..., D]`` float32, each normalised over its
+    part, and ``lses [n, ...]`` their log-sum-exps (``-inf`` for a part
+    with no valid key).  Returns ``(out [..., D], lse [...])`` in float32:
+    the parts weighted by ``exp(lse - max lse)``; where no part has a key,
+    ``out`` is 0 and ``lse`` is ``-inf``.  One part comes back as it is,
+    bit for bit."""
+    return _merge(outs, lses, lambda x: x.amax(dim=0), lambda x: x.sum(dim=0))
+
+
+def _merge_on_mesh(out: torch.Tensor, lse: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """:func:`merge_by_lse` of this rank's part ``(out [B, H, D], lse [B,
+    H])`` with those of the ranks that hold the other parts of S, along
+    the mesh dims ``dims``: the max of ``lse`` and the weighted sums are
+    all-reduced, one mesh dim after another.  Only ``[B, H]`` and ``[B, H,
+    D + 1]`` float32 cross the wire, never the cache."""
+    import torch.distributed as dist
+
+    groups = [mesh.get_group(i) for i in dims]
+
+    def reduce(op):
+        def over_groups(x):
+            x = x.clone()
+            for g in groups:
+                dist.all_reduce(x, op=op, group=g)
+            return x
+        return over_groups
+
+    return _merge(out, lse, reduce(dist.ReduceOp.MAX), reduce(dist.ReduceOp.SUM))[0]
+
+
+def on_cache_shards(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, kv_len,
+                    num_heads: int) -> torch.Tensor:
+    """One-token attention of ``q [B, Hq, D]`` over the caches ``[B, S,
+    Hkv, D]`` through the ``decode_attention`` kernel.
+
+    On plain tensors this is the kernel's call.  On a placed cache (a
+    DTensor; a plain ``q`` counts as whole on every rank) the kernel runs
+    on each rank's blocks through ``local_map``, the cache never moving:
+
+    * rows: ``q``'s go where the cache's rows are (split over the data axes
+      in the ``batch`` modes, whole in the sequence modes);
+    * heads: ``q``'s stay split as they are (over ``model`` where the rules
+      split ``wq``), except over mesh dims that split S; each rank's heads
+      read their KV heads from its whole rows in place (the kernel's head
+      window, ``q_head0``), also where a rank's heads are part of a group;
+    * S: where mesh dims split it (``seq_data``, ``batch+seq_model``,
+      ``seq_all``), each rank attends its slice with its local length
+      ``clamp(len - offset, 0, S_local)`` and returns its log-sum-exp, and
+      the parts merge over those dims (:func:`_merge_on_mesh`, float32,
+      rounded once to ``q``'s dtype).
+
+    Returns ``[B, Hq, D]``, placed as ``q``'s rows and heads went.
+    """
+    if not is_placed(k_cache):
+        return decode_attention_kernel(q.contiguous(), k_cache, v_cache, kv_len)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import distribute_leaf
+
+    mesh, cpl = k_cache.device_mesh, tuple(k_cache.placements)
+    if not is_placed(q):
+        q = distribute_leaf(q, (Replicate(),) * mesh.ndim, mesh)
+    s_dims = [i for i, p in enumerate(cpl) if p == Shard(1)]
+    qpl = tuple(Shard(0) if p == Shard(0) else
+                Shard(1) if qp == Shard(1) and i not in s_dims else Replicate()
+                for i, (p, qp) in enumerate(zip(cpl, q.placements)))
+    head_dims = [i for i, p in enumerate(qpl) if p == Shard(1)]
+    hq_local = q.shape[1] // math.prod(mesh.size(i) for i in head_dims)
+    q_head0 = _block_index(mesh, head_dims) * hq_local
+    s_local = k_cache.shape[1] // math.prod(mesh.size(i) for i in s_dims)
+    offset = _block_index(mesh, s_dims) * s_local
+    lens = torch.as_tensor(rows_here(kv_len, cpl, mesh))
+
+    def attend(ql, kl, vl):
+        ql = ql.contiguous()
+        if not s_dims:
+            return decode_attention_kernel(ql, kl, vl, lens, q_head0=q_head0,
+                                           num_heads=num_heads)
+        out, lse = decode_attention_kernel(ql, kl, vl, torch.clamp(lens - offset, 0, s_local),
+                                           q_head0=q_head0, num_heads=num_heads,
+                                           return_lse=True)
+        return _merge_on_mesh(out, lse, mesh, s_dims).to(ql.dtype)
+
+    return local_map(attend, out_placements=list(qpl), in_placements=(qpl, cpl, cpl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k_cache, v_cache)
+
+
 def decode_attention(
     q: torch.Tensor,        # [B, 1, Hq, D]
     k_cache: torch.Tensor,  # [B, S, Hkv, D]
@@ -376,12 +489,24 @@ def _write_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
 
     A placed cache (DTensors) is written on each rank's rows: the new K/V
     are brought to the cache's placement and the write runs on the local
-    blocks, which are the cache's storage.
+    blocks, which are the cache's storage.  Where mesh dims split S, the
+    new K/V come whole over them, the positions are the global ones
+    (clamped as above, or dropped past the global S), and each rank writes
+    only those its slice holds (:func:`_write_slice`).
     """
     if is_placed(kc):
-        mesh, pl = kc.device_mesh, kc.placements
-        k, v = (x.redistribute(mesh, pl).to_local() for x in (k, v))
-        return _write_cache(kc.to_local(), vc.to_local(), k, v, rows_here(start, pl, mesh))
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh, pl = kc.device_mesh, tuple(kc.placements)
+        s_dims = [i for i, p in enumerate(pl) if p == Shard(1)]
+        whole_s = tuple(Replicate() if p == Shard(1) else p for p in pl)
+        k, v = (x.redistribute(mesh, whole_s).to_local() for x in (k, v))
+        start = rows_here(start, pl, mesh)
+        if not s_dims:
+            return _write_cache(kc.to_local(), vc.to_local(), k, v, start)
+        s_local = kc.shape[1] // math.prod(mesh.size(i) for i in s_dims)
+        return _write_slice(kc.to_local(), vc.to_local(), k, v, start,
+                            _block_index(mesh, s_dims) * s_local, kc.shape[1])
     big_s, s = kc.shape[1], k.shape[1]
     if s > big_s:
         raise ValueError(f"cannot write {s} positions into a cache of length {big_s}")
@@ -399,6 +524,31 @@ def _write_cache(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
     keep = valid[:, :, None, None]
     kc[rows, dst] = torch.where(keep, k, kc[rows, dst])
     vc[rows, dst] = torch.where(keep, v, vc[rows, dst])
+
+
+def _write_slice(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 start: torch.Tensor, offset: int, big_s: int) -> None:
+    """:func:`_write_cache` into positions ``offset .. offset + S_local - 1``
+    of a cache of ``big_s`` positions, whose slice ``kc``/``vc [B, S_local,
+    Hkv, D]`` this rank holds: each new position is the global one (a
+    scalar ``start`` clamped into ``[0, big_s - s]``, a per-row one dropped
+    at ``>= big_s``), written here only if the slice holds it, **in
+    place** (:func:`put_where_`)."""
+    b, s_local = kc.shape[:2]
+    s = k.shape[1]
+    steps = torch.arange(s, device=kc.device)
+    if start.dim() == 0:
+        pos = (torch.clamp(start, 0, big_s - s) + steps).expand(b, s)
+        keep = torch.ones((b, s), dtype=torch.bool, device=kc.device)
+    else:
+        pos = start[:, None] + steps[None, :]
+        keep = pos < big_s
+    here = pos - offset
+    keep = keep & (here >= 0) & (here < s_local)
+    rows = torch.arange(b, device=kc.device)[:, None].expand(b, s)
+    index = (rows.reshape(-1), here.reshape(-1))
+    for dst, x in ((kc, k), (vc, v)):
+        put_where_(dst, index, x.reshape(b * s, *x.shape[2:]).to(dst.dtype), keep.reshape(-1))
 
 
 def put_where_(dst: torch.Tensor, index: tuple, values: torch.Tensor,
@@ -487,7 +637,7 @@ def attention_block(
         new_len = torch.clamp_max(start + s, kc.shape[1])
         if s == 1:
             # The decode kernel takes scalar or per-row [B] cache lengths.
-            out = decode_attention_kernel(q[:, 0].contiguous(), kc, vc, new_len)[:, None]
+            out = on_cache_shards(q[:, 0], kc, vc, new_len, cfg.num_heads)[:, None]
         else:
             out = on_head_shards(chunked_attention, q, kc, vc, causal=causal, q_offset=start,
                                  kv_len=new_len, chunk=cfg.attn_chunk)

@@ -214,19 +214,24 @@ def abstract_params(cfg: ModelConfig) -> Params:
 # ---------------------------------------------------------------------------
 
 
+def _reduced(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with a DTensor's partial sums reduced (its ``Partial`` mesh dims
+    made ``Replicate``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    if isinstance(x, DTensor) and any(isinstance(p, Partial) for p in x.placements):
+        x = x.redistribute(x.device_mesh, tuple(Replicate() if isinstance(p, Partial) else p
+                                                for p in x.placements))
+    return x
+
+
 def _residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """``x + h``.  On DTensors partial sums (a row-parallel product's) are
     then reduced, so the residual stream leaves each block whole over
     ``model``, as in a Megatron block: left partial, DTensor carries the
     sums on into ever odder layouts, and on a three-axis mesh its
     redistribution planner took minutes to place one MLP."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-
-    x = x + h
-    if isinstance(x, DTensor) and any(isinstance(p, Partial) for p in x.placements):
-        x = x.redistribute(x.device_mesh, tuple(Replicate() if isinstance(p, Partial) else p
-                                                for p in x.placements))
-    return x
+    return _reduced(x + h)
 
 
 def _ffn(cfg, bp, x):
@@ -283,7 +288,9 @@ def _embed_inputs(params, cfg: ModelConfig, batch) -> tuple[torch.Tensor, torch.
     """Token embeddings, behind the patch embeddings for vlm, and their
     positions (``batch["positions"]`` or ``0..S-1``)."""
     tokens = batch["tokens"]
-    x = embed_tokens(params["embed"], tokens)
+    # A vocab-parallel lookup's partial sums, reduced before the first block
+    # as a block's output is (``_residual``).
+    x = _reduced(embed_tokens(params["embed"], tokens))
     if cfg.family == "vlm" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     positions = batch.get("positions")

@@ -15,6 +15,13 @@
   thread (a copy even of a CPU tensor, which the next step updates in
   place) and writes them from a background thread.
 * **Keep-k**: older checkpoints are removed after a successful save.
+* **Placed state** (DTensor leaves, a run on a ``DeviceMesh``): ``save``
+  gathers every leaf whole on every rank (a collective: every rank
+  calls it), rank 0 writes the same files as an unplaced save, and the
+  other ranks wait until they are published.  ``restore(..., mesh=,
+  specs=)`` reads the whole arrays and places each leaf by its spec on
+  ``mesh``, which may differ from the mesh the checkpoint was saved from
+  (the reference's ``shardings=``).
 """
 
 from __future__ import annotations
@@ -29,18 +36,21 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import PartitionSpec
+
 Tree = Any
 
 _SEP = "/"
 
 
 def _items(tree: Tree, prefix: str = ""):
-    """``(key, leaf)`` of every leaf, keys as the reference flattens them."""
+    """``(key, leaf)`` of every leaf, keys as the reference flattens them (a
+    ``PartitionSpec``, though a tuple, is a leaf of a spec tree)."""
     if isinstance(tree, dict):
         children = [(str(k), tree[k]) for k in sorted(tree)]
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
         children = [(f, getattr(tree, f)) for f in tree._fields]
-    elif isinstance(tree, (tuple, list)):
+    elif isinstance(tree, (tuple, list)) and not isinstance(tree, PartitionSpec):
         children = [(str(i), x) for i, x in enumerate(tree)]
     else:
         yield prefix, tree
@@ -63,11 +73,19 @@ def _rebuild(tree: Tree, leaf_fn, prefix: str = ""):
     return leaf_fn(prefix, tree)
 
 
+def _is_placed(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _to_host(x) -> tuple[np.ndarray, str]:
     """A leaf as a numpy array for the npz, and its manifest dtype: a copy,
-    never a view of the leaf's storage."""
+    never a view of the leaf's storage (a DTensor's whole tensor)."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if _is_placed(x):
+            x = x.full_tensor()
         if x.dtype == torch.bfloat16:
             return x.to("cpu", torch.float32, copy=True).numpy(), "bfloat16"
         arr = x.to("cpu", copy=True).numpy()
@@ -98,37 +116,48 @@ class CheckpointManager:
              blocking: bool = False) -> None:
         """Write ``state`` (nested dicts, tuples, ``NamedTuple``s of tensors)
         as checkpoint ``step``: host copies now, files from a thread
-        (``blocking`` waits for them)."""
-        host = {k: _to_host(x) for k, x in _items(state)}
+        (``blocking`` waits for them).  With DTensor leaves every rank
+        calls it: the leaves are gathered whole, rank 0 writes, and every
+        rank returns once the files are published."""
+        items = list(_items(state))
+        placed = any(_is_placed(x) for _, x in items)
+        host = {k: _to_host(x) for k, x in items}
+        if placed:
+            import torch.distributed as dist
 
-        def _write():
-            tmp = os.path.join(self.directory, f"tmp.{step}")
-            final = os.path.join(self.directory, f"step_{step:08d}")
-            if os.path.exists(tmp):
-                shutil.rmtree(tmp)
-            os.makedirs(tmp)
-            flat = {k: arr for k, (arr, _) in host.items()}
-            np.savez(os.path.join(tmp, "arrays.npz"), **flat)
-            manifest = {
-                "step": step,
-                "keys": sorted(flat.keys()),
-                "shapes": {k: list(v.shape) for k, v in flat.items()},
-                "dtypes": {k: dtype for k, (_, dtype) in host.items()},
-                "extra": extra or {},
-            }
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump(manifest, f)
-            if os.path.exists(final):
-                shutil.rmtree(final)
-            os.rename(tmp, final)       # atomic publish
-            self._gc()
+            if dist.get_rank() == 0:
+                self._write(step, host, extra)
+            dist.barrier()
+            return
 
         self.wait()
-        t = threading.Thread(target=_write, daemon=True)
+        t = threading.Thread(target=self._write, args=(step, host, extra), daemon=True)
         t.start()
         self._pending = t
         if blocking:
             self.wait()
+
+    def _write(self, step: int, host: dict, extra: Optional[dict]) -> None:
+        tmp = os.path.join(self.directory, f"tmp.{step}")
+        final = os.path.join(self.directory, f"step_{step:08d}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        flat = {k: arr for k, (arr, _) in host.items()}
+        np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+        manifest = {
+            "step": step,
+            "keys": sorted(flat.keys()),
+            "shapes": {k: list(v.shape) for k, v in flat.items()},
+            "dtypes": {k: dtype for k, (_, dtype) in host.items()},
+            "extra": extra or {},
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)       # atomic publish
+        self._gc()
 
     def wait(self) -> None:
         if self._pending is not None:
@@ -155,20 +184,37 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Tree, step: Optional[int] = None, *,
-                device=None) -> tuple[int, Tree]:
+    def restore(self, like: Tree, step: Optional[int] = None, *, device=None, mesh=None,
+                specs: Tree = None) -> tuple[int, Tree]:
         """``(step, tree)``: checkpoint ``step`` (default the latest) in the
-        structure, shapes and dtypes of ``like``, each leaf on ``device``
-        (default: ``like``'s leaf's device; ``meta`` leaves need one)."""
+        structure, shapes and dtypes of ``like`` (whole shapes: a DTensor's
+        are), each leaf on ``device`` (default: ``like``'s leaf's device;
+        ``meta`` leaves need one).  With a ``DeviceMesh`` ``mesh`` each
+        leaf is read whole and placed on it by its ``PartitionSpec`` in
+        ``specs`` (a tree like ``like``'s, e.g. ``(param_partition_specs,
+        opt_state_partition_specs)``, whose AdamW moments and master carry
+        their ZeRO split; default: every leaf whole on every rank), on
+        ``mesh``'s device type; a 0-dim leaf (AdamW's step) comes back as
+        a plain tensor, as ``cells.place_args`` leaves it."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         path = os.path.join(self.directory, f"step_{step:08d}")
         arrays = np.load(os.path.join(path, "arrays.npz"))
 
+        by_key = dict(_items(specs)) if specs is not None else {}
+
         def leaf(key, x):
             arr = arrays[key]
             assert arr.shape == tuple(x.shape), (key, arr.shape, tuple(x.shape))
-            return _from_host(arr, x).to(device if device is not None else x.device)
+            if mesh is None:
+                return _from_host(arr, x).to(device if device is not None else x.device)
+            from ..distributed.sharding import distribute_leaf, spec_placements
+
+            t = _from_host(arr, x).to(mesh.device_type)
+            if t.dim() == 0:        # a scalar (AdamW's step) stays whole, unplaced
+                return t
+            return distribute_leaf(t, spec_placements(by_key.get(key, PartitionSpec()), mesh),
+                                   mesh)
 
         return step, _rebuild(like, leaf)

@@ -113,21 +113,46 @@ def to_device(batch: dict, device) -> dict:
 class Prefetcher:
     """Stages ``source.batch_at(step)`` for ``step = start_step, ...`` onto
     ``device`` from a thread, ``depth`` batches ahead; ``next()`` returns
-    ``(step, batch)``.  ``close()`` stops the thread."""
+    ``(step, batch)``.  ``close()`` stops the thread.
 
-    def __init__(self, source, start_step: int = 0, depth: int = 2, *, device):
+    With a ``DeviceMesh`` ``mesh`` instead of ``device`` (the reference's
+    ``sharding=``), each batch comes out placed: every leaf a DTensor of
+    this rank's block, split by :func:`~repro_torch.distributed.sharding.
+    batch_spec` or by ``specs`` (one ``PartitionSpec`` for every leaf, or
+    a dict of them by key).  ``source`` gives every rank the whole batch,
+    so no rank sends anything."""
+
+    def __init__(self, source, start_step: int = 0, depth: int = 2, *, device=None,
+                 mesh=None, specs=None):
+        if (device is None) == (mesh is None):
+            raise TypeError("Prefetcher takes one of device= and mesh=: it has no default "
+                            "device")
         self.source = source
-        self.device = torch.device(device)
+        self.device = torch.device(device if mesh is None else mesh.device_type)
+        self.mesh, self.specs = mesh, specs
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._step = start_step
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
+    def _place(self, batch: dict) -> dict:
+        from ..distributed.sharding import (PartitionSpec, batch_spec, distribute_leaf,
+                                            spec_placements)
+
+        def spec(key):
+            if self.specs is None:
+                return batch_spec(self.mesh)
+            return self.specs if isinstance(self.specs, PartitionSpec) else self.specs[key]
+
+        return {k: distribute_leaf(x, spec_placements(spec(k), self.mesh), self.mesh)
+                for k, x in batch.items()}
+
     def _worker(self):
         step = self._step
         while not self._stop.is_set():
-            item = (step, to_device(self.source.batch_at(step), self.device))
+            batch = to_device(self.source.batch_at(step), self.device)
+            item = (step, batch if self.mesh is None else self._place(batch))
             while not self._stop.is_set():
                 try:
                     self._q.put(item, timeout=0.1)

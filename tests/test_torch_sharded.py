@@ -35,7 +35,28 @@ reads the world's results.
 * (h) the dense, ssm and hybrid prefill cells and the dense train cell,
   built on the ``(2, 2)`` mesh with the reduced configs as overrides,
   their arguments placed by the cells' own specs (the caches' among
-  them): logits, caches and updated parameters against one process.
+  them): logits, caches and updated parameters against one process;
+* (i) the decode cells of every family on ``(2, 2)`` and ``(2, 4)`` in the
+  cache modes they use (dense in all four, moe in ``batch`` and split-KV
+  ``batch+seq_model``, vlm and encdec in ``batch``, ssm in ``batch`` and
+  ``long_500k``'s ``seq_data``, hybrid in ``seq_data`` and ``seq_all``),
+  after a one-process prefill, with one KV head to ``model``'s 2 and 4
+  (each rank's q heads part of one group): logits within rtol 1e-5, atol
+  1e-6 of one process and of the JAX ``decode_step`` on the same
+  parameters, the written caches of one process's; the collectives
+  counted as issued: the same bytes at two cache lengths (no cache byte
+  crosses the wire), and split-KV exactly the merge's bytes above
+  ``batch`` (:func:`_merge_bytes`); ``dryrun.collective_bytes`` the same
+  count;
+* (j) the counter on one ``fsdp`` and one ``tp`` train step: ``fsdp``'s
+  all-gathers carry at least every split parameter's ZeRO gather, and it
+  reduce-scatters gradients;
+* (k) a checkpoint of placed ``tp`` state (parameters, AdamW's ZeRO
+  state) saved on ``(2, 2)``, restored onto a data-4 mesh by its specs
+  there, leaf by leaf; the files read back through the JAX package's
+  ``CheckpointManager``;
+* (l) ``Prefetcher(mesh=)`` batches, gathered, equal the unplaced ones, by
+  ``batch_spec`` and by a given spec.
 """
 
 import dataclasses
@@ -58,6 +79,19 @@ MOE_E = dict(num_experts=8, capacity_factor=8.0)
 CELL = dict(wave_size=8, num_simulations=32, d_mlp=256)
 CELL_RUNS = [("dense", "prefill_32k"), ("ssm", "prefill_32k"), ("hybrid", "prefill_32k"),
              ("dense", "train_4k")]
+# (i): one-process prefill of 6 tokens, then one placed decode step.  One
+# KV head: model (2 or 4) divides the 4 q heads but not the KV heads.
+DECODE_OVERRIDES = {"dense": dict(num_kv_heads=1), "vlm": dict(num_kv_heads=1),
+                    "encdec": dict(num_kv_heads=1), "hybrid": dict(num_kv_heads=1),
+                    "moe": dict(num_kv_heads=1, capacity_factor=8.0), "ssm": {}}
+DECODE_CELLS = [("dense", "decode_32k", m) for m in ("batch", "batch+seq_model", "seq_data",
+                                                    "seq_all")]
+DECODE_CELLS += [("moe", "decode_32k", "batch"), ("moe", "decode_32k", "batch+seq_model"),
+                 ("vlm", "decode_32k", "batch"), ("encdec", "decode_32k", "batch"),
+                 ("ssm", "decode_32k", "batch"), ("ssm", "long_500k", "seq_data"),
+                 ("hybrid", "long_500k", "seq_data"), ("hybrid", "long_500k", "seq_all")]
+PROMPT = 6
+DECODE_MAX_LENS = (16, 32)       # cache lengths: 8 parts of S at most
 JOIN_LIMIT = 240.0
 LOSS_TOL = dict(rtol=1e-5, atol=0)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -112,7 +146,7 @@ def _rank_main(world, rank, size, tmp):
                             world_size=size, timeout=datetime.timedelta(seconds=60))
     try:
         inputs = dict(np.load(os.path.join(tmp, "inputs.npz")))
-        out = {"four": _world_four, "eight": _world_eight}[world](rank, inputs)
+        out = {"four": _world_four, "eight": _world_eight}[world](rank, inputs, tmp)
         np.savez(os.path.join(tmp, f"out_{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
@@ -192,7 +226,7 @@ def _forward_logits(cfg, params, batch, mesh):
     return logits.full_tensor().numpy()
 
 
-def _world_four(rank, inputs):
+def _world_four(rank, inputs, tmp):
     from repro_torch.distributed.sharding import abstract_mesh
     from repro_torch.launch.mesh import device_mesh
     from repro_torch.models import forward
@@ -213,9 +247,114 @@ def _world_four(rank, inputs):
     for family, strategy in STEPS:
         _train_step(out, inputs, family, strategy, mesh)
     _cells_on_mesh(out, inputs, mesh)
+    _decode_cells(out, inputs, mesh, "2x2")
+    _checkpoint(out, inputs, mesh, tmp)
+    _prefetch(out, mesh)
     _searches(out, rank)
     _search_cell(out, inputs, mesh)
     return out
+
+
+def _counts_array(result):
+    """A collective count (the reference's dict) as one array: the wire
+    bytes of each kind, the total, the count of each kind."""
+    from repro_torch.distributed.collectives import KINDS
+
+    return np.array([result[k] for k in KINDS] + [result["total"]]
+                    + [result["counts"][k] for k in KINDS], dtype=np.float64)
+
+
+def _decode_cells(out, inputs, mesh, tag):
+    """(i) each decode cell after a one-process prefill, at both cache
+    lengths, its collectives counted; one process's step beside it."""
+    from repro_torch.distributed.collectives import CollectiveCounter
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.cells import build_cell, place_args
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.lm import tree_map
+    from repro_torch.training.optimizer import leaves
+
+    for family, shape, mode in DECODE_CELLS:
+        cfg = _port(family, DECODE_OVERRIDES[family])
+        params = _params(inputs, f"dec/{family}", cfg)
+        batch = _torch_batch(inputs, f"dec/{family}")
+        token = torch.from_numpy(inputs[f"dec/{family}/token"].astype(np.int64))
+        over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.name != "name"}
+        cell = build_cell(ARCHS[family], shape, mesh, cfg_overrides=over, kv_mode=mode)
+        key = f"i/{tag}/{family}/{mode}"
+        for max_len in DECODE_MAX_LENS:
+            with torch.no_grad():
+                _, cache = prefill(params, cfg, batch, init_cache(cfg, B, max_len, device="cpu"))
+                one, one_cache = decode_step(params, cfg, token, tree_map(torch.clone, cache))
+                placed = place_args(cell, mesh, (params, token, tree_map(torch.clone, cache)))
+                with use_mesh(mesh), CollectiveCounter() as counter:
+                    got, got_cache = cell.fn(*placed)
+            out[f"{key}/{max_len}/counts"] = _counts_array(counter.result())
+            if max_len != DECODE_MAX_LENS[0]:
+                continue
+            out[f"{key}/one"] = one.numpy()
+            out[f"{key}/sharded"] = got.full_tensor().numpy()
+            for i, (a, b) in enumerate(zip(leaves(one_cache), leaves(got_cache))):
+                out[f"{key}/cache/{i}/one"] = a.numpy()
+                out[f"{key}/cache/{i}/sharded"] = (b.full_tensor() if hasattr(b, "full_tensor")
+                                                   else b).numpy()
+            if (family, mode) == ("dense", "batch"):
+                out[f"{key}/dryrun"] = _counts_array(collective_bytes(cell, mesh, (
+                    params, token, tree_map(torch.clone, cache))))
+
+
+def _checkpoint(out, inputs, mesh, tmp):
+    """(k) placed tp state saved on (2, 2), restored onto a data-4 mesh."""
+    from repro_torch.distributed.sharding import (
+        abstract_mesh, distribute_params, opt_state_partition_specs, opt_state_shardings,
+        param_partition_specs, spec_placements)
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.training import CheckpointManager
+    from repro_torch.training.checkpoint import _items
+    from repro_torch.training.optimizer import adamw_init
+
+    cfg = _port("dense")
+    params = _params(inputs, "dense", cfg)
+    placed = distribute_params(params, param_partition_specs(cfg, params, mesh, "tp"), mesh)
+    opt = adamw_init(placed, opt_state_shardings(cfg, placed, mesh, None, "tp").m)
+    directory = os.path.join(tmp, "ckpt")
+    CheckpointManager(directory).save(3, (placed, opt), blocking=True)
+    other = device_mesh(abstract_mesh((4, 1), ("data", "model")), "cpu")
+    specs = (param_partition_specs(cfg, params, other, "tp"),
+             opt_state_partition_specs(cfg, params, other, "tp"))
+    step, state = CheckpointManager(directory).restore((placed, opt), mesh=other, specs=specs)
+    whole = dict(_items((params, adamw_init(params))))
+    wants = dict(_items(specs))
+    ok, split = step == 3, 0
+    for key, leaf in _items(state):
+        if leaf.dim() == 0:
+            ok &= not hasattr(leaf, "device_mesh") and torch.equal(leaf, whole[key])
+            continue
+        ok &= tuple(leaf.placements) == spec_placements(wants[key], other)
+        ok &= torch.equal(leaf.full_tensor(), whole[key])
+        split += leaf.to_local().numel() < leaf.numel()
+    out["k/ok"] = np.array(bool(ok))
+    out["k/split_leaves"] = np.array(split)
+
+
+def _prefetch(out, mesh):
+    """(l) placed batches against unplaced ones."""
+    from repro_torch.distributed.sharding import P
+    from repro_torch.training import Prefetcher, SyntheticStream
+
+    stream = SyntheticStream(256, B, 8, seed=2)
+    ok = True
+    for specs, local in ((None, (B // 2, 8)), (P(None, "model"), (B, 4))):
+        placed = Prefetcher(stream, 3, mesh=mesh, specs=specs)
+        plain = Prefetcher(stream, 3, device="cpu")
+        for _ in range(2):
+            (s1, b1), (s2, b2) = next(placed), next(plain)
+            ok &= s1 == s2 and torch.equal(b1["tokens"].full_tensor(), b2["tokens"])
+            ok &= tuple(b1["tokens"].to_local().shape) == local
+        placed.close()
+        plain.close()
+    out["l/ok"] = np.array(bool(ok))
 
 
 def _cells_on_mesh(out, inputs, mesh):
@@ -259,6 +398,7 @@ def _cells_on_mesh(out, inputs, mesh):
 
 
 def _train_step(out, inputs, family, strategy, mesh):
+    from repro_torch.distributed.collectives import CollectiveCounter
     from repro_torch.distributed.sharding import (
         distribute_params, opt_state_shardings, param_partition_specs)
     from repro_torch.training.optimizer import adamw_init, leaves
@@ -272,8 +412,16 @@ def _train_step(out, inputs, family, strategy, mesh):
     specs = param_partition_specs(cfg, p2, mesh, strategy)
     p2 = distribute_params(p2, specs, mesh)
     o2 = adamw_init(p2, opt_state_shardings(cfg, p2, mesh, None, strategy).m)
-    p2, o2, m2 = make_train_step(cfg, TrainConfig(), mesh=mesh, strategy=strategy)(p2, o2, batch)
+    with CollectiveCounter() as counter:
+        p2, o2, m2 = make_train_step(cfg, TrainConfig(), mesh=mesh, strategy=strategy)(
+            p2, o2, batch)
     tag = f"c/{family}/{strategy}"
+    # (j): every parameter split over the 4 ranks is gathered whole at least
+    # once, 3/4 of its bytes on each rank's wire.
+    out[f"{tag}/counts"] = _counts_array(counter.result())
+    out[f"{tag}/zero_gather"] = np.array(sum(
+        x.numel() * x.element_size() * 3 / 4 for x in leaves(p2)
+        if x.to_local().numel() * 4 == x.numel()))
     for key in ("loss", "grad_norm"):
         out[f"{tag}/{key}"] = np.array([m1[key], m2[key]])
     for name, one, placed in (("params", p1, p2), ("m", o1.m, o2.m), ("v", o1.v, o2.v),
@@ -337,7 +485,7 @@ def _search_cell(out, inputs, mesh):
             out[f"g/{f}"] = getattr(tree, f)[0].numpy()
 
 
-def _world_eight(rank, inputs):
+def _world_eight(rank, inputs, tmp):
     from repro_torch.distributed.sharding import abstract_mesh, distribute_leaf, use_mesh
     from repro_torch.distributed.sharding import spec_placements, P
     from repro_torch.launch.mesh import device_mesh
@@ -358,6 +506,7 @@ def _world_eight(rank, inputs):
     mesh = device_mesh(abstract_mesh((2, 4), ("data", "model")), "cpu")
     # model = 4 splits the 4 q heads, not the 2 KV heads.
     out["d/sharded_2x4"] = _forward_logits(cfg, params, batch, mesh)
+    _decode_cells(out, inputs, mesh, "2x4")
     cfg = _port("moe", MOE_E)
     from repro_torch.models.lm import tree_map
 
@@ -445,7 +594,16 @@ def worlds(tmp_path_factory):
         cfg = _port(family, FORWARD_OVERRIDES.get(family))
         four_in.update(_flat(_port_params(family, cfg), f"{family}/params/"))
         four_in.update(_flat(_batch(cfg, 7), f"{family}/batch/"))
-    eight_in.update({k: v for k, v in four_in.items() if k.startswith("dense/")})
+    for family in DECODE_OVERRIDES:
+        cfg = _port(family, DECODE_OVERRIDES[family])
+        four_in.update(_flat(_port_params(family, cfg), f"dec/{family}/params/"))
+        g = np.random.default_rng(9)
+        prompt = _batch(cfg, 13)
+        prompt["tokens"] = prompt["tokens"][:, :PROMPT]
+        prompt.pop("patch_embeds", None)        # the vlm's decode cell runs on tokens
+        four_in.update(_flat(prompt, f"dec/{family}/batch/"))
+        four_in[f"dec/{family}/token"] = g.integers(0, cfg.vocab_size, (B,)).astype(np.int32)
+    eight_in.update({k: v for k, v in four_in.items() if k.startswith(("dense/", "dec/"))})
     mcfg = _port("moe", MOE_E)
     bp = _port_params("moe", mcfg)["blocks"]["moe"]
     bp = {k: (v[0] if not isinstance(v, dict) else {n: w[0] for n, w in v.items()})
@@ -462,11 +620,12 @@ def worlds(tmp_path_factory):
     procs8 = _start("eight", 8, tmp8, eight_in)
     try:
         refs = {"forward": _forward_reference(four_in), "moe": _moe_reference(bp, x),
-                "cell": _cell_reference(four_in)}
+                "cell": _cell_reference(four_in), "decode": _decode_reference(four_in)}
     finally:
         res4 = _finish("four", procs4, tmp4, deadline)
         res8 = _finish("eight", procs8, tmp8, deadline)
-    return {"four": res4, "eight": res8, **refs}
+    return {"four": res4, "eight": res8, "ckpt": os.path.join(tmp4, "ckpt"),
+            "inputs": four_in, **refs}
 
 
 def _forward_reference(inputs):
@@ -481,6 +640,29 @@ def _forward_reference(inputs):
         params = _nested(inputs, f"{family}/params/")
         batch = {k: jnp.asarray(v) for k, v in _nested(inputs, f"{family}/batch/").items()}
         out[family] = np.asarray(jax.jit(lambda p, b: forward(p, cfg, b)[0])(params, batch))
+    return out
+
+
+def _decode_reference(inputs):
+    """The JAX ``decode_step`` after ``prefill`` on the same parameters,
+    prompt and token, each family's logits."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_reduced
+    from repro.models import decode_step, init_cache, prefill
+
+    out = {}
+    for family, over in DECODE_OVERRIDES.items():
+        cfg = dataclasses.replace(get_reduced(ARCHS[family]), **over)
+        params = _nested(inputs, f"dec/{family}/params/")
+        batch = {k: jnp.asarray(v) for k, v in _nested(inputs, f"dec/{family}/batch/").items()}
+
+        def step(p, b, t):
+            _, cache = prefill(p, cfg, b, init_cache(cfg, B, DECODE_MAX_LENS[0]))
+            return decode_step(p, cfg, t, cache)[0]
+
+        out[family] = np.asarray(jax.jit(step)(params, batch,
+                                               jnp.asarray(inputs[f"dec/{family}/token"])))
     return out
 
 
@@ -640,3 +822,108 @@ def test_search_cell_wave(worlds):
         flips += int(np.sum(~np.isclose(got, want, rtol=1e-6, atol=0)))
     assert flips == 0
     assert int(res["g/size"]) > 1
+
+
+def _merge_bytes(cfg, rows, model):
+    """Per-rank wire bytes of the split-KV merge above ``batch`` mode, for
+    one decode step of ``cfg`` with ``rows`` rows a data rank and S split
+    over ``model`` ranks, the model's q heads split over them too: per
+    layer, q's heads all-gathered (``rows·Hq·D`` float32 gathered, ``(m -
+    1)/m`` of it on the wire), then two all-reduces of the merge, the max
+    of ``lse [rows, Hq]`` and the weighted sums ``[rows, Hq, D + 1]``
+    (``2·bytes·(m - 1)/m`` each)."""
+    f = (model - 1) / model
+    hq, d = cfg.num_heads, cfg.head_dim
+    per_layer = (rows * hq * d * 4 * f + 2 * rows * hq * 4 * f
+                 + 2 * rows * hq * (d + 1) * 4 * f)
+    return cfg.num_layers * per_layer
+
+
+MESHES = {"2x2": ("four", 2, 2), "2x4": ("eight", 2, 4)}
+
+
+@pytest.mark.parametrize("family,shape,mode", DECODE_CELLS)
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_decode_cells_on_the_mesh(worlds, mesh_name, family, shape, mode):
+    """(i) logits of one process and of the JAX ``decode_step``, the cache
+    of one process, and no cache byte on the wire: the same collectives at
+    both cache lengths."""
+    res = worlds[MESHES[mesh_name][0]]
+    key = f"i/{mesh_name}/{family}/{mode}"
+    got = res[f"{key}/sharded"]
+    np.testing.assert_allclose(got, res[f"{key}/one"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, worlds["decode"][family], rtol=1e-5, atol=1e-6)
+    i = 0
+    while f"{key}/cache/{i}/one" in res:
+        np.testing.assert_allclose(res[f"{key}/cache/{i}/sharded"], res[f"{key}/cache/{i}/one"],
+                                   rtol=1e-5, atol=1e-6, err_msg=f"{key} cache leaf {i}")
+        i += 1
+    assert i >= 3
+    a, b = (res[f"{key}/{n}/counts"] for n in DECODE_MAX_LENS)
+    np.testing.assert_array_equal(a, b, err_msg=f"{key}: collectives change with the cache")
+
+
+@pytest.mark.parametrize("family", ["dense", "moe"])
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_split_kv_moves_only_the_merge(worlds, mesh_name, family):
+    """(i) ``batch+seq_model`` above ``batch``: exactly the merge's bytes
+    (:func:`_merge_bytes`), one all-gather and two all-reduces a layer."""
+    from repro_torch.distributed.collectives import KINDS
+
+    world, data, model = MESHES[mesh_name]
+    res = worlds[world]
+    split, batch = (res[f"i/{mesh_name}/{family}/{m}/{DECODE_MAX_LENS[0]}/counts"]
+                    for m in ("batch+seq_model", "batch"))
+    cfg = _port(family, DECODE_OVERRIDES[family])
+    diff = dict(zip(list(KINDS) + ["total"] + [f"n {k}" for k in KINDS], split - batch))
+    np.testing.assert_allclose(diff["total"], _merge_bytes(cfg, B // data, model), rtol=1e-12)
+    assert diff["n all-gather"] == cfg.num_layers
+    assert diff["n all-reduce"] == 2 * cfg.num_layers
+    assert diff["reduce-scatter"] == 0 and diff["all-to-all"] == 0
+
+
+def test_dryrun_collective_bytes_counts_the_decode_cell(worlds):
+    res = worlds["four"]
+    key = "i/2x2/dense/batch"
+    np.testing.assert_array_equal(res[f"{key}/dryrun"], res[f"{key}/{DECODE_MAX_LENS[0]}/counts"])
+    assert res[f"{key}/dryrun"][5] > 0
+
+
+@pytest.mark.parametrize("strategy", ["fsdp", "tp"])
+def test_train_step_collectives(worlds, strategy):
+    """(j) ``fsdp``: the ZeRO all-gathers of the split parameters and the
+    gradients' reduce-scatters; ``tp``: both kinds too (AdamW's ZeRO state
+    over the data axes)."""
+    from repro_torch.distributed.collectives import KINDS
+
+    res = worlds["four"]
+    counts = dict(zip(list(KINDS) + ["total"] + [f"n {k}" for k in KINDS],
+                      res[f"c/dense/{strategy}/counts"]))
+    assert counts["n all-gather"] > 0 and counts["n reduce-scatter"] > 0
+    assert counts["reduce-scatter"] > 0
+    if strategy == "fsdp":
+        assert counts["all-gather"] >= res["c/dense/fsdp/zero_gather"] > 0
+
+
+def test_placed_checkpoint_restores_onto_another_mesh(worlds):
+    """(k) on the ranks; here the files through the JAX package."""
+    import jax
+    import jax.numpy as jnp
+    from repro.training import CheckpointManager as JaxCheckpointManager
+    from repro.training.optimizer import adamw_init as jax_adamw_init
+
+    res = worlds["four"]
+    assert bool(res["k/ok"]) and int(res["k/split_leaves"]) > 0
+    params = _nested(worlds["inputs"], "dense/params/")
+    like = (jax.tree.map(jnp.zeros_like, params),
+            jax_adamw_init(jax.tree.map(jnp.zeros_like, params)))
+    step, (jp, jopt) = JaxCheckpointManager(worlds["ckpt"]).restore(like)
+    assert step == 3
+    for a, b in zip(jax.tree.leaves(jp), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    for a, b in zip(jax.tree.leaves(jopt.master), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(np.asarray(a), b.astype(np.float32))
+
+
+def test_prefetcher_places_batches(worlds):
+    assert bool(worlds["four"]["l/ok"])

@@ -207,7 +207,17 @@ Phases (any failure raises, so the script exits non-zero):
     parts of S, merged by ``layers.merge_by_lse``, against the unsplit
     kernel (bf16 within one bf16 ulp, float32 within 2e-6 of the row's
     largest |out|); the kernel timed at that shape beside its bound (the
-    kernels line's ``decode_attention.decode_32k``);
+    kernels line's ``decode_attention.decode_32k``); (f) phase 7's cell
+    at T=32 (B=8, W=16) over llama3-8b at full width and 2 of 32 layers,
+    bf16, in five modes (uncached ``ModelEvaluator``, cached, paged,
+    frontier, paged frontier) and over mamba2-2.7b at 2 of 64 blocks with
+    ``ModelEvaluator``: ``build_searcher(..., constrain=
+    constrain_search_batch)`` on the mesh inside ``CollectiveCounter``
+    (the slot aux split over the data ranks, here one rank holding every
+    tree), then without it, then on the mesh again under
+    ``retrace_guard``: every ``SearchResult`` field bit-equal, the same
+    kernel launches, 0 wire bytes, no library load in the guarded call
+    and no more host syncs than the first;
 9. agreement on the card: cached prefill vs flash forward vs decode step
    logits (full width, 2 layers, float32), the reduced model's cached and
    paged frontier searches on the GPU against the port on the CPU,
@@ -1771,16 +1781,17 @@ def search_results_ok(torch, res, spec, what):
         raise AssertionError(f"{what}: a tree overflowed its capacity")
 
 
-def guided_cell(torch, device, cfg, params):
+def guided_cell(torch, device, cfg, params, simulations=64):
     """Phase 7's cell: the token environment over ``cfg``/``params``, the
-    async wu_uct spec (B=8, W=16, T=64), the roots and the keys."""
+    async wu_uct spec (B=8, W=16, T=64 unless ``simulations`` says
+    otherwise), the roots and the keys."""
     from repro_torch import rng
     from repro_torch.core import SearchSpec
     from repro_torch.envs import make_token_env
 
     prompt = prompt_tokens(torch, cfg.vocab_size, PROMPT_LEN, seed=2).to(device)
     env = make_token_env(cfg, params, prompt, max_len=MAX_LEN, top_k=TOP_K, eos_token=EOS)
-    spec = SearchSpec(algo="wu_uct", engine="async", batch=ASYNC_B, num_simulations=64,
+    spec = SearchSpec(algo="wu_uct", engine="async", batch=ASYNC_B, num_simulations=simulations,
                       wave_size=ASYNC_W, max_depth=8, max_sim_steps=8, max_width=8,
                       gamma=1.0)
     roots = env.init(rng.split(rng.PRNGKey(0, device=device), ASYNC_B))
@@ -1897,7 +1908,7 @@ def paged_path(torch, device, cfg, params, base):
     run = engine_search(torch, device, cfg, params, ev)
     launch_identity(run["launches"], run["calls"], "paged_decode_attention",
                     "paged_decode_step", cfg.num_layers)
-    ev.check_exhausted(run["carry"][7])
+    run["engine"].check_exhausted(run["carry"])
     same = agree_actions(torch, run["res"], base, "paged search")
     blocks = int(ev.aux_blocks(run["carry"][7]))
     print(guided_line(run, cfg, "paged path") + f"; blocks in use after the search "
@@ -2097,7 +2108,7 @@ def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):
                     "paged_decode_frontier", cfg.num_layers)
     launch_identity(launches, calls, "paged_decode_attention", "paged_decode_step",
                     cfg.num_layers)
-    ev.check_exhausted(run["carry"][7])
+    run["engine"].check_exhausted(run["carry"])
     same = agree_actions(torch, run["res"], dense_frontier, "paged frontier search",
                          "phase 11")
     same7 = int((run["res"].action.cpu() == base["action"]).sum())
@@ -4102,6 +4113,117 @@ def sharded_decode(torch, device, mesh):
                     "split_merge": worst}
 
 
+# 25(f): phase 7's cell through the async engine's split slot aux on the
+# (1, 1) mesh, llama3-8b at full width and 2 of its 32 layers and
+# mamba2-2.7b at 2 of its 64 blocks, T=32.  Cut for time from 4 layers and
+# 25(d)'s 4 blocks, then from T=64: its 18 calls are host-bound (3.5-5.3 s
+# each at T=64 and 2 layers), and the collective counter's dispatch mode
+# adds ~3 s to the call it wraps.
+SPLIT_LAYERS = 2
+SPLIT_SIMULATIONS = 32
+SPLIT_MODES = ("uncached", "cached", "paged", "frontier", "paged frontier")
+
+
+def split_evaluator(mode, cfg, params):
+    """25(f)'s evaluator of ``mode`` (the paged ones over phase 10's pool)."""
+    from repro_torch.core import (CachedModelEvaluator, FrontierModelEvaluator, ModelEvaluator,
+                                  PagedCachedModelEvaluator, PagedFrontierModelEvaluator)
+
+    kw = dict(top_k=TOP_K, eos_token=EOS)
+    paged = dict(block_size=BLOCK, num_blocks=POOL_BLOCKS)
+    return {"uncached": lambda: ModelEvaluator(cfg, params, **kw),
+            "cached": lambda: CachedModelEvaluator(cfg, params, **kw),
+            "paged": lambda: PagedCachedModelEvaluator(cfg, params, **kw, **paged),
+            "frontier": lambda: FrontierModelEvaluator(cfg, params, **kw),
+            "paged frontier": lambda: PagedFrontierModelEvaluator(cfg, params, **kw, **paged),
+            }[mode]()
+
+
+def split_mode(torch, device, mesh, cfg, params, mode):
+    """25(f) in one mode: phase 7's searches placed (``constrain=
+    constrain_search_batch`` on the mesh) inside ``CollectiveCounter``,
+    plain, and placed again under ``retrace_guard`` alone (its wall is
+    the placement's, without the counter's dispatch); the results
+    bit-equal, the launches equal, 0 wire bytes.  Returns the first
+    placed call's launches."""
+    from repro_torch.analysis import host_syncs, library_loads, retrace_guard
+    from repro_torch.core import build_searcher
+    from repro_torch.distributed.collectives import CollectiveCounter
+    from repro_torch.distributed.sharding import constrain_search_batch, use_mesh
+
+    env, spec, roots, rngs = guided_cell(torch, device, cfg, params, SPLIT_SIMULATIONS)
+    ev = split_evaluator(mode, cfg, params)
+    plain = build_searcher(env, spec, evaluator=ev, device=device)
+    placed = build_searcher(env, spec, evaluator=ev, device=device,
+                            constrain=constrain_search_batch)
+
+    def counted():
+        with use_mesh(mesh), CollectiveCounter() as counter:
+            res = placed(roots, rngs)
+        return res, counter.result()
+
+    def guarded(limit):
+        with retrace_guard(loads=(library_loads, 0), syncs=(host_syncs, limit)) as guard, \
+                use_mesh(mesh):
+            res = placed(roots, rngs)
+        return res, guard.counts()
+
+    runs = {"placed": counted_run(torch, device, counted),
+            "plain": counted_run(torch, device, lambda: plain(roots, rngs))}
+    runs["guarded"] = counted_run(torch, device, lambda: guarded(runs["placed"][4]))
+    res, wire = runs["placed"][0]
+    base = runs["plain"][0]
+    search_results_ok(torch, base, spec, f"25(f) {mode}")
+    again, counts = runs["guarded"][0]
+    for label, got in (("placed", res), ("guarded", again)):
+        unequal = [f for f in base._fields if not torch.equal(getattr(got, f),
+                                                              getattr(base, f))]
+        if unequal:
+            raise AssertionError(f"25(f) {mode}: the {label} search's {unequal} differ from "
+                                 "the plain search's")
+    launched = {label: {k: n for k, n in run[2].items() if n} for label, run in runs.items()}
+    if not launched["placed"] or launched["placed"] != launched["plain"] or \
+            launched["guarded"] != launched["plain"]:
+        raise AssertionError(f"25(f) {mode}: launches {launched}")
+    if wire["total"] != 0:
+        raise AssertionError(f"25(f) {mode}: {wire['total']!r} wire bytes at world size 1")
+    walls = {label: run[1] for label, run in runs.items()}
+    syncs = {label: run[4] for label, run in runs.items()}
+    print(f"25(f) {mode}: {cfg.name} {cfg.num_layers} layers bf16, phase 7's cell at "
+          f"T={spec.num_simulations}, placed "
+          f"(counted), plain and placed again (guarded), every SearchResult field bit-equal; "
+          f"launches {launched['placed']} in each; walls {walls} s (first calls of the "
+          f"mode); host syncs {syncs}; collectives {wire['counts']}, wire bytes "
+          f"{wire['total']!r}; guarded call {counts}; master ticks {int(base.ticks.max())}, "
+          f"actions {base.action.tolist()}")
+    return launched["placed"]
+
+
+def split_searches(torch, device, mesh):
+    """25(f): :func:`split_mode` in llama3-8b's five modes and with
+    mamba2-2.7b's ``ModelEvaluator``.  Returns the kernels' launches,
+    summed over the modes' first placed calls."""
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    cfg, params = lm_setup(torch, device, SPLIT_LAYERS, torch.bfloat16, seed=1)
+    for mode in SPLIT_MODES:
+        add(split_mode(torch, device, mesh, cfg, params, mode))
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = lm_setup(torch, device, SPLIT_LAYERS, torch.bfloat16, seed=1,
+                           name="mamba2-2.7b")
+    add(split_mode(torch, device, mesh, cfg, params, "uncached"))
+    del params
+    torch.cuda.empty_cache()
+    print(f"25(f) launches {launches}; 25(f) took {time.perf_counter() - t0!r} s")
+    return launches
+
+
 def multi_device(torch, device):
     """Phase 25: the multi-device layer at world size 1, through the sharded
     code path on a ``(1, 1)`` ``('data', 'model')`` mesh.  Returns the
@@ -4124,6 +4246,8 @@ def multi_device(torch, device):
                                          SHARDED_SSM_BLOCKS, ("tp",), "25(d)"))
         sharded_moe(torch, device, mesh)
         launches["tree_descend"] = sharded_search_cell(torch, device, mesh)
+        for k, n in split_searches(torch, device, mesh).items():
+            launches[k] = launches.get(k, 0) + n
     finally:
         dist.destroy_process_group()
     print(f"phase 25 took {time.perf_counter() - t0!r} s")
@@ -4362,7 +4486,7 @@ def main():
 
     phase("25. the multi-device layer at world size 1 (NCCL, a (1, 1) mesh): llama3-8b and "
           "mamba2-2.7b train steps placed under tp and fsdp, the expert-parallel MoE block, "
-          "the search cell")
+          "the search cell, the decode cell, the async engine's split slot aux")
     got, fields["decode_attention"]["decode_32k"] = multi_device(torch, device)
     family["25"] = {("tree_select" if k == "tree_descend" else k): n for k, n in got.items()}
 

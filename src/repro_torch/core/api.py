@@ -135,9 +135,13 @@ def build_searcher(env: Environment, spec: SearchSpec, *,
 
     ``constrain`` is phase 2's hook on the slot batch and its results
     (:func:`repro_torch.distributed.sharding.constrain_search_batch` splits
-    the slots over the data axes of the ambient mesh); the single-root
-    async engine and the baselines ``leafp``/``rootp`` take none, as in the
-    reference.
+    the slots over the data axes of the ambient mesh, and is a no-op
+    outside one); the single-root async engine and the baselines
+    ``leafp``/``rootp`` take none, as in the reference.  With a model
+    evaluator on the batched async engine the hook splits the evaluator's
+    slot aux too: each data rank prefills, decodes and refills its own
+    trees against its own caches (a paged pool of ``num_blocks // ranks``
+    blocks), so the data ranks must divide ``batch`` (and ``num_blocks``).
     """
     cfg = as_search_config(spec)
     if spec.batch < 0:

@@ -31,6 +31,20 @@ its snapshot (:meth:`BatchedAsyncEngine.frontier_hits`).
 Trace mode (``run(..., trace_ticks=K)``) runs exactly ``K`` ticks and
 snapshots each (:class:`~repro_torch.core.async_search.AsyncTickTrace`).
 
+With a ``constrain`` hook that splits the slot batch over the data ranks
+of the ambient mesh (``constrain_search_batch``), each rank ticks its own
+slots.  An evaluator with slot aux is split with them: each rank's aux
+holds only its own trees' rows (trees ``lo .. hi - 1``, flat rows
+``b·W + j`` for its ``b``), so each rank prefills, decodes and refills
+against its own caches or pool.  Which rows those are rides in the carry
+(:class:`SlotShare`, from :meth:`BatchedAsyncEngine.init_carry`), beside
+the aux it describes; unsplit, the share is every tree.  The tree
+statistics stay replicated; the tick's results, each tick's frontier hits
+and trace mode's cache lengths and block counts come back to every rank,
+and no cache byte crosses the wire.  A split paged pool is read through
+:meth:`BatchedAsyncEngine.check_exhausted`, which sums its exhaustion
+count over the ranks, so that every rank raises together.
+
 Serving rests on two surfaces.  Host-paced: :meth:`BatchedAsyncEngine.admit`
 and :meth:`~BatchedAsyncEngine.evict` between segments of
 :meth:`~BatchedAsyncEngine.run_segment`.  Fused: a :class:`RequestRing` of
@@ -82,8 +96,37 @@ class _BatchedAsyncSlots(NamedTuple):
 
 
 # The loop carry, the reference's: (tree, slots, rng[B, 2], t_launch[B],
-# t_done[B], ticks[B], max_o[B], aux, frontier_hits[B]).
+# t_done[B], ticks[B], max_o[B], aux, frontier_hits[B]), then the aux's
+# SlotShare.
 Carry = tuple
+
+
+class SlotShare(NamedTuple):
+    """Which trees a carry's slot aux holds: trees ``lo .. hi - 1`` of
+    ``B`` (``parts`` equal shares over the data ranks), the mesh and
+    placements the hook split the slots with (``None`` and ``()`` when the
+    aux is whole), and the evaluator of the share
+    (:meth:`~repro_torch.core.evaluators.Evaluator.for_shard`)."""
+
+    lo: int
+    hi: int
+    parts: int
+    mesh: Any
+    placements: tuple
+    evaluator: Evaluator
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole ``[B·…]`` tensor of every rank's rows ``x``, on every
+        rank (one all-gather over the data ranks; ``x`` itself when the
+        aux is whole)."""
+        from ..distributed.sharding import gather_blocks
+
+        return x if self.mesh is None else gather_blocks(x, self.mesh, self.placements)
+
+    def reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (one element a rank) summed over the data ranks."""
+        return x if self.mesh is None else self.gather(x).sum(dim=0, keepdim=True,
+                                                               dtype=x.dtype)
 
 
 class RequestRing(NamedTuple):
@@ -150,6 +193,39 @@ class BatchedAsyncEngine:
         # The single async engine ignores deterministic_expansion.
         self._exp_cfg = cfg._replace(deterministic_expansion=False)
 
+    def _split(self, device) -> SlotShare:
+        """This rank's share of the trees: a part when ``constrain`` splits
+        the ``[B·W]`` slot batch and the evaluator carries slot aux, else
+        every tree.  The hook is asked with a probe of the flat row ids:
+        the rows it leaves this rank must be whole trees."""
+        B, W = self.B, self.W
+        whole = SlotShare(0, B, 1, None, (), self.evaluator)
+        if self.constrain is None or not self.evaluator.slot_aux:
+            return whole
+        from ..distributed.sharding import is_placed
+
+        probe = self.constrain((torch.arange(B * W, device=device),))[0]
+        if not is_placed(probe):
+            return whole
+        local = probe.to_local()
+        lo = int(host_read(local[:1])[0]) // W if local.numel() else 0
+        n = local.numel() // W
+        trees = torch.arange(lo * W, (lo + n) * W, device=local.device)
+        if n == 0 or B % n or local.numel() % W or not torch.equal(local, trees):
+            raise ValueError(f"constrain splits the {B}x{W} slots across trees; an evaluator "
+                             "with slot aux needs the data ranks to divide B")
+        share = SlotShare(lo, lo + n, B // n, probe.device_mesh, tuple(probe.placements), None)
+        return share._replace(evaluator=self.evaluator.for_shard(share.parts, share.reduce_sum))
+
+    @staticmethod
+    def _whole(carry: Carry) -> None:
+        """Raise for the surfaces a split aux does not run."""
+        if carry[9].parts > 1:
+            raise NotImplementedError(
+                "the request lifecycle is not ported for a carry whose slot aux is split "
+                "over data ranks (ROADMAP.md, section 1, item 1(f): admit, evict and the "
+                "request ring under constrain)")
+
     # ------------------------------------------------------------------
     # Slot pool
     # ------------------------------------------------------------------
@@ -186,12 +262,16 @@ class BatchedAsyncEngine:
     # Master tick
     # ------------------------------------------------------------------
     def _refill(self, tree, slots: _BatchedAsyncSlots, rngs, t_launch, t_done, aux,
-                fr_hits):
+                fr_hits, share: SlotShare):
         """Fill each tree's FREE slots with fresh selections — slot ``j``
-        of all ``B`` trees at once, one ``tree_descend`` call per column."""
+        of all ``B`` trees at once, one ``tree_descend`` call per column.
+        The aux refills the share's trees only."""
         B, W, T, cfg = self.B, self.W, self.T, self.cfg
         dev = rngs.device
         bidx = torch.arange(B, device=dev)
+        lo, hi = share.lo, share.hi
+        # The share's trees' hits, gathered once after the columns.
+        local_hits = torch.zeros_like(fr_hits[lo:hi])
         for j in range(W):
             rngs, k_t, k_e = _split_each(rngs, 3)
             want = (slots.kind[:, j] == FREE) & (t_launch < T)
@@ -216,10 +296,11 @@ class BatchedAsyncEngine:
             tree = _settle(tree, sim_node, torch.zeros((B,), dtype=torch.float32, device=dev),
                            cfg, mask=want & is_term)
             parent_state = btree.get_state(tree, nodes)
-            # Slot column j of every tree lives at flat aux row b·W + j.
-            aux, hit = self.evaluator.refill_aux(cfg, aux, bidx * W + j, parent_state,
-                                                 want & ~is_term)
-            fr_hits = fr_hits + hit.to(fr_hits.dtype)
+            # Slot column j of tree b lives at flat aux row (b - lo)·W + j.
+            aux, hit = share.evaluator.refill_aux(
+                cfg, aux, bidx[:hi - lo] * W + j, map_state(lambda x: x[lo:hi], parent_state),
+                (want & ~is_term)[lo:hi])
+            local_hits += hit.to(local_hits.dtype)
             kind = torch.where(is_term, FREE, torch.where(needs_exp, EXPAND, SIM))
             self._set_slot(
                 slots, j, want, kind=kind, sim_node=sim_node, act=act,
@@ -230,14 +311,16 @@ class BatchedAsyncEngine:
             )
             t_launch = t_launch + want.to(t_launch.dtype)
             t_done = t_done + (want & is_term).to(t_done.dtype)
-        return tree, slots, rngs, t_launch, t_done, aux, fr_hits
+        return tree, slots, rngs, t_launch, t_done, aux, fr_hits + share.gather(local_hits)
 
-    def _tick(self, slots: _BatchedAsyncSlots, rngs: torch.Tensor, aux):
+    def _tick(self, slots: _BatchedAsyncSlots, rngs: torch.Tensor, aux, share: SlotShare):
         """Advance every busy slot by one env step, as one flat ``[B·W]``
         batch through the evaluator.  ``constrain`` is applied to that batch
         and to the results (the reference's hook): under a mesh each rank
-        ticks its own slots.  The evaluator aux stays outside it, so only an
-        evaluator without slot aux (the rollouts') takes a split batch."""
+        ticks its own slots against its own share of the slot aux, which
+        never leaves the rank, and the results come back to every rank.
+        Outside a mesh the hook changes nothing and the whole batch ticks
+        against the whole aux."""
         from .. import rng
 
         B, W = self.B, self.W
@@ -249,16 +332,24 @@ class BatchedAsyncEngine:
         args = (flat(slots.kind), flat(slots.act), map_state(flat, slots.state),
                 flat(slots.rollout_done), flat(slots.acc), flat(slots.disc),
                 flat(slots.steps), keys)
+        ev = share.evaluator
         if self.constrain is None:
-            out, aux = self.evaluator.tick(self.cfg, *args, aux)
+            out, aux = ev.tick(self.cfg, *args, aux)
         else:
             from ..distributed.sharding import local_apply
 
-            if aux != ():
-                raise NotImplementedError("constrain splits the slots; an evaluator "
-                                          "with slot aux runs without it")
-            out = self.constrain(local_apply(
-                lambda *a: self.evaluator.tick(self.cfg, *a, aux)[0], self.constrain(args)))
+            rows = W * (share.hi - share.lo)
+            box = [aux]
+
+            def local_tick(*a):
+                if ev.slot_aux and a[0].shape[0] != rows:
+                    raise RuntimeError(f"{a[0].shape[0]} slots tick against slot aux of {rows} "
+                                       "rows: step a carry under the mesh it was made under")
+                o, box[0] = ev.tick(self.cfg, *a, box[0])
+                return o
+
+            out = self.constrain(local_apply(local_tick, self.constrain(args)))
+            aux = box[0]
 
         def unflat(x):
             return x.reshape((B, W) + tuple(x.shape[1:]))
@@ -312,16 +403,16 @@ class BatchedAsyncEngine:
         tree's slots are never fed again.
         """
         alive = self.alive(carry)
-        tree, slots, rngs0, t_launch, t_done, ticks0, max_o0, aux, fr_hits = carry
+        tree, slots, rngs0, t_launch, t_done, ticks0, max_o0, aux, fr_hits, share = carry
         kind0 = slots.kind
         slots = slots._replace(kind=torch.where(alive[:, None], kind0, FREE))
         rngs, k_tick = _split_each(rngs0, 2)
         # A finished tree refills nothing (``want`` is false), so its hit
         # count does not move.
         tree, slots, rngs, t_launch, t_done, aux, fr_hits = self._refill(
-            tree, slots, rngs, t_launch, t_done, aux, fr_hits)
+            tree, slots, rngs, t_launch, t_done, aux, fr_hits, share)
         max_o = torch.maximum(max_o0, tree.O[:, 0])
-        slots, r_edge, done_edge, aux = self._tick(slots, k_tick, aux)
+        slots, r_edge, done_edge, aux = self._tick(slots, k_tick, aux, share)
         tree, slots, t_done = self._settle_finished(tree, slots, t_done, r_edge, done_edge)
         return (
             tree,
@@ -333,6 +424,7 @@ class BatchedAsyncEngine:
             torch.where(alive, max_o, max_o0),
             aux,
             fr_hits,
+            share,
         )
 
     def init_carry(self, root_states: State, rngs: torch.Tensor,
@@ -345,6 +437,11 @@ class BatchedAsyncEngine:
         so :meth:`step` freezes them until :meth:`admit` splices a request
         in.  A caller with idle paged rows evicts them (:meth:`evict`), so their
         placeholder prefill pages return to the pool.
+
+        Where ``constrain`` splits the slots over the data ranks and the
+        evaluator carries slot aux, the aux is this rank's share: each rank
+        prefills its own trees only.  The carry's last element says which
+        (:class:`SlotShare`), and the carry is stepped under the same mesh.
         """
         B = self.B
         dev = rngs.device
@@ -355,14 +452,23 @@ class BatchedAsyncEngine:
         start = zeros(torch.int64)
         if active is not None:
             start = torch.where(torch.as_tensor(active, device=dev), 0, self.T).to(torch.int64)
+        share = self._split(dev)
+        aux = share.evaluator.init_aux(map_state(lambda x: x[share.lo:share.hi], root_states),
+                                       (share.hi - share.lo, self.W))
         return (
             init_batched_tree(root_states, self.capacity, self.env.num_actions),
             self._slot_rows0(root_states, B), rngs.clone(),
             start, start.clone(), zeros(torch.int64),
-            zeros(torch.float32),
-            self.evaluator.init_aux(root_states, (B, self.W)),
-            zeros(torch.int64),
+            zeros(torch.float32), aux, zeros(torch.int64), share,
         )
+
+    def check_exhausted(self, carry: Carry) -> None:
+        """Raise :class:`~repro_torch.models.PagePoolExhaustedError` if a
+        paged evaluator's pool ran out since :meth:`init_carry` (one host
+        read).  A split pool's count is summed over the data ranks first,
+        so every rank raises together: read a carry's pool through this,
+        never through the evaluator handed to the engine."""
+        carry[9].evaluator.check_exhausted(carry[7])
 
     # ------------------------------------------------------------------
     # Request lifecycle (the serving layer's surface)
@@ -371,7 +477,7 @@ class BatchedAsyncEngine:
                     rngs: torch.Tensor) -> None:
         """Fresh trees, slot pools, RNG lanes and zero counters for tree
         rows ``rows``, in place; the evaluator aux is the caller's."""
-        tree, slots, rng_, t_launch, t_done, ticks, max_o, _, fr_hits = carry
+        tree, slots, rng_, t_launch, t_done, ticks, max_o, _, fr_hits, _ = carry
 
         def put(buf, new):
             if isinstance(buf, tuple):
@@ -398,6 +504,7 @@ class BatchedAsyncEngine:
         evaluator slot caches re-seeded (``Evaluator.admit_aux``); other
         rows' searches go on untouched.  Writes the carry in place.
         """
+        self._whole(carry)
         rows = torch.as_tensor(rows, device=carry[4].device).to(torch.int64)
         self._reset_rows(carry, rows, root_states, rngs)
         aux = self.evaluator.admit_aux(self.cfg, carry[7], rows, root_states, self.W)
@@ -408,6 +515,7 @@ class BatchedAsyncEngine:
         paged evaluators return the rows' pages to the pool; the others
         hold nothing to release.  Tree, slots and keys stay, so
         :meth:`result` stays readable until the row is re-admitted."""
+        self._whole(carry)
         rows = torch.as_tensor(rows, device=carry[4].device).to(torch.int64)
         aux = self.evaluator.evict_aux(carry[7], rows, self.W)
         return carry[:7] + (aux,) + carry[8:]
@@ -453,6 +561,7 @@ class BatchedAsyncEngine:
         threaded through.  The caller guarantees ``count + R <= capacity``.
         Writes the ring's buffers in place.
         """
+        self._whole(carry)
         dev = ring.req_id.device
         cap = ring.req_id.shape[0]
         req_ids = torch.as_tensor(req_ids, device=dev).to(torch.int64)
@@ -532,6 +641,7 @@ class BatchedAsyncEngine:
         ends early once every row is idle and the ring is empty.  Returns
         ``(carry, ring, row_req, completions, ticks_run, busy_tree_ticks)``.
         """
+        self._whole(carry)
         dev = row_req.device
         proto = self.result(carry)
 
@@ -599,15 +709,20 @@ class BatchedAsyncEngine:
         if trace_ticks > 0:
             from .async_search import stack_ticks, tick_snapshot
 
-            ev = self.evaluator
+            share = carry[9]
+            ev = share.evaluator
             snaps = []
             for _ in range(trace_ticks):
                 alive = self.alive(carry)
                 carry = self.step(carry)
+                # Every rank's rows and blocks, as the unsplit trace has them.
                 cache_len = ev.aux_len(carry[7])
                 if cache_len is not None:
-                    cache_len = cache_len.reshape(self.B, self.W)
-                snaps.append(tick_snapshot(carry, alive, cache_len, ev.aux_blocks(carry[7]),
+                    cache_len = share.gather(cache_len).reshape(self.B, self.W)
+                blocks = ev.aux_blocks(carry[7])
+                if blocks is not None:
+                    blocks = share.reduce_sum(blocks.reshape(1)).reshape(())
+                snaps.append(tick_snapshot(carry, alive, cache_len, blocks,
                                            frontier_hits=carry[8]))
             return self.result(carry), stack_ticks(snaps)
         while host_any(self.alive(carry)):

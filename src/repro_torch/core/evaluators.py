@@ -33,6 +33,7 @@ and ``evict_aux_to_ring`` do the same for its fused request ring.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Any, Callable, Optional
 
@@ -108,9 +109,24 @@ class Evaluator:
       ``evict_aux_to_ring(aux, rows, w)`` releases settled rows there and
       never raises (a paged pool latches ``oom``).  Evaluators without
       per-request resources stage nothing.
+
+    ``slot_aux`` says whether the evaluator carries slot aux at all.  When
+    the batched async engine's ``constrain`` hook splits the ``B`` trees
+    over the data ranks, each rank's aux holds its own trees' rows only,
+    and :meth:`for_shard` gives the evaluator of that share.
     """
 
     env: Optional[Environment] = None
+    slot_aux = False
+
+    def for_shard(self, parts: int, reduce_sum: Callable) -> "Evaluator":
+        """The evaluator of one data rank's share of the slot aux, the
+        ``B`` trees split over ``parts`` ranks; ``reduce_sum(x)`` sums a
+        one-element tensor over those ranks.  Every hook then takes the
+        rank's rows only, with local row ids.  Dense per-slot state needs
+        nothing more, so the default is this evaluator."""
+        del parts, reduce_sum
+        return self
 
     def init_aux(self, root_states: State, prefix: tuple):
         del root_states, prefix
@@ -148,6 +164,10 @@ class Evaluator:
     def aux_blocks(self, aux) -> Optional[torch.Tensor]:
         del aux
         return None
+
+    def check_exhausted(self, aux) -> None:
+        """Nothing to exhaust: only a paged pool runs out."""
+        del aux
 
     def aux_len(self, aux) -> Optional[torch.Tensor]:
         del aux
@@ -290,6 +310,8 @@ class ModelEvaluator(Evaluator):
     the slot's key, in the model's dtype, as the reference draws it (a
     bfloat16 model draws bfloat16 Gumbel noise).
     """
+
+    slot_aux = True
 
     def __init__(
         self,
@@ -762,7 +784,15 @@ class PagedCachedModelEvaluator(CachedModelEvaluator):
     **In place:** as the dense evaluator, the hooks update the aux they
     are given; the pools are written in place (the reference's
     ``.at[].set`` with drop mode becomes :func:`put_where_`).
+
+    **Split over data ranks** (:meth:`for_shard`): each rank's pool holds
+    ``num_blocks // parts`` blocks for its own trees, its tables hold local
+    block ids, and its ``oom`` is summed over the ranks before it is read,
+    so every rank raises together.  Pages are shared only within a tree,
+    and a tree never spans ranks, so copy-on-write stays rank-local.
     """
+
+    _reduce_sum: Optional[Callable] = None
 
     def __init__(
         self,
@@ -787,20 +817,49 @@ class PagedCachedModelEvaluator(CachedModelEvaluator):
         self.block_size = block_size
         self.num_blocks = num_blocks
 
+    def for_shard(self, parts: int, reduce_sum: Callable) -> "PagedCachedModelEvaluator":
+        """This evaluator over one data rank's pool of ``num_blocks //
+        parts`` blocks; ``ValueError`` when ``parts`` does not divide
+        ``num_blocks``."""
+        if self.num_blocks % parts:
+            raise ValueError(f"num_blocks={self.num_blocks} does not split over {parts} "
+                             "data ranks: each rank's pool holds num_blocks // ranks blocks")
+        ev = copy.copy(self)
+        ev.num_blocks = self.num_blocks // parts
+        ev._reduce_sum = reduce_sum
+        return ev
+
     def _maybe_raise(self, oom: torch.Tensor) -> None:
-        """Raise a latched pool-exhaustion count (one host sync)."""
+        """Raise a latched pool-exhaustion count (one host sync), summed
+        over the data ranks first when the pool is split."""
         from ..models import PagePoolExhaustedError
 
+        where = ""
+        if self._reduce_sum is not None:
+            oom = self._reduce_sum(oom.reshape(1))[0]
+            where = " in a data rank's share"
         if host_any(oom > 0):
             raise PagePoolExhaustedError(
-                f"KV block pool exhausted: {int(oom)} page allocation(s) failed "
+                f"KV block pool exhausted{where}: {int(oom)} page allocation(s) failed "
                 f"(num_blocks={self.num_blocks}, block_size={self.block_size}); grow "
                 "num_blocks or reduce concurrent slots"
             )
 
     def check_exhausted(self, aux) -> None:
         """Raise :class:`~repro_torch.models.PagePoolExhaustedError` if any
-        allocation failed since ``init_aux`` (call after a search)."""
+        allocation failed since ``init_aux`` (call after a search).
+
+        A pool split over data ranks is read through the evaluator of its
+        share (:meth:`BatchedAsyncEngine.check_exhausted
+        <repro_torch.core.batched_async_search.BatchedAsyncEngine.check_exhausted>`),
+        which sums the count over the ranks: this evaluator, handed one
+        rank's share, raises ``ValueError`` on every rank instead of
+        reading that rank's count alone."""
+        if aux["refcount"].shape[0] != self.num_blocks:
+            raise ValueError(
+                f"a pool of {aux['refcount'].shape[0]} blocks is one data rank's share of "
+                f"num_blocks={self.num_blocks}: read it through "
+                "BatchedAsyncEngine.check_exhausted(carry)")
         self._maybe_raise(aux["oom"])
 
     # -- aux structure helpers ---------------------------------------------

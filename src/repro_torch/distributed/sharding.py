@@ -103,9 +103,15 @@ def axis_names(mesh) -> tuple[str, ...]:
     return tuple(mesh.mesh_dim_names) if _is_device_mesh(mesh) else tuple(mesh.axis_names)
 
 
+def _device_mesh_sizes(mesh) -> list[int]:
+    """A ``DeviceMesh``'s dim sizes (``size(i)``: its ``mesh`` tensor is
+    rebuilt at every read)."""
+    return [mesh.size(i) for i in range(mesh.ndim)]
+
+
 def _mesh_axis_sizes(mesh) -> dict[str, int]:
     if _is_device_mesh(mesh):
-        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        return dict(zip(mesh.mesh_dim_names, _device_mesh_sizes(mesh)))
     return dict(mesh.shape)
 
 
@@ -206,7 +212,7 @@ def local_slice(x: torch.Tensor, placements, mesh) -> torch.Tensor:
     from torch.distributed.tensor import Shard
 
     coord = mesh.get_coordinate()
-    sizes = mesh.mesh.shape
+    sizes = _device_mesh_sizes(mesh)
     parts = {}
     for i, pl in enumerate(placements):
         if isinstance(pl, Shard):
@@ -289,11 +295,21 @@ def constrain_search_batch(pytree: Pytree) -> Pytree:
     return tree_map(one, pytree)
 
 
+def gather_blocks(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """The whole tensor of every rank's block ``x`` under ``placements``,
+    on every rank (bool through uint8, which every backend gathers, cast
+    on the block, outside DTensor's dispatch)."""
+    from torch.distributed.tensor import DTensor
+
+    y = x.to(torch.uint8) if x.dtype == torch.bool else x
+    whole = DTensor.from_local(y, mesh, tuple(placements), run_check=False).full_tensor()
+    return whole.to(torch.bool) if x.dtype == torch.bool else whole
+
+
 def _gather(x):
-    """The whole tensor of a DTensor, on every rank (bool through uint8,
-    which every backend gathers)."""
+    """The whole tensor of a DTensor, on every rank."""
     if x.dtype == torch.bool:
-        return x.to(torch.uint8).full_tensor().to(torch.bool)
+        return gather_blocks(x.to_local(), x.device_mesh, x.placements)
     return x.full_tensor()
 
 

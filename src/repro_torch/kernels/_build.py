@@ -57,6 +57,9 @@ def nvcc_flags(name: str) -> tuple[str, ...]:
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}
+# Libraries opened with ctypes so far (what a warm process should not repeat;
+# ``repro_torch.analysis.retrace_guard`` reads it).
+LOADS: dict[str, int] = {"cdll": 0}
 
 
 def _nvcc() -> str:
@@ -130,9 +133,11 @@ def build(names: Sequence[str]) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of library ``name``, built first if needed."""
+    """The ctypes handle of library ``name``, built first if needed.  Each
+    real open (not a cached handle) counts in :data:`LOADS`."""
     lib = _LOADED.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LOADED[name] = lib
+        LOADS["cdll"] += 1
     return lib

@@ -498,7 +498,7 @@ class SearchService:
             count_after, oom = (int(x) for x in host_read(
                 torch.stack([self._ring.count, oom.to(self._ring.count.dtype)])))
             if oom:
-                self.evaluator.check_exhausted(self._carry[7])
+                self._engine.check_exhausted(self._carry)
             n = comp.count
             rows = SearchResult(
                 action=comp.action[:n].cpu(), root_n=comp.root_n[:n].cpu(),

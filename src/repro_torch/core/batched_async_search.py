@@ -58,6 +58,22 @@ tick fetches the loop condition and the round's gate together (the rows
 settled, the rows holding a request, the ring's count), so it pays no
 sync per tick beyond ``run_segment``'s.  Harvest and admission then touch
 only the rows concerned, by index.
+
+Both surfaces run on a split carry.  Every rank is handed every request:
+it resets every admitted row (the tree statistics are replicated), and
+prefills, splices and releases the caches or pool pages of its own rows
+only, through the share's evaluator, so that each request is prefilled,
+and its pages allocated, on the rank that serves it.  A ring made for a
+split carry (:meth:`BatchedAsyncEngine.init_ring`) is split like the
+pool: one share of ``capacity // ranks`` slots a rank, its staged caches
+or pages on that rank, the requests' ids, roots, keys and each share's
+head and count on every rank.  :meth:`~BatchedAsyncEngine.stage` routes
+each request to the share with the fewest staged requests (the lowest
+first), and a share's requests are admitted into its own rank's rows.  A
+request's result is the one a whole engine gives; the row and tick that
+admit it may differ.  The lifecycle moves no cache byte between ranks:
+a placed paged ``admit`` sums the pool's exhaustion count, and the fused
+round adds no collective to the tick's.
 """
 
 from __future__ import annotations
@@ -115,6 +131,16 @@ class SlotShare(NamedTuple):
     placements: tuple
     evaluator: Evaluator
 
+    @property
+    def index(self) -> int:
+        """This rank's place among the ``parts`` shares (0 when whole)."""
+        return self.lo // (self.hi - self.lo)
+
+    def own(self, rows: np.ndarray) -> np.ndarray:
+        """Positions in ``rows`` (tree rows, on the host) of the rows this
+        share holds."""
+        return np.flatnonzero((rows >= self.lo) & (rows < self.hi))
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The whole ``[B·…]`` tensor of every rank's rows ``x``, on every
         rank (one all-gather over the data ranks; ``x`` itself when the
@@ -136,13 +162,20 @@ class RequestRing(NamedTuple):
     drains into rows as they settle.  ``aux`` holds the evaluator's staged
     resources (dense: prefilled KV rows and root logits; paged: a page
     table whose pool pages are written and held at refcount 1 by the ring).
+
+    A ring made for a carry whose slot aux is split over ``parts`` data
+    ranks (:meth:`BatchedAsyncEngine.init_ring`) is ``parts`` rings of
+    ``C // parts`` slots, share ``k`` at slots ``k·C/parts ..``, each
+    draining into the rows of the rank that holds trees share ``k``:
+    ``head`` and ``count`` are then ``i64[parts]``, one per share, and
+    ``aux`` holds only this rank's share.  The rest is on every rank.
     """
 
     req_id: torch.Tensor   # i64[C]  caller-assigned id, -1 = empty slot
     states: State          # [C, ...] root states
     rng: torch.Tensor      # [C, 2]  key data per request
-    head: torch.Tensor     # i64[]   index of the oldest staged request
-    count: torch.Tensor    # i64[]   staged requests not yet admitted
+    head: torch.Tensor     # i64[] (i64[parts] split)  oldest staged request
+    count: torch.Tensor    # i64[] (i64[parts] split)  staged, not yet admitted
     aux: Any               # evaluator staging (Evaluator.init_ring_aux)
 
 
@@ -216,15 +249,6 @@ class BatchedAsyncEngine:
                              "with slot aux needs the data ranks to divide B")
         share = SlotShare(lo, lo + n, B // n, probe.device_mesh, tuple(probe.placements), None)
         return share._replace(evaluator=self.evaluator.for_shard(share.parts, share.reduce_sum))
-
-    @staticmethod
-    def _whole(carry: Carry) -> None:
-        """Raise for the surfaces a split aux does not run."""
-        if carry[9].parts > 1:
-            raise NotImplementedError(
-                "the request lifecycle is not ported for a carry whose slot aux is split "
-                "over data ranks (ROADMAP.md, section 1, item 1(f): admit, evict and the "
-                "request ring under constrain)")
 
     # ------------------------------------------------------------------
     # Slot pool
@@ -495,6 +519,19 @@ class BatchedAsyncEngine:
         for counter in (t_launch, t_done, ticks, max_o, fr_hits):
             counter[rows] = 0
 
+    def _local_rows(self, share: SlotShare, rows: torch.Tensor):
+        """``(positions, local ids)`` of the tree rows ``rows`` that this
+        rank's share holds: ``(None, rows)`` when the aux is whole, and
+        ``None`` for the positions' tensor when the share holds none of them
+        (one host read of ``rows`` when split)."""
+        if share.parts == 1:
+            return None, rows
+        pos = share.own(host_read(rows))
+        if not pos.size:
+            return None, None
+        pos = torch.from_numpy(pos).to(rows.device)
+        return pos, rows[pos] - share.lo
+
     def admit(self, carry: Carry, rows, root_states: State, rngs: torch.Tensor) -> Carry:
         """Splice fresh requests into settled rows, between ticks.
 
@@ -503,21 +540,41 @@ class BatchedAsyncEngine:
         trees, slot pools, RNG lanes and counters are reset and their
         evaluator slot caches re-seeded (``Evaluator.admit_aux``); other
         rows' searches go on untouched.  Writes the carry in place.
+
+        On a split carry every rank is given every row, its root state and
+        key: each resets them all (the tree statistics are replicated), and
+        re-seeds the caches of its own rows only, so that each request is
+        prefilled on the rank that serves it and a rank that holds none of
+        the rows prefills nothing.  A placed pool's exhaustion is then read
+        on every rank (:meth:`check_exhausted`), so that every rank raises
+        together.
         """
-        self._whole(carry)
         rows = torch.as_tensor(rows, device=carry[4].device).to(torch.int64)
         self._reset_rows(carry, rows, root_states, rngs)
-        aux = self.evaluator.admit_aux(self.cfg, carry[7], rows, root_states, self.W)
-        return carry[:7] + (aux,) + carry[8:]
+        share = carry[9]
+        pos, local = self._local_rows(share, rows)
+        aux = carry[7]
+        if local is not None:
+            if pos is not None:
+                root_states = map_state(lambda x: x[pos], root_states)
+            aux = share.evaluator.admit_aux(self.cfg, aux, local, root_states, self.W)
+        carry = carry[:7] + (aux,) + carry[8:]
+        if share.mesh is not None:
+            self.check_exhausted(carry)
+        return carry
 
     def evict(self, carry: Carry, rows) -> Carry:
         """Release settled rows' evaluator-side resources without admitting:
         paged evaluators return the rows' pages to the pool; the others
         hold nothing to release.  Tree, slots and keys stay, so
-        :meth:`result` stays readable until the row is re-admitted."""
-        self._whole(carry)
+        :meth:`result` stays readable until the row is re-admitted.  On a
+        split carry each rank releases what its own rows hold."""
         rows = torch.as_tensor(rows, device=carry[4].device).to(torch.int64)
-        aux = self.evaluator.evict_aux(carry[7], rows, self.W)
+        share = carry[9]
+        _, local = self._local_rows(share, rows)
+        if local is None:
+            return carry
+        aux = share.evaluator.evict_aux(carry[7], local, self.W)
         return carry[:7] + (aux,) + carry[8:]
 
     def run_segment(self, carry: Carry, num_ticks: int):
@@ -534,22 +591,48 @@ class BatchedAsyncEngine:
     # ------------------------------------------------------------------
     # The request ring (the fused serving round)
     # ------------------------------------------------------------------
-    def init_ring(self, proto_root_states: State, capacity: int) -> RequestRing:
-        """An empty :class:`RequestRing` of ``capacity`` requests;
-        ``proto_root_states`` (leaves leading with any batch axis) gives
-        the root states' shapes, types and device."""
+    def init_ring(self, proto: State | Carry, capacity: int) -> RequestRing:
+        """An empty :class:`RequestRing` of ``capacity`` requests for the
+        carry ``proto``, whose root states give the shapes, types and
+        device, and whose :class:`SlotShare` the split; or, for a whole
+        ring, root states (leaves leading with any batch axis).
+
+        Made for a carry whose slot aux is split over ``parts`` data ranks,
+        the ring is split like it: each rank stages into a share of
+        ``capacity // parts`` slots (``ValueError`` when ``parts`` does not
+        divide ``capacity``), whose requests its own rows take.
+        """
         cap = int(capacity)
         if cap < 1:
             raise ValueError(f"ring capacity must be >= 1, got {capacity}")
-        dev = proto_root_states[0].device
+        share = SlotShare(0, self.B, 1, None, (), self.evaluator)
+        if isinstance(proto, tuple) and proto and isinstance(proto[-1], SlotShare):
+            share = proto[9]
+            proto = map_state(lambda x: x[:, 0], proto[1].state)
+        if cap % share.parts:
+            raise ValueError(f"ring capacity={cap} does not split over {share.parts} data "
+                             "ranks: each rank's ring share holds capacity // ranks requests")
+        dev = proto[0].device
         states = map_state(lambda x: torch.zeros((cap,) + tuple(x.shape[1:]), dtype=x.dtype,
-                                                 device=dev), proto_root_states)
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
+                                                 device=dev), proto)
+        zero = torch.zeros(() if share.parts == 1 else (share.parts,), dtype=torch.int64,
+                           device=dev)
         return RequestRing(
             req_id=torch.full((cap,), -1, dtype=torch.int64, device=dev), states=states,
             rng=torch.zeros((cap, 2), dtype=torch.int64, device=dev), head=zero,
             count=zero.clone(),
-            aux=self.evaluator.init_ring_aux(self.cfg, proto_root_states, cap))
+            aux=share.evaluator.init_ring_aux(self.cfg, proto, cap // share.parts))
+
+    @staticmethod
+    def _ring_share(carry: Carry, ring: RequestRing) -> SlotShare:
+        """The carry's share, which must split ``ring`` as it splits the
+        slots."""
+        share = carry[9]
+        if ring.count.numel() != share.parts:
+            raise ValueError(f"a ring of {ring.count.numel()} share(s) serves a carry split "
+                             f"over {share.parts} data rank(s): make the ring with "
+                             "init_ring(carry, capacity)")
+        return share
 
     def stage(self, carry: Carry, ring: RequestRing, root_states: State, rngs: torch.Tensor,
               req_ids) -> tuple[Carry, RequestRing]:
@@ -560,51 +643,71 @@ class BatchedAsyncEngine:
         now, from the live carry's refcounts, which is why the carry is
         threaded through.  The caller guarantees ``count + R <= capacity``.
         Writes the ring's buffers in place.
+
+        A split ring is given every request on every rank.  Request by
+        request, each goes to the share that holds the fewest staged
+        requests, the lowest share first among equals: every rank computes
+        this alike from the replicated counts (one host read), and a share
+        with room always exists while the whole ring has room.  Each rank
+        then prefills its own share's requests only, and a paged one
+        allocates their pages from its own pool; exhaustion latches there
+        (read it through :meth:`check_exhausted`).
         """
-        self._whole(carry)
+        share = self._ring_share(carry, ring)
         dev = ring.req_id.device
         cap = ring.req_id.shape[0]
         req_ids = torch.as_tensor(req_ids, device=dev).to(torch.int64)
         r = req_ids.shape[0]
-        slots = (ring.head + ring.count + torch.arange(r, device=dev)) % cap
+        if share.parts == 1:
+            slots = (ring.head + ring.count + torch.arange(r, device=dev)) % cap
+            local, count, mine = slots, ring.count + r, None
+        else:
+            c = cap // share.parts
+            head, counts = host_read(torch.stack([ring.head, ring.count])).copy()
+            to = np.empty(r, dtype=np.int64)
+            at = np.empty(r, dtype=np.int64)
+            for i in range(r):
+                k = int(np.argmin(counts))
+                to[i], at[i] = k, (head[k] + counts[k]) % c
+                counts[k] += 1
+            slots = torch.from_numpy(to * c + at).to(dev)
+            mine = torch.from_numpy(np.flatnonzero(to == share.index)).to(dev)
+            local = torch.from_numpy(at).to(dev)[mine]
+            count = torch.from_numpy(counts).to(dev)
         for buf, x in zip(ring.states, root_states):
             buf[slots] = x.to(buf.dtype)
-        aux, ring_aux = self.evaluator.stage_ring_aux(self.cfg, carry[7], ring.aux, slots,
-                                                      root_states)
+        aux, ring_aux = carry[7], ring.aux
+        if mine is None or mine.numel():
+            aux, ring_aux = share.evaluator.stage_ring_aux(
+                self.cfg, aux, ring_aux, local,
+                root_states if mine is None else map_state(lambda x: x[mine], root_states))
         ring.req_id[slots] = req_ids
         ring.rng[slots] = rngs.to(device=dev, dtype=ring.rng.dtype)
-        return carry[:7] + (aux,) + carry[8:], ring._replace(count=ring.count + r,
-                                                             aux=ring_aux)
-
-    def _admit_from_ring(self, carry: Carry, ring: RequestRing, row_req: torch.Tensor,
-                         rows: torch.Tensor, slot: torch.Tensor):
-        """Re-seed tree rows ``rows`` from ring slots ``slot`` (the in-loop
-        counterpart of :meth:`admit`: the staged caches are spliced by
-        ``admit_aux_from_ring``, no prefill)."""
-        roots = map_state(lambda x: x[slot], ring.states)
-        self._reset_rows(carry, rows, roots, ring.rng[slot])
-        aux, ring_aux = self.evaluator.admit_aux_from_ring(self.cfg, carry[7], ring.aux, slot,
-                                                           rows, self.W)
-        row_req[rows] = ring.req_id[slot]
-        return carry[:7] + (aux,) + carry[8:], ring._replace(aux=ring_aux), row_req
+        return carry[:7] + (aux,) + carry[8:], ring._replace(count=count, aux=ring_aux)
 
     def _gate(self, carry: Carry, ring: RequestRing, row_req: torch.Tensor):
-        """One host sync: ``(settled bool[B], occupied bool[B], ring
-        count)``, the loop condition and the round's gate together."""
+        """One host sync: ``(settled bool[B], occupied bool[B], staged
+        i64[parts])``, the loop condition and the round's gate together
+        (``staged`` counts each ring share's requests)."""
         g = host_read(torch.cat([self.settled(carry).to(torch.int64),
-                                 (row_req >= 0).to(torch.int64), ring.count.reshape(1)]))
-        return g[:self.B] > 0, g[self.B:2 * self.B] > 0, int(g[-1])
+                                 (row_req >= 0).to(torch.int64), ring.count.reshape(-1)]))
+        return g[:self.B] > 0, g[self.B:2 * self.B] > 0, g[2 * self.B:]
 
     def _serve_round(self, carry: Carry, ring: RequestRing, row_req: torch.Tensor,
-                     comp: Completions, settled, occupied, count: int):
+                     comp: Completions, settled, occupied, staged):
         """One harvest + admission round, decided on the host from the
         gate: settled rows holding a request append their result snapshot
         to ``comp`` (in row order) and release their evaluator resources
-        (``evict_aux_to_ring``); then as many settled rows as the ring holds
-        requests, in row order, are re-seeded from the ring head.  Only the
-        rows concerned are touched.  Returns ``(carry, ring, row_req, comp,
-        admitted)``."""
+        (``evict_aux_to_ring``); then, share by share, as many of the
+        share's settled rows as its ring share holds requests, in row order,
+        are re-seeded from that share's head (the staged caches spliced by
+        ``admit_aux_from_ring``, no prefill).  On a split carry every rank
+        harvests and resets every row, and releases and splices its own
+        rows only.  Only the rows concerned are touched.  Returns ``(carry,
+        ring, row_req, comp, admitted)``."""
         dev = row_req.device
+        share = carry[9]
+        ev = share.evaluator
         done = np.flatnonzero(settled & occupied)
         if done.size:
             rows = torch.from_numpy(done).to(dev)
@@ -615,18 +718,38 @@ class BatchedAsyncEngine:
                 buf = getattr(comp, name)
                 buf[dst] = getattr(res, name)[rows].to(buf.dtype)
             comp = comp._replace(count=comp.count + done.size)
-            aux = self.evaluator.evict_aux_to_ring(carry[7], rows, self.W)
-            carry = carry[:7] + (aux,) + carry[8:]
+            own = done[share.own(done)] - share.lo
+            if own.size:
+                aux = ev.evict_aux_to_ring(carry[7], torch.from_numpy(own).to(dev), self.W)
+                carry = carry[:7] + (aux,) + carry[8:]
             row_req[rows] = -1
-        admit = np.flatnonzero(settled)[:count]
-        if admit.size:
-            cap = ring.req_id.shape[0]
-            slot = (ring.head + torch.arange(admit.size, device=dev)) % cap
-            carry, ring, row_req = self._admit_from_ring(
-                carry, ring, row_req, torch.from_numpy(admit).to(dev), slot)
-            ring = ring._replace(head=(ring.head + admit.size) % cap,
-                                 count=ring.count - admit.size)
-        return carry, ring, row_req, comp, int(admit.size)
+        parts = share.parts
+        n, c = self.B // parts, ring.req_id.shape[0] // parts
+        head = ring.head.reshape(-1)
+        taken = np.zeros(parts, dtype=np.int64)
+        rows, slots = [], []
+        for k in range(parts):
+            admit = np.flatnonzero(settled[k * n:(k + 1) * n])[:staged[k]]
+            if not admit.size:
+                continue
+            taken[k] = admit.size
+            at = (head[k] + torch.arange(admit.size, device=dev)) % c
+            rows.append(torch.from_numpy(admit + k * n).to(dev))
+            slots.append(k * c + at)
+            if k == share.index:
+                own_rows, own_slots = rows[-1] - share.lo, at
+        if rows:
+            rows, slots = torch.cat(rows), torch.cat(slots)
+            self._reset_rows(carry, rows, map_state(lambda x: x[slots], ring.states),
+                             ring.rng[slots])
+            if taken[share.index]:
+                aux, ring_aux = ev.admit_aux_from_ring(self.cfg, carry[7], ring.aux, own_slots,
+                                                       own_rows, self.W)
+                carry, ring = carry[:7] + (aux,) + carry[8:], ring._replace(aux=ring_aux)
+            row_req[rows] = ring.req_id[slots]
+            adm = int(taken[0]) if parts == 1 else torch.from_numpy(taken).to(dev)
+            ring = ring._replace(head=(ring.head + adm) % c, count=ring.count - adm)
+        return carry, ring, row_req, comp, int(taken.sum())
 
     def serve_segment(self, carry: Carry, ring: RequestRing, row_req: torch.Tensor,
                       num_ticks: int):
@@ -636,14 +759,17 @@ class BatchedAsyncEngine:
         ``row_req`` (``i64[B]``) is the request id each row serves (``-1``:
         idle), updated in place.  Each tick first runs a harvest/admission
         round when a settled row holds a request or a settled row can take
-        a staged one, then one frozen-masked master tick; a last round after
-        the loop harvests the rows that settled on the last tick.  The loop
-        ends early once every row is idle and the ring is empty.  Returns
-        ``(carry, ring, row_req, completions, ticks_run, busy_tree_ticks)``.
+        a staged one of its share, then one frozen-masked master tick; a
+        last round after the loop harvests the rows that settled on the last
+        tick.  The loop ends early once every row is idle and every ring
+        share is empty.  Returns ``(carry, ring, row_req, completions,
+        ticks_run, busy_tree_ticks)``; a split carry's completions, like its
+        tree statistics, are on every rank.
         """
-        self._whole(carry)
+        share = self._ring_share(carry, ring)
         dev = row_req.device
         proto = self.result(carry)
+        n = self.B // share.parts
 
         def buf(x):
             return torch.zeros((self.B + ring.req_id.shape[0],) + tuple(x.shape[1:]),
@@ -657,14 +783,15 @@ class BatchedAsyncEngine:
             overflowed=buf(proto.overflowed), ticks=buf(proto.ticks), count=0)
 
         def round_(carry, ring, row_req, comp, gate):
-            settled, occupied, count = gate
-            if (settled & occupied).any() or (count > 0 and settled.any()):
-                return self._serve_round(carry, ring, row_req, comp, settled, occupied, count)
+            settled, occupied, staged = gate
+            if (settled & occupied).any() or (
+                    (staged > 0) & settled.reshape(share.parts, n).any(axis=1)).any():
+                return self._serve_round(carry, ring, row_req, comp, settled, occupied, staged)
             return carry, ring, row_req, comp, 0
 
         t = busy = 0
         gate = self._gate(carry, ring, row_req)
-        while t < num_ticks and (not gate[0].all() or gate[2] > 0):
+        while t < num_ticks and (not gate[0].all() or gate[2].any()):
             carry, ring, row_req, comp, admitted = round_(carry, ring, row_req, comp, gate)
             busy += int((~gate[0]).sum()) + admitted
             carry = self.step(carry)

@@ -113,7 +113,10 @@ class Evaluator:
     ``slot_aux`` says whether the evaluator carries slot aux at all.  When
     the batched async engine's ``constrain`` hook splits the ``B`` trees
     over the data ranks, each rank's aux holds its own trees' rows only,
-    and :meth:`for_shard` gives the evaluator of that share.
+    and :meth:`for_shard` gives the evaluator of that share.  The engine
+    hands every hook of a split carry that share's evaluator, the rank's
+    own rows as local ids (``rows - lo``) and their root states only, and
+    the ring hooks the rank's ring share: the hooks stay as they are.
     """
 
     env: Optional[Environment] = None
@@ -1130,7 +1133,10 @@ class PagedCachedModelEvaluator(CachedModelEvaluator):
         (:func:`repro_torch.serving.admission.splice_pool_pages`), and the
         ``w`` sibling slots' tables point at the same pages with refcount
         ``w``, the layout ``init_aux`` builds.  Exhaustion raises
-        :class:`~repro_torch.models.PagePoolExhaustedError`.
+        :class:`~repro_torch.models.PagePoolExhaustedError`; a data rank's
+        share only latches it, since the other ranks admit no rows of it:
+        the engine then reads it on every rank
+        (``BatchedAsyncEngine.check_exhausted``).
         """
         del cfg
         from ..models import release_pages
@@ -1159,7 +1165,8 @@ class PagedCachedModelEvaluator(CachedModelEvaluator):
             logits, cache = ragged_prefill(params, mcfg, tokens, lengths, mp * bs)
             splice_pool_pages(b["k"], b["v"], cache["kv"]["k"], cache["kv"]["v"], dst)
             b["logits"][flat] = logits.repeat_interleave(w, dim=0).to(b["logits"].dtype)
-        self._maybe_raise(aux["oom"])
+        if self._reduce_sum is None:
+            self._maybe_raise(aux["oom"])
         return aux
 
     def _alloc_prompt_pages(self, refcount, oom, lengths, mp: int):

@@ -33,8 +33,7 @@ from numpy key data:
 * ``num_blocks`` that 4 does not divide raises ``ValueError``; a pool that
   fits whole but not in one rank's share raises on every rank; a split
   pool is read through ``BatchedAsyncEngine.check_exhausted``, and the
-  evaluator handed to the engine refuses a share on every rank; ``admit``
-  on a split carry raises ``NotImplementedError``;
+  evaluator handed to the engine refuses a share on every rank;
 * the share rides in the carry: a split carry run after the same engine
   made and ran a whole one gives one process's result.
 """
@@ -259,7 +258,6 @@ def _world(inputs):
     from repro_torch.core import BatchedAsyncEngine
     from repro_torch.distributed.sharding import (abstract_mesh, constrain_search_batch,
                                                   use_mesh)
-    from repro_torch.envs.base import map_state
     from repro_torch.launch.mesh import device_mesh
     from repro_torch.models import PagePoolExhaustedError
 
@@ -300,11 +298,6 @@ def _world(inputs):
         split = engine.init_carry(roots, keys)
         share = split[9]
         out["share"] = np.array([share.lo, share.hi, share.parts])
-        try:
-            engine.admit(split, torch.tensor([0]), map_state(lambda x: x[:1], roots), keys[:1])
-            out["admit"] = np.array("")
-        except NotImplementedError as e:
-            out["admit"] = np.array(str(e))
     # The same engine makes and runs a whole carry outside the mesh, then
     # runs the split one on.
     whole, _, _ = engine.run_segment(engine.init_carry(roots, keys), 10 ** 9)
@@ -506,11 +499,6 @@ def test_a_pool_exhausted_in_one_share_raises_on_every_rank(world):
 def test_a_split_pool_is_read_through_the_engine(world):
     for res in world["ranks"]:
         assert "read it through BatchedAsyncEngine.check_exhausted" in str(res["own_read"])
-
-
-def test_admit_on_a_split_engine_raises(world):
-    for res in world["ranks"]:
-        assert "item 1(f)" in str(res["admit"])
 
 
 def test_the_share_rides_in_the_carry(world):

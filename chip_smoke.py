@@ -3960,33 +3960,45 @@ def bf16_ulp(torch, x):
 
 
 def split_merge_check(torch, q, k, v, lens):
-    """The kernel with ``return_lse`` on 2 and on 4 parts of S, merged by
-    ``merge_by_lse``, against the unsplit kernel: bf16 within one bf16 ulp
-    of the row's largest |out| (both round the same float32 sums, taken
-    in another order, once: near zero an element's own ulp is below that
-    float32 noise); float32 (the same cache upcast) within 2e-6 of the
-    row's largest attention over |V| (``out`` of random V over 32,767 keys
+    """Splits of S against the unsplit kernel (``parts = 1``): the kernel
+    with ``return_lse`` on 2 and on 4 slices of S, merged by
+    ``merge_by_lse``, and the wrapper, which splits S across blocks as its
+    plan says (``decode_parts``): bf16 within one bf16 ulp of the row's
+    largest |out| (both round the same float32 sums, taken in another
+    order, once: near zero an element's own ulp is below that float32
+    noise); float32 (the same cache upcast) within 2e-6 of the row's
+    largest attention over |V| (``out`` of random V over 32,767 keys
     cancels to ~1/40 of the summands' scale, on which float32 rounding
-    acts).  Returns the worst of each."""
-    from repro_torch.kernels.decode_attention import decode_attention
+    acts).  Returns the worst of each and the plan's parts."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_split
+    from repro_torch.kernels.decode_attention.ops import decode_parts, query_groups
     from repro_torch.models.layers import merge_by_lse
 
-    s = k.shape[1]
-    worst = {"bfloat16_ulps": 0.0, "float32_share": 0.0}
+    n, hq, _ = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    # (The plain version on the CPU does not split.)
+    plan = 1 if q.device.type != "cuda" else decode_parts(
+        n * hkv * query_groups(hq // hkv), s,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    worst = {"bfloat16_ulps": 0.0, "float32_share": 0.0, "plan_parts": plan}
     for dtype in (torch.bfloat16, torch.float32):
         qd, kd, vd = (x.to(dtype) for x in (q, k, v))
-        whole = decode_attention(qd, kd, vd, lens).float()
+        whole = decode_attention_split(qd, kd, vd, lens, 1).float()
         if dtype == torch.float32:
             scale = decode_attention(qd, kd, vd.abs(), lens).amax(dim=(1, 2))
+        splits = {}
         for parts in SPLIT_PARTS:
             step = s // parts
             outs, lses = zip(*(decode_attention(
                 qd, kd[:, i * step:(i + 1) * step].contiguous(),
                 vd[:, i * step:(i + 1) * step].contiguous(),
                 torch.clamp(lens - i * step, 0, step), return_lse=True) for i in range(parts)))
-            merged, _ = merge_by_lse(torch.stack(outs), torch.stack(lses))
+            splits[f"{parts} slices merged"] = merge_by_lse(torch.stack(outs),
+                                                           torch.stack(lses))[0].to(dtype)
+        splits[f"the plan's {plan} parts"] = decode_attention(qd, kd, vd, lens)
+        for what, merged in splits.items():
             if dtype == torch.bfloat16:
-                ulps = float(((merged.to(dtype).float() - whole).abs().amax(dim=(1, 2))
+                ulps = float(((merged.float() - whole).abs().amax(dim=(1, 2))
                               / bf16_ulp(torch, whole.abs().amax(dim=(1, 2)))).max())
                 worst["bfloat16_ulps"] = max(worst["bfloat16_ulps"], ulps)
                 ok = ulps <= 1.0
@@ -3995,39 +4007,48 @@ def split_merge_check(torch, q, k, v, lens):
                 worst["float32_share"] = max(worst["float32_share"], share)
                 ok = share <= 2e-6
             if not ok:
-                raise AssertionError(f"25(e): {parts} parts of S merged by merge_by_lse "
-                                     f"differ from the unsplit kernel ({dtype}): {worst}")
+                raise AssertionError(f"25(e): {what} differ from the unsplit kernel "
+                                     f"({dtype}): {worst}")
         del qd, kd, vd
     return worst
 
 
 def time_decode_cell(torch, device, q, k, v, lens):
-    """decode_attention at 25(e)'s shape: kernel (paced and by graph
-    replay), plain version, SDPA, and the bound: each valid K/V byte read
-    once, q read and out written once, at 3.35 TB/s."""
+    """decode_attention at 25(e)'s shape: the kernel as the plan splits it
+    (paced and by graph replay) and unsplit (``parts = 1``, graph
+    replay), plain version, SDPA (paced and by graph replay), and the
+    bound: each valid K/V byte read once, q read and out written once, at
+    3.35 TB/s."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref
+    from repro_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_ref,
+        decode_attention_split,
+    )
 
     n, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     k_ms = time_ms(torch, lambda: decode_attention(q, k, v, lens), 50)
     k_dev = device_ms(lambda: decode_attention(q, k, v, lens), calls=20)
+    one_dev = device_ms(lambda: decode_attention_split(q, k, v, lens, 1), calls=20)
     p_ms = time_ms(torch, lambda: decode_attention_ref(q, k, v, lens), 3)
     mask = (torch.arange(s, device=device)[None, :] < lens[:, None])[:, None, None, :]
     qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
     lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
     lib_ms = time_ms(torch, lib, 10)
+    lib_dev = device_ms(lib, calls=20)
     valid = int(lens.sum())
     nbytes = 2 * (2 * n * hq * d + 2 * valid * hkv * d) + 4 * n
     ops = 4 * d * hq * valid
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
     print(f"25(e) decode_attention bf16 N={n} S={s} {hq}/{hkv} D={d} (kv_len {valid // n}): "
-          f"kernel {k_ms * 1e3!r} us paced, {k_dev * 1e3!r} us device; plain {p_ms * 1e3!r} "
-          f"us, SDPA {lib_ms * 1e3!r} us; bound {bound_ms * 1e3!r} us ({nbytes} bytes at "
-          f"3.35 TB/s; {ops} flops); device share of the bound {bound_ms / k_dev!r}; "
-          f"{n * hkv} blocks on 132 SMs")
+          f"kernel {k_ms * 1e3!r} us paced, {k_dev * 1e3!r} us device (unsplit, parts = 1: "
+          f"{one_dev * 1e3!r} us device); plain {p_ms * 1e3!r} us, SDPA {lib_ms * 1e3!r} us "
+          f"paced, {lib_dev * 1e3!r} us device; bound {bound_ms * 1e3!r} us ({nbytes} bytes "
+          f"at 3.35 TB/s; {ops} flops); device share of the bound {bound_ms / k_dev!r}")
     return {"shape": [n, s, hq, hkv, d], "kv_len": valid // n, "ms": k_ms, "device_ms": k_dev,
-            "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "unsplit_device_ms": one_dev, "plain_ms": p_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "bound_ms": bound_ms, "bound_by": "bytes",
             "device_bound_share": bound_ms / k_dev}
 
 
@@ -4114,9 +4135,10 @@ def sharded_decode(torch, device, mesh):
           f"at len {s - 1}: decode_step plain and the decode_32k cell on the (1, 1) mesh in "
           f"batch and batch+seq_model, logits and caches bit-equal; decode_attention "
           f"{cfg.num_layers} launches a step; walls {walls} s (first calls); the kernel with "
-          f"return_lse on {SPLIT_PARTS} parts of S merged by merge_by_lse against the unsplit "
-          f"kernel: worst {worst} (bf16: in ulps of the row's largest |out|, bar 1; float32: "
-          f"share of the row's largest attention over |V|, bar 2e-6); 25(e) took {time.perf_counter() - t0!r} s")
+          f"return_lse on {SPLIT_PARTS} slices of S merged by merge_by_lse, and split across "
+          f"blocks by its plan, against the unsplit kernel (parts = 1): worst {worst} (bf16: "
+          f"in ulps of the row's largest |out|, bar 1; float32: share of the row's largest "
+          f"attention over |V|, bar 2e-6); 25(e) took {time.perf_counter() - t0!r} s")
     del cache, params, q
     torch.cuda.empty_cache()
     placed = {k: launches["batch"].get(k, 0) + launches["batch+seq_model"].get(k, 0)
@@ -4526,8 +4548,10 @@ def main():
                      for n, s in ((ENGINE_SLOTS, MAX_LEN), (2, PARITY_PROMPT + 8))]
     family_decode += [(ASYNC_B * ASYNC_W, MAX_LEN, 16, 16, 128), (STUB_ROWS, 720, 32, 8, 128),
                       (2, 576 + PARITY_PROMPT + 8, 32, 8, 128)]
+    # 25(e)'s one data rank of the decode_32k cell, split across blocks.
     err = check_decode(torch, device, [(4, 24, 32, 8, 128),
-                                       (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)] + family_decode)
+                                       (8 * 4, REDUCED_MAX_LEN, 4, 2, 16)] + family_decode
+                       + [(DECODE_CELL_ROWS, DECODE_CELL_S, 32, 8, 128)])
     fields["decode_attention"] = {"max_abs_err": err, **time_decode(torch, device),
                                   "options_max_err": check_decode_options(torch, device)}
     # qwen2.5-32b's and qwen3-moe's ServingEngine decode (phases 21, 22):
@@ -4574,10 +4598,13 @@ def main():
                        (32, TOP_K, REDUCED_BLOCK, npg_reduced, 4, 2, 16)]
                       + [(ENGINE_SLOTS, TOP_K, BLOCK, npg_main, *layout)
                          for layout in NEW_LAYOUTS])
+    # Long pools (1 and 8 rows of 2048 blocks of 16, 25(e)'s keys), which
+    # the paged kernel splits across blocks as the dense one.
     errs["paged_decode_attention"] = check_paged_decode(
         torch, device, [(n_main, BLOCK, npg_main, 32, 8, 128),
                         (32, REDUCED_BLOCK, npg_reduced, 4, 2, 16)]
-        + [(ENGINE_SLOTS, BLOCK, npg_main, *layout) for layout in NEW_LAYOUTS])
+        + [(ENGINE_SLOTS, BLOCK, npg_main, *layout) for layout in NEW_LAYOUTS]
+        + [(rows, BLOCK, DECODE_CELL_S // BLOCK, 32, 8, 128) for rows in (1, 8)])
     for name, timed in time_paged_family(torch, device).items():
         fields[name] = {"max_abs_err": errs[name], **timed}
     # The scans phases 13, 14 and 9.4 drive: mamba2 (128 slots, H=80, P=64,

@@ -10,17 +10,23 @@
 //
 // split_body serves one (row b, KV head h, candidate a) and up to GT of
 // its G query heads with one group of kWarps warps.  The decode kernels
-// run one group per block: one block per (row, KV head) and query group
+// run one group per block: one block per (row, KV head), query group
 // (blockIdx.y picks which GT; at G <= 8 one block holds them all, so each
-// K/V entry is read once per row); the tree kernel runs several groups
-// per block over a row's candidates (see tree_decode_attention.cu).  The
-// group's warps take the candidate's keys in interleaved groups.  Within
-// a warp, L = D * sizeof(T) / 16 lanes cover one key, each lane one
-// 16-byte chunk of it (two at float32 D > 128), so 32 / L' keys (L' = L
-// rounded up to a power of two) are in flight per warp step; each lane
-// holds its chunk of the GT queries as float32 registers.  Per step a
-// lane issues one 16-byte load of K and one of V per key, kUnroll steps
-// ahead of their use; the dot partials are summed over the key's lanes
+// K/V entry is read once per row) and part of S (blockIdx.z; one part
+// unless the grid is too small for the card, then the parts' float32
+// outputs and log-sum-exps merge in merge_kernel); the tree kernel runs
+// several groups per block over a row's candidates (see
+// tree_decode_attention.cu).  The group's warps take the candidate's keys
+// in interleaved groups.  Within a warp, L = D * sizeof(T) / 16 lanes
+// cover one key, each lane one 16-byte chunk of it (two at float32 D >
+// 128), so 32 / L' keys (L' = L rounded up to a power of two) are in
+// flight per warp step; each lane holds its chunk of the GT queries as
+// float32 registers.  A key-loop iteration takes kUnroll steps; a lane
+// reads one 16-byte chunk of K and one of V per key, in the decode
+// kernels through a cp.async ring of kRing iterations in shared memory
+// (the next iteration's copies in flight while this one's chunks are
+// used), in the tree kernels from its staged copy; the dot partials are
+// summed over the key's lanes
 // with log2 L' shuffles, all kUnroll * GT sums of a level at once (a loop
 // per sum would chain the shuffles' latencies).  Each lane group keeps
 // its own online-softmax state (running max m, sum l, float32 acc of its
@@ -31,6 +37,8 @@
 // gives zeros.  Nothing past kv_len is read.
 
 #pragma once
+
+#include <type_traits>
 
 #include "decode_tiles.cuh"
 
@@ -112,6 +120,23 @@ __device__ __forceinline__ uint4 load16_shared(uint32_t addr) {
   return x;
 }
 
+// The decode kernels' keys from device memory pass through a ring of
+// kRing key-loop iterations in shared memory, filled by cp.async: the next
+// iteration's K/V chunks are in flight while this one's are used, without
+// registers to hold them.  A lane reads back only the chunks it copied.
+constexpr int kRing = 2;
+// Bytes of the ring: kRing iterations x kUnroll chunk steps x (K, V) x the
+// block's lanes x 16 bytes (U * NC = kUnroll chunks a lane an iteration).
+constexpr int kRingBytes = kRing * kUnroll * 2 * kWarps * 32 * 16;
+
+// 16 bytes at src to shared address dst, asynchronously; zeros where !ok
+// (src is then not read).
+__device__ __forceinline__ void copy16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
 // 2^x for x >= -126 (a normal result): the MUFU.EX2 that exp2f runs on
 // such x, without exp2f's scaling of smaller x.
 __device__ __forceinline__ float ex2_normal(float x) {
@@ -134,13 +159,15 @@ __device__ __forceinline__ void wait_landed(uint32_t bar) {
 }
 
 // Where a step's K and V chunks come from: fetch(u, i, is_v) is chunk i
-// (of NC) of the key of warp step u, K or V.  Prefetched: loaded before
-// the step (the decode kernels, from device memory).
+// (of NC) of the key of warp step u, K or V.  Ring: this lane's chunks of
+// one ring stage (the decode kernels), at shared address slot + ((u * NC +
+// i) * 2 + is_v) * unit, unit = the block's lanes x 16 bytes.
 template <int U, int NC>
-struct Prefetched {
-  uint4 k[U][NC], v[U][NC];
+struct Ring {
+  uint32_t slot;
   __device__ __forceinline__ uint4 operator()(int u, int i, bool is_v) const {
-    return is_v ? v[u][i] : k[u][i];
+    constexpr uint32_t kUnit = kWarps * 32 * 16;
+    return load16_shared(slot + ((u * NC + i) * 2 + (is_v ? 1u : 0u)) * kUnit);
   }
 };
 
@@ -307,10 +334,22 @@ struct BlockSync {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
 };
 
+// Work a decode kernel's block does after its q loads are issued and
+// before its key loop (the paged kernel stages its keys' pool rows): none.
+struct NoPrologue {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // Dynamic shared memory of one group's merge: each warp's acc [GT][D], m
 // and l.
 inline size_t smem_bytes(int GT, int D) {
   return sizeof(float) * static_cast<size_t>(kWarps) * GT * (D + 2);
+}
+
+// A decode kernel's body: the ring, then the merge in the same space.
+__host__ __device__ __forceinline__ int decode_smem_bytes(int GT, int D) {
+  const int merge = static_cast<int>(sizeof(float)) * kWarps * GT * (D + 2);
+  return merge > kRingBytes ? merge : kRingBytes;
 }
 
 // One (row b, KV head h, candidate a) and queries g0 .. g0 + ng - 1 of the
@@ -332,14 +371,15 @@ inline size_t smem_bytes(int GT, int D) {
 // every FMA adds a zero).  L = D / E chunks per key, lp_log2 = log2 of the
 // lanes per key (the power of two >= L / NC).
 template <typename T, int GT, int NC, class Rows, bool kTail, bool kStaged,
-          class Sync, typename TO = T>
+          class Sync, typename TO = T, class Prologue = NoPrologue>
 __device__ __forceinline__ void split_body(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     TO* __restrict__ out, const Rows& rows, const Tail<T>& tail,
     const Staged& st, int& landed, const unsigned char* visible,
     int n_visible, int n_bound, bool active, int b, int h, int a, int len,
     int Hkv, int G, int g0, int ng, int D, int L, int lp_log2, float scale,
-    int tid, float* smem, Sync sync, Window win = Window{-1, 0, nullptr}) {
+    int tid, float* smem, Sync sync, Window win = Window{-1, 0, nullptr},
+    const Prologue& prologue = Prologue{}) {
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int U = kUnroll / NC;
   float* acc_s = smem;                      // [kWarps][GT][D]
@@ -390,6 +430,7 @@ __device__ __forceinline__ void split_body(
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[j][i][e] = 0.0f;
   }
+  prologue();
 
   const int per_iter = kWarps * kps * U;
   int base = 0;
@@ -422,55 +463,86 @@ __device__ __forceinline__ void split_body(
       key_step<T, GT, NC>(rows_at, valid, qf, m, l, acc, lp, scale2);
     }
   }
-  // The other steps: keys from shared memory, device memory or the tail.
-  for (; base < n_bound; base += per_iter) {
-    if (kStaged) {
-      const int need = min(base + per_iter, st.n);
-      while (landed * st.chunk < need) wait_landed(st.bars + 8u * landed++);
-    }
-    AtUse<T, U, NC> at;
-    at.sk = st.k;
-    at.sv = st.v;
-    at.sub = sub;
-    at.lp = lp;
+  if constexpr (!kStaged) {
+    // The decode kernels: the keys from device memory through the ring in
+    // smem (the merge buffer's space), the next iteration's copies issued
+    // before this one's chunks are used.  Chunks of a key past n_keys, and
+    // of a lane past the key's L chunks, are zeros, as AtUse gives them.
+    constexpr uint32_t kUnit = kWarps * 32 * 16;
+    constexpr uint32_t kStage = U * NC * 2 * kUnit;
+    const uint32_t slot =
+        static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + (warp * 32 + lane) * 16u;
+    const auto issue = [&](int from, uint32_t stage) {
 #pragma unroll
-    for (int i = 0; i < NC; ++i) at.live[i] = live[i];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int t = base + (u * kWarps + warp) * kps + kg;
-      at.valid[u] = t < n_keys;
-      at.staged[u] = kStaged && t < st.n;
-      at.ks[u] = k;
-      at.vs[u] = v;
-      at.off[u] = 0;
-      if (at.staged[u]) {
-        at.off[u] = static_cast<long long>(t) * D;
-      } else if (at.valid[u]) {
-        if (!kTail || t < len) {
-          at.off[u] = rows.offset(b, h, t, Hkv, D);
-        } else {
-          at.ks[u] = tail.k;
-          at.vs[u] = tail.v;
-          at.off[u] = ((static_cast<long long>(b) * A + visible[t - len]) * Hkv + h) *
-                      static_cast<long long>(D);
-        }
-      }
-    }
-    if (kStaged) {
-      // Rare steps (the prefix's end, the tail, keys past the copy): each
-      // chunk fetched at its use.
-      key_step<T, GT, NC>(at, at.valid, qf, m, l, acc, lp, scale2);
-    } else {
-      // Issue every load of the U steps before any is used.
-      Prefetched<U, NC> pre;
-#pragma unroll
-      for (int u = 0; u < U; ++u)
+      for (int u = 0; u < U; ++u) {
+        const int t = from + (u * kWarps + warp) * kps + kg;
+        const bool valid = t < n_keys;
+        const long long off = valid ? rows.offset(b, h, t, Hkv, D) : 0;
 #pragma unroll
         for (int i = 0; i < NC; ++i) {
-          pre.k[u][i] = at(u, i, false);
-          pre.v[u][i] = at(u, i, true);
+          const bool ok = valid && live[i];
+          const long long c = ok ? off + (sub + i * lp) * E : 0;
+          const uint32_t dst = stage + (u * NC + i) * 2 * kUnit;
+          copy16(dst, k + c, ok);
+          copy16(dst + kUnit, v + c, ok);
         }
-      key_step<T, GT, NC>(pre, at.valid, qf, m, l, acc, lp, scale2);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    uint32_t stage = slot;
+    if (base < n_bound) issue(base, stage);
+    for (; base < n_bound; base += per_iter) {
+      const uint32_t next = stage == slot ? slot + kStage : slot;
+      if (base + per_iter < n_bound) {
+        issue(base + per_iter, next);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      bool valid[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) valid[u] = base + (u * kWarps + warp) * kps + kg < n_keys;
+      key_step<T, GT, NC>(Ring<U, NC>{stage}, valid, qf, m, l, acc, lp, scale2);
+      stage = next;
+    }
+    // The merge buffer below is the ring's space.
+    sync();
+  } else {
+    // The other steps: keys from shared memory, device memory or the tail,
+    // each chunk fetched at its use (rare: the prefix's end, the tail, keys
+    // past the copy).
+    for (; base < n_bound; base += per_iter) {
+      const int need = min(base + per_iter, st.n);
+      while (landed * st.chunk < need) wait_landed(st.bars + 8u * landed++);
+      AtUse<T, U, NC> at;
+      at.sk = st.k;
+      at.sv = st.v;
+      at.sub = sub;
+      at.lp = lp;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) at.live[i] = live[i];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int t = base + (u * kWarps + warp) * kps + kg;
+        at.valid[u] = t < n_keys;
+        at.staged[u] = t < st.n;
+        at.ks[u] = k;
+        at.vs[u] = v;
+        at.off[u] = 0;
+        if (at.staged[u]) {
+          at.off[u] = static_cast<long long>(t) * D;
+        } else if (at.valid[u]) {
+          if (!kTail || t < len) {
+            at.off[u] = rows.offset(b, h, t, Hkv, D);
+          } else {
+            at.ks[u] = tail.k;
+            at.vs[u] = tail.v;
+            at.off[u] = ((static_cast<long long>(b) * A + visible[t - len]) * Hkv + h) *
+                        static_cast<long long>(D);
+          }
+        }
+      }
+      key_step<T, GT, NC>(at, at.valid, qf, m, l, acc, lp, scale2);
     }
   }
 
@@ -546,17 +618,62 @@ __device__ __forceinline__ void split_body(
   }
 }
 
+// S split across blocks (the decode kernels): part i of a row holds its
+// keys i * keys .. (i + 1) * keys - 1, keys = part_keys(limit, parts), a
+// whole number of kPartKeys, which every shape's keys per body iteration
+// (kWarps * (32 / lanes per key) * steps: 8 to 512) divide; so a part
+// starts where an iteration of the unsplit kernel would.  One part is
+// the unsplit kernel: its keys are all the row's.
+constexpr int kPartKeys = 512;
+
+inline int part_keys(int limit, int parts) {
+  const int per = (limit + parts - 1) / parts;
+  return (per + kPartKeys - 1) / kPartKeys * kPartKeys;
+}
+
+// Where a decode kernel's part writes: keys per part; out and win.lse of
+// part i at out + i * out_stride and win.lse + i * lse_stride (0 for one
+// part); the pool rows of up to `ids` keys of a paged part staged in
+// shared memory.
+struct Split {
+  int keys;
+  long long out_stride, lse_stride;
+  int ids;
+};
+
+// The prologue of a decode kernel's part: its keys' pool rows to shared
+// memory (a paged part) and a block sync, or nothing (a dense part).
+template <class Part>
+struct StagePart {
+  const Part& part;
+  int tid;
+  __device__ __forceinline__ void operator()() const {
+    if constexpr (Part::kStagesIds) {
+      part.stage(tid, kWarps * 32);
+      __syncthreads();
+    }
+  }
+};
+
 // The decode kernels: q and out [B, win.hq, D], keys from `rows`.  One
 // block of kWarps warps per (row, KV head of the window's heads) =
-// blockIdx.x and query group = blockIdx.y; a block whose group holds none
-// of the window's heads returns at once.
+// blockIdx.x, query group = blockIdx.y and part of S = blockIdx.z; a block
+// whose group holds none of the window's heads returns at once.  A part
+// past the row's kv_len reads no key and writes out = 0, lse = -inf.
+// Up to 4 queries a block, the kernel is held to 4 blocks an SM (at most
+// 128 registers a thread): without the bound ptxas gave the paged instance
+// 158 registers once the head window came, 3 blocks an SM instead of 4,
+// and 22 % more time at the main path's shape.
 template <typename T, typename TO, int GT, int NC, class Rows>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, GT <= 4 ? 4 : 1)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int32_t* __restrict__ kv_len,
              TO* __restrict__ out, Rows rows, int Hkv, int G, int D, int L,
-             int lp_log2, float scale, Window win) {
+             int lp_log2, float scale, Window win, Split split) {
   extern __shared__ float smem[];
+  // A split step's merge (launched as a programmatic dependent) may be
+  // placed once every block has started; it waits for this grid's end.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int h_lo = win.head0 / G;
   const int nh = (win.head0 + win.hq - 1) / G - h_lo + 1;
   const int b = blockIdx.x / nh;
@@ -567,11 +684,99 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g1 = min(min(y0 + GT, G), win.head0 + win.hq - h * G);
   if (g0 >= g1) return;
   const int len = max(0, min(kv_len[b], rows.limit()));
+  const int t0 = static_cast<int>(blockIdx.z) * split.keys;
+  const int n = max(0, min(len - t0, split.keys));
+  // The part's keys; a paged part's keys' pool rows go to shared memory
+  // after the ring and merge buffer, the page ids of each thread's first
+  // two keys loaded here, ahead of q's loads, and all of them stored, and
+  // the block synced, before the key loop.
+  int* staged = reinterpret_cast<int*>(smem) + decode_smem_bytes(GT, D) / 4;
+  const auto part = rows.part(b, t0, n, staged, split.ids, threadIdx.x, kWarps * 32);
+  using Part = std::remove_const_t<decltype(part)>;
+  Window w = win;
+  if (w.lse != nullptr) w.lse += blockIdx.z * split.lse_stride;
   int landed = 0;
-  split_body<T, GT, NC, Rows, false, false>(
-      q, k, v, out, rows, Tail<T>{nullptr, nullptr, nullptr, 1}, Staged{},
-      landed, nullptr, 0, len, true, b, h, 0, len, Hkv, G, g0, g1 - g0, D, L,
-      lp_log2, scale, threadIdx.x, smem, BlockSync{}, win);
+  split_body<T, GT, NC, Part, false, false>(
+      q, k, v, out + blockIdx.z * split.out_stride, part,
+      Tail<T>{nullptr, nullptr, nullptr, 1}, Staged{}, landed, nullptr, 0, n, true, b, h, 0, n,
+      Hkv, G, g0, g1 - g0, D, L, lp_log2, scale, threadIdx.x, smem, BlockSync{}, w,
+      StagePart<Part>{part, static_cast<int>(threadIdx.x)});
+}
+
+// The parts of a split decode step, merged as layers.merge_by_lse merges
+// them: one warp per row and head r of rows, each lane 4 elements of D at a
+// time.  ws_out [parts, rows, D] float32 (each part normalised over its
+// keys) and ws_lse [parts, rows]; m = the max of the parts' lse (0 where
+// all are -inf), w = e^(lse - m), out = sum w out / max(sum w, 1e-30), the
+// sums taken in part order; out rounded once to TO, and, where lse is not
+// null, lse = m + ln(sum w) (-inf for a row with no key).  Launched as a
+// programmatic dependent of the split kernel: its blocks wait here for
+// that grid's end and its writes.  Lane i holds part i's lse, and the
+// first kEarly parts' first chunks are loaded with them, before m is
+// known: one round trip to L2 for the common few parts.
+template <typename TO>
+__global__ void __launch_bounds__(128)
+merge_kernel(const float* __restrict__ ws_out, const float* __restrict__ ws_lse,
+             int parts, int rows, int D, TO* __restrict__ out, float* __restrict__ lse) {
+  constexpr int kEarly = 8;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int r = static_cast<int>((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;
+  const float neg_inf = __int_as_float(0xff800000);
+  const int c0 = lane * 4;
+  const auto chunk = [&](int i, int c) {
+    return *reinterpret_cast<const float4*>(ws_out + (static_cast<long long>(i) * rows + r) * D + c);
+  };
+  float4 early[kEarly];
+#pragma unroll
+  for (int i = 0; i < kEarly; ++i)
+    if (i < parts && c0 < D) early[i] = chunk(i, c0);
+  const float mine = lane < parts ? ws_lse[static_cast<long long>(lane) * rows + r] : neg_inf;
+  float m = mine;
+  for (int i = lane + 32; i < parts; i += 32)
+    m = fmaxf(m, ws_lse[static_cast<long long>(i) * rows + r]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (m == neg_inf) m = 0.0f;
+  float den = 0.0f;
+  // Every lane runs every pass (the shuffles need the whole warp); a lane
+  // past D loads and stores nothing.
+  for (int pass = 0; pass < D; pass += 128) {
+    const int c = pass + c0;
+    const bool live = c < D;
+    float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    den = 0.0f;
+    // Part i's weight, its lse lane i's (or, past 32 parts, read again).
+    const auto add = [&](int i, const float4& x) {
+      const float from_lane = __shfl_sync(0xffffffffu, mine, i & 31);
+      const float w = expf((i < 32 ? from_lane : ws_lse[static_cast<long long>(i) * rows + r]) - m);
+      o[0] += w * x.x;
+      o[1] += w * x.y;
+      o[2] += w * x.z;
+      o[3] += w * x.w;
+      den += w;
+    };
+    const float4 none = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < kEarly; ++i)
+      if (i < parts) add(i, !live ? none : pass == 0 ? early[i] : chunk(i, c));
+    for (int i = kEarly; i < parts; ++i) add(i, live ? chunk(i, c) : none);
+    if (!live) continue;
+    const float inv = fmaxf(den, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] /= inv;
+    TO* dst = out + static_cast<long long>(r) * D + c;
+    if constexpr (sizeof(TO) == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
+      *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                 *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  }
+  if (lse != nullptr && lane == 0) lse[r] = m + logf(den);
 }
 
 // The body's shape for D and G: calls f.run<GT, NC>(L, lp_log2) with GT
@@ -611,38 +816,87 @@ struct DecodeLaunch {
   int B, Hkv, G, D;
   float scale;
   Window win;
+  float* ws;
+  int parts;
   cudaStream_t stream;
 
   template <int GT, int NC>
   int run(int L, int lp_log2) const {
     const int nh = (win.head0 + win.hq - 1) / G - win.head0 / G + 1;
-    const dim3 grid(B * nh, (G + GT - 1) / GT);
-    split_kernel<T, TO, GT, NC, Rows><<<grid, kWarps * 32, smem_bytes(GT, D), stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), kv_len, static_cast<TO*>(out), rows, Hkv, G,
-        D, L, lp_log2, scale, win);
-    return static_cast<int>(cudaGetLastError());
+    const dim3 grid(B * nh, (G + GT - 1) / GT, parts);
+    const int keys = part_keys(rows.limit(), parts);
+    const int body = decode_smem_bytes(GT, D);
+    // The part's keys' pool rows (paged), as many as fit beside the ring and
+    // merge buffer in the 48 KB a launch may ask for without an opt-in.
+    const int fit = body < 48 * 1024 ? (48 * 1024 - body) / 4 : 0;
+    const int ids = rows.part_ints(keys) < fit ? rows.part_ints(keys) : fit;
+    const size_t smem = static_cast<size_t>(body) + sizeof(int) * static_cast<size_t>(ids);
+    if (smem > 48 * 1024) {
+      // A body wider than 48 KB (a larger ring or more warps) opts in.
+      cudaFuncSetAttribute(split_kernel<T, TO, GT, NC, Rows>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      cudaFuncSetAttribute(split_kernel<T, float, GT, NC, Rows>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    }
+    const T* qt = static_cast<const T*>(q);
+    const T* kt = static_cast<const T*>(k);
+    const T* vt = static_cast<const T*>(v);
+    if (parts == 1) {
+      split_kernel<T, TO, GT, NC, Rows><<<grid, kWarps * 32, smem, stream>>>(
+          qt, kt, vt, kv_len, static_cast<TO*>(out), rows, Hkv, G, D, L, lp_log2, scale, win,
+          Split{keys, 0, 0, ids});
+      return static_cast<int>(cudaGetLastError());
+    }
+    // Each part's float32 out and lse to the workspace, then the merge.
+    const long long rows_hq = static_cast<long long>(B) * win.hq;
+    float* ws_lse = ws + parts * rows_hq * D;
+    split_kernel<T, float, GT, NC, Rows><<<grid, kWarps * 32, smem, stream>>>(
+        qt, kt, vt, kv_len, ws, rows, Hkv, G, D, L, lp_log2, scale,
+        Window{win.hq, win.head0, ws_lse}, Split{keys, rows_hq * D, rows_hq, ids});
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // The merge as a programmatic dependent launch: its blocks are placed
+    // while the split kernel's last ones run.
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(static_cast<unsigned>((rows_hq * 32 + 127) / 128));
+    config.blockDim = dim3(128);
+    config.stream = stream;
+    cudaLaunchAttribute early[1];
+    early[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    early[0].val.programmaticStreamSerializationAllowed = 1;
+    config.attrs = early;
+    config.numAttrs = 1;
+    return static_cast<int>(cudaLaunchKernelEx(&config, merge_kernel<TO>,
+                                               static_cast<const float*>(ws),
+                                               static_cast<const float*>(ws_lse), parts,
+                                               static_cast<int>(rows_hq), D,
+                                               static_cast<TO*>(out), win.lse));
   }
 };
 
-// A decode step on `stream` over the heads of `win` (win.hq > 0): B * (the
-// KV heads they span) x ceil(G / GT) blocks, out in TO.  Returns the
-// cudaError_t of the launch (0: queued).
+// A decode step on `stream` over the heads of `win` (win.hq > 0), out in
+// TO, its keys split into `parts` parts of S: B * (the KV heads the heads
+// span) x ceil(G / GT) x parts blocks; for parts > 1 each part's float32
+// out and lse go to ws (parts * B * win.hq * (D + 1) floats: out [parts,
+// B, win.hq, D], then lse [parts, B, win.hq]) and a second kernel merges
+// them.  Returns the cudaError_t of the launches (0: queued).
 template <typename T, typename TO, class Rows>
 int launch(const void* q, const void* k, const void* v, const int32_t* kv_len,
            void* out, Rows rows, int B, int Hkv, int G, int D, float scale,
-           Window win, cudaStream_t stream) {
-  return with_shape<T>(G, D, DecodeLaunch<T, TO, Rows>{q, k, v, kv_len, out, rows, B,
-                                                       Hkv, G, D, scale, win, stream});
+           Window win, float* ws, int parts, cudaStream_t stream) {
+  if (parts < 1 || (parts > 1 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_shape<T>(G, D, DecodeLaunch<T, TO, Rows>{q, k, v, kv_len, out, rows, B, Hkv,
+                                                       G, D, scale, win, ws, parts, stream});
 }
 
 // A decode step over all Hkv * G heads, out in T.
 template <typename T, class Rows>
 int launch(const void* q, const void* k, const void* v, const int32_t* kv_len,
-           void* out, Rows rows, int B, int Hkv, int G, int D, float scale,
-           cudaStream_t stream) {
+           void* out, Rows rows, int B, int Hkv, int G, int D, float scale, float* ws,
+           int parts, cudaStream_t stream) {
   return launch<T, T>(q, k, v, kv_len, out, rows, B, Hkv, G, D, scale,
-                      Window{Hkv * G, 0, nullptr}, stream);
+                      Window{Hkv * G, 0, nullptr}, ws, parts, stream);
 }
 
 }  // namespace decode_split

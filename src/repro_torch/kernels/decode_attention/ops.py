@@ -4,8 +4,15 @@ and tree-batched, dense and paged (``csrc/tree_decode_attention.cu``).
 
 CPU tensors go to the plain versions (:mod:`.ref`).  CUDA tensors go to
 the hand-written kernels, or the call raises: there is no fallback.  The
-kernels launch on PyTorch's current stream, and each launch adds one to
-its entry in ``repro_torch.kernels.LAUNCHES``.
+kernels launch on PyTorch's current stream, and each wrapper call that
+launches adds one to its entry in ``repro_torch.kernels.LAUNCHES``.
+
+The dense and paged kernels split S across blocks where their grid is too
+small for the card (:func:`decode_parts`, from shapes only: no host read
+of ``kv_len``); ``decode_attention_split`` and
+``paged_decode_attention_split`` take the number of parts from the caller
+(1: the unsplit kernel) and, on the CPU, run the plain model of the
+split.
 """
 
 from __future__ import annotations
@@ -18,9 +25,13 @@ import torch
 from .. import LAUNCHES, refuse_grad
 from .. import _build
 from .ref import (
+    SPLIT_KEYS,
     decode_attention_ref,
+    decode_attention_split_ref,
     paged_decode_attention_ref,
+    paged_decode_attention_split_ref,
     paged_tree_decode_attention_ref,
+    part_keys,
     tree_decode_attention_ref,
 )
 
@@ -32,6 +43,33 @@ MAX_CANDIDATES = 32
 # All four decode kernels read each key as 16-byte chunks, at most 512
 # bytes of one row (float32 rows of up to 256 elements take two per lane).
 MAX_DECODE_HEAD_DIM = 256
+# Blocks per SM a split grid aims at: each block keeps two key-loop
+# iterations of K/V in flight through its cp.async ring (32 KB at bf16
+# D=128), so two a SM keep ~8 MB in flight over the card; fewer, longer
+# blocks pay less for their start and their merge.
+SPLIT_BLOCKS_PER_SM = 2
+_SM_COUNTS: dict[int, int] = {}
+
+
+def decode_parts(blocks: int, limit: int, sms: int) -> int:
+    """The number of parts of S a decode call is split into, from shapes
+    only: ``blocks`` in the cache's unsplit grid (rows x the cache's KV
+    heads x query groups, whatever head window a call asks for, so a
+    window splits as the whole call does), its key limit (``S``, or
+    ``n_pages * bs``) and the card's SM count.  One part where the
+    unsplit grid fills the card or the limit is at most one part's keys;
+    else parts of whole :data:`SPLIT_KEYS` keys for about
+    :data:`SPLIT_BLOCKS_PER_SM` blocks on every SM (at least 2 parts)."""
+    if blocks >= sms or limit <= SPLIT_KEYS:
+        return 1
+    want = max(2, SPLIT_BLOCKS_PER_SM * sms // blocks)
+    return -(-limit // part_keys(limit, want))
+
+
+def query_groups(group: int) -> int:
+    """Blocks a KV head's ``group`` query heads take in the decode grid:
+    one per 8 (the body holds 1, 2, 4 or 8 queries a block)."""
+    return -(-group // 8)
 
 
 # ---------------------------------------------------------------------------
@@ -40,11 +78,12 @@ MAX_DECODE_HEAD_DIM = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, kv_len, out, lse; B, S, Hkv, G, D, Hq, q_head0
-    "decode_attention": ("decode_attention", [_P] * 6 + [_I] * 7),
-    # q, pool_k, pool_v, table, kv_len, out; B, P, bs, n_pages, Hkv, G, D
+    # q, k, v, kv_len, out, lse, ws; B, S, Hkv, G, D, Hq, q_head0, parts
+    "decode_attention": ("decode_attention", [_P] * 7 + [_I] * 8),
+    # q, pool_k, pool_v, table, kv_len, out, ws; B, P, bs, n_pages, Hkv, G,
+    # D, parts
     "paged_decode_attention": ("paged_decode_attention",
-                               [_P] * 6 + [_I] * 7),
+                               [_P] * 7 + [_I] * 8),
     # q, k, v, k_spec, v_spec, kv_len, mask, out; B, A, S, Hkv, G, D
     "tree_decode_attention": ("tree_decode_attention", [_P] * 8 + [_I] * 6),
     # q, pool_k, pool_v, table, k_spec, v_spec, kv_len, mask, out;
@@ -146,6 +185,32 @@ def _launch(name: str, device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _sm_count(device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
+
+
+def _parts(name: str, parts, blocks: int, limit: int, device) -> int:
+    """The caller's number of parts of S, or the plan's where it gave none."""
+    if parts is None:
+        return decode_parts(blocks, limit, _sm_count(device))
+    if isinstance(parts, bool) or int(parts) != parts or parts < 1:
+        raise ValueError(f"{name}: parts must be an integer >= 1, got {parts!r}")
+    return int(parts)
+
+
+def _workspace(parts: int, b: int, hq: int, d: int, device) -> tuple[torch.Tensor | None, int]:
+    """The split's float32 workspace (each part's out, then its lse) and its
+    address; none for one part.  Allocated on the current stream, so a
+    captured graph owns it."""
+    if parts == 1:
+        return None, 0
+    ws = torch.empty(parts * b * hq * (d + 1), dtype=torch.float32, device=device)
+    return ws, ws.data_ptr()
+
+
 def _spec_shape(name: str, k_spec, v_spec, b: int, a: int, hkv: int, d: int) -> None:
     want = (b, a, hkv, d)
     for arg, x in (("k_spec", k_spec), ("v_spec", v_spec)):
@@ -163,21 +228,41 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     or an integer tensor ``[]``/``[B]``.  Returns ``[B, Hq, D]`` in
     ``q``'s dtype (float32 or bfloat16, float32 accumulation).  On the card
     ``D`` is a multiple of 16 bytes' worth of elements (8 bf16, 4 float32)
-    and at most 256, and the operands are 16-byte aligned.
+    and at most 256, and the operands are 16-byte aligned; S is split
+    across blocks into :func:`decode_parts` parts (one wherever the grid
+    fills the card or S is short), merged by log-sum-exp.
 
     ``q_head0`` and ``num_heads``: ``q`` holds heads ``q_head0 .. q_head0 +
     Hq - 1`` of a model of ``num_heads`` query heads (default: ``Hq``, all
-    of them); each reads its KV head from the whole cache in place.
+    of them); each reads its KV head from the whole cache in place, and
+    equals those heads of a whole call bit for bit (both split S alike).
     ``return_lse``: returns ``(out, lse)``, ``out`` float32 (normalised,
     not rounded to ``q``'s dtype) and ``lse [B, Hq]`` float32, each head's
     log-sum-exp of its scaled scores (``-inf`` where ``kv_len`` is 0);
-    without it the output is the same as before the option existed, bit
-    for bit."""
-    name = "decode_attention"
-    device = q.device
-    if not _on_cuda(name, device):
+    without it the output is that ``out`` rounded once."""
+    if not _on_cuda("decode_attention", q.device):
         return decode_attention_ref(q, k_cache, v_cache, kv_len, q_head0=q_head0,
                                     num_heads=num_heads, return_lse=return_lse)
+    return _decode(q, k_cache, v_cache, kv_len, q_head0, num_heads, return_lse, None)
+
+
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           kv_len, parts: int, *, q_head0: int = 0,
+                           num_heads: int | None = None, return_lse: bool = False):
+    """:func:`decode_attention` with S split into ``parts`` parts of
+    ``part_keys(S, parts)`` keys (``parts = 1``: the unsplit kernel)
+    instead of the plan's; on the CPU the plain model of that split,
+    :func:`.ref.decode_attention_split_ref`."""
+    if not _on_cuda("decode_attention", q.device):
+        return decode_attention_split_ref(q, k_cache, v_cache, kv_len, parts,
+                                          q_head0=q_head0, num_heads=num_heads,
+                                          return_lse=return_lse)
+    return _decode(q, k_cache, v_cache, kv_len, q_head0, num_heads, return_lse, parts)
+
+
+def _decode(q, k_cache, v_cache, kv_len, q_head0, num_heads, return_lse, parts):
+    name = "decode_attention"
+    device = q.device
     refuse_grad(name, q, k_cache, v_cache)
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(f"decode_attention: q must be [B, Hq, D] and the caches "
@@ -204,9 +289,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         out, lse = torch.empty_like(q), None
     if b == 0 or hq == 0:
         return (out, lse) if return_lse else out
+    parts = _parts(name, parts, b * hkv * query_groups(group), s, device)
+    ws, ws_ptr = _workspace(parts, b, hq, d, device)  # ws lives until the launch
     _launch(name, device, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(), b, s,
-            hkv, group, d, hq, q_head0, 1.0 / math.sqrt(d), _DTYPES[q.dtype])
+            lens.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(), ws_ptr,
+            b, s, hkv, group, d, hq, q_head0, parts, 1.0 / math.sqrt(d), _DTYPES[q.dtype])
     return (out, lse) if return_lse else out
 
 
@@ -217,11 +304,27 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
     ``page_table i32[B, n_pages]`` (key ``t`` at ``(table[b, t // bs],
     t % bs)``; entries past the live pages are never read).  Returns
     ``[B, Hq, D]`` in ``q``'s dtype, computed as :func:`decode_attention`
-    computes it; on the card ``D`` and the alignment are as there."""
+    computes it over ``n_pages * bs`` keys, split into the same parts; on
+    the card ``D`` and the alignment are as there."""
+    if not _on_cuda("paged_decode_attention", q.device):
+        return paged_decode_attention_ref(q, pool_k, pool_v, page_table, kv_len)
+    return _paged(q, pool_k, pool_v, page_table, kv_len, None)
+
+
+def paged_decode_attention_split(q: torch.Tensor, pool_k: torch.Tensor,
+                                 pool_v: torch.Tensor, page_table: torch.Tensor, kv_len,
+                                 parts: int) -> torch.Tensor:
+    """:func:`paged_decode_attention` with its ``n_pages * bs`` keys split
+    into ``parts`` parts (``parts = 1``: the unsplit kernel) instead of the
+    plan's; on the CPU :func:`.ref.paged_decode_attention_split_ref`."""
+    if not _on_cuda("paged_decode_attention", q.device):
+        return paged_decode_attention_split_ref(q, pool_k, pool_v, page_table, kv_len, parts)
+    return _paged(q, pool_k, pool_v, page_table, kv_len, parts)
+
+
+def _paged(q, pool_k, pool_v, page_table, kv_len, parts):
     name = "paged_decode_attention"
     device = q.device
-    if not _on_cuda(name, device):
-        return paged_decode_attention_ref(q, pool_k, pool_v, page_table, kv_len)
     refuse_grad(name, q, pool_k, pool_v)
     if q.dim() != 3 or pool_k.dim() != 4 or tuple(pool_v.shape) != tuple(pool_k.shape):
         raise ValueError(f"{name}: q must be [B, Hq, D] and both pools [P, bs, Hkv, D], "
@@ -239,9 +342,12 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.
         return out
     if p == 0 or bs == 0:
         raise ValueError(f"{name}: empty pool {tuple(pool_k.shape)}")
+    n_pages = table.shape[1]
+    parts = _parts(name, parts, b * hkv * query_groups(group), n_pages * bs, device)
+    ws, ws_ptr = _workspace(parts, b, hq, d, device)  # ws lives until the launch
     _launch(name, device, q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            table.data_ptr(), lens.data_ptr(), out.data_ptr(), b, p, bs,
-            table.shape[1], hkv, group, d, 1.0 / math.sqrt(d), _DTYPES[q.dtype])
+            table.data_ptr(), lens.data_ptr(), out.data_ptr(), ws_ptr, b, p, bs, n_pages,
+            hkv, group, d, parts, 1.0 / math.sqrt(d), _DTYPES[q.dtype])
     return out
 
 

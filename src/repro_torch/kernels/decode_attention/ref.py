@@ -12,6 +12,12 @@ to the cache's type first, and give such a query the mean of V.)
 
 The wrappers in :mod:`.ops` call these for CPU tensors; they run on any
 device, which is how ``chip_smoke.py`` compares the kernels with them.
+
+The dense and paged kernels may split S across blocks (``ops.decode_parts``
+picks how many parts); ``decode_attention_split_ref`` and
+``paged_decode_attention_split_ref`` model that: each part attended as the
+unsplit version attends, with its log-sum-exp, the parts merged by
+log-sum-exp in part order, as the kernels' merge does.
 """
 
 from __future__ import annotations
@@ -22,6 +28,18 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+# S split across blocks: a part holds a whole number of SPLIT_KEYS keys,
+# which every shape's keys per body iteration (8 to 512) divide;
+# `kPartKeys` in csrc/decode_split.cuh.
+SPLIT_KEYS = 512
+
+
+def part_keys(limit: int, parts: int) -> int:
+    """Keys per part when ``limit`` keys are split into ``parts``: ``ceil(limit
+    / parts)`` rounded up to a multiple of :data:`SPLIT_KEYS` (the kernels'
+    formula; part ``i`` holds keys ``i * part_keys`` onwards)."""
+    per = -(-limit // parts)
+    return -(-per // SPLIT_KEYS) * SPLIT_KEYS
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
@@ -37,6 +55,14 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     rounded to ``q``'s dtype) and ``lse [B, Hq]`` float32, each head's
     log-sum-exp of its scaled scores over the valid keys (``-inf`` for a
     row with none, whose ``out`` is 0)."""
+    return _attend(q, k_cache, v_cache, 0, kv_len, q_head0, num_heads, return_lse)
+
+
+def _attend(q, k_cache, v_cache, lo: int, hi, q_head0, num_heads, return_lse):
+    """:func:`decode_attention_ref` over the keys ``lo <= t < hi`` of each
+    row (``hi``: an int or ``[B]``), masked in the whole cache rather than
+    sliced out of it, so the first part of a row whose keys all lie there
+    takes the unsplit version's arithmetic."""
     b, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     group = (hq if num_heads is None else num_heads) // hkv
@@ -48,8 +74,11 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     kc, vc = k_cache[:, :, h_lo:h_hi], v_cache[:, :, h_lo:h_hi]
     scores = torch.einsum("bhgd,bshd->bhgs", qf, kc.float()) * scale
     pos = torch.arange(s, device=q.device)
-    lens = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1)
-    valid = (pos[None, :] < lens)[:, None, None, :]          # [B or 1, 1, 1, S]
+    lens = torch.as_tensor(hi, device=q.device).reshape(-1, 1)
+    valid = pos[None, :] < lens
+    if lo:
+        valid = valid & (pos[None, :] >= lo)
+    valid = valid[:, None, None, :]                          # [B or 1, 1, 1, S]
     scores = torch.where(valid, scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(scores - m), 0.0)
@@ -61,6 +90,46 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
         return out.to(q.dtype)
     lse = torch.where(l > 0, m[..., 0] + torch.log(l), -torch.inf)
     return out, lse.reshape(b, -1)[:, pad_lo:pad_lo + hq]
+
+
+def merge_parts(outs, lses) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' merge of the parts of S, in part order: ``outs`` float32
+    ``[..., D]`` (each normalised over its part), ``lses`` ``[...]``; ``m``
+    the max of the ``lse`` (0 where all are ``-inf``), ``w = exp(lse -
+    m)``, ``out = sum w out / max(sum w, 1e-30)``, ``lse = m + log(sum
+    w)``."""
+    m = torch.stack(list(lses)).amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    num, den = torch.zeros_like(outs[0]), torch.zeros_like(m)
+    for out, lse in zip(outs, lses):
+        w = torch.exp(lse - m)
+        num = num + w[..., None] * out
+        den = den + w
+    return num / torch.clamp_min(den, 1e-30)[..., None], m + torch.log(den)
+
+
+def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, kv_len, parts: int, *,
+                               q_head0: int = 0, num_heads: int | None = None,
+                               return_lse: bool = False):
+    """:func:`decode_attention_ref` with S split into ``parts`` parts of
+    :func:`part_keys` keys: each part attends its keys ``offset <= t <
+    min(len, offset + part_keys)`` with its log-sum-exp, then
+    :func:`merge_parts`; rounded once to ``q``'s dtype, or, with
+    ``return_lse``, ``(out, lse)`` in float32.  Parts past S hold no key
+    and weigh 0, so a row whose keys all fall in the first part gives the
+    unsplit version's bits."""
+    s = k_cache.shape[1]
+    keys = part_keys(s, parts)
+    lens = torch.as_tensor(kv_len, device=q.device)
+    outs, lses = [], []
+    for lo in range(0, s, keys):
+        out, lse = _attend(q, k_cache, v_cache, lo, torch.clamp(lens, lo, lo + keys), q_head0,
+                           num_heads, True)
+        outs.append(out)
+        lses.append(lse)
+    out, lse = merge_parts(outs, lses)
+    return (out, lse) if return_lse else out.to(q.dtype)
 
 
 def _gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -83,6 +152,16 @@ def paged_decode_attention_ref(q: torch.Tensor, pool_k: torch.Tensor,
     version gathers the pages; the kernel reads the pool in place.)"""
     return decode_attention_ref(q, _gather_pages(pool_k, page_table),
                                 _gather_pages(pool_v, page_table), kv_len)
+
+
+def paged_decode_attention_split_ref(q: torch.Tensor, pool_k: torch.Tensor,
+                                     pool_v: torch.Tensor, page_table: torch.Tensor,
+                                     kv_len, parts: int) -> torch.Tensor:
+    """:func:`paged_decode_attention_ref` with its ``n_pages * bs`` keys
+    split into ``parts`` parts, as :func:`decode_attention_split_ref`
+    splits a dense cache of that many keys."""
+    return decode_attention_split_ref(q, _gather_pages(pool_k, page_table),
+                                      _gather_pages(pool_v, page_table), kv_len, parts)
 
 
 def tree_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -116,6 +116,18 @@ _SSD_EXP = [("expf(ci[q] - cumj[q].x)", "1.0f"), ("expf(ci[q] - cumj[q].y)", "1.
 
 # The warp vote that lets p = 2^x run as MUFU.EX2 alone (exact).
 _VOTE = "  if (__all_sync(0xffffffffu, quick)) {"
+# The decode body's 16-byte loads, and with a hint that L2 fetch 256 bytes.
+_LOAD16 = "  return __ldg(static_cast<const uint4*>(p));\n"
+_LOAD16_L2_256 = """  uint4 x;
+  asm("ld.global.nc.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\\n"
+      : "=r"(x.x), "=r"(x.y), "=r"(x.z), "=r"(x.w)
+      : "l"(p));
+  return x;
+"""
+# The decode kernels' cp.async ring, in key-loop iterations.
+_RING = "constexpr int kRing = 2;"
+# The decode kernels' blocks an SM up to 4 queries a block.
+_MIN_BLOCKS = "__launch_bounds__(kWarps * 32, GT <= 4 ? 4 : 1)"
 _GROUPS = "constexpr int kGroups = 2;"
 _CANDIDATES = "constexpr int kCandidates = 32;"
 _OVERLAP = "constexpr bool kOverlap = true;"
@@ -175,6 +187,15 @@ VARIANTS = {
                                     [(_SHUFFLE, _SHUFFLE_PER_SUM)]),
     "decode exp2f without the vote": ("decode_attention", "decode_split.cuh",
                                       [(_VOTE, "  if (false) {")]),
+    "decode L2 256-byte fetch hint": ("decode_attention", "decode_split.cuh",
+                                      [(_LOAD16, _LOAD16_L2_256)]),
+    "decode 5 blocks an SM": ("decode_attention", "decode_split.cuh",
+                              [(_MIN_BLOCKS, _MIN_BLOCKS.replace("? 4 :", "? 5 :"))]),
+    "decode 3 blocks an SM": ("decode_attention", "decode_split.cuh",
+                              [(_MIN_BLOCKS, _MIN_BLOCKS.replace("? 4 :", "? 3 :"))]),
+    "decode ring of 3 iterations": ("decode_attention", "decode_split.cuh",
+                                    [(_RING, _RING.replace("2;", "3;"))]),
+
     "tree shipped": ("tree_decode_attention", "tree_decode_attention.cu", []),
     "tree 1 candidate group per block": ("tree_decode_attention", "tree_decode_attention.cu",
                                          [(_GROUPS, _GROUPS.replace("2", "1"))]),
@@ -358,9 +379,9 @@ def _decode(libs, device, n=128, s=160, hq=32, hkv=8, d=128):
     for name, lib in libs.items():
         if not name.startswith("decode"):
             continue
-        fn = _tree_entry(lib, "decode_attention", 6, 7)
+        fn = _tree_entry(lib, "decode_attention", 7, 8)
         call = lambda: _ok(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                              out.data_ptr(), None, n, s, hkv, hq // hkv, d, hq, 0,
+                              out.data_ptr(), None, None, n, s, hkv, hq // hkv, d, hq, 0, 1,
                               1.0 / math.sqrt(d), 1, device.index,
                               torch.cuda.current_stream().cuda_stream))
         _report(name, graph_ms(call), out, ref)
@@ -436,7 +457,7 @@ def _tree(libs, device, n=128, a=8, s=160, bs=16, hq=32, hkv=8, d=128):
 # Mangled-name pieces of the bf16, GT=4, dense instance of each kernel
 # (the driven shape's).
 _HOT_KERNELS = {
-    "decode_attention": "split_kernelI13__nv_bfloat16Li4ELi1EN12decode_tiles9DenseRows",
+    "decode_attention": "split_kernelI13__nv_bfloat16S1_Li4ELi1EN12decode_tiles9DenseRows",
     "tree_decode_attention": "tree_kernelI13__nv_bfloat16Li4ELi1EN12decode_tiles9DenseRows",
 }
 _SASS_LINE = re.compile(r"\s+/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)[^;]*;")

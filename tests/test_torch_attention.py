@@ -26,6 +26,8 @@ import torch
 from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_ref,
+    decode_attention_split,
+    decode_parts,
     paged_decode_attention,
     paged_decode_attention_ref,
     paged_tree_decode_attention,
@@ -497,17 +499,24 @@ IDENTITY_CASES = {
 }
 
 
+def _plan_parts(b, hq, hkv, limit):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return decode_parts(b * hkv * -(-(hq // hkv) // 8), limit, sms)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(IDENTITY_CASES))
 def test_cuda_tree_identity_mask_is_decode_with_the_entry_appended(dtype, case):
     """The four decode kernels share one body: under the identity mask,
     candidate a of the tree kernels (dense and paged) is the dense decode
-    kernel over the cache with entry a written at kv_len, bit for bit, and
-    the paged decode kernel is the dense one on the gathered pages; at
-    the driven shape, at every length residue of the 32-key steps, with
-    the prefix past the shared-memory copy, D=64 and 256 (two chunks a
-    lane at float32), two query groups, A=1 and A=32."""
+    kernel unsplit (one part of S: the wrapper wherever its plan gives one,
+    else ``decode_attention_split(..., 1)``) over the cache with entry a
+    written at kv_len, bit for bit, and the paged decode kernel is the
+    dense one on the gathered pages; at the driven shape, at every length
+    residue of the 32-key steps, with the prefix past the shared-memory
+    copy, D=64 and 256 (two chunks a lane at float32), two query groups,
+    A=1 and A=32."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -532,7 +541,9 @@ def test_cuda_tree_identity_mask_is_decode_with_the_entry_appended(dtype, case):
         k2, v2 = kc.clone(), vc.clone()
         k2[rows, lens.long()] = ks[:, j]
         v2[rows, lens.long()] = vs[:, j]
-        step = decode_attention(q[:, j].contiguous(), k2, v2, lens + 1)
+        step = decode_attention_split(q[:, j].contiguous(), k2, v2, lens + 1, 1)
         assert torch.equal(step, dense[:, j]) and torch.equal(step, paged[:, j]), j
+        if _plan_parts(b, hq, hkv, full) == 1:
+            assert torch.equal(decode_attention(q[:, j].contiguous(), k2, v2, lens + 1), step)
     assert torch.equal(paged_decode_attention(q[:, 0].contiguous(), pk, pv, table, lens),
                        decode_attention(q[:, 0].contiguous(), kc, vc, lens))

@@ -748,6 +748,8 @@ def check_flash(torch, device, lm_shapes):
     # zamba2-7b's shared block: D=112 (three full 32-lane columns and a
     # half one), MHA.
     shapes += [(b, s, 32, 32, 112) for b in (1, 8) for s in (1, 7, 160, 1024)] + lm_shapes
+    # An MQA group wider than a 64-row tile (falcon-7b's 71/1 heads, D=64).
+    shapes += [(1, s, 71, 1, 64) for s in (7, 160)]
     max_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -763,7 +765,7 @@ def check_flash(torch, device, lm_shapes):
     print(f"flash_attention matches its plain version: {len(shapes)} shapes x "
           f"(float32, bfloat16), B in (1, 8), S in (1, 7, 160, 1024), Hq/Hkv in "
           f"(32/8, 8/8, 4/1) with D in (64, 128) and 32/32 with D=112, plus the driven "
-          f"shapes {lm_shapes}; max |kernel - plain| = {max_err!r}")
+          f"shapes {lm_shapes} and 71/1 with D=64; max |kernel - plain| = {max_err!r}")
     return max_err
 
 
@@ -864,9 +866,9 @@ def check_flash_bwd(torch, device):
     """The forward's ``lse`` against ``flash_attention_lse_ref`` and its
     ``out`` bit-equal with and without ``lse``; ``flash_attention_bwd``
     against ``flash_attention_bwd_ref`` (float32 and bf16, causal and not,
-    GQA and MHA, D = 16, 32, 64, 112, 128, G up to 8, ragged tiles), and a
-    second call bit-equal to the first (no atomics).  Returns the max
-    errors."""
+    GQA and MHA, D = 16, 32, 64, 112, 128, G up to 71, G = 5 not dividing
+    a 64-row tile, ragged tiles), and a second call bit-equal to the first
+    (no atomics).  Returns the max errors."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
         flash_attention_lse_ref)
@@ -874,7 +876,8 @@ def check_flash_bwd(torch, device):
     gen = torch.Generator(device=device).manual_seed(15)
     shapes = [(TRAIN_B, TRAIN_S, 32, 8, 128, True), (2, 160, 8, 2, 64, True),
               (2, 160, 32, 32, 112, True), (1, 33, 4, 1, 16, True), (2, 7, 8, 8, 64, True),
-              (2, 100, 8, 2, 128, False), (2, 96, 16, 2, 32, True)]
+              (2, 100, 8, 2, 128, False), (2, 96, 16, 2, 32, True), (2, 100, 40, 8, 128, True),
+              (2, 96, 16, 1, 64, True), (1, 60, 71, 1, 64, True)]
     errs = {"lse": 0.0, "float32": 0.0, "bfloat16_share": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -2133,8 +2136,9 @@ def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):
 # Device-function names of the port's kernels (csrc/), whose profiled time
 # profile_call prints whether or not they are among the top entries.
 PORT_KERNEL_NAMES = ("tree_select_kernel", "tree_descend_kernel", "split_kernel",
-                     "tree_kernel", "flash_mma_kernel", "flash_attention_kernel",
-                     "ssd_mma_kernel", "ssd_fwd_state_mma_kernel", "ssd_scan_kernel")
+                     "tree_kernel", "flash_wgmma_kernel", "flash_mma_kernel",
+                     "flash_attention_kernel", "ssd_mma_kernel", "ssd_fwd_state_mma_kernel",
+                     "ssd_scan_kernel")
 
 
 def profile_call(torch, device, fn, what, top=10):
@@ -3416,8 +3420,9 @@ class RepeatedBatch:
 # Phase 24(a)'s profiled step: device time by group, in this order (a
 # kernel goes to the first group one of whose name pieces it holds; the
 # optimizer's section is one group whatever its kernels).
-STEP_GROUPS = (("flash_attention_bwd", ("bwd_delta_kernel", "bwd_dkdv", "bwd_dq")),
-               ("flash_attention forward", ("flash_mma_kernel", "flash_attention_kernel")),
+STEP_GROUPS = (("flash_attention_bwd", ("bwd_delta_kernel", "bwd_dkdv", "bwd_dq", "bwd_wgmma")),
+               ("flash_attention forward", ("flash_wgmma_kernel", "flash_mma_kernel",
+                                            "flash_attention_kernel")),
                ("ssd_scan_bwd", ("ssd_bwd_",)),
                ("ssd_scan forward", ("ssd_mma_kernel", "ssd_fwd_state_mma_kernel",
                                      "ssd_scan_kernel")),

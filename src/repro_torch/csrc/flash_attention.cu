@@ -16,49 +16,64 @@
 // D = 128, bf16) reading Q, K, V and writing the output takes 7.8 us at
 // 3.35 TB/s and the 1.7e9 flops of Q.K^T and P.V take 1.7 us on the bf16
 // tensor cores, so bytes bound it; on the CUDA cores (67 TFLOP/s) the same
-// flops would take 25 us, and a float32 FMA loop fed from shared memory
-// far longer.  So the bf16 kernel does its arithmetic on the tensor cores
-// and keeps the loads in flight:
+// flops would take 25 us.  So bf16 runs on the tensor cores, and the work
+// of a block is short (at most five 32-key tiles at S = 160): what
+// decides its time is the chain of dependent steps a tile.
 //
-// * One block per (batch * KV head, tile of 64 query rows), the rows
-//   being the KV head's (position, query head) pairs: the G query heads of
-//   a KV head share every K/V tile the block loads (at G = 4 that reads
-//   K/V from L2 once per four heads instead of four times), and a causal
-//   tile spans 64 / G positions, so little work falls in the future.
-//   Each of the 4 warps owns 16 rows; at G = 1 a block has 2 warps (32
-//   positions), which spends less on the causal diagonal.  Heaviest
+// bf16, D in {64, 112, 128} and G <= 64: the Hopper body
+// (`flash_wgmma_kernel`), on wgmma_tiles.cuh.
+//
+// * One block of one warpgroup per (batch * KV head, tile of 64 / G
+//   positions): its 64 rows are the KV head's (position, query head)
+//   pairs, one wgmma M tile, so the G query heads share every K/V tile
+//   the block loads.  (Where G does not divide 64, as G = 5, the tile
+//   holds 64 / G whole positions and its last rows are zeros.)  Heaviest
 //   causal tiles first.
-// * K and V tiles of 32 keys stay bf16 in shared memory, in a two-stage
-//   ring filled by 16-byte `cp.async.cg` (zero-filled past Sk), so tile
-//   k + 1 loads while tile k computes, with one barrier per tile.  Rows are
-//   padded by 16 bytes (D + 8 elements), which puts the 8 rows of every
-//   `ldmatrix` on distinct banks for each head dim here, D = 112's
-//   224-byte rows included.
-// * The warp's Q fragments are loaded once with `ldmatrix` and stay in
-//   registers.  S = Q.K^T runs on `mma.sync.m16n8k16` (bf16 in, float32
-//   accumulators): the bf16 products are exact, so S differs from the
+// * Thread 0 issues every copy by TMA: the Q tile once (a 5-D box of 64
+//   columns x G heads x 64 / G positions out of [B][S][Hkv][G][D]), and
+//   K and V tiles of kKeyTile keys through rings of kFwdStages stages
+//   each (K's and V's apart: a tile's K is refilled once its Q.K^T is
+//   done, its V once its P.V is), landing on mbarriers.  Tiles lie in
+//   shared memory as TMA's 128-byte swizzle writes them: rows of 64
+//   columns, a wider head dim in 64-column halves; D = 112 loads two
+//   64-column boxes, the second zero-filled past column 112 by TMA
+//   (padded in shared memory).
+// * S = Q.K^T is a wgmma m64nBKk16 chain with both operands K-major in
+//   shared memory; the bf16 products are exact, so S differs from the
 //   float32 plain version only in summation order.
-// * The online softmax runs on the accumulator fragments in registers,
-//   in log2 units (exp2f, accurate to 2 ulp): each thread holds two rows
-//   of each m16n8 tile, so a row's max and sum take two quad shuffles.  Tiles wholly in a row's future are skipped
-//   (per block, and per warp within the diagonal tile); the diagonal and
-//   ragged tiles are masked on fragment coordinates.
+// * The online softmax runs on the accumulator fragments in log2 units
+//   (exp2f, accurate to 2 ulp): a row's max and sum take two quad
+//   shuffles.  The diagonal and ragged tiles are masked on fragment
+//   coordinates; tiles wholly in the block's future are not loaded.
 // * P.V keeps P accurate.  Rounding p once to bf16 (as fused attention
 //   libraries do) puts about 10 % of outputs outside the bf16 bar of
 //   1e-5 + 2^-7 |ref| against the float32 plain version, because its error
 //   does not shrink with |out| (tests/test_torch_flash_numerics.py).  So p
-//   is split into hi = bf16(p) and lo = bf16(p - hi), and P.V is two `mma`
-//   per V fragment; V comes in through `ldmatrix.trans`, and the score
-//   accumulators of a pair of n8 tiles are the A fragment of the next
-//   `mma` directly, so P never goes to shared memory.
-// * The epilogue divides by max(l, 1e-20), rounds once to bf16, stages the
-//   warp's 16 rows in its own (spent) Q rows and writes 16-byte stores.
+//   is split into hi = bf16(p) and lo = bf16(p - hi), and P.V is two
+//   wgmma per k16 step with A (hi, lo) from registers (the score
+//   accumulators are the A fragment directly) and V MN-major in shared
+//   memory, N = D in one instruction.
+// * The latency chain of a tile (Q.K^T, softmax, P.V) is hidden by
+//   several blocks an SM: 32-key tiles and two-stage rings keep a block
+//   at 65 KB of shared memory and 122 registers a thread at D = 128, so
+//   three are resident.
+//   Overlapping inside the warpgroup (tile it + 1's Q.K^T in flight
+//   during tile it's P.V and softmax) measured slower: ptxas serializes
+//   wgmma chains whose accumulators other instructions read while one is
+//   in flight (C7514).  64-key tiles hold two blocks an SM and measured
+//   slower as well.
+// * The epilogue divides by max(l, 1e-20), rounds once to bf16, stages
+//   the tile swizzled in the spent Q tile and writes it by TMA (rows past
+//   Sq and columns past D are dropped).
 //
-// `mma.sync` rather than `wgmma`: the work is small (a 64-row `wgmma`
-// tile leaves three query tiles per head at S = 160) and `mma.sync`
-// reaches the tensor cores without descriptor-swizzled layouts.  The
-// cp.async, ldmatrix, mma and split primitives live in mma_tiles.cuh,
-// which the backward (flash_attention_bwd.cu) shares.
+// bf16, D in {16, 32}, which a 128-byte swizzle row does not fit, and G >
+// 64 at any D, where a 64-row tile holds no whole position: the mma.sync
+// body (`flash_mma_kernel`): one block per (batch * KV
+// head, 64 rows; 32 with 2 warps at G = 1), 32-key K and V tiles in a
+// two-stage `cp.async` ring, rows padded by 16 bytes for `ldmatrix`, S and
+// P.V (p split hi + lo) on `mma.sync.m16n8k16`, primitives in
+// mma_tiles.cuh.  Which bf16 body runs is fixed by D and G in the
+// launcher.
 //
 // float32 keeps the CUDA-core body below (one block per (batch * query
 // head, 32 queries), 32-key float32 tiles in shared memory, FMA loops).
@@ -80,10 +95,12 @@
 #include <type_traits>
 
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
 using namespace mma_tiles;
+using namespace wgmma_tiles;
 
 // ---------------------------------------------------------------------------
 // float32: the CUDA-core body
@@ -521,6 +538,282 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D in {64, 112, 128}: the Hopper body (wgmma, TMA)
+// ---------------------------------------------------------------------------
+
+constexpr int kRowTile = 64;    // (position, query head) rows a block: one wgmma M tile
+constexpr int kKeyTile = 32;    // keys per K/V tile of the wgmma body
+constexpr int kFwdStages = 2;   // K tiles, and V tiles, in their TMA rings
+// blockIdx.x walks a KV head's row tiles, so the blocks in flight share
+// their heads' K and V in L2; false: every KV head's heaviest row tile
+// first, across the card.
+constexpr bool kFwdTilesInner = false;
+
+// 64-column halves of a row (the 128-byte swizzle's width): 1 at D = 64,
+// 2 at D = 112 (the second zero-filled past column 112) and 128.
+template <int D>
+__host__ __device__ constexpr int halves() {
+  return (D + 63) / 64;
+}
+
+template <int D, int BK, int S>
+constexpr size_t wgmma_smem_bytes() {
+  return 1024 + static_cast<size_t>(halves<D>()) * 128 * (kRowTile + 2 * S * BK) +
+         8 * (1 + 2 * S);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// One block of one warpgroup per (batch * KV head, tile of P = 64 / G
+// positions): its R = P G rows are the (position, query head) pairs in
+// flat order, one wgmma M tile (R = 64 where G divides 64; rows past R
+// are zeros).  Tile index reversed so the longest causal tiles start
+// first.  Thread 0 issues every TMA copy.
+template <int D, int BK, int S>
+__global__ void __launch_bounds__(128)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                   float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
+                   float scale) {
+  static_assert(S >= 2, "a tile's K lands while the one before it computes");
+  constexpr int kH = halves<D>();
+  constexpr int kQHalf = kRowTile * 128;  // bytes of a 64-column half of the Q tile
+  constexpr int kKVHalf = BK * 128;       // ... of a K or V tile
+  constexpr int kDSteps = D / 16;         // k16 steps of Q.K^T (7 at D = 112)
+  constexpr int kKSteps = BK / 16;        // k16 steps of P.V
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);     // [kH][64 rows][128 B]
+  unsigned char* ks = qs + kH * kQHalf;         // [S][kH][BK keys][128 B]
+  unsigned char* vs = ks + S * kH * kKVHalf;    // [S][kH][BK keys][128 B]
+  // mbarriers: Q, then a K stage each, then a V stage each.
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + S * kH * kKVHalf);
+  uint64_t* kbar = bars + 1;
+  uint64_t* vbar = bars + 1 + S;
+
+  const int G = Hq / Hkv;
+  const int P = kRowTile / G;
+  const int R = P * G;
+  const int bh = kFwdTilesInner ? blockIdx.y : blockIdx.x;
+  const int b = bh / Hkv;
+  const int hk = bh - b * Hkv;
+  const int row_tile = kFwdTilesInner ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
+  const int t0 = row_tile * P;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int c = tid & 3;
+  // Keys the block needs: causal rows stop at the block's last position.
+  const int k_end = causal ? min(Sk, min(t0 + P, Sq)) : Sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  // Scores in log2 units: p = 2^(s * log2(e) - m), one exp2f each.
+  const float scale2 = scale * 1.4426950408889634f;
+
+  if (tid == 0) {
+    for (int i = 0; i <= 2 * S; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  if (R < kRowTile) {  // rows no box fills (G not dividing 64): zeros
+    constexpr int kChunks = 8;  // 16-byte chunks a row
+    const int n = kH * (kRowTile - R) * kChunks;
+    for (int e = tid; e < n; e += 128) {
+      const int h = e / ((kRowTile - R) * kChunks);
+      const int rest = e - h * (kRowTile - R) * kChunks;
+      *reinterpret_cast<uint4*>(qs + h * kQHalf + (R + rest / kChunks) * 128 +
+                                (rest % kChunks) * 16) = make_uint4(0, 0, 0, 0);
+    }
+    fence_async_smem();
+  }
+  __syncthreads();
+
+  // Tile `tile` of K (or V) into its ring's stage tile % S.
+  auto load = [&](const CUtensorMap* map, unsigned char* ring, uint64_t* bar, int tile) {
+    const int st = tile % S;
+    mbar_expect_tx(&bar[st], kH * kKVHalf);
+    for (int h = 0; h < kH; ++h)
+      tma_load_4d(ring + (st * kH + h) * kKVHalf, map, &bar[st], 64 * h, hk, tile * BK, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], kH * R * 128);
+    for (int h = 0; h < kH; ++h) tma_load_5d(qs + h * kQHalf, &tq, &bars[0], 64 * h, 0, hk, t0, b);
+    for (int t = 0; t < S && t < n_tiles; ++t) {
+      load(&tk, ks, kbar, t);
+      load(&tv, vs, vbar, t);
+    }
+  }
+
+  // This thread's rows 16 warp + g and + 8, at positions pos[0], pos[1].
+  const int pos[2] = {t0 + (16 * warp + g) / G, t0 + (16 * warp + g + 8) / G};
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};  // this thread's columns only; summed at the end
+  float s[BK / 2];  // a tile's scores, then its p
+
+  // S = Q.K^T of `tile` into s: K-major Q and K, k16 steps 32 bytes apart
+  // within a 64-column half.
+  auto issue_s = [&](int tile) {
+    const int st = tile % S;
+    mbar_wait(&kbar[st], (tile / S) & 1);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      const int h = kk / 4;
+      const int off = (kk % 4) * 32;
+      wgmma_ss<BK, 0>(s, desc_sw128(qs + h * kQHalf + off),
+                      desc_sw128(ks + (st * kH + h) * kKVHalf + off), kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  // The online softmax of tile `it`'s scores s (complete), in place: s
+  // becomes p, m and l move on, alpha is the rescaling of what came before.
+  // s[4 nt + e] is row 16 warp + g + 8 (e >> 1), key k0 + 8 nt + 2c + (e & 1);
+  // the causal diagonal and keys past Sk are masked on those coordinates.
+  float alpha[2];
+  auto softmax = [&](int it) {
+    const int k0 = it * BK;
+    const bool masked = k0 + BK > k_end || (causal && k0 + BK - 1 > t0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      float x = s[i] * scale2;
+      if (masked) {
+        const int key = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        if (key >= Sk || (causal && key > pos[(i >> 1) & 1])) x = kNegInf;
+      }
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    // Every row sees key 0, so after the first tile m is a real score:
+    // masked entries give p = 0, and a row whose keys in this tile are
+    // all masked keeps its m (alpha = 1).
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const float p = exp2f(s[i] - m[(i >> 1) & 1]);
+      s[i] = p;
+      l[(i >> 1) & 1] += p;
+    }
+  };
+
+  // P = hi + lo as the A fragments of P.V: the p of key n8 tiles 2kk and
+  // 2kk + 1 make k16 step kk.  Formed only while no wgmma is in flight
+  // (ptxas serializes a chain whose register inputs change under it).
+  uint32_t ph[kKSteps][4], pl[kKSteps][4];
+  auto pack = [&] {
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1], ph[kk][i], pl[kk][i]);
+  };
+
+  // Every warp is done with tile `k_done`'s K and tile `v_done`'s V: their
+  // stages take the tiles S on.
+  auto refill = [&](int k_done, int v_done) {
+    __syncthreads();
+    if (tid == 0) {
+      if (k_done >= 0 && k_done + S < n_tiles) load(&tk, ks, kbar, k_done + S);
+      if (v_done >= 0 && v_done + S < n_tiles) load(&tv, vs, vbar, v_done + S);
+    }
+  };
+
+  // Tile `it`, whose p is packed in ph / pl; nothing in flight on entry:
+  // acc += P.V with V MN-major (a k16 step is 16 key rows, 2048 bytes;
+  // the second 64-column half kKVHalf bytes on), N = D in one
+  // instruction, then tile it + 1's Q.K^T and softmax.
+  auto step = [&](int it) {
+    const bool more = it + 1 < n_tiles;
+    mbar_wait(&vbar[it % S], (it / S) & 1);
+    const unsigned char* vt = vs + (it % S) * kH * kKVHalf;
+    fence_regs(acc);
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      const uint64_t dv = desc_sw128(vt + kk * 2048, kKVHalf);
+      wgmma_rs<D, 1>(acc, ph[kk], dv, 1);
+      wgmma_rs<D, 1>(acc, pl[kk], dv, 1);
+    }
+    wgmma_commit();
+    if (more) {
+      wgmma_wait<0>();
+      issue_s(it + 1);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(it + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (more) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      pack();
+    }
+    refill(it + 1, it);
+  };
+
+  mbar_wait(&bars[0], 0);
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax(0);
+  pack();
+  refill(0, -1);
+  for (int it = 0; it < n_tiles; ++it) step(it);
+
+  // Epilogue: l summed over the quad, acc / max(l, 1e-20) rounded once,
+  // staged swizzled in the spent Q tile, written by TMA (rows past Sq and
+  // columns past D dropped).
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-20f);
+  }
+  if (lse != nullptr && c == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * warp + g + 8 * i;
+      if (r < R && pos[i] < Sq)
+        lse[(static_cast<long long>(b) * Hq + hk * G + r % G) * Sq + pos[i]] =
+            (m[i] + log2f(l[i])) * kLn2;
+    }
+  }
+  __syncthreads();  // every warp's reads of the Q tile are done
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int col = 8 * nt + 2 * c;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * warp + g + 8 * i;
+      *reinterpret_cast<__nv_bfloat162*>(qs + (col / 64) * kQHalf + sw128_offset(r, col % 64)) =
+          __floats2bfloat162_rn(acc[4 * nt + 2 * i] / l[i], acc[4 * nt + 2 * i + 1] / l[i]);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    for (int h = 0; h < kH; ++h) tma_store_5d(&to, qs + h * kQHalf, 64 * h, 0, hk, t0, b);
+    tma_store_drain();
+  }
+}
+
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                float* lse, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
@@ -561,6 +854,44 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The four tensor maps of the wgmma body: q and out as [B][Sq][Hkv][G][D]
+// in boxes of (64 columns, G heads, 1, P positions, 1), k and v as
+// [B][Sk][Hkv][D] in boxes of (64, 1, BK keys, 1).
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                 int Sq, int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  const int P = kRowTile / G;
+  const long long tiles = (Sq + P - 1) / P;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr uint64_t e = sizeof(bf16);
+  const uint64_t q_dims[5] = {D, static_cast<uint64_t>(G), static_cast<uint64_t>(Hkv),
+                              static_cast<uint64_t>(Sq), static_cast<uint64_t>(B)};
+  const uint64_t q_strides[4] = {D * e, G * D * e, Hq * D * e,
+                                 static_cast<uint64_t>(Sq) * Hq * D * e};
+  const uint32_t q_box[5] = {64, static_cast<uint32_t>(G), 1, static_cast<uint32_t>(P), 1};
+  const uint64_t kv_dims[4] = {D, static_cast<uint64_t>(Hkv), static_cast<uint64_t>(Sk),
+                               static_cast<uint64_t>(B)};
+  const uint64_t kv_strides[3] = {D * e, Hkv * D * e, static_cast<uint64_t>(Sk) * Hkv * D * e};
+  const uint32_t kv_box[4] = {64, 1, kKeyTile, 1};
+  CUtensorMap tq, tk, tv, to;
+  int err = make_tensor_map(&tq, q, 5, q_dims, q_strides, q_box);
+  if (err == 0) err = make_tensor_map(&to, out, 5, q_dims, q_strides, q_box);
+  if (err == 0) err = make_tensor_map(&tk, k, 4, kv_dims, kv_strides, kv_box);
+  if (err == 0) err = make_tensor_map(&tv, v, 4, kv_dims, kv_strides, kv_box);
+  if (err != 0) return err;
+  constexpr size_t smem = wgmma_smem_bytes<D, kKeyTile, kFwdStages>();
+  auto kernel = flash_wgmma_kernel<D, kKeyTile, kFwdStages>;
+  err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+  if (err != 0) return err;
+  if (kFwdTilesInner && B * Hkv > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = kFwdTilesInner ? dim3(static_cast<unsigned>(tiles), B * Hkv)
+                                   : dim3(B * Hkv, static_cast<unsigned>(tiles));
+  kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, to, lse, Sq, Sk, Hq, Hkv, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* out, float* lse,
              int B, int Sq, int Sk, int Hq, int Hkv, int causal, float scale,
@@ -569,6 +900,13 @@ int launch_d(const void* q, const void* k, const void* v, void* out, float* lse,
     case 0:
       return launch_f32<D>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 1:
+      // The head dims a 128-byte swizzle row serves run on wgmma where a
+      // 64-row tile holds a whole position (G <= 64); the rest keep the
+      // mma.sync body.
+      if constexpr (D >= 64) {
+        if (Hq / Hkv <= kRowTile)
+          return launch_wgmma<D>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+      }
       return Hq == Hkv
           ? launch_bf16<D, 2>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s)
           : launch_bf16<D, 4>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s);

@@ -17,57 +17,85 @@
 //   dk[j]    = scale * sum_{t, heads} ds[t, j] q[t]
 //   dq[t]    = scale * sum_j ds[t, j] k[j]
 //
-// accumulated in float32 and rounded once to the inputs' type.  No
-// atomics, so two calls on the same inputs give the same bits: dk and dv
-// come from blocks that own a KV head's key tile and loop over its G query
-// heads (the GQA sum stays in registers), dq from blocks that own query
-// rows, and D for every row from its own launch (float32) or the dq blocks
-// (bf16).
+// accumulated in float32 and rounded once to the inputs' type.  Every sum
+// is taken in a fixed order, so two calls on the same inputs give the same
+// bits.
 //
 // What bounds it: at the training shape (8 x 512 tokens, 32/8 heads,
 // D = 128, bf16, causal) the five products take 4.3e10 flops, 43 us on the
 // bf16 tensor cores, and reading q, k, v, o, do and writing dq, dk, dv
-// moves ~168 MB, 50 us at 3.35 TB/s: bytes bound it, by little.  Each key
-// tile's s and dp are formed twice (once for dk/dv, once for dq), 1.4x
-// the flops, to keep the sums free of atomics.
+// moves ~168 MB, 50 us at 3.35 TB/s: bytes bound it, by little, so the
+// products have to run near the tensor cores' rate.  (The shipped design
+// forms s and dp twice: seven products, 6.0e10 flops, 61 us.)
 //
-// bf16: the tensor-core body, on the forward's primitives (mma_tiles.cuh);
-// two launches, dq first.
+// bf16, D in {64, 112, 128}: the Hopper bodies, on wgmma_tiles.cuh; two
+// launches, dq first.
+//
+// * `bwd_dq_wgmma_kernel`: the forward's block shape, one block of one
+//   warpgroup per (batch * KV head, 64 (position, query head) rows), so
+//   the G heads share each K/V tile; a KV head's row tiles dispatched
+//   together, heaviest (causal) first (kDqTilesInner).  Thread
+//   0 brings Q and dO once by TMA and kDqKeys-key K and V tiles through a
+//   ring of kDqStages stages landing on mbarriers (tiles in TMA's 128-byte
+//   swizzle; D = 112 as two 64-column boxes, the second zero-filled past
+//   column 112).  It first forms its rows' D from O (device memory) and
+//   dO (its staged tile) and writes it for the dK/dV blocks.  Per tile: s
+//   = Q.K^T and dp = dO.V^T on wgmma (both operands K-major), p and ds on
+//   the accumulator fragments (log2 units, MUFU ex2; the causal mask on
+//   fragment coordinates), and dq += ds.K with ds, rounded once to bf16,
+//   as the register A operand and K MN-major, N = D in one instruction.
+//   dq is scaled, rounded once, staged swizzled and written by TMA.
+// * `bwd_wgmma_kernel`: one block of one warpgroup per (batch, KV head,
+//   tile of 64 keys), two resident an SM.  Its grid order adapts to the
+//   shape: a KV head's key tiles dispatched together, heaviest (causal)
+//   first, so the blocks in flight share their heads' Q and dO in L2; or,
+//   where its longest block (G heads of items) is long against the work
+//   an SM's slots get, every KV head's heaviest key tile first across the
+//   card, so the longest blocks start first (kLongBlock).  K and V stay
+//   in shared memory; items (query tile of 64 positions, query head) come
+//   by TMA, Q and dO through a ring of kBwdStages stages, each row's lse
+//   and D staged beside them.  s^T = K.Q^T and dp^T = V.dO^T on wgmma (M = the 64 keys,
+//   N = the 64 rows); p^T and ds^T formed on the fragments and, rounded
+//   once to bf16 (kSplitP, kSplitDs false), the register A operands of
+//   dv += p^T.dO and dk += ds^T.Q with dO and Q MN-major.  dk and dv stay
+//   in float32 registers across the G heads of the KV head, then are
+//   staged swizzled in the K and V tiles and written by TMA.
+// * Seven products, not five: each (key tile, query tile) forms s and dp
+//   in both kernels.  A five-product design measured 2.5x slower
+//   (PERF.md): the dK/dV blocks staged ds in shared memory and formed dq =
+//   ds.K there, and the key tiles' float32 partials of a (head, query
+//   tile) were summed in ascending key-tile order through a float32
+//   workspace, each block waiting on a per-(batch, head, query tile)
+//   counter for its predecessor; its per-element float32 adds and the
+//   waits cost more than the two products they save.
+// * p and ds enter the bf16 products rounded once.  Unlike the forward's
+//   p.V, whose bar is per element, the backward is held to 2^-6 of each
+//   gradient's largest value.  A CPU model of this arithmetic
+//   (tests/test_torch_flash_bwd_numerics.py, which reads these two
+//   constants) stays within half of that with one rounding, which adds
+//   at most 2^-8 to the error of hi + lo (the final rounding to bf16
+//   alone may take 2^-8): the split's second product in three of the
+//   five products is not worth its time.
+//
+// bf16, D in {16, 32}, which a 128-byte swizzle row does not fit, and G
+// > 64 at any D, where a 64-row tile holds no whole position: the earlier
+// mma.sync body; two launches, dq first.
 //
 // * `bwd_dq_mma_kernel`: the forward's block shape, one block per (batch
 //   * KV head, 64 (position, query head) rows; 32 with 2 warps at G = 1),
-//   heaviest causal tiles first, so the G heads share each K/V tile the
-//   block loads.  It first forms its rows' D from O (device memory) and dO
-//   (its staged rows) and writes it for the dK/dV blocks: that saves the
-//   D launch's second read of dO (kDeltaInDq; 4 % of the backward's time).
-//   The warp's Q and dO rows are A fragments in registers; 32-key K and V
-//   tiles stream through a two-stage cp.async ring.  s = Q.K^T and
-//   dp = dO.V^T on mma.sync, ds formed in registers is the A fragment of
-//   dq += ds.K with K through ldmatrix.trans.
+//   heaviest causal tiles first.  It first forms its rows' D from O and dO
+//   and writes it for the dK/dV blocks (kDeltaInDq).  The warp's Q and dO
+//   rows are A fragments in registers; 32-key K and V tiles stream through
+//   a two-stage cp.async ring.  s = Q.K^T and dp = dO.V^T on mma.sync, ds
+//   formed in registers is the A fragment of dq += ds.K.
 // * `bwd_dkdv_mma_kernel`: one block of 4 warps per (batch, KV head, tile
-//   of 64 keys), 16 keys a warp, key tiles in order so the causal tiles
-//   with the most query tiles start first.  K and V stay bf16 in shared
-//   memory.  The block walks (query head, tile of 32 query rows) items
-//   from the key tile on (causal), the Q and dO tiles and their rows' lse
-//   and D streaming through a two-stage cp.async ring (zero-filled past
-//   Sq), so item i + 1 loads while item i computes.  s^T = K.Q^T and
-//   dp^T = V.dO^T run on mma.sync.m16n8k16 with the warp's K and V rows
-//   as the A operand (ldmatrix) and Q, dO as B; p^T and ds^T are formed on
-//   the accumulator fragments (log2 units, MUFU ex2; the mask on fragment
-//   coordinates), packed to bf16 and used directly as the A fragment of
-//   dv += p^T.dO and dk += ds^T.Q, with dO and Q through ldmatrix.trans:
-//   p and ds never touch shared memory.  dk and dv stay in float32
-//   registers across all G heads; dk is scaled, both are rounded once,
-//   staged in the warp's own K and V rows and written with 16-byte stores.
-//   A warp whose keys all lie in a query tile's future skips it.
-// * p and ds enter the bf16 products rounded once (kSplitP, kSplitDs
-//   false).  Unlike the forward's p.V, whose bar is per element, the
-//   backward is held to 2^-6 of each gradient's largest value.  A CPU
-//   model of this arithmetic (tests/test_torch_flash_bwd_numerics.py,
-//   which reads these two constants) stays within half of that with one
-//   rounding, which adds at most 2^-8 to the error of hi + lo (the final
-//   rounding to bf16 alone may take 2^-8): the split's second product in
-//   three of the five products is not worth its time.
+//   of 64 keys), 16 keys a warp, over (query head, tile of 32 query rows)
+//   items through a two-stage cp.async ring; s^T and dp^T on mma.sync with
+//   the warp's K and V rows as the A operand, p^T and ds^T rounded once as
+//   the A fragments of dv += p^T.dO and dk += ds^T.Q.
+//
+// Which bf16 body runs is fixed by D and G in the launcher, never by a
+// failure.
 //
 // float32: the CUDA-core body, three launches (`bwd_delta_kernel`, one
 // warp a row, first).  TF32 on the tensor cores would break the float32
@@ -95,10 +123,12 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
 using namespace mma_tiles;
+using namespace wgmma_tiles;
 using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
@@ -409,14 +439,8 @@ constexpr int kKeyTile = 32;           // keys per K/V tile of the dQ loop
 constexpr bool kDeltaInDq = true;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 2^x by the MUFU instruction alone (relative error ~2^-22; results below
-// 2^-126 flush to 0): exp2f's extra range handling costs 2 % of the
-// backward's time, and p is rounded to bf16 next.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+// p = 2^x by `ex2` (wgmma_tiles.cuh): exp2f's extra range handling costs
+// 2 % of the backward's time, and p is rounded to bf16 next.
 
 // (x0, x1) as the A-fragment pair of a bf16 product: hi = bf16(x) and, when
 // split, lo = bf16(x - hi).
@@ -934,6 +958,473 @@ bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16, D in {64, 112, 128}: the Hopper body (wgmma, TMA)
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdKeys = 64;    // keys a block: the M tile of s^T, dp^T, dK, dV
+constexpr int kBwdRows = 64;    // query rows (positions of one head) an item
+constexpr int kBwdStages = 2;   // Q/dO tiles in the TMA ring
+// The dK/dV grid's order, chosen per call from the shape
+// (`key_tiles_inner`): a KV head's key tiles dispatched together (the
+// blocks in flight read few heads' Q and dO, which L2 then holds) unless
+// the longest block (G heads x its query tiles) is more than kLongBlock
+// times the items an SM's block slots get on average; then every KV
+// head's heaviest key tile first, across the card, so the longest start
+// first.
+constexpr float kLongBlock = 0.5f;
+constexpr int kDqKeys = 32;     // keys per K/V tile of the dQ kernel
+// The dQ kernel's blockIdx.x walks a KV head's row tiles (so blocks in
+// flight share their heads' K and V in L2); false: every KV head's
+// heaviest row tile first, as the forward.
+constexpr bool kDqTilesInner = true;
+constexpr int kDqStages = 2;    // K/V tiles in its TMA ring
+
+template <int D>
+__host__ __device__ constexpr int halves() {
+  return (D + 63) / 64;
+}
+
+template <int D, int BK, int S>
+constexpr size_t dq_wgmma_smem_bytes() {
+  return 1024 + static_cast<size_t>(halves<D>()) * 128 * (2 * 64 + 2 * S * BK) +
+         sizeof(float) * 2 * 64 + 8 * (1 + S);
+}
+
+template <int D, int S>
+constexpr size_t bwd_wgmma_smem_bytes() {
+  return 1024 + static_cast<size_t>(halves<D>()) * 128 * (2 * kBwdKeys + 2 * S * kBwdRows) +
+         sizeof(float) * 2 * 2 * kBwdRows               // lse and D, two slots
+         + 8 * (1 + S);                                 // mbarriers
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// dq and D of one block of one warpgroup per (batch * KV head, tile of
+// P = 64 / G positions), the forward's block shape: its 64 rows are the
+// (position, query head) pairs in flat order (rows past R = P G zeros), so
+// the G heads share every K/V tile.  Q and dO come once by TMA (5-D boxes,
+// as the forward's Q); K and V tiles of BK keys through rings of S stages.
+// Per tile: s = Q.K^T and dp = dO.V^T on wgmma (SS), p and ds on the
+// fragments, dq += ds.K with ds (rounded once to bf16) as the register A
+// operand and K MN-major.  The block first forms D of its rows from O
+// (device memory) and dO (its staged tile) and writes it for the dK/dV
+// blocks, which run next.  Tile index reversed so the longest causal
+// tiles start first.
+template <int D, int BK, int S>
+__global__ void __launch_bounds__(128)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdq, const bf16* __restrict__ out,
+                    const float* __restrict__ lse, float* __restrict__ dlt, int Sq, int Sk,
+                    int Hq, int Hkv, int causal, float scale) {
+  constexpr int kH = halves<D>();
+  constexpr int kQHalf = 64 * 128;        // bytes of a 64-row, 64-column half
+  constexpr int kKVHalf = BK * 128;       // ... of a K or V tile
+  constexpr int kDSteps = D / 16;         // k16 steps of s, dp
+  constexpr int kKSteps = BK / 16;        // k16 steps of dq
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);     // [kH][64 rows][128 B]
+  unsigned char* dos = qs + kH * kQHalf;        // [kH][64 rows][128 B]
+  unsigned char* ks = dos + kH * kQHalf;        // [S][kH][BK keys][128 B]
+  unsigned char* vs = ks + S * kH * kKVHalf;    // [S][kH][BK keys][128 B]
+  float* row_s = reinterpret_cast<float*>(vs + S * kH * kKVHalf);  // [lse log2 e, D][64]
+  // mbarriers: Q and dO, then a K/V stage each.
+  uint64_t* bars = reinterpret_cast<uint64_t*>(row_s + 2 * 64);
+
+  const int G = Hq / Hkv;
+  const int P = 64 / G;
+  const int R = P * G;
+  const int bh = kDqTilesInner ? blockIdx.y : blockIdx.x;
+  const int b = bh / Hkv;
+  const int hk = bh - b * Hkv;
+  const int row_tile = kDqTilesInner ? gridDim.x - 1 - blockIdx.x : gridDim.y - 1 - blockIdx.y;
+  const int t0 = row_tile * P;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int c = tid & 3;
+  const int k_end = causal ? min(Sk, min(t0 + P, Sq)) : Sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  const float scale2 = scale * kLog2e;
+
+  if (tid == 0) {
+    for (int i = 0; i <= S; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  if (R < 64) {  // rows no box fills: zeros
+    const int n = kH * (64 - R) * 8;
+    for (int e = tid; e < n; e += 128) {
+      const int h = e / ((64 - R) * 8);
+      const int rest = e - h * (64 - R) * 8;
+      const int off = h * kQHalf + (R + rest / 8) * 128 + (rest % 8) * 16;
+      *reinterpret_cast<uint4*>(qs + off) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(dos + off) = make_uint4(0, 0, 0, 0);
+    }
+    fence_async_smem();
+  }
+  __syncthreads();
+  auto load_kv = [&](int tile) {
+    const int st = tile % S;
+    mbar_expect_tx(&bars[1 + st], 2 * kH * kKVHalf);
+    for (int h = 0; h < kH; ++h) {
+      tma_load_4d(ks + (st * kH + h) * kKVHalf, &tk, &bars[1 + st], 64 * h, hk, tile * BK, b);
+      tma_load_4d(vs + (st * kH + h) * kKVHalf, &tv, &bars[1 + st], 64 * h, hk, tile * BK, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], 2 * kH * R * 128);
+    for (int h = 0; h < kH; ++h) {
+      tma_load_5d(qs + h * kQHalf, &tq, &bars[0], 64 * h, 0, hk, t0, b);
+      tma_load_5d(dos + h * kQHalf, &tdo, &bars[0], 64 * h, 0, hk, t0, b);
+    }
+    for (int t = 0; t < S && t < n_tiles; ++t) load_kv(t);
+  }
+
+  // D and lse of row r = tid / 2 (position t0 + r / G, head hk G + r % G):
+  // each thread of the pair sums half of the row's columns (O from device
+  // memory, dO from its staged tile), a shuffle adds the halves.
+  {
+    const int r = tid >> 1;
+    const int half = tid & 1;
+    const int pos = t0 + r / G;
+    const bool in = r < R && pos < Sq;
+    const long long at = (static_cast<long long>(b) * Hq + hk * G + r % G) * Sq + pos;
+    constexpr int kChunks = D / 16;  // 8-column chunks a half
+    uint4 o[kChunks];
+    const bf16* orow =
+        out + ((static_cast<long long>(b) * Sq + pos) * Hq + hk * G + r % G) * D + half * D / 2;
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i)
+      o[i] = in ? *reinterpret_cast<const uint4*>(orow + 8 * i) : make_uint4(0, 0, 0, 0);
+    const float l2 = in && half == 1 ? lse[at] * kLog2e : 0.0f;
+    mbar_wait(&bars[0], 0);
+    float d = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int col = half * D / 2 + 8 * i;
+      d = dot8(o[i], *reinterpret_cast<const uint4*>(dos + (col / 64) * kQHalf +
+                                                     sw128_offset(r, col % 64)), d);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (half == 0) {
+      row_s[64 + r] = d;
+      if (in) dlt[at] = d;
+    } else {
+      row_s[r] = l2;
+    }
+  }
+  __syncthreads();
+  // This thread's rows 16 warp + g (+ 8), at positions pos[0], pos[1].
+  const int pos[2] = {t0 + (16 * warp + g) / G, t0 + (16 * warp + g + 8) / G};
+  const float lse2[2] = {row_s[16 * warp + g], row_s[16 * warp + g + 8]};
+  const float dl[2] = {row_s[64 + 16 * warp + g], row_s[64 + 16 * warp + g + 8]};
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % S;
+    mbar_wait(&bars[1 + st], (it / S) & 1);
+    const unsigned char* kt = ks + st * kH * kKVHalf;
+    const unsigned char* vt = vs + st * kH * kKVHalf;
+    float s[BK / 2], dp[BK / 2];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      const int off = (kk / 4) * kQHalf + (kk % 4) * 32;
+      const int koff = (kk / 4) * kKVHalf + (kk % 4) * 32;
+      wgmma_ss<BK, 0>(s, desc_sw128(qs + off), desc_sw128(kt + koff), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      const int off = (kk / 4) * kQHalf + (kk % 4) * 32;
+      const int koff = (kk / 4) * kKVHalf + (kk % 4) * 32;
+      wgmma_ss<BK, 0>(dp, desc_sw128(dos + off), desc_sw128(vt + koff), kk > 0);
+    }
+    wgmma_commit();
+
+    // p = exp2(s scale log2 e - lse log2 e), ds = p (dp - D): s[4 nt + e] is
+    // row 16 warp + g + 8 (e >> 1), key k0 + 8 nt + 2c + (e & 1).  Masked:
+    // the causal future and keys past Sk.
+    const int k0 = it * BK;
+    const bool masked = k0 + BK > k_end || (causal && k0 + BK - 1 > t0);
+    wgmma_wait<1>();
+    fence_regs(s);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      float p = ex2(fmaf(s[i], scale2, -lse2[(i >> 1) & 1]));
+      if (masked) {
+        const int key = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        if (key >= Sk || (causal && key > pos[(i >> 1) & 1])) p = 0.0f;
+      }
+      s[i] = p;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t da[kKSteps][4], unused;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int x = 8 * kk + 2 * i;
+        to_operand<kSplitDs>(s[x] * (dp[x] - dl[(x >> 1) & 1]),
+                             s[x + 1] * (dp[x + 1] - dl[(x >> 1) & 1]), da[kk][i], unused);
+      }
+
+    // dq += ds.K: K MN-major, a k16 step 16 key rows (2048 bytes) on, N = D.
+    fence_regs(acc);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+      wgmma_rs<D, 1>(acc, da[kk], desc_sw128(kt + kk * 2048, kKVHalf), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warp is done with stage st
+    if (tid == 0 && it + S < n_tiles) load_kv(it + S);
+  }
+
+  // Epilogue: dq scaled and rounded once, staged swizzled in the spent Q
+  // tile, written by TMA (rows past Sq and columns past D dropped).
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int col = 8 * nt + 2 * c;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * warp + g + 8 * i;
+      *reinterpret_cast<__nv_bfloat162*>(qs + (col / 64) * kQHalf + sw128_offset(r, col % 64)) =
+          __floats2bfloat162_rn(acc[4 * nt + 2 * i] * scale, acc[4 * nt + 2 * i + 1] * scale);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    for (int h = 0; h < kH; ++h) tma_store_5d(&tdq, qs + h * kQHalf, 64 * h, 0, hk, t0, b);
+    tma_store_drain();
+  }
+}
+
+// dk, dv of one (batch, KV head, tile of 64 keys): one warpgroup; thread
+// 0 issues every TMA copy.  Either grid order (`key_tiles_inner`)
+// dispatches a KV head's key tiles in ascending order, first (causal:
+// heaviest) first.
+template <int D, int S>
+__global__ void __launch_bounds__(128)
+bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                 const float* __restrict__ lse, const float* __restrict__ dlt, int Sq, int Sk,
+                 int Hq, int Hkv, int causal, float scale, int key_tiles_inner) {
+  constexpr int kH = halves<D>();
+  constexpr int kTile = 64 * 128;         // bytes of a 64-row, 64-column half
+  constexpr int kDSteps = D / 16;         // k16 steps over D (s^T, dp^T)
+  constexpr int kRSteps = kBwdRows / 16;  // k16 steps over an item's rows (dV, dK)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = align1024(smem_raw);      // [kH][64 keys][128 B]
+  unsigned char* vs = ks + kH * kTile;          // [kH][64 keys][128 B]
+  unsigned char* qs = vs + kH * kTile;          // [S][kH][64 rows][128 B]
+  unsigned char* dos = qs + S * kH * kTile;     // [S][kH][64 rows][128 B]
+  float* row_s = reinterpret_cast<float*>(dos + S * kH * kTile);  // [2][lse, D][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(row_s + 4 * kBwdRows);  // K/V, then a stage each
+
+  const int G = Hq / Hkv;
+  const int j = key_tiles_inner ? blockIdx.x : blockIdx.y;  // key tile
+  const int bh = key_tiles_inner ? blockIdx.y : blockIdx.x;
+  const int b = bh / Hkv;
+  const int hk = bh - b * Hkv;
+  const int k0 = j * kBwdKeys;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int c = tid & 3;
+  const float scale2 = scale * kLog2e;
+  const int n_qt = (Sq + kBwdRows - 1) / kBwdRows;
+  // Items (query tile i, head): tiles from the last down to the key
+  // tile's first (causal), the G heads inner.
+  const int i_lo = causal ? min(j, n_qt) : 0;
+  const int items = (n_qt - i_lo) * G;
+
+  if (tid == 0) {
+    for (int i = 0; i <= S; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto load_item = [&](int item) {
+    const int st = item % S;
+    const int i = n_qt - 1 - item / G;
+    const int h = hk * G + item % G;
+    mbar_expect_tx(&bars[1 + st], 2 * kH * kTile);
+    for (int x = 0; x < kH; ++x) {
+      tma_load_4d(qs + (st * kH + x) * kTile, &tq, &bars[1 + st], 64 * x, h, i * kBwdRows, b);
+      tma_load_4d(dos + (st * kH + x) * kTile, &tdo, &bars[1 + st], 64 * x, h, i * kBwdRows, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], 2 * kH * kTile);
+    for (int x = 0; x < kH; ++x) {
+      tma_load_4d(ks + x * kTile, &tk, &bars[0], 64 * x, hk, k0, b);
+      tma_load_4d(vs + x * kTile, &tv, &bars[0], 64 * x, hk, k0, b);
+    }
+    for (int t = 0; t < S && t < items; ++t) load_item(t);
+  }
+  // lse (log2 units) and D of an item's rows, 0 past Sq: thread r < 64
+  // holds row r's lse, thread 64 + r its D; staged a slot an item.
+  auto row_value = [&](int item) -> float {
+    const int r = tid & (kBwdRows - 1);
+    const int t = (n_qt - 1 - item / G) * kBwdRows + r;
+    if (item >= items || t >= Sq) return 0.0f;
+    const long long at =
+        (static_cast<long long>(b) * Hq + hk * G + item % G) * Sq + t;
+    return tid < kBwdRows ? lse[at] * kLog2e : dlt[at];
+  };
+  row_s[tid] = row_value(0);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  // This thread's keys in the s^T fragments: k0 + 16 warp + g (+ 8).
+  const int key0 = k0 + 16 * warp + g;
+  mbar_wait(&bars[0], 0);
+  __syncthreads();  // row_s of item 0
+
+  for (int it = 0; it < items; ++it) {
+    const int st = it % S;
+    const int i = n_qt - 1 - it / G;
+    const int h = hk * G + it % G;
+    const int q0 = i * kBwdRows;
+    const unsigned char* qt = qs + st * kH * kTile;
+    const unsigned char* ot = dos + st * kH * kTile;
+    mbar_wait(&bars[1 + st], (it / S) & 1);
+
+    // s^T = K.Q^T and dp^T = V.dO^T: the block's 64 keys by the item's
+    // 64 rows, every operand K-major in shared memory.
+    float st_acc[kBwdRows / 2], dpt[kBwdRows / 2];
+    fence_regs(st_acc);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      const int x = kk / 4;
+      const int off = x * kTile + (kk % 4) * 32;
+      wgmma_ss<kBwdRows, 0>(st_acc, desc_sw128(ks + off), desc_sw128(qt + off), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      const int x = kk / 4;
+      const int off = x * kTile + (kk % 4) * 32;
+      wgmma_ss<kBwdRows, 0>(dpt, desc_sw128(vs + off), desc_sw128(ot + off), kk > 0);
+    }
+    wgmma_commit();
+    const float next_row = row_value(it + 1);  // in flight during the products
+
+    // p^T = exp2(s^T scale log2 e - lse log2 e), ds^T = p^T (dp^T - D) on
+    // the fragments: [4 nt + e] is key key0 + 8 (e >> 1), row q0 + 8 nt +
+    // 2c + (e & 1).  Masked: the causal future (rows past Sq have zero Q
+    // and dO, keys past Sk zero K and V, and are not stored).
+    const float* ls = row_s + (it & 1) * 2 * kBwdRows;
+    const float* dl = ls + kBwdRows;
+    const bool masked = causal && k0 + 16 * warp + 15 > q0;  // warp-uniform
+    wgmma_wait<1>();
+    fence_regs(st_acc);
+#pragma unroll
+    for (int nt = 0; nt < kBwdRows / 8; ++nt) {
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + nt * 8 + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(st_acc[4 * nt + e], scale2, -((e & 1) ? l2.y : l2.x)));
+        if (masked && key0 + 8 * (e >> 1) > q0 + nt * 8 + 2 * c + (e & 1)) p = 0.0f;
+        st_acc[4 * nt + e] = p;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+#pragma unroll
+    for (int nt = 0; nt < kBwdRows / 8; ++nt) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + nt * 8 + 2 * c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * nt + e] = st_acc[4 * nt + e] * (dpt[4 * nt + e] - ((e & 1) ? d2.y : d2.x));
+    }
+
+    // dv += p^T.dO and dk += ds^T.Q: p^T and ds^T rounded once to bf16 are
+    // the A fragments (rows of n8 tiles 2kk, 2kk + 1 make k16 step kk);
+    // dO and Q MN-major, a k16 step 16 rows (2048 bytes) on, N = D.
+    // (Split, the lo parts add a product each.)
+    uint32_t pa[kRSteps][4], pl[kRSteps][4], sa[kRSteps][4], sl[kRSteps][4];
+#pragma unroll
+    for (int kk = 0; kk < kRSteps; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        to_operand<kSplitP>(st_acc[8 * kk + 2 * x], st_acc[8 * kk + 2 * x + 1], pa[kk][x],
+                            pl[kk][x]);
+        to_operand<kSplitDs>(dpt[8 * kk + 2 * x], dpt[8 * kk + 2 * x + 1], sa[kk][x],
+                             sl[kk][x]);
+      }
+    fence_regs(pa);
+    fence_regs(sa);
+    if constexpr (kSplitP) fence_regs(pl);
+    if constexpr (kSplitDs) fence_regs(sl);
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRSteps; ++kk) {
+      const uint64_t d_o = desc_sw128(ot + kk * 2048, kTile);
+      const uint64_t d_q = desc_sw128(qt + kk * 2048, kTile);
+      wgmma_rs<D, 1>(dv_acc, pa[kk], d_o, 1);
+      wgmma_rs<D, 1>(dk_acc, sa[kk], d_q, 1);
+      if constexpr (kSplitP) wgmma_rs<D, 1>(dv_acc, pl[kk], d_o, 1);
+      if constexpr (kSplitDs) wgmma_rs<D, 1>(dk_acc, sl[kk], d_q, 1);
+    }
+    wgmma_commit();
+
+    // The next item's row slot: its readers (item it - 1) passed this
+    // item's barriers; this item's read before the barrier that follows.
+    row_s[((it + 1) & 1) * 2 * kBwdRows + tid] = next_row;
+    wgmma_wait<0>();  // dV, dK: their A registers are free
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    __syncthreads();  // every warp done with stage st
+    if (tid == 0 && it + S < items) load_item(it + S);
+  }
+
+  // Epilogue: dk scaled, both rounded once, staged swizzled in the K and V
+  // tiles (every read of them is done), written by TMA (keys past Sk and
+  // columns past D dropped).
+  __syncthreads();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int col = 8 * nt + 2 * c;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = 16 * warp + g + 8 * x;
+      const int off = (col / 64) * kTile + sw128_offset(r, col % 64);
+      *reinterpret_cast<__nv_bfloat162*>(ks + off) = __floats2bfloat162_rn(
+          dk_acc[4 * nt + 2 * x] * scale, dk_acc[4 * nt + 2 * x + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vs + off) =
+          __floats2bfloat162_rn(dv_acc[4 * nt + 2 * x], dv_acc[4 * nt + 2 * x + 1]);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (tid == 0) {
+    for (int x = 0; x < kH; ++x) {
+      tma_store_4d(&tdk, ks + x * kTile, 64 * x, hk, k0, b);
+      tma_store_4d(&tdv, vs + x * kTile, 64 * x, hk, k0, b);
+    }
+    tma_store_drain();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -1002,7 +1493,7 @@ int launch_dq_mma(const bf16* q, const bf16* k, const bf16* v, const bf16* out,
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, const void* out,
+int launch_bf16_mma(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* dlt, void* dq, void* dk,
                 void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
                 float scale, cudaStream_t stream) {
@@ -1031,18 +1522,104 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The six tensor maps of the wgmma body: q, dout as [B][Sq][Hq][D] and k,
+// v, dk, dv as [B][Sk][Hkv][D], in boxes of (64 columns, 1 head, 64 rows, 1).
+template <int D>
+int launch_bf16_wgmma(const void* q, const void* k, const void* v, const void* out,
+                      const void* dout, const float* lse, float* dlt, void* dq, void* dk,
+                      void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                      float scale, cudaStream_t stream) {
+  constexpr uint64_t e = sizeof(bf16);
+  const uint64_t q_dims[4] = {D, static_cast<uint64_t>(Hq), static_cast<uint64_t>(Sq),
+                              static_cast<uint64_t>(B)};
+  const uint64_t q_strides[3] = {D * e, Hq * D * e, static_cast<uint64_t>(Sq) * Hq * D * e};
+  const uint64_t kv_dims[4] = {D, static_cast<uint64_t>(Hkv), static_cast<uint64_t>(Sk),
+                               static_cast<uint64_t>(B)};
+  const uint64_t kv_strides[3] = {D * e, Hkv * D * e, static_cast<uint64_t>(Sk) * Hkv * D * e};
+  const uint32_t box[4] = {64, 1, 64, 1};
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+  int err = make_tensor_map(&tq, q, 4, q_dims, q_strides, box);
+  if (err == 0) err = make_tensor_map(&tdo, dout, 4, q_dims, q_strides, box);
+  if (err == 0) err = make_tensor_map(&tk, k, 4, kv_dims, kv_strides, box);
+  if (err == 0) err = make_tensor_map(&tv, v, 4, kv_dims, kv_strides, box);
+  if (err == 0) err = make_tensor_map(&tdk, dk, 4, kv_dims, kv_strides, box);
+  if (err == 0) err = make_tensor_map(&tdv, dv, 4, kv_dims, kv_strides, box);
+  if (err != 0) return err;
+  // dq and D first, by the forward's block shape: q, dout and dq as
+  // [B][Sq][Hkv][G][D] in boxes of (64 columns, G heads, 1, P positions,
+  // 1), k and v in boxes of kDqKeys keys.
+  const int G = Hq / Hkv;
+  const int P = 64 / G;
+  const long long tiles = (Sq + P - 1) / P;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t r_dims[5] = {D, static_cast<uint64_t>(G), static_cast<uint64_t>(Hkv),
+                              static_cast<uint64_t>(Sq), static_cast<uint64_t>(B)};
+  const uint64_t r_strides[4] = {D * e, G * D * e, Hq * D * e,
+                                 static_cast<uint64_t>(Sq) * Hq * D * e};
+  const uint32_t r_box[5] = {64, static_cast<uint32_t>(G), 1, static_cast<uint32_t>(P), 1};
+  const uint32_t kv_box[4] = {64, 1, kDqKeys, 1};
+  CUtensorMap rq, rdo, rdq, rk, rv;
+  err = make_tensor_map(&rq, q, 5, r_dims, r_strides, r_box);
+  if (err == 0) err = make_tensor_map(&rdo, dout, 5, r_dims, r_strides, r_box);
+  if (err == 0) err = make_tensor_map(&rdq, dq, 5, r_dims, r_strides, r_box);
+  if (err == 0) err = make_tensor_map(&rk, k, 4, kv_dims, kv_strides, kv_box);
+  if (err == 0) err = make_tensor_map(&rv, v, 4, kv_dims, kv_strides, kv_box);
+  if (err != 0) return err;
+  constexpr size_t dq_smem = dq_wgmma_smem_bytes<D, kDqKeys, kDqStages>();
+  auto dq_kernel = bwd_dq_wgmma_kernel<D, kDqKeys, kDqStages>;
+  err = allow_smem(dq_kernel, dq_smem);
+  if (err != 0) return err;
+  if (kDqTilesInner && B * Hkv > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 dq_grid = kDqTilesInner ? dim3(static_cast<unsigned>(tiles), B * Hkv)
+                                     : dim3(B * Hkv, static_cast<unsigned>(tiles));
+  dq_kernel<<<dq_grid, 128, dq_smem, stream>>>(
+      rq, rdo, rk, rv, rdq, static_cast<const bf16*>(out), lse, dlt, Sq, Sk, Hq, Hkv, causal,
+      scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  constexpr size_t smem = bwd_wgmma_smem_bytes<D, kBwdStages>();
+  auto kernel = bwd_wgmma_kernel<D, kBwdStages>;
+  err = allow_smem(kernel, smem);
+  if (err != 0) return err;
+  const int n_kt = (Sk + kBwdKeys - 1) / kBwdKeys;
+  const int n_qt = (Sq + kBwdRows - 1) / kBwdRows;
+  long long items = 0;  // every block's (query tile, head) items
+  for (int j = 0; j < n_kt; ++j) items += n_qt - (causal ? min(j, n_qt) : 0);
+  items *= static_cast<long long>(B) * Hq;
+  int device = 0, sms = 0;
+  err = static_cast<int>(cudaGetDevice(&device));
+  if (err == 0)
+    err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  if (err != 0) return err;
+  const double per_slot = static_cast<double>(items) / (2.0 * sms);  // two blocks an SM
+  const int inner = static_cast<double>(n_qt) * (Hq / Hkv) <= kLongBlock * per_slot ? 1 : 0;
+  if (inner && B * Hkv > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid = inner ? dim3(n_kt, B * Hkv) : dim3(B * Hkv, n_kt);
+  kernel<<<grid, 128, smem, stream>>>(tq, tk, tv, tdo, tdk, tdv, lse, dlt, Sq, Sk, Hq, Hkv,
+                                      causal, scale, inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, const void* out,
              const void* dout, const float* lse, float* dlt, void* dq,
-             void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv,
-             int causal, float scale, int dtype, cudaStream_t s) {
+             void* dk, void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+             float scale, int dtype, cudaStream_t s) {
   switch (dtype) {
     case 0:
       return launch_f32<D>(q, k, v, out, dout, lse, dlt, dq, dk, dv, B, Sq,
                            Sk, Hq, Hkv, causal, scale, s);
     case 1:
-      return launch_bf16<D>(q, k, v, out, dout, lse, dlt, dq, dk, dv, B, Sq,
-                            Sk, Hq, Hkv, causal, scale, s);
+      // The head dims a 128-byte swizzle row serves run on wgmma where a
+      // 64-row tile holds a whole position (G <= 64); the rest keep the
+      // mma.sync body.
+      if constexpr (D >= 64) {
+        if (Hq / Hkv <= 64)
+          return launch_bf16_wgmma<D>(q, k, v, out, dout, lse, dlt, dq, dk, dv, B, Sq, Sk, Hq,
+                                      Hkv, causal, scale, s);
+      }
+      return launch_bf16_mma<D>(q, k, v, out, dout, lse, dlt, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
+                                causal, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1053,14 +1630,14 @@ int launch_d(const void* q, const void* k, const void* v, const void* out,
 // q, out, dout and dq [B, Sq, Hq, D], k, v, dk and dv [B, Sk, Hkv, D], all
 // contiguous, of one type (dtype 0: float32, 1: bfloat16) and 16-byte
 // aligned; lse (the forward's) and the scratch `dlt` float32 [B, Hq, Sq];
-// D in {16, 32, 64, 112, 128}, Hq a multiple of Hkv.  Launches three
+// D in {16, 32, 64, 112, 128}, Hq a multiple of Hkv.  Launches its
 // kernels on `stream` (PyTorch's current stream); returns the first
-// cudaError_t, 0 when all three were queued.
+// cudaError_t, 0 when all were queued.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const void* lse, void* dlt, void* dq, void* dk, void* dv,
-    int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal, float scale,
-    int dtype, int device, void* stream) {
+    int B, int Sq, int Sk, int Hq, int Hkv, int D, int causal, float scale, int dtype,
+    int device, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       (Sq + kTile - 1) / kTile > 65535 || (Sk + kTile - 1) / kTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -9,9 +9,10 @@ Each variant is the shipped source of ``csrc/flash_attention.cu``,
 substitution (an ablation that drops a part of the work, or another block
 shape or rounding), built by ``nvcc`` with the kernel's own flags into
 ``build/repro_torch/sweep/`` and called through its C entry point.  At the
-main paths' shapes (phase 8's and phase 14's flash forwards, phase 24's
-backward, phase 7's decode step, phase 11's and 12's frontier forwards
-through both tree entry points, phase 13's and phase 14's scans; bf16) it
+main paths' shapes (phase 8's, phase 14's and 24(a)'s flash forwards,
+24(a)'s backward and zamba2's at D=112, phase 7's decode step, phase 11's
+and 12's frontier forwards through both tree entry points, phase 13's and
+phase 14's scans; bf16) it
 prints, per variant, the device time of one call, from CUDA-graph replay
 of 50 back-to-back calls (10 for the backward and the scan), and the
 largest difference from the plain version (for the backward, the largest
@@ -59,23 +60,29 @@ from ..kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
 SWEEP_DIR = _build.BUILD_DIR / "sweep"
 
-_QK = """            mma_bf16(s[2 * np], qf[kd], bk[0], bk[1]);
-            mma_bf16(s[2 * np + 1], qf[kd], bk[2], bk[3]);
+# The flash forward's wgmma body (D >= 64).
+_QK = """      wgmma_ss<BK, 0>(s, desc_sw128(qs + h * kQHalf + off),
+                      desc_sw128(ks + (st * kH + h) * kKVHalf + off), kk > 0);
 """
-_LO = """          mma_bf16(acc[2 * dp], pl, bv[0], bv[1]);
+_LO = """      wgmma_rs<D, 1>(acc, pl[kk], dv, 1);
 """
-_LO2 = """          mma_bf16(acc[2 * dp + 1], pl, bv[2], bv[3]);
+_STORE = """    for (int h = 0; h < kH; ++h) tma_store_5d(&to, qs + h * kQHalf, 64 * h, 0, hk, t0, b);
 """
-_REFILL = """    if (it + kStages - 1 < n_tiles)
-      load_kv(it + kStages - 1, (it + kStages - 1) % kStages);
+_P_EXP = "      const float p = exp2f(s[i] - m[(i >> 1) & 1]);"
+_KEY_TILE = "constexpr int kKeyTile = 32;"
+_FWD_STAGES = "constexpr int kFwdStages = 2;"
+_FWD_ORDER = "constexpr bool kFwdTilesInner = false;"
+# The flash backward's wgmma body (D >= 64).
+_BWD_STAGES = "constexpr int kBwdStages = 2;"
+_DQ_KEYS = "constexpr int kDqKeys = 32;"
+_DQ_STAGES = "constexpr int kDqStages = 2;"
+_LONG_BLOCK = "constexpr float kLongBlock = 0.5f;"
+_DQ_ORDER = "constexpr bool kDqTilesInner = true;"
+_DKDV = """      wgmma_rs<D, 1>(dv_acc, pa[kk], d_o, 1);
+      wgmma_rs<D, 1>(dk_acc, sa[kk], d_q, 1);
 """
-_STORE = """      *reinterpret_cast<uint4*>(ob + row_offset(wf0 + r) + ch * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * kStride + ch * 8);
+_DQ_MMA = """      wgmma_rs<D, 1>(acc, da[kk], desc_sw128(kt + kk * 2048, kKVHalf), 1);
 """
-_WARPS = """      return Hq == Hkv
-          ? launch_bf16<D, 2>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s)
-          : launch_bf16<D, 4>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, scale, s);"""
-_WARPS_SWAPPED = _WARPS.replace("Hq == Hkv", "Hq != Hkv")
 _SHUFFLE = """      s[u][j] = dot;
     }
   }
@@ -140,40 +147,46 @@ _DQ_WARPS = "      : launch_dq_mma<D, 4>("
 # name -> (library, edited file, [(old, new), ...])
 VARIANTS = {
     "flash shipped": ("flash_attention", "flash_attention.cu", []),
-    "flash without Q.K^T mma": ("flash_attention", "flash_attention.cu", [(_QK, "")]),
-    "flash single bf16 p (no lo mma)": ("flash_attention", "flash_attention.cu",
-                                        [(_LO, ""), (_LO2, "")]),
-    "flash without K/V refills": ("flash_attention", "flash_attention.cu", [(_REFILL, "")]),
-    "flash without output stores": ("flash_attention", "flash_attention.cu",
-                                    [(_STORE, "      ;\n")]),
-    "flash 4 warps at G=1, 2 at G>1": ("flash_attention", "flash_attention.cu",
-                                       [(_WARPS, _WARPS_SWAPPED)]),
+    "flash 64-key tiles": ("flash_attention", "flash_attention.cu",
+                           [(_KEY_TILE, _KEY_TILE.replace("32", "64"))]),
+    "flash 3-stage rings": ("flash_attention", "flash_attention.cu",
+                            [(_FWD_STAGES, _FWD_STAGES.replace("2", "3"))]),
+    "flash 4-stage rings": ("flash_attention", "flash_attention.cu",
+                            [(_FWD_STAGES, _FWD_STAGES.replace("2", "4"))]),
+    "flash row tiles inner": ("flash_attention", "flash_attention.cu",
+                              [(_FWD_ORDER, _FWD_ORDER.replace("false", "true"))]),
+    "flash p by ex2.approx, not exp2f": ("flash_attention", "flash_attention.cu",
+                                         [(_P_EXP, _P_EXP.replace("exp2f(", "ex2("))]),
+    "flash single bf16 p (no lo wgmma)": ("flash_attention", "flash_attention.cu", [(_LO, "")]),
+    "flash without Q.K^T wgmma": ("flash_attention", "flash_attention.cu", [(_QK, "")]),
+    "flash without output stores": ("flash_attention", "flash_attention.cu", [(_STORE, "")]),
     "flash_bwd shipped": ("flash_attention_bwd", "flash_attention_bwd.cu", []),
-    "flash_bwd 32 keys per dK/dV block (2 warps)": (
-        "flash_attention_bwd", "flash_attention_bwd.cu", [(_KV_KEYS, _KV_KEYS.replace("64", "32"))]),
-    "flash_bwd 128 keys per dK/dV block (8 warps)": (
-        "flash_attention_bwd", "flash_attention_bwd.cu", [(_KV_KEYS, _KV_KEYS.replace("64", "128"))]),
-    "flash_bwd 16 query rows per dK/dV item": (
-        "flash_attention_bwd", "flash_attention_bwd.cu", [(_Q_ROWS, _Q_ROWS.replace("32", "16"))]),
-    "flash_bwd 32 rows per dQ block (2 warps)": (
-        "flash_attention_bwd", "flash_attention_bwd.cu", [(_DQ_WARPS, _DQ_WARPS.replace("4", "2"))]),
-    "flash_bwd 128 rows per dQ block (8 warps)": (
-        "flash_attention_bwd", "flash_attention_bwd.cu", [(_DQ_WARPS, _DQ_WARPS.replace("4", "8"))]),
-    "flash_bwd dK/dV at 3 blocks per SM": (
+    "flash_bwd 3-stage Q/dO ring": ("flash_attention_bwd", "flash_attention_bwd.cu",
+                                    [(_BWD_STAGES, _BWD_STAGES.replace("2", "3"))]),
+    "flash_bwd dK/dV key tiles inner at every shape": (
         "flash_attention_bwd", "flash_attention_bwd.cu",
-        [("__launch_bounds__(kKvWarps * 32)", "__launch_bounds__(kKvWarps * 32, 3)")]),
-    "flash_bwd dQ at 3 blocks per SM": (
+        [(_LONG_BLOCK, _LONG_BLOCK.replace("0.5f", "1e30f"))]),
+    "flash_bwd dK/dV heaviest key tiles first at every shape": (
         "flash_attention_bwd", "flash_attention_bwd.cu",
-        [("__launch_bounds__(W * 32)", "__launch_bounds__(W * 32, 3)")]),
-    "flash_bwd D in its own launch": (
+        [(_LONG_BLOCK, _LONG_BLOCK.replace("0.5f", "0.0f"))]),
+    "flash_bwd dQ kernel's heaviest row tiles first across heads": (
         "flash_attention_bwd", "flash_attention_bwd.cu",
-        [("constexpr bool kDeltaInDq = true;", "constexpr bool kDeltaInDq = false;")]),
-    "flash_bwd p by exp2f, not ex2.approx": ("flash_attention_bwd", "flash_attention_bwd.cu",
-                                              [("ex2(fmaf(", "exp2f(fmaf(")]),
+        [(_DQ_ORDER, _DQ_ORDER.replace("true", "false"))]),
+    "flash_bwd dQ kernel 64-key tiles": ("flash_attention_bwd", "flash_attention_bwd.cu",
+                                         [(_DQ_KEYS, _DQ_KEYS.replace("32", "64"))]),
+    "flash_bwd dQ kernel 3-stage K/V ring": ("flash_attention_bwd", "flash_attention_bwd.cu",
+                                             [(_DQ_STAGES, _DQ_STAGES.replace("2", "3"))]),
+    "flash_bwd p by exp2f, not ex2.approx": (
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        [("ex2(fmaf(st_acc", "exp2f(fmaf(st_acc"), ("ex2(fmaf(s[i]", "exp2f(fmaf(s[i]")]),
     "flash_bwd p and ds split hi + lo": (
         "flash_attention_bwd", "flash_attention_bwd.cu",
         [("constexpr bool kSplitP = false;", "constexpr bool kSplitP = true;"),
          ("constexpr bool kSplitDs = false;", "constexpr bool kSplitDs = true;")]),
+    "flash_bwd without the dK/dV products": ("flash_attention_bwd", "flash_attention_bwd.cu",
+                                             [(_DKDV, "")]),
+    "flash_bwd without the dQ product": ("flash_attention_bwd", "flash_attention_bwd.cu",
+                                         [(_DQ_MMA, "")]),
     "decode shipped": ("decode_attention", "decode_split.cuh", []),
     "decode 2 warps": ("decode_attention", "decode_split.cuh",
                        [("constexpr int kWarps = 4;", "constexpr int kWarps = 2;")]),
@@ -559,8 +572,10 @@ def main(argv=None) -> None:
         if "flash" in kinds:
             _flash(libs, device, 32, 8, 128)
             _flash(libs, device, 32, 32, 112)
+            _flash(libs, device, 32, 8, 128, s=512)
         if "flash_bwd" in kinds:
             _flash_bwd(libs, device)
+            _flash_bwd(libs, device, hkv=32, d=112)
         if "decode" in kinds:
             _decode(libs, device)
         if "tree" in kinds:

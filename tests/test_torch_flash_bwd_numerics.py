@@ -50,6 +50,14 @@ def _bar():
 BAR = _bar()
 
 
+def _key_tile():
+    """Keys per K/V tile of the wgmma body's dq kernel, whose products are
+    added to dq tile after tile."""
+    found = re.search(r"constexpr int kDqKeys = (\d+);", SOURCE.read_text())
+    assert found, "the kernel no longer states its key tile"
+    return int(found.group(1))
+
+
 def _kernel_setting():
     """``split_p`` and ``split_ds`` as the kernel's source sets them."""
     text = SOURCE.read_text()
@@ -61,6 +69,7 @@ def _kernel_setting():
 
 
 KERNEL = _kernel_setting()
+KEY_TILE = _key_tile()
 
 # Phase 3's bf16 shapes (B, S, Hq, Hkv, D, causal), cut in batch and heads
 # to a CPU's size; S, D and the head ratio kept.
@@ -167,3 +176,57 @@ def test_one_rounding_costs_little_against_the_split(shape):
                     *inputs, causal)
     for a, b in zip(once, split):
         assert a <= b + 2.0 ** -8, (once, split)
+
+
+def tiled_dq_model(q, k, v, out, dout, lse, *, causal=True, tile=None):
+    """``dq`` as the wgmma body's dq kernel sums it: each key tile's float32
+    partial ``ds k`` over its ``tile`` keys (ds rounded once to bf16), the
+    partials added one after another in ascending key-tile order in
+    float32, the sum scaled by ``1/sqrt(D)`` and rounded once to bf16."""
+    tile = KEY_TILE if tile is None else tile
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = np.float32(1.0 / math.sqrt(d))
+    scale2 = float(np.float32(scale * np.float32(LOG2E)))
+    qf = _f32(q).reshape(b, sq, hkv, g, d)
+    dof = _f32(dout).reshape(b, sq, hkv, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, _f32(k))
+    lse2 = _f32(lse).reshape(b, hkv, g, sq) * np.float32(LOG2E)
+    p = torch.exp2((s.double() * scale2 - lse2.double()[..., None]).float())
+    p = torch.where(p < 2.0 ** -126, 0.0, p)
+    if causal:
+        p = torch.where(torch.arange(sq)[:, None] >= torch.arange(sk)[None, :], p, 0.0)
+    delta = (_f32(dout) * _f32(out)).sum(-1).reshape(b, sq, hkv, g).permute(0, 2, 3, 1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, _f32(v))
+    dsr = _rounded(p * (dp - delta[..., None]), False)
+    acc = None
+    for k0 in range(0, sk, tile):
+        part = torch.einsum("bhgqk,bkhd->bqhgd", dsr[..., k0:k0 + tile],
+                            _f32(k)[:, k0:k0 + tile])
+        acc = part if acc is None else acc + part
+    return (acc * scale).reshape(b, sq, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tiled_dq_model_meets_the_bf16_bar(shape):
+    """The ordered sum of per-key-tile float32 partials (the wgmma body's
+    dq) stays within half the bar of the plain version, as the whole-row
+    sum of the model above does."""
+    *dims, causal = shape
+    inputs = _inputs(3 + sum(dims), *dims, causal)
+    dq = tiled_dq_model(*inputs, causal=causal)
+    assert dq.dtype == torch.bfloat16 and dq.shape == inputs[0].shape
+    ref = flash_attention_bwd_ref(*(_f32(x) for x in inputs[:5]), inputs[5], causal=causal)[0]
+    share = float((_f32(dq) - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    assert share <= BAR / 2, share
+
+
+def test_tiled_dq_model_is_the_whole_sum_up_to_order():
+    """One key tile (every key in it) is the model above's dq exactly; more
+    tiles only regroup the float32 sum."""
+    inputs = _inputs(5, 1, 40, 4, 2, 64, True)
+    whole = bwd_kernel_model(*inputs, causal=True, split_p=False, split_ds=False)[0]
+    assert torch.equal(tiled_dq_model(*inputs, tile=64), whole)
+    tiled = tiled_dq_model(*inputs, tile=16)
+    assert float((_f32(tiled) - _f32(whole)).abs().max()) <= 2.0 ** -7 * float(_f32(whole).abs().max())

@@ -9,7 +9,9 @@
 * the guard of the kernels without a backward (``refuse_grad``);
 * on a card (``cuda``-marked), the backward kernel against its plain
   version (and a second call bit-equal to the first), the ``lse`` output,
-  and autograd through ``flash_attention``.
+  autograd through ``flash_attention``, the bf16 kernels at query-head
+  groups a 64-row tile does not divide or hold, and three calls bit-equal
+  while another stream's work shares the card.
 
 JAX is imported by the ``jx`` fixture only, so the file also runs on the
 card's machine, which has no JAX (``pytest -m cuda``).
@@ -168,3 +170,61 @@ def test_cuda_autograd_goes_through_the_backward_kernel():
         torch.testing.assert_close(a.cpu(), r, rtol=1e-4, atol=1e-5)
     with pytest.raises(RuntimeError, match="no backward"):
         decode_attention(qt[:, 0].detach().requires_grad_(), kt.detach(), vt.detach(), 48)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 100, 40, 8, 128), (2, 96, 16, 1, 64), (1, 60, 71, 1, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_bf16_at_groups_a_row_tile_does_not_divide_or_hold(shape):
+    """G = 5 (whole positions and zero rows in a 64-row tile), G = 16 at
+    D=64 and G = 71 (past a tile: the mma.sync bodies): the forward's out
+    equal with and without lse and within the bf16 bar, the backward within
+    its bar and a second call bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    dev = torch.device("cuda")
+    q, k, v, dout = (torch.from_numpy(x).to(dev, torch.bfloat16) for x in _inputs(6, *shape))
+    out, lse = flash_ops._forward(q, k, v, True, with_lse=True)
+    assert torch.equal(out, flash_attention(q, k, v))
+    ref_out = flash_attention_ref(q.float(), k.float(), v.float())
+    assert bool(((out.float() - ref_out).abs() <= 1e-5 + 2.0 ** -7 * ref_out.abs()).all())
+    got = flash_attention_bwd(q, k, v, out, dout, lse)
+    again = flash_attention_bwd(q, k, v, out, dout, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), out.float(), dout.float(), lse)
+    for a, r in zip(got, ref):
+        assert float((a.float() - r).abs().max()) <= 2.0 ** -6 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 512, 32, 8, 128), (8, 512, 32, 32, 112)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_backward_repeats_bit_equal_under_concurrent_work(shape):
+    """Phase 24's shape and zamba2's D=112: three bf16 backward calls give
+    the same bits while a second stream's matrix products take SMs, so
+    that the kernels' blocks run in another order each time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    b, s, hq, hkv, d = shape
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    q, k, v, dout = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+                     for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+    out, lse = flash_ops._forward(q, k, v, True, with_lse=True)
+    side = torch.cuda.Stream()
+    x = torch.randn((4096, 4096), generator=gen, device=dev)
+    got, busy = [], []
+    for n in range(3):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            busy += [x @ x for _ in range(n + 1)]   # a different load beside each call
+        got.append(flash_attention_bwd(q, k, v, out, dout, lse))
+    torch.cuda.synchronize()
+    for again in got[1:]:
+        assert all(torch.equal(a, r) for a, r in zip(got[0], again))

@@ -2,7 +2,9 @@
 
 ``csrc/flash_attention.cu`` runs bf16 attention on the tensor cores: the
 scores are float32 sums of exact bf16 products, the online softmax runs in
-float32 over 32-key tiles in log2 units (``exp2``), and P.V is two bf16
+float32 over key tiles in log2 units (``exp2``; the tile is read from the
+source: ``kKeyTile`` keys in the wgmma body at D >= 64, ``kMmaBlockK`` in
+the mma.sync body at D = 16 and 32), and P.V is two bf16
 products, one of ``hi = bf16(p)`` and one of ``lo = bf16(p - hi)``,
 accumulated in float32; the output is rounded to bf16 once.  This file
 models that arithmetic in plain PyTorch and holds it against the plain
@@ -15,6 +17,7 @@ attention libraries do) breaks that bar, which is why the kernel splits
 
 import importlib.util
 import math
+import re
 from pathlib import Path
 
 import numpy as np
@@ -26,8 +29,26 @@ from repro_torch.kernels.flash_attention import flash_attention_ref
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCK_K = 32          # keys per tile of the kernel's online softmax
+SOURCE = REPO / "src" / "repro_torch" / "csrc" / "flash_attention.cu"
 NEG_INF = -1e30
+
+
+def _key_tiles():
+    """Keys per tile of the online softmax, as the kernel's source sets
+    them: the wgmma body's (D >= 64) and the mma.sync body's (D < 64)."""
+    text = SOURCE.read_text()
+    found = {name: re.search(rf"constexpr int {name} = (\d+);", text)
+             for name in ("kKeyTile", "kMmaBlockK")}
+    assert all(found.values()), "the kernel no longer states its key tiles"
+    return int(found["kKeyTile"].group(1)), int(found["kMmaBlockK"].group(1))
+
+
+WGMMA_KEYS, MMA_KEYS = _key_tiles()
+
+
+def block_k(d):
+    """The key tile of the bf16 body that runs at head dim ``d``."""
+    return WGMMA_KEYS if d >= 64 else MMA_KEYS
 
 
 def _attn_tol():
@@ -46,11 +67,13 @@ def _bf16_inputs(seed, b, s, hq, hkv, d):
             for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
 
 
-def kernel_model(q, k, v, *, causal=True, split_p=True):
+def kernel_model(q, k, v, *, causal=True, split_p=True, tile=None):
     """The bf16 kernel's arithmetic: float32 scores, a float32 online
-    softmax over 32-key tiles in log2 units, P.V from ``hi + lo`` (``split_p``) or from
-    ``bf16(p)`` alone, float32 accumulation, one rounding of the output."""
+    softmax over key tiles (the kernel's at this head dim, or ``tile``) in
+    log2 units, P.V from ``hi + lo`` (``split_p``) or from ``bf16(p)``
+    alone, float32 accumulation, one rounding of the output."""
     b, sq, hq, d = q.shape
+    tile = block_k(d) if tile is None else tile
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     qf = q.float().reshape(b, sq, hkv, g, d)
@@ -62,16 +85,16 @@ def kernel_model(q, k, v, *, causal=True, split_p=True):
     m = torch.full(s.shape[:-1], NEG_INF)
     l = torch.zeros(s.shape[:-1])
     acc = torch.zeros(*s.shape[:-1], d)
-    for k0 in range(0, sk, BLOCK_K):
-        st = s[..., k0:k0 + BLOCK_K]
+    for k0 in range(0, sk, tile):
+        st = s[..., k0:k0 + tile]
         m_new = torch.maximum(m, st.amax(-1))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(st - m_new[..., None])
         if causal:
-            p = torch.where(mask[:, k0:k0 + BLOCK_K], p, 0.0)
+            p = torch.where(mask[:, k0:k0 + tile], p, 0.0)
         l = l * alpha + p.sum(-1)
         hi = p.to(torch.bfloat16).float()
-        vt = vf[:, k0:k0 + BLOCK_K]
+        vt = vf[:, k0:k0 + tile]
         pv = torch.einsum("bhgqk,bkhd->bhgqd", hi, vt)
         if split_p:
             lo = (p - hi).to(torch.bfloat16).float()
@@ -90,6 +113,11 @@ def _outside(out, ref):
 
 def test_bar_is_chip_smokes():
     assert (ATOL, RTOL) == (1e-5, 2.0 ** -7)
+
+
+def test_key_tiles_are_whole_k16_steps():
+    """Each tile is a whole number of the products' 16-key steps."""
+    assert WGMMA_KEYS in (32, 64) and MMA_KEYS == 32
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -114,3 +142,12 @@ def test_one_bf16_rounding_of_p_breaks_the_bar(d):
     bad_split, _ = _outside(kernel_model(q, k, v), ref)
     assert bad_split == 0
     assert bad_single > ref.numel() // 100, (bad_single, ref.numel())
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+def test_split_p_model_meets_the_bf16_bar_at_either_tile(tile):
+    """The sweep's 32- and 64-key tiles both keep the split's bar (the
+    tile only regroups the online softmax's rescaling)."""
+    q, k, v = _bf16_inputs(11 + tile, 2, 160, 8, 2, 128)
+    bad, worst = _outside(kernel_model(q, k, v, tile=tile), flash_attention_ref(q, k, v))
+    assert bad == 0, f"{bad} outputs outside the bar at {tile}-key tiles (max |err| {worst})"

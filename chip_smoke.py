@@ -406,6 +406,31 @@ def ptxas_summary(log):
     return lines
 
 
+# Hopper instructions a kernel's SASS must hold (cuobjdump): the SSD scan's
+# chunk kernel runs its products on wgmma (HGMMA) and loads by TMA (UTMALDG).
+SASS_REQUIRED = {"ssd_scan": ("ssd_wgmma_kernel", ("HGMMA", "UTMALDG"))}
+
+
+def sass_opcodes(path, kernel, opcodes):
+    """Counts of ``opcodes`` in the SASS (``cuobjdump -sass``) of every
+    function of the library at ``path`` whose mangled name holds
+    ``kernel``."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, inside = dict.fromkeys(opcodes, 0), False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            for op in opcodes:
+                if f" {op}" in line:
+                    counts[op] += 1
+    return counts
+
+
 def sync(device):
     import torch
 
@@ -1239,8 +1264,10 @@ def time_paged_family(torch, device):
 # both sides of the tensor-core body's 16-row tiles and 64-row blocks (1,
 # 15, 16, 17, 63, 64, 65, 160, 256), N in (8, 64, 128, 256), P in (16, 64,
 # 128), one and several chunks; heads that the block's group does not
-# divide (13 heads in groups of 8 at 128 rows, 7 in groups of 4 at 96 rows,
-# on an H100's 132 SMs); odd P and N (element-wise loads and stores).
+# divide (on an H100's 132 SMs: 7 in groups of 4 at 96 rows, the mma.sync
+# body; 20 in groups of 3 at 16 rows, the Hopper body, which takes all 13
+# heads of the 128-row shape in one group); odd P and N (element-wise loads
+# and stores).
 SSD_GRID = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64, 64),
             (2, 96, 3, 16, 8, 32), (1, 512, 4, 64, 128, 256), (1, 81, 2, 16, 8, 81),
             (2, 20, 4, 16, 16, 4),
@@ -1248,7 +1275,7 @@ SSD_GRID = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64,
             (1, 34, 9, 16, 128, 17), (1, 126, 3, 64, 8, 63), (2, 128, 2, 128, 64, 64),
             (1, 130, 11, 64, 128, 65), (1, 320, 3, 16, 256, 160),
             (1, 256, 5, 128, 256, 256), (128, 160, 13, 64, 128, 160),
-            (96, 256, 7, 16, 64, 128), (2, 33, 3, 18, 12, 11)]
+            (96, 256, 7, 16, 64, 128), (2, 33, 3, 18, 12, 11), (16, 160, 20, 64, 128, 160)]
 # Kernel against plain version: the same float32 function from the same
 # inputs.  The float32 body sums in another order (32-row tiles and a warp
 # scan of dA against the plain version's einsums and cumsum), ~1e-6 on
@@ -1258,6 +1285,8 @@ SSD_GRID = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64,
 # the JAX kernel tests' bar.
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)
 SSD_SEQ_TOL = dict(atol=2e-4, rtol=2e-4)
+# The bf16 chunk kernel every driven shape runs: the Hopper body.
+SSD_CHUNK_KERNEL = "ssd_wgmma_kernel"
 
 
 def ssd_inputs(torch, gen, b, s, h, p, n, bc_dtype, device):
@@ -1286,11 +1315,17 @@ def check_ssd(torch, device, driven):
     float32 and bfloat16 B/C, over the grid and the driven shapes; returns
     the max error against the plain version."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ops import chunk_kernel
     from repro_torch.models.ssm import ssd_sequential_ref
 
     gen = torch.Generator(device=device).manual_seed(41)
     err = {"float32": 0.0, "bfloat16": 0.0}
     seq_err = 0.0
+    bodies = {}
+    for b, s, h, p, n, q in SSD_GRID + driven:
+        bodies.setdefault(chunk_kernel(p, n, q), []).append((b, s, h, p, n, q))
+    if sorted(bodies) != ["ssd_mma_kernel", SSD_CHUNK_KERNEL]:
+        raise AssertionError(f"the scan's shapes reach the chunk kernels {sorted(bodies)}")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for b, s, h, p, n, q in SSD_GRID + driven:
@@ -1307,37 +1342,73 @@ def check_ssd(torch, device, driven):
     print(f"ssd_scan matches its plain version (tolerance {SSD_TOL}) and the sequential "
           f"recurrence (tolerance {SSD_SEQ_TOL}): B/C in float32 and bfloat16 over "
           f"(b, s, h, p, n, Q) in {SSD_GRID} and the driven shapes {driven}; max |kernel - "
-          f"plain| = {err}, max |kernel - sequential| = {seq_err!r}")
+          f"plain| = {err}, max |kernel - sequential| = {seq_err!r}; bf16 chunk kernel by "
+          f"shape {bodies}")
     return max(err.values())
 
 
-def ssd_bound(b, s, h, p, n, q, bc_bytes, state=False):
+def ssd_bound(b, s, h, p, n, q, bc_bytes, state=False, old=False):
     """(bound_ms, bound_by, bytes, flops) of one scan: xdt read and y
-    written in float32, dA read, B and C read once; per (row, head) and
-    chunk the causal products with xdt (Q(Q+1)P) and the decay (subtract,
-    exp, multiply on Q(Q+1)/2 entries), per row and chunk the lower
-    triangle of C.Bᵀ (Q(Q+1)N), and 2QPN per (row, head) for the state
-    term of every chunk but the first and the update of every chunk but
-    the last.  With ``state`` (``return_state``) the last chunk's update
-    too, and the final state written in float32."""
+    written in float32, dA read, B and C read once; with ``state``
+    (``return_state``) the last chunk's update too, and the final state
+    written in float32.  The products run on the tensor cores in bf16, each
+    counted as often as the float32 bar makes the kernels form it: per row
+    and chunk the lower triangle of C.Bᵀ once (Q(Q+1)N), per (row, head)
+    and chunk the causal products with xdt three times (hi.hi, hi.lo,
+    lo.hi: 3 Q(Q+1)P), and 2QPN twice (the split operand) for the update of
+    every chunk but the last and for the carried-state term of every chunk
+    but the first; those take the dense bf16 rate.  The decay (subtract,
+    exp, multiply on Q(Q+1)/2 entries per (row, head) and chunk) takes the
+    float32 rate.  The bound is the largest of the three times: bytes,
+    tensor-core operations, float32 operations, which the card can overlap.
+    ``old``: the count before PR 33, every operation once at the float32
+    rate (`flops` then the float32 total)."""
     nc = s // q
     updates = nc if state else nc - 1
     nbytes = (2 * 4 * b * s * h * p + 4 * b * s * h + 2 * bc_bytes * b * s * n
               + (4 * b * h * p * n if state else 0))
-    flops = (nc * b * h * (q * (q + 1) * p + 3 * q * (q + 1) // 2)
-             + nc * b * q * (q + 1) * n + (nc - 1 + updates) * b * h * 2 * q * p * n)
-    b_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_OPS_PER_S}
+    decay = nc * b * h * 3 * q * (q + 1) // 2
+    if old:
+        flops = (nc * b * h * q * (q + 1) * p + decay + nc * b * q * (q + 1) * n
+                 + (nc - 1 + updates) * b * h * 2 * q * p * n)
+        b_s = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_OPS_PER_S}
+    else:
+        tensor = (nc * b * q * (q + 1) * n + 3 * nc * b * h * q * (q + 1) * p
+                  + 2 * (nc - 1 + updates) * b * h * 2 * q * p * n)
+        flops = tensor + decay
+        b_s = {"bytes": nbytes / HBM_BYTES_PER_S,
+               "operations": max(tensor / BF16_OPS_PER_S, decay / FP32_OPS_PER_S)}
     by = max(b_s, key=b_s.get)
     return b_s[by] * 1e3, by, nbytes, flops
+
+
+def ssd_kernels_ran(torch, device, run, shape, state):
+    """Device µs by kernel of one bf16 ``run()`` at a driven scan shape;
+    raises unless it launched the Hopper chunk kernel, the state kernel
+    exactly where ``state`` (more than one chunk, or the final state), and
+    neither the mma.sync chunk kernel nor a CUDA-core one."""
+    from repro_torch.kernels.ssd_scan.ops import chunk_kernel
+
+    b, s, h, p, n, q = shape
+    by_kernel = device_us_by_kernel(torch, device, run, calls=3)
+    want = (SSD_CHUNK_KERNEL, "ssd_fwd_state_mma_kernel") if state else (SSD_CHUNK_KERNEL,)
+    ran = lambda name: any(name in k for k in by_kernel)
+    if chunk_kernel(p, n, q) != SSD_CHUNK_KERNEL or not all(ran(k) for k in want) or \
+            ran("ssd_scan_kernel") or ran("ssd_mma_kernel") or \
+            (not state and ran("ssd_fwd_state_mma_kernel")):
+        raise AssertionError(f"ssd_scan at {shape}, bf16 B/C, ran {sorted(by_kernel)}: expected "
+                             f"{want} and no other kernel")
+    return by_kernel
 
 
 def time_ssd(torch, device, shape):
     """Kernel and plain version at a scan shape with bf16 B/C: phase 13's
     (mamba2-2.7b, 128 rows x 160 tokens) or phase 14's (zamba2-7b, 8 rows),
     one chunk, or 24(c)'s training shapes (8 rows x 512 tokens, two chunks
-    of 256), where the state kernel runs before the chunk kernel and no
-    CUDA-core kernel may run; device µs by kernel under torch.profiler; no
-    single PyTorch call computes it."""
+    of 256), where the state kernel runs before the chunk kernel; the
+    Hopper chunk kernel and no other must run (``ssd_kernels_ran``); device
+    µs by kernel under torch.profiler; the bound beside the count before
+    PR 33; no single PyTorch call computes it."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     from repro_torch.kernels.ssd_scan.ops import heads_per_block
 
@@ -1349,23 +1420,20 @@ def time_ssd(torch, device, shape):
     k_ms = time_ms(torch, run, 20)
     k_dev = device_ms(run, calls=10)
     p_ms = time_ms(torch, lambda: ssd_scan_ref(*args, chunk=q), 5)
-    by_kernel = device_us_by_kernel(torch, device, run, calls=3)
-    bf16_kernels = ("ssd_mma_kernel", "ssd_fwd_state_mma_kernel") if s > q else ("ssd_mma_kernel",)
-    if any("ssd_scan_kernel" in k for k in by_kernel) or \
-            not all(any(want in k for k in by_kernel) for want in bf16_kernels):
-        raise AssertionError(f"ssd_scan at {shape}, bf16 B/C, ran {sorted(by_kernel)}: expected "
-                             f"{bf16_kernels} and no CUDA-core ssd_scan_kernel")
+    by_kernel = ssd_kernels_ran(torch, device, run, shape, s > q)
     bound_ms, bound_by, nbytes, flops = ssd_bound(b, s, h, p, n, q, 2)
+    old_ms, old_by, _, old_flops = ssd_bound(b, s, h, p, n, q, 2, old=True)
     print(f"ssd_scan (b, s, h, p, n, Q) = {shape}, bf16 B/C, "
           f"{heads_per_block(b, s, h, p, n, q, device)} heads per block: kernel "
           f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us), plain {p_ms * 1e3!r} us, bound "
-          f"{bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, {flops} flops); device "
-          f"bound share {bound_ms / k_dev!r}; by kernel (profiled device us a call) "
-          f"{by_kernel}; |kernel - plain| {err!r}; no single PyTorch call computes it: "
-          f"library_ms is null")
+          f"{bound_ms * 1e3!r} us (by {bound_by}: {nbytes} bytes, {flops} operations, the "
+          f"products at the bf16 rate; before PR 33 {old_ms * 1e3!r} us by {old_by}, "
+          f"{old_flops} float32 flops); device bound share {bound_ms / k_dev!r}; by kernel "
+          f"(profiled device us a call) {by_kernel}; |kernel - plain| {err!r}; no single "
+          f"PyTorch call computes it: library_ms is null")
     return {"shape": list(shape), "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "device_ms": k_dev,
-            "library_device_ms": None, "kernels_device_us": by_kernel}
+            "bound_by": bound_by, "old_bound_ms": old_ms, "library_ms": None,
+            "device_ms": k_dev, "library_device_ms": None, "kernels_device_us": by_kernel}
 
 
 # ssd_scan's final state (return_state): the prefills phase 20 drives
@@ -1431,13 +1499,19 @@ def time_ssd_state(torch, device, shape):
     k_dev = device_ms(lambda: ssd_scan(*args, chunk=q, return_state=True), calls=10)
     y_dev = device_ms(lambda: ssd_scan(*args, chunk=q), calls=10)
     p_ms = time_ms(torch, lambda: ssd_scan_ref(*args, chunk=q, return_state=True), 5)
+    by_kernel = ssd_kernels_ran(torch, device, lambda: ssd_scan(*args, chunk=q,
+                                                                return_state=True), shape, True)
     bound_ms, bound_by, nbytes, flops = ssd_bound(b, s, h, p, n, q, 2, state=True)
+    old_ms, old_by, _, _ = ssd_bound(b, s, h, p, n, q, 2, state=True, old=True)
     print(f"ssd_scan return_state (b, s, h, p, n, Q) = {shape}, bf16 B/C: kernel "
           f"{k_ms * 1e3!r} us (device {k_dev * 1e3!r} us; without the state {y_dev * 1e3!r} "
           f"us), plain {p_ms * 1e3!r} us, bound {bound_ms * 1e3!r} us (by {bound_by}: "
-          f"{nbytes} bytes, {flops} flops); device bound share {bound_ms / k_dev!r}")
+          f"{nbytes} bytes, {flops} operations; before PR 33 {old_ms * 1e3!r} us by {old_by}); "
+          f"device bound share {bound_ms / k_dev!r}; by kernel (profiled device us a call) "
+          f"{by_kernel}")
     return {"shape": list(shape), "ms": k_ms, "device_ms": k_dev, "stateless_device_ms": y_dev,
-            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "old_bound_ms": old_ms, "kernels_device_us": by_kernel}
 
 
 # ssd_scan_bwd against its plain version (phase 3), per tensor as a share
@@ -2137,8 +2211,8 @@ def paged_frontier_path(torch, device, cfg, params, base, dense_frontier):
 # profile_call prints whether or not they are among the top entries.
 PORT_KERNEL_NAMES = ("tree_select_kernel", "tree_descend_kernel", "split_kernel",
                      "tree_kernel", "flash_wgmma_kernel", "flash_mma_kernel",
-                     "flash_attention_kernel", "ssd_mma_kernel", "ssd_fwd_state_mma_kernel",
-                     "ssd_scan_kernel")
+                     "flash_attention_kernel", "ssd_wgmma_kernel", "ssd_mma_kernel",
+                     "ssd_fwd_state_mma_kernel", "ssd_scan_kernel")
 
 
 def profile_call(torch, device, fn, what, top=10):
@@ -3424,8 +3498,8 @@ STEP_GROUPS = (("flash_attention_bwd", ("bwd_delta_kernel", "bwd_dkdv", "bwd_dq"
                ("flash_attention forward", ("flash_wgmma_kernel", "flash_mma_kernel",
                                             "flash_attention_kernel")),
                ("ssd_scan_bwd", ("ssd_bwd_",)),
-               ("ssd_scan forward", ("ssd_mma_kernel", "ssd_fwd_state_mma_kernel",
-                                     "ssd_scan_kernel")),
+               ("ssd_scan forward", ("ssd_wgmma_kernel", "ssd_mma_kernel",
+                                     "ssd_fwd_state_mma_kernel", "ssd_scan_kernel")),
                ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
@@ -4540,6 +4614,11 @@ def main():
     for name in PTXAS_SUMMARY:
         print(f"ptxas {name} (registers, spills, static shared memory):")
         print("\n".join(ptxas_summary(_build.BUILD_LOGS.get(name, ""))))
+    for name, (kernel, opcodes) in SASS_REQUIRED.items():
+        counts = sass_opcodes(_build.library_path(name), kernel, opcodes)
+        print(f"SASS of {kernel} ({name}): {counts}")
+        if not all(counts.values()):
+            raise AssertionError(f"{kernel} issues none of some of {opcodes}: {counts}")
 
     phase("3. kernels against their plain versions")
     fields = {"tree_select": check_tree_select(torch, device)}

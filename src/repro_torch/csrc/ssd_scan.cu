@@ -21,71 +21,69 @@
 // tokens, H = 80, P = 64, N = 128, one chunk of Q = 160, bf16 B and C)
 // reading xdt and writing y in float32 moves 839 MB, 255 us at 3.35 TB/s.
 // C . B^T is the same for all 80 heads (4.2e8 flops), and the causal
-// products of the scores with xdt are 2.0e10 flops: on the tensor cores
+// products of the scores with xdt are 2.0e10 flops, 6.0e10 as the three
+// bf16 products the float32 bar needs: on the tensor cores (989 TFLOP/s)
 // that is far under the byte floor, on the CUDA cores (67 TFLOP/s float32)
-// it is not.
+// it is not.  The per-element work around the products (an accurate expf,
+// the mask and the hi + lo split of every score) is what the SM issues.
 //
-// bf16 B and C: the tensor-core body (`ssd_mma_kernel`), for the part of
-// y inside each chunk.  One block of 8 warps per (batch, chunk, tile of 64
-// chunk rows, group of up to 16 heads); the group is sized from the shape
-// so that the grid fills the card (phase 13: 16 heads, 1920 blocks;
-// zamba2's 8 rows x 112 heads: 4 heads, 672 blocks), and the last group of
-// a row takes the heads that are left.  Heaviest row tile first.
+// bf16 B and C, with more than one chunk or the final state asked for: the
+// state kernel runs first (`ssd_fwd_state_mma_kernel`, the body of
+// ssd_state.cuh that the backward's state pass also runs): one block of 8
+// warps per (batch, head, 64 state rows) walks the chunks in order, h <-
+// exp(total) h + (w o xdt)^T B as an MMA over 32-token slabs through a
+// 3-deep cp.async ring (w o xdt split hi + lo, B exact), and writes the
+// state entering each chunk to float32 `states` [B, nc, H, P, N], the
+// layout the backward reads (autograd saves it, so the backward runs only
+// its reverse direction), and the final state to hout.  Then the chunk
+// kernel forms y, adding the carried-state term exp(cum_i) C_i . h_c^T from
+// `states` into its own accumulators from the second chunk on, so y is
+// written once and never read back.
 //
-// * C . B^T once per block, for all its heads: `mma.sync.m16n8k16` bf16
-//   in, float32 out (the bf16 products are exact, so only the order of
-//   summation differs from the float32 plain version), over the causal
-//   16 x 16 tiles only, into shared memory as float32 ([64][Q + 8]: 43 KB at
-//   Q = 160).  C rows and 32-row slabs of B come in by 16-byte `cp.async`;
-//   Q, N and P are padded to the tile edges with zeros.
-// * cum for every head of the group is scanned once (a warp scan, 32 entries
-//   at a time, as the CUDA-core body does it).
-// * Then the block's two halves of 4 warps (one per 16 rows) walk alternate
-//   heads independently, each with its own barrier, so only one head's y
-//   accumulators (16 rows x P per warp, in mma fragments) are live per
-//   warp.  xdt comes in 32 rows at a time through each half's two-stage
-//   ring of 16-byte `cp.async` loads, which runs on across its heads, and is
-//   split once per half into hi = bf16(x) and lo = bf16(x - hi).  Each warp
-//   forms the scores of a slab's 16-column steps up to its diagonal,
-//   C_i . B_j * expf(cum_i - cum_j) (accurate expf, per head and element:
-//   e^{cum_i} e^{-cum_j} would overflow, cum reaches -130 in a chunk), on the
-//   fragments, splits them the same way and accumulates hi.hi + hi.lo +
-//   lo.hi on the tensor cores in float32 (`ldmatrix.trans` gives the xdt
-//   fragments).  One bf16 rounding of either operand misses the float32 bar
+// The chunk kernel at P = 64, N = 64 or 128, Q >= 64 (every model shape the
+// port drives): the Hopper body (`ssd_wgmma_kernel`), on wgmma_tiles.cuh.
+//
+// * One block per (batch, chunk, group of heads) holds every 64-row M tile
+//   of its chunk, one consumer warpgroup a tile (T = ceil(Q / 64) <= 4;
+//   Q = 160 is 2.5 tiles), and 4 producer warps.
+//   The group is sized from the shape so that the grid fills the card in
+//   few rounds (phase 13: all 80 heads, 128 blocks; zamba2's 8 rows x 112
+//   heads: 7 heads, 128 blocks).  One block an SM.
+// * The block's C tiles come in once by TMA (bf16, 128-byte swizzle).  Each
+//   head's xdt comes in 32 tokens at a time (a slab, float32, by TMA)
+//   through a raw ring; the producer warps split it once into hi =
+//   bf16(x) and lo = bf16(x - hi), MN-major under the swizzle, into a
+//   second ring, beside the slab's B rows (by TMA) and the head's cum (a
+//   warp scan of dA).  So xdt is read from device memory once per (row,
+//   chunk, head) and split once per head.
+// * Per slab up to its diagonal a warpgroup forms C_m . B_s^T (SS wgmma,
+//   bf16 products exact, so only the order of summation differs from the
+//   float32 plain version; it is the mma.sync body's, so y at one chunk is
+//   bit-equal to it), the scores C_i . B_j exp(cum_i - cum_j) on the
+//   fragments (accurate expf per element, all sixteen of a slab taken and
+//   the masked ones dropped by a select: e^{cum_i} e^{-cum_j} would
+//   overflow, cum reaches -130 in a chunk), splits them into register A
+//   operands and accumulates y += hi.hi + hi.lo + lo.hi (RS wgmma) in
+//   float32.  One bf16 rounding of either operand misses the float32 bar
 //   the kernel is held to (tests/test_torch_ssd_numerics.py); the split
-//   meets it.  Tiles above the diagonal are never formed.
-// * Shared memory at phase 13's shape: 43 KB of C . B^T, 10 KB of cum, 2 x
-//   26 KB of xdt rings and splits: two blocks (16 warps) per SM.
-// * With more than one chunk, or when the final state is asked for, the
-//   state kernel follows (`ssd_fwd_state_mma_kernel`, the body of
-//   ssd_state.cuh that the backward's state pass also runs): one block of 8
-//   warps per (batch, head, 64 state rows) walks the chunks in order, h <-
-//   exp(total) h + (w o xdt)^T B as an MMA over 32-token slabs through a
-//   3-deep cp.async ring (w o xdt split hi + lo, B exact), and writes the
-//   state entering each chunk to float32 `states` [B, nc, H, P, N], the
-//   layout the backward reads (autograd saves it, so the backward runs only
-//   its reverse direction), and the final state to hout.  From the second
-//   chunk on it first adds exp(cum_i) C_i . h^T to y for its 64 columns of
-//   P: the state it holds in registers is staged split hi + lo in shared
-//   memory, and each warp forms 16 tokens at a time against it (C rows and
-//   y read from global memory, C exact: two products per k16 step, K = N)
-//   while its ring brings in the chunk's first slabs.  y is read back once
-//   for those chunks.
-// * The other place for that term, kept for launch/ssd_fwd_sweep.py
-//   (kInterInChunk): the state kernel first, then the chunk kernel starting
-//   each head's accumulators of a chunk c > 0 at exp(cum_i) C_i . h_c^T, h_c
-//   read from `states` and split as it is read.  y is then written once,
-//   but every warp reads all of h_c from global memory in 8-byte pieces
-//   that each touch 8 rows, and nothing hides their latency: at 24(c)'s
-//   mamba2 shape the term costs ~310 us of the chunk kernel, against ~84 us
-//   in the state kernel (H100, launch/ssd_fwd_sweep.py).  One chunk without
-//   hout launches the chunk kernel alone, its code unchanged by the term (a
-//   template flag).
-// * At 24(c)'s training shape (8 rows x 512 tokens, two chunks of 256,
-//   mamba2-2.7b's heads) the least work is 1.10e10 float32 flops, 164 us
-//   at 67 TFLOP/s (its 171 MB take 51 us); the chunk kernel's shared memory
-//   (129 KB at Q = 256) holds it to one block an SM there, and the state
-//   kernel runs one block an SM (its registers).
+//   meets it.  Up to Q = 192, C . B^T of the next slab runs on the tensor
+//   cores while the scores are formed.  C . B^T is formed again for every
+//   head: that keeps
+//   the block's registers and shared memory to two slabs of it, and the
+//   tensor cores have the time.
+// * From the second chunk on a head's accumulators start at exp(cum_i) C_m .
+//   h_c^T: the producer loads h_c by TMA once per block and head and splits
+//   it (kSplitH), C exact (SS wgmma, K = N).
+// * y is stored once, from the fragments (float2, whole 32-byte sectors).
+//
+// Other bf16 shapes: the mma.sync body (`ssd_mma_kernel`), one block of 8
+// warps per (batch, chunk, tile of 64 chunk rows, group of up to 16 heads),
+// C . B^T once per block on `mma.sync.m16n8k16` into shared memory, the
+// block's two halves of 4 warps walking alternate heads through two-stage
+// `cp.async` rings of 32-row xdt slabs, split once per half; from the
+// second chunk on a head's accumulators start at exp(cum_i) C_i . h_c^T,
+// h_c read from `states` in 8-byte pieces and split as it is read.  The
+// launcher chooses the body by shape; neither falls back to the other.
 //
 // float32 B and C: the CUDA-core body (`ssd_scan_kernel`), one block of 256
 // threads per (batch, head) walking its chunks with the [P][N + 4] state in
@@ -107,6 +105,7 @@
 
 #include "mma_tiles.cuh"
 #include "ssd_state.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -422,7 +421,7 @@ int launch_scan(const float* xdt, const float* dA, const void* Bm, const void* C
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body: bf16 B/C
+// bf16 B/C at the shapes the Hopper body does not take: the mma.sync body
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -435,11 +434,10 @@ constexpr int kHalfThreads = 32 * kRowWarps;
 constexpr int kRows = 16 * kRowWarps;   // chunk rows per block
 constexpr int kSlab = 32;               // chunk columns per B slab / xdt stage
 constexpr int kMaxGroup = 16;           // heads per block
-// Where the inter-chunk term exp(cum_i) C_i . h^T is added
-// (launch/ssd_fwd_sweep.py times both): false, the state kernel, after the
-// chunk kernel, from the state it holds; true, the chunk kernel, after the
-// state kernel, reading the state from global memory.
-constexpr bool kInterInChunk = false;
+// The state h_c in the carried-state term exp(cum_i) C_i . h_c^T: split hi
+// + lo (one bf16 rounding of it misses SSD_TOL,
+// tests/test_torch_ssd_numerics.py, which reads this).
+constexpr bool kSplitH = true;
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -733,7 +731,7 @@ ssd_mma_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
       cum_b = ch[ib];
       if (kInter && chunk > 0) {
         const bf16* c_a = Cm + (tok0 + ia) * N;
-        state_term<2 * PT, ssd_state::kSplitH>(
+        state_term<2 * PT, kSplitH>(
             acc, c_a, c_a + 8 * N, ia < Q, ib < Q,
             states + ((static_cast<size_t>(b) * n_chunks + chunk) * H + h0 + hh) * P * N, 0, P,
             N, lane);
@@ -881,70 +879,602 @@ int launch_mma(const float* xdt, const float* dA, const bf16* Bm, const bf16* Cm
 // The forward direction of ssd_state.cuh's state body: one block of 8
 // warps per (batch, head, 64 state rows) writes the state entering each
 // chunk c = 1 .. nc - 1 into hs [B, nc, H, P, N], and the state after the
-// last chunk into hout when given.  kAddY: it also adds exp(cum_i) C_i .
-// h^T to y (!kInterInChunk).
-template <int NPW, bool kAddY>
+// last chunk into hout when given.
+template <int NPW>
 __global__ void __launch_bounds__(ssd_state::kStThreads, 1)
 ssd_fwd_state_mma_kernel(const float* __restrict__ xdt, const float* __restrict__ dA,
-                         const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
-                         float* __restrict__ hs, float* __restrict__ hout,
-                         float* __restrict__ y, int S, int H, int P, int N, int Q, int vec_bc,
+                         const bf16* __restrict__ Bm, float* __restrict__ hs,
+                         float* __restrict__ hout, int S, int H, int P, int N, int Q, int vec_bc,
                          int vec_u) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  ssd_state::state_pass<NPW, kAddY>(smem_raw, xdt, dA, Bm, Cm, nullptr, hs, nullptr, hout, y,
-                                    false, S, H, P, N, Q, vec_bc, vec_u);
+  ssd_state::state_pass<NPW>(smem_raw, xdt, dA, Bm, nullptr, nullptr, hs, nullptr, hout, false,
+                             S, H, P, N, Q, vec_bc, vec_u);
 }
 
-template <bool kAddY>
-int launch_state(const float* xdt, const float* dA, const bf16* Bm, const bf16* Cm, float* hs,
-                 float* hout, float* y, int B, int S, int H, int P, int N, int Q,
-                 cudaStream_t stream) {
+int launch_state(const float* xdt, const float* dA, const bf16* Bm, float* hs, float* hout,
+                 int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
   const long long blocks = static_cast<long long>(B) * H * ((P + 63) / 64);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec_bc = N % 8 == 0 && reinterpret_cast<uintptr_t>(Bm) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(Cm) % 16 == 0;
+  const int vec_bc = N % 8 == 0 && reinterpret_cast<uintptr_t>(Bm) % 16 == 0;
   const int vec_u = P % 4 == 0 && reinterpret_cast<uintptr_t>(xdt) % 16 == 0;
   return static_cast<int>(ssd_state::with_npw(N, [&](auto npw) {
     constexpr int NPW = decltype(npw)::value;
-    const size_t smem = ssd_state::state_smem_bytes(N, Q, kAddY);
+    const size_t smem = ssd_state::state_smem_bytes(N, Q);
     if (smem > 48 * 1024) {
       const cudaError_t err =
-          cudaFuncSetAttribute(ssd_fwd_state_mma_kernel<NPW, kAddY>,
+          cudaFuncSetAttribute(ssd_fwd_state_mma_kernel<NPW>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
     }
-    ssd_fwd_state_mma_kernel<NPW, kAddY>
+    ssd_fwd_state_mma_kernel<NPW>
         <<<static_cast<unsigned>(blocks), ssd_state::kStThreads, smem, stream>>>(
-            xdt, dA, Bm, Cm, hs, hout, y, S, H, P, N, Q, vec_bc, vec_u);
+            xdt, dA, Bm, hs, hout, S, H, P, N, Q, vec_bc, vec_u);
     return cudaGetLastError();
   }));
 }
 
-// bf16 B/C: the chunk kernel, then, with more than one chunk or a final
-// state to write, the state kernel, which writes the state entering each
-// chunk into `states` (and the final state into hout) and adds exp(cum_i)
-// C_i . h^T to y from the second chunk on.  Nothing is launched on the CUDA
-// cores.
+// ---------------------------------------------------------------------------
+// bf16 B/C, P = 64, N = 64 or 128, Q >= 64: the Hopper body (wgmma, TMA)
+// ---------------------------------------------------------------------------
+
+using wgmma_tiles::desc_sw128;
+using wgmma_tiles::fence_async_smem;
+using wgmma_tiles::fence_regs;
+using wgmma_tiles::mbar_arrive;
+using wgmma_tiles::mbar_expect_tx;
+using wgmma_tiles::mbar_fence_init;
+using wgmma_tiles::mbar_init;
+using wgmma_tiles::mbar_wait;
+using wgmma_tiles::sw128_offset;
+using wgmma_tiles::tma_load_2d;
+using wgmma_tiles::tma_load_3d;
+using wgmma_tiles::wgmma_commit;
+using wgmma_tiles::wgmma_fence;
+using wgmma_tiles::wgmma_rs;
+using wgmma_tiles::wgmma_ss;
+using wgmma_tiles::wgmma_wait;
+
+// The launcher runs the Hopper body at every shape it fits (false: the
+// mma.sync body at every bf16 shape, which launch/ssd_fwd_sweep.py times).
+constexpr bool kWgmmaBody = true;
+constexpr int kWgP = 64;                         // P: one 128-byte swizzle row of bf16
+constexpr int kWgSlab = 32;                      // tokens a ring item
+constexpr int kRawStages = 4;                    // float32 xdt slabs as TMA lands them
+constexpr int kCvStages = 3;                     // split xdt and B slabs as the products read them
+// Blocks are built for at most kTiles 64-row tiles (3: Q <= 192, 4: Q <=
+// 256) beside 4 producer warps, which split xdt and h_c and issue the
+// copies: 512 threads and 128 registers a thread, or 640 and 96 (each
+// SM sub-partition's 16K registers go to the four or five warps on it).  With
+// 128, a warpgroup forms the next slab's C . B^T while it forms this
+// slab's scores (two score sets); with 96, one set, after the scores (the
+// second set would spill).
+constexpr int kProducerWarps = 4;
+template <int kTiles>
+__host__ __device__ constexpr int wg_threads() {
+  return 128 * kTiles + 32 * kProducerWarps;
+}
+constexpr int kRegion = 64 * 128;                // a 64-row, 64-column bf16 tile
+constexpr int kSlabRegion = kWgSlab * 128;       // a 32-row one
+constexpr int kRawX = kWgSlab * kWgP * 4;        // a float32 xdt slab
+
+__host__ __device__ __forceinline__ int cv_stage_bytes(int nr) {
+  return (2 + nr) * kSlabRegion;                 // xdt hi, lo, B
+}
+
+// Byte offsets of the Hopper body's shared memory, 1024-aligned: the
+// block's C tiles, the raw and split rings, the state h_c (float32) and
+// its split, two heads' cum, the mbarriers; `bytes` with the base's
+// alignment.
+struct WgSmem {
+  int c, raw, cv, h_raw, h_split, cum, bars, bytes;
+};
+
+__host__ __device__ __forceinline__ WgSmem wg_smem(int tiles, int nr, bool term) {
+  WgSmem s;
+  s.c = 0;
+  s.raw = s.c + tiles * nr * kRegion;
+  s.cv = s.raw + kRawStages * kRawX;
+  s.h_raw = s.cv + kCvStages * cv_stage_bytes(nr);
+  s.h_split = s.h_raw + (term ? kWgP * 64 * nr * 4 : 0);
+  s.cum = s.h_split + (term ? 2 * nr * kRegion : 0);
+  s.bars = s.cum + 2 * kMaxChunk * 4;
+  s.bytes = s.bars + 32 * 8 + 1024;
+  return s;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// Four float32 values split into hi and lo bf16 at elements (row, col ..
+// col + 3) of two 128-byte-swizzled tiles, 64 columns a kRegion.
+__device__ __forceinline__ void split_store(unsigned char* hi, unsigned char* lo, float4 v,
+                                            int row, int col) {
+  uint32_t h01, l01, h23, l23;
+  split_bf16(v.x, v.y, h01, l01);
+  split_bf16(v.z, v.w, h23, l23);
+  const int off = (col >> 6) * kRegion + sw128_offset(row, col & 63);
+  *reinterpret_cast<uint2*>(hi + off) = make_uint2(h01, h23);
+  *reinterpret_cast<uint2*>(lo + off) = make_uint2(l01, l23);
+}
+
+// One block per (batch, chunk, group of `group` heads).  Warpgroup m < T =
+// ceil(Q / 64) owns chunk rows [64 m, 64 m + 64), one wgmma M tile; the
+// warps after the last warpgroup produce.  Per head, items of 32 tokens
+// (slabs) pass through two rings: TMA lands the float32 xdt slab in a raw
+// stage, which the producer warps split into hi + lo (MN-major under the
+// 128-byte swizzle) in a split stage, beside the slab's B rows (TMA) and
+// the head's cum; the raw stage is refilled at once.  Every warpgroup
+// waits for every item and releases it (so that no stage is released twice
+// in a phase) and computes only the slabs up to its diagonal.  With kTerm,
+// from the second chunk on, a head's y starts at exp(cum_i) C_m . h_c^T,
+// h_c loaded by TMA from `states` and split by the producer warps once per
+// head (kSplitH).  y rows below Q are stored from the fragments after the
+// warpgroup's last slab.  Fragments: thread 32 w + 4 g + c of a warpgroup
+// holds rows 16 w + g and + 8 of its tile.
+template <int NR, bool kTerm, int kTiles>
+__global__ void __launch_bounds__(wg_threads<kTiles>(), 1)
+ssd_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap th,
+                 const float* __restrict__ dA, float* __restrict__ y, int S, int H, int Q,
+                 int group) {
+  const int T = (Q + 63) / 64;   // <= kTiles
+  const WgSmem L = wg_smem(T, NR, kTerm);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* cs = base + L.c;               // [T][NR] C tiles
+  unsigned char* raw = base + L.raw;            // [kRawStages] float32 xdt
+  unsigned char* cv = base + L.cv;              // [kCvStages] xdt hi, lo, B
+  float* h_raw = reinterpret_cast<float*>(base + L.h_raw);   // [64][N]
+  unsigned char* h_hi = base + L.h_split;       // [NR] 64 rows of h_c, K-major
+  unsigned char* h_lo = h_hi + NR * kRegion;
+  float* cums = reinterpret_cast<float*>(base + L.cum);      // [2][kMaxChunk]: heads hh & 1
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(base + L.bars);
+  uint64_t* b_full = raw_full + kRawStages;     // B landed in a split stage
+  uint64_t* cv_full = b_full + kCvStages;       // xdt split (and cum written)
+  uint64_t* cv_empty = cv_full + kCvStages;
+  uint64_t* c_full = cv_empty + kCvStages;
+  uint64_t* hraw_full = c_full + 1;
+  uint64_t* h_full = c_full + 2;
+  uint64_t* h_empty = c_full + 3;
+
+  const int n_chunks = S / Q;
+  const int n_groups = (H + group - 1) / group;
+  int idx = blockIdx.x;
+  const int h0 = (idx % n_groups) * group;
+  idx /= n_groups;
+  const int chunk = idx % n_chunks;
+  const int b = idx / n_chunks;
+  const int gh = min(group, H - h0);
+  const int tok0 = b * S + chunk * Q;           // the chunk's first row of [B S]
+  const int n_slabs = (Q + kWgSlab - 1) / kWgSlab;   // >= 2: Q >= 64
+  const int items = gh * n_slabs;
+  const bool term = kTerm && chunk > 0;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+
+  if (tid == 0) {
+    for (int i = 0; i < kRawStages; ++i) mbar_init(&raw_full[i], 1);
+    for (int i = 0; i < kCvStages; ++i) {
+      mbar_init(&b_full[i], 1);
+      mbar_init(&cv_full[i], kProducerWarps);
+      mbar_init(&cv_empty[i], 4 * T);
+    }
+    mbar_init(c_full, 1);
+    mbar_init(hraw_full, 1);
+    mbar_init(h_full, 1);
+    mbar_init(h_empty, 4 * T);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * T) {
+    // The producer warps: warp pw splits rows [8 pw, 8 pw + 8) of every xdt
+    // slab (and 16 rows of h_c); thread 0 of them issues every TMA copy;
+    // warp 0 also scans each head's dA into cum (two heads' slots, which a
+    // head's last slab frees before the head after next needs it: >= 2
+    // slabs a head, 3 split stages).
+    const int ptid = tid - 128 * T;
+    const int pw = ptid >> 5;
+    const bool issuer = ptid == 0;
+    auto producer_sync = [] {
+      asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kProducerWarps) : "memory");
+    };
+    const CUtensorMap* mx = &tx;
+    const CUtensorMap* mb = &tb;
+    const CUtensorMap* mc = &tc;
+    const CUtensorMap* mh = &th;
+    auto issue_x = [&](int i) {
+      const int hh = i / n_slabs;
+      uint64_t* bar = &raw_full[i % kRawStages];
+      mbar_expect_tx(bar, kRawX);
+      tma_load_3d(raw + (i % kRawStages) * kRawX, mx, bar, 0, h0 + hh,
+                  tok0 + kWgSlab * (i - hh * n_slabs));
+    };
+    auto issue_h = [&](int hh) {
+      mbar_expect_tx(hraw_full, NR * 64 * kWgP * 4);
+      tma_load_2d(h_raw, mh, hraw_full, 0, ((b * n_chunks + chunk) * H + h0 + hh) * kWgP);
+    };
+    if (issuer) {
+      mbar_expect_tx(c_full, T * NR * kRegion);
+      for (int m = 0; m < T; ++m)
+        for (int r = 0; r < NR; ++r)
+          tma_load_2d(cs + (m * NR + r) * kRegion, mc, c_full, 64 * r, tok0 + 64 * m);
+      for (int i = 0; i < kRawStages && i < items; ++i) issue_x(i);
+      if (term) issue_h(0);
+    }
+    // A head's dA, strided by H in memory (warp 0): the next head's is
+    // loaded while this one's slabs are split.
+    constexpr int kDa = kMaxChunk / 32;
+    float da[kDa];
+    auto load_da = [&](int hh) {
+#pragma unroll
+      for (int k = 0; k < kDa; ++k) {
+        const int j = lane + 32 * k;
+        da[k] = j < Q ? dA[static_cast<size_t>(tok0 + j) * H + h0 + hh] : 0.0f;
+      }
+    };
+    if (pw == 0) load_da(0);
+    for (int i = 0; i < items; ++i) {
+      const int hh = i / n_slabs;
+      const int s = i - hh * n_slabs;
+      const int rs = i % kRawStages;
+      const int st = i % kCvStages;
+      if (i >= kCvStages) mbar_wait(&cv_empty[st], ((i / kCvStages) + 1) & 1);
+      unsigned char* dst = cv + st * cv_stage_bytes(NR);
+      if (issuer) {
+        mbar_expect_tx(&b_full[st], NR * kSlabRegion);
+        for (int r = 0; r < NR; ++r)
+          tma_load_2d(dst + (2 + r) * kSlabRegion, mb, &b_full[st], 64 * r,
+                      tok0 + kWgSlab * s);
+      }
+      if (s == 0) {
+        if (pw == 0) {
+          float* cum = cums + (hh & 1) * kMaxChunk;
+#pragma unroll
+          for (int k = 0; k < kDa; ++k)
+            if (lane + 32 * k < Q) cum[lane + 32 * k] = da[k];
+          __syncwarp();
+          warp_scan(cum, Q, lane);
+          if (hh + 1 < gh) load_da(hh + 1);
+        }
+        if (term) {
+          mbar_wait(hraw_full, hh & 1);
+          if (hh > 0) mbar_wait(h_empty, (hh - 1) & 1);   // every warpgroup's term is done
+          constexpr int kHRows = kWgP / kProducerWarps;   // rows of h_c a producer warp splits
+          for (int e = lane; e < kHRows * 16 * NR; e += 32) {
+            const int p = kHRows * pw + e / (16 * NR);
+            const int n = 4 * (e % (16 * NR));
+            split_store(h_hi, h_lo, *reinterpret_cast<const float4*>(h_raw + p * 64 * NR + n), p,
+                        n);
+          }
+          fence_async_smem();
+          producer_sync();   // every producer warp's split is done
+          if (issuer) {
+            mbar_arrive(h_full);
+            if (hh + 1 < gh) issue_h(hh + 1);
+          }
+        }
+      }
+      mbar_wait(&raw_full[rs], (i / kRawStages) & 1);
+      const float* rx = reinterpret_cast<const float*>(raw + rs * kRawX);
+      constexpr int kRowsPw = kWgSlab / kProducerWarps;
+      float4 v[kRowsPw / 2];
+#pragma unroll
+      for (int k = 0; k < kRowsPw / 2; ++k) {
+        const int e = lane + 32 * k;   // row kRowsPw pw + e / 16, columns 4 (e % 16) ..
+        v[k] = *reinterpret_cast<const float4*>(rx + (kRowsPw * pw + (e >> 4)) * kWgP +
+                                                4 * (e & 15));
+      }
+#pragma unroll
+      for (int k = 0; k < kRowsPw / 2; ++k) {
+        const int e = lane + 32 * k;
+        split_store(dst, dst + kSlabRegion, v[k], kRowsPw * pw + (e >> 4), 4 * (e & 15));
+      }
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&cv_full[st]);
+      // Every producer warp has read raw stage rs: TMA refills it.
+      producer_sync();
+      if (issuer && i + kRawStages < items) issue_x(i + kRawStages);
+    }
+    return;
+  }
+
+  // A consumer warpgroup.  Per head, slab by slab: C . B^T of slab s + 1 is
+  // issued before the scores of slab s are formed on the CUDA cores, and
+  // runs meanwhile (into the other of two score sets; kOverlap, the
+  // smaller block), or after them (one set); then y's products of slab s
+  // run as a stage of their own.  No other instruction defines a wgmma
+  // input inside a stage, and no wgmma sits on a divergent path, so ptxas
+  // keeps the products asynchronous.
+  constexpr bool kOverlap = kTiles < 4;
+  const int m = tid >> 7;
+  const int w = (tid >> 5) & 3;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int ra = 64 * m + 16 * w + g;              // this thread's chunk rows ra, ra + 8
+  const int rb = ra + 8;
+  const int s_last = min(2 * m + 1, n_slabs - 1);  // the tile's diagonal slab (>= 1)
+  const unsigned char* ct = cs + m * NR * kRegion;
+  const size_t y_tok = static_cast<size_t>(H) * kWgP;
+  float acc[kWgP / 2];          // y: m64n64
+  float sc[kOverlap ? 2 : 1][kWgSlab / 2];   // C_m . B_s^T (of alternate slabs): m64n32
+  uint32_t fh[2][4], fl[2][4];  // [k16 step]: the scores split hi, lo
+  auto stage = [&](int i) { return cv + (i % kCvStages) * cv_stage_bytes(NR); };
+  auto ready = [&](int i) { mbar_wait(&cv_full[i % kCvStages], (i / kCvStages) & 1); };
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&cv_empty[i % kCvStages]);
+  };
+  // C_m . B^T of item i into d, both K-major (k16 steps 32 bytes apart).
+  auto issue_cb = [&](int i, float (&d)[kWgSlab / 2]) {
+    mbar_wait(&b_full[i % kCvStages], (i / kCvStages) & 1);
+    const unsigned char* bt = stage(i) + 2 * kSlabRegion;
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < 4 * NR; ++kd) {
+      const int o = (kd & 3) * 32;
+      wgmma_ss<kWgSlab, 0>(d, desc_sw128(ct + (kd >> 2) * kRegion + o),
+                           desc_sw128(bt + (kd >> 2) * kSlabRegion + o), kd > 0);
+    }
+    wgmma_commit();
+  };
+  mbar_wait(c_full, 0);
+  for (int hh = 0; hh < gh; ++hh) {
+    const int i0 = hh * n_slabs;
+    const float* cum = cums + (hh & 1) * kMaxChunk;
+    ready(i0);
+    const float cum_a = ra < Q ? cum[ra] : 0.0f;
+    const float cum_b = rb < Q ? cum[rb] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kWgP / 2; ++k) acc[k] = 0.0f;
+    if (term) {
+      // acc = exp(cum_i) C_m . h_c^T: C exact, h_c split (K = N).
+      mbar_wait(h_full, hh & 1);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < 4 * NR; ++kd) {
+        const int o = (kd >> 2) * kRegion + (kd & 3) * 32;
+        const uint64_t dc = desc_sw128(ct + o);
+        wgmma_ss<kWgP, 0>(acc, dc, desc_sw128(h_hi + o), 1);
+        if (kSplitH) wgmma_ss<kWgP, 0>(acc, dc, desc_sw128(h_lo + o), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(h_empty);
+      const float ea = expf(cum_a);
+      const float eb = expf(cum_b);
+#pragma unroll
+      for (int k = 0; k < kWgP / 2; ++k) acc[k] *= (k & 2) ? eb : ea;
+    }
+    fence_regs(acc);
+    issue_cb(i0, sc[0]);
+    wgmma_wait<0>();
+    fence_regs(sc[0]);
+    // Slab s, its C . B^T in score set f (the next slab's in set fn);
+    // kNext: there is a slab after it.
+    auto slab = [&](int s, auto set, auto has_next) {
+      constexpr int f = decltype(set)::value;
+      constexpr int fn = kOverlap ? f ^ 1 : f;
+      constexpr bool kNext = decltype(has_next)::value;
+      const int i = i0 + s;
+      if (kNext && kOverlap) {
+        ready(i + 1);
+        issue_cb(i + 1, sc[fn]);
+      }
+      // Scores C_i . B_j exp(cum_i - cum_j) for j <= i < Q, else 0: sc[f][8
+      // kk + 2 q] and the next are row (q & 1 ? rb : ra), token 32 s + 16 kk
+      // + 8 (q >> 1) + 2 c and the next.  Every exponential is taken (the
+      // select drops those of masked entries), so that all sixteen are
+      // independent.
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = (q & 1) ? rb : ra;
+          const float ci = (q & 1) ? cum_b : cum_a;
+          const int j = kWgSlab * s + 16 * kk + 8 * (q >> 1) + 2 * c;
+          const float2 cj = *reinterpret_cast<const float2*>(cum + j);
+          const float e0 = expf(ci - cj.x);
+          const float e1 = expf(ci - cj.y);
+          const bool live = row < Q;
+          const float s0 = (live && j <= row) ? sc[f][8 * kk + 2 * q] * e0 : 0.0f;
+          const float s1 = (live && j + 1 <= row) ? sc[f][8 * kk + 2 * q + 1] * e1 : 0.0f;
+          split_bf16(s0, s1, fh[kk][q], fl[kk][q]);
+        }
+      if (kNext && !kOverlap) {
+        ready(i + 1);
+        issue_cb(i + 1, sc[fn]);
+      }
+      wgmma_wait<0>();   // C . B^T of slab s + 1
+      fence_regs(sc[fn]);
+      // y += scores . xdt: xdt MN-major, a k16 step 16 token rows (2048 bytes).
+      const unsigned char* in = stage(i);
+      fence_regs(fh);
+      fence_regs(fl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint64_t dh = desc_sw128(in + kk * 2048);
+        const uint64_t dl = desc_sw128(in + kSlabRegion + kk * 2048);
+        wgmma_rs<kWgP, 1>(acc, fh[kk], dh, 1);
+        wgmma_rs<kWgP, 1>(acc, fh[kk], dl, 1);
+        wgmma_rs<kWgP, 1>(acc, fl[kk], dh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(i);
+    };
+    using Set0 = std::integral_constant<int, 0>;
+    using Set1 = std::integral_constant<int, kOverlap ? 1 : 0>;
+    int s = 0;
+    for (; s + 2 <= s_last; s += 2) {
+      slab(s, Set0{}, std::true_type{});
+      slab(s + 1, Set1{}, std::true_type{});
+    }
+    if (s == s_last) {
+      slab(s, Set0{}, std::false_type{});
+    } else {
+      slab(s, Set0{}, std::true_type{});
+      slab(s + 1, Set1{}, std::false_type{});
+    }
+    float* yh = y + static_cast<size_t>(tok0) * y_tok + static_cast<size_t>(h0 + hh) * kWgP;
+#pragma unroll
+    for (int j = 0; j < kWgP / 8; ++j) {
+      const int col = 8 * j + 2 * c;
+      if (ra < Q)
+        *reinterpret_cast<float2*>(yh + ra * y_tok + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (rb < Q)
+        *reinterpret_cast<float2*>(yh + rb * y_tok + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    // The slabs past the tile's diagonal: waited for and released, so
+    // that every stage's phase counts every warp once.
+    for (int s2 = s_last + 1; s2 < n_slabs; ++s2) {
+      ready(i0 + s2);
+      release(i0 + s2);
+    }
+  }
+}
+
+// The shapes the Hopper body takes: P = 64, N a whole number of 128-byte
+// swizzle rows (64 or 128), at least one whole M tile of rows (Q >= 64);
+// the rest keep the mma.sync body.
+bool wgmma_shape(int P, int N, int Q) {
+  return kWgmmaBody && P == kWgP && (N == 64 || N == 128) && Q >= 64;
+}
+
+// The Hopper body's instance for a shape: N = 64 NR, the carried-state
+// term with more than one chunk, blocks built for 3 tiles up to Q = 192
+// and for 4 above.
+using WgKernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, const float*,
+                          float*, int, int, int, int);
+struct WgInstance {
+  WgKernel kernel;
+  int threads;
+  WgSmem smem;
+};
+
+template <int kTiles>
+WgInstance wg_instance_for(int N, bool term, int Q) {
+  const int tiles = (Q + 63) / 64;
+  const int threads = 128 * tiles + 32 * kProducerWarps;
+  const WgSmem smem = wg_smem(tiles, N / 64, term);
+  if (N == 64)
+    return {term ? &ssd_wgmma_kernel<1, true, kTiles> : &ssd_wgmma_kernel<1, false, kTiles>,
+            threads, smem};
+  return {term ? &ssd_wgmma_kernel<2, true, kTiles> : &ssd_wgmma_kernel<2, false, kTiles>,
+          threads, smem};
+}
+
+WgInstance wg_instance(int N, bool term, int Q) {
+  return Q <= 192 ? wg_instance_for<3>(N, term, Q) : wg_instance_for<4>(N, term, Q);
+}
+
+// Heads per block of the Hopper body: the group that finishes the grid in
+// the fewest rounds of (heads + 1), one head's time a round for a block's
+// set-up, with as many blocks at once as fit on the card.
+int wgmma_group(const WgInstance& inst, int B, int S, int H, int Q, int device) {
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(inst.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           inst.smem.bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, inst.kernel, inst.threads,
+                                                    inst.smem.bytes) != cudaSuccess)
+    per_sm = 1;
+  const long long slots = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sm_count(device);
+  const long long chunks = static_cast<long long>(B) * (S / Q);
+  int best = 1;
+  long long best_cost = -1;
+  for (int g = 1; g <= H; ++g) {
+    const long long blocks = chunks * ((H + g - 1) / g);
+    const long long cost = (blocks + slots - 1) / slots * (g + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = g;
+    }
+  }
+  return best;
+}
+
+// The tensor maps: xdt as [B S][H][64] float32 in boxes of (64, 1 head, 32
+// tokens), B and C as [B S][N] bf16 in boxes of (64, 32 tokens) and (64,
+// 64 rows) under the 128-byte swizzle, states as [B nc H 64][N] float32 in
+// boxes of (N, 64 rows); the float32 boxes unswizzled.
+int launch_wgmma(const float* xdt, const float* dA, const bf16* Bm, const bf16* Cm,
+                 const float* states, float* y, int B, int S, int H, int N, int Q, int device,
+                 cudaStream_t stream) {
+  const bool term = S / Q > 1;
+  const uint64_t rows = static_cast<uint64_t>(B) * S;
+  const uint64_t n = static_cast<uint64_t>(N);
+  const uint64_t x_dims[3] = {kWgP, static_cast<uint64_t>(H), rows};
+  const uint64_t x_strides[2] = {kWgP * 4, static_cast<uint64_t>(H) * kWgP * 4};
+  const uint32_t x_box[3] = {kWgP, 1, kWgSlab};
+  const uint64_t bc_dims[2] = {n, rows};
+  const uint64_t bc_strides[1] = {n * 2};
+  const uint32_t b_box[2] = {64, kWgSlab};
+  const uint32_t c_box[2] = {64, 64};
+  CUtensorMap tx, tb, tc, th;
+  int err = wgmma_tiles::make_tensor_map(&tx, xdt, 3, x_dims, x_strides, x_box,
+                                         CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == 0) err = wgmma_tiles::make_tensor_map(&tb, Bm, 2, bc_dims, bc_strides, b_box);
+  if (err == 0) err = wgmma_tiles::make_tensor_map(&tc, Cm, 2, bc_dims, bc_strides, c_box);
+  if (err == 0 && term) {
+    const uint64_t h_dims[2] = {n, static_cast<uint64_t>(B) * (S / Q) * H * kWgP};
+    const uint64_t h_strides[1] = {n * 4};
+    const uint32_t h_box[2] = {static_cast<uint32_t>(N), kWgP};
+    err = wgmma_tiles::make_tensor_map(&th, states, 2, h_dims, h_strides, h_box,
+                                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                       CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    th = tx;   // not read
+  }
+  if (err != 0) return err;
+  const WgInstance inst = wg_instance(N, term, Q);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      inst.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, inst.smem.bytes));
+  if (err != 0) return err;
+  const int group = wgmma_group(inst, B, S, H, Q, device);
+  const long long blocks = static_cast<long long>(B) * (S / Q) * ((H + group - 1) / group);
+  if (blocks > 0x7fffffffLL || rows > 0x7fffffffULL) return static_cast<int>(cudaErrorInvalidValue);
+  inst.kernel<<<static_cast<unsigned>(blocks), inst.threads, inst.smem.bytes, stream>>>(
+      tx, tb, tc, th, dA, y, S, H, Q, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// TMA takes 16-byte-aligned tensors; a misaligned view keeps the mma.sync body.
+bool wgmma_aligned(const void* a, const void* b, const void* c, const void* d) {
+  return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+          reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) % 16 == 0;
+}
+
+// bf16 B/C: with more than one chunk or a final state to write, the state
+// kernel first (the state entering each chunk into `states`, the final
+// state into hout); then the chunk kernel, which adds the carried-state
+// term exp(cum_i) C_i . h_c^T from `states` to its own accumulators from
+// the second chunk on: the Hopper body where the shape fits it, else the
+// mma.sync body.  Nothing is launched on the CUDA cores.
 int launch_bf16(const float* xdt, const float* dA, const void* Bm, const void* Cm, float* y,
                 float* hout, float* states, int B, int S, int H, int P, int N, int Q,
                 int device, cudaStream_t stream) {
   const bf16* b = static_cast<const bf16*>(Bm);
   const bf16* c = static_cast<const bf16*>(Cm);
-  const bool inter = S / Q > 1;   // the inter-chunk term exp(cum_i) C_i . h^T
-  const bool state_pass = inter || hout != nullptr;
-  int err = 0;
-  if (kInterInChunk) {
-    if (state_pass)
-      err = launch_state<false>(xdt, dA, b, c, states, hout, nullptr, B, S, H, P, N, Q, stream);
+  const bool inter = S / Q > 1;   // the carried-state term exp(cum_i) C_i . h_c^T
+  if (inter || hout != nullptr) {
+    const int err = launch_state(xdt, dA, b, states, hout, B, S, H, P, N, Q, stream);
     if (err != 0) return err;
-    return inter ? launch_mma<true>(xdt, dA, b, c, states, y, B, S, H, P, N, Q, device, stream)
-                 : launch_mma<false>(xdt, dA, b, c, states, y, B, S, H, P, N, Q, device, stream);
   }
-  err = launch_mma<false>(xdt, dA, b, c, states, y, B, S, H, P, N, Q, device, stream);
-  if (err != 0 || !state_pass) return err;
-  return inter ? launch_state<true>(xdt, dA, b, c, states, hout, y, B, S, H, P, N, Q, stream)
-               : launch_state<false>(xdt, dA, b, c, states, hout, nullptr, B, S, H, P, N, Q,
-                                     stream);
+  if (wgmma_shape(P, N, Q) && wgmma_aligned(xdt, Bm, Cm, inter ? states : xdt))
+    return launch_wgmma(xdt, dA, b, c, states, y, B, S, H, N, Q, device, stream);
+  return inter ? launch_mma<true>(xdt, dA, b, c, states, y, B, S, H, P, N, Q, device, stream)
+               : launch_mma<false>(xdt, dA, b, c, states, y, B, S, H, P, N, Q, device, stream);
 }
 
 bool bad_shape(int B, int S, int H, int P, int N, int Q) {
@@ -959,11 +1489,12 @@ bool bad_shape(int B, int S, int H, int P, int N, int Q) {
 // P <= 128, N <= 256.  hout [B, H, P, N] float32 receives the final state,
 // or is null.  states [B, S / Q, H, P, N] float32 (bf16 with more than one
 // chunk; else may be null) receives the state entering each chunk c >= 1
-// (entry 0 is not written), which ssd_scan_bwd_launch can take.  Launches
-// on `stream` (PyTorch's current stream): float32 B/C the CUDA-core body;
-// bf16 the tensor-core kernels (the state kernel, with more than one chunk
-// or a final state to write, then the chunk kernel).  Returns the
-// cudaError_t of the launches; 0 means they were queued.
+// (entry 0 is not written), which the chunk kernel reads back and
+// ssd_scan_bwd_launch can take.  Launches on `stream` (PyTorch's current
+// stream): float32 B/C the CUDA-core body; bf16 the tensor-core kernels
+// (the state kernel, with more than one chunk or a final state to write,
+// then the chunk kernel).  Returns the cudaError_t of the launches; 0 means
+// they were queued.
 extern "C" int ssd_scan_launch(const float* xdt, const float* dA, const void* Bm,
                                const void* Cm, float* y, float* hout, float* states, int B,
                                int S, int H, int P, int N, int Q, int dtype, int device,
@@ -983,10 +1514,17 @@ extern "C" int ssd_scan_launch(const float* xdt, const float* dA, const void* Bm
   }
 }
 
-// Heads per block that ssd_scan_launch gives the tensor-core body (bf16
-// B/C) at this shape on `device`; -1 for a shape it refuses.
+// Heads per block that ssd_scan_launch gives the chunk kernel (bf16 B/C,
+// 16-byte-aligned tensors) at this shape on `device`; -1 for a shape it
+// refuses.
 extern "C" int ssd_scan_heads_per_block(int B, int S, int H, int P, int N, int Q,
                                         int device) {
   if (bad_shape(B, S, H, P, N, Q)) return -1;
-  return heads_per_block(B, S, H, Q, device);
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  return wgmma_shape(P, N, Q) ? wgmma_group(wg_instance(N, S / Q > 1, Q), B, S, H, Q, device)
+                              : heads_per_block(B, S, H, Q, device);
 }
+
+// 1 where the bf16 chunk kernel at this shape (16-byte-aligned tensors) is
+// the Hopper body (`ssd_wgmma_kernel`), 0 where it is the mma.sync body.
+extern "C" int ssd_scan_wgmma(int P, int N, int Q) { return wgmma_shape(P, N, Q) ? 1 : 0; }

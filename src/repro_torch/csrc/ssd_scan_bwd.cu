@@ -833,8 +833,8 @@ ssd_bwd_state_mma_kernel(const float* __restrict__ xdt, const float* __restrict_
                          float* __restrict__ gs, int S, int H, int P, int N, int Q,
                          int vec_bc, int vec_u, int rev0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  ssd_state::state_pass<NPW, false>(smem_raw, xdt, dA, Bm, Cm, dy, hs, gs, nullptr, nullptr,
-                                    blockIdx.y + rev0 == 1, S, H, P, N, Q, vec_bc, vec_u);
+  ssd_state::state_pass<NPW>(smem_raw, xdt, dA, Bm, Cm, dy, hs, gs, nullptr,
+                             blockIdx.y + rev0 == 1, S, H, P, N, Q, vec_bc, vec_u);
 }
 
 // 2. One chunk of a group of heads: G once, then per head dxdt, ddA and the
@@ -1668,7 +1668,7 @@ cudaError_t launch_state(const float* xdt, const float* dA, const bf16* Bm, cons
                          cudaStream_t stream) {
   return ssd_state::with_npw(N, [&](auto npw) {
     constexpr int NPW = decltype(npw)::value;
-    const size_t smem = ssd_state::state_smem_bytes(N, Q, false);
+    const size_t smem = ssd_state::state_smem_bytes(N, Q);
     cudaError_t err = allow_smem(ssd_bwd_state_mma_kernel<NPW>, smem);
     if (err != cudaSuccess) return err;
     ssd_bwd_state_mma_kernel<NPW>

@@ -16,10 +16,8 @@
 // go to float32 [B, nc, H, P, N]: forward the state entering each chunk c
 // = 1 .. nc - 1 (h_0 = 0 is never written), backward the gradient leaving
 // each chunk c = nc - 2 .. 0; forward, given `hout` [B, H, P, N], also the
-// state after the last chunk.
-//
-// The forward direction can also add the inter-chunk term exp(cum_i) C_i .
-// h^T to y from the state it holds (kAddY).
+// state after the last chunk.  The forward's chunk kernel reads the states
+// back for the carried-state term exp(cum_i) C_i . h^T of y.
 
 #pragma once
 
@@ -40,10 +38,6 @@ constexpr int kStThreads = 256;   // 8 warps
 constexpr int kStSlab = 32;       // tokens per staged slab
 constexpr int kUld = 64 + 4;      // floats per raw u row
 constexpr int kStStages = 3;      // depth of the cp.async ring
-// The forward's state in exp(cum_i) C_i . h^T: split hi + lo (one bf16
-// rounding of it misses SSD_TOL, tests/test_torch_ssd_numerics.py, which
-// reads this).
-constexpr bool kSplitH = true;
 
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 __host__ __device__ __forceinline__ int round32(int x) { return (x + 31) & ~31; }
@@ -147,10 +141,10 @@ __device__ __forceinline__ void mma2(float (&c)[4], const uint32_t (&hi)[4],
   tc::mma_bf16(c, lo, b0, b1);
 }
 
-// Dynamic shared memory of `state_pass` (with kAddY: `add_y`).
-inline size_t state_smem_bytes(int N, int Q, bool add_y) {
+// Dynamic shared memory of `state_pass`.
+inline size_t state_smem_bytes(int N, int Q) {
   return sizeof(float) * (2 * round32(Q) + kStStages * kStSlab * kUld) +
-         sizeof(bf16) * (kStStages * kStSlab + (add_y ? 2 * 64 : 0)) * (round16(N) + 8);
+         sizeof(bf16) * kStStages * kStSlab * (round16(N) + 8);
 }
 
 // Block (batch b, head h, state rows [p0, p0 + 64)) of kStThreads threads:
@@ -163,21 +157,12 @@ inline size_t state_smem_bytes(int N, int Q, bool add_y) {
 // state rows p0 + 16 (w & 3) + [0, 16) and half the 16-column pairs of N
 // (NPW of them at most).  The states go to hs (forward) or gs (backward),
 // the forward's last to hout when given.
-//
-// kAddY (forward only): from the second chunk on the block first adds
-// exp(cum_i) C_i . h^T to y for its 64 columns of P (the chunk kernel must
-// have written y), h the state entering the chunk, which it holds in
-// registers: staged split (hi, lo) in shared memory, then each warp takes
-// 16 tokens at a time, C rows and y read from global memory while the ring
-// brings in the chunk's first slabs: one MMA with K = N, C exact, h split
-// (kSplitH), and y + exp(cum_i) (C . h^T) stored.
-template <int NPW, bool kAddY>
+template <int NPW>
 __device__ __forceinline__ void state_pass(
     unsigned char* smem_raw, const float* __restrict__ xdt, const float* __restrict__ dA,
     const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, const float* __restrict__ dy,
-    float* __restrict__ hs, float* __restrict__ gs, float* __restrict__ hout,
-    float* __restrict__ y, bool rev, int S, int H, int P, int N, int Q, int vec_bc,
-    int vec_u) {
+    float* __restrict__ hs, float* __restrict__ gs, float* __restrict__ hout, bool rev, int S,
+    int H, int P, int N, int Q, int vec_bc, int vec_u) {
   const int np16 = round16(N);
   const int ldv = np16 + 8;
   const int qp = round32(Q);
@@ -186,9 +171,6 @@ __device__ __forceinline__ void state_pass(
   float* ring = wt + qp;                              // [kStStages][kStSlab][kUld]  raw u
   // [kStStages][kStSlab][ldv]  v
   bf16* vring = reinterpret_cast<bf16*>(ring + kStStages * kStSlab * kUld);
-  // kAddY: the block's 64 state rows split, [64][ldv] each.
-  bf16* hsm = vring + kStStages * kStSlab * ldv;
-  bf16* lsm = hsm + 64 * ldv;
 
   const int p_groups = (P + 63) / 64;
   int idx = blockIdx.x;
@@ -215,7 +197,7 @@ __device__ __forceinline__ void state_pass(
   const float* ab = dA + static_cast<size_t>(b) * S * H + h;
   float* out = rev ? gs : hs;
   const int n_slabs = (Q + kStSlab - 1) / kStSlab;
-  const int steps = rev || (hout == nullptr && !kAddY) ? nc - 1 : nc;
+  const int steps = rev || hout == nullptr ? nc - 1 : nc;
 
   float state[NPW][2][4];
 #pragma unroll
@@ -228,8 +210,6 @@ __device__ __forceinline__ void state_pass(
   for (int step = 0; step < steps; ++step) {
     const int ch = rev ? nc - 1 - step : step;
     const size_t t0 = static_cast<size_t>(ch) * Q;
-    // With kAddY the last chunk may be visited for its y term alone.
-    const bool update = !kAddY || ch + 1 < nc || hout != nullptr;
     auto fetch = [&](int s) {
       float* ru = ring + (s % kStStages) * kStSlab * kUld;
       const int ks = kStSlab * s;
@@ -256,7 +236,7 @@ __device__ __forceinline__ void state_pass(
     __syncthreads();  // the last step's readers of cum, wt, the ring and h are done
 #pragma unroll
     for (int s = 0; s < kStStages - 1; ++s) {
-      if (update && s < n_slabs) fetch(s);
+      if (s < n_slabs) fetch(s);
       tc::cp_async_commit();
     }
     for (int i = tid; i < Q; i += kStThreads) cum[i] = ab[(t0 + i) * H];
@@ -267,74 +247,6 @@ __device__ __forceinline__ void state_pass(
     for (int i = tid; i < qp; i += kStThreads)
       wt[i] = i < Q ? (rev ? expf(cum[i]) : expf(total - cum[i])) : 0.0f;
 
-    if (kAddY && ch > 0) {
-      // y_i += exp(cum_i) C_i . h^T, columns [p0, p0 + 64) of P.
-#pragma unroll
-      for (int i = 0; i < NPW; ++i) {
-        const int np = pbeg + i;
-        if (np >= pend) continue;
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const int off = (16 * (warp & 3) + g + 8 * rr) * ldv + 16 * np + 8 * hf + 2 * c4;
-            uint32_t hi, lo;
-            tc::split_bf16(state[i][hf][2 * rr], state[i][hf][2 * rr + 1], hi, lo);
-            *reinterpret_cast<uint32_t*>(hsm + off) = hi;
-            *reinterpret_cast<uint32_t*>(lsm + off) = lo;
-          }
-      }
-      __syncthreads();
-      const bf16* cb = Cm + (static_cast<size_t>(b) * S + t0) * N;
-      const int groups = min(4, (P - p0 + 15) / 16);   // 16-row groups of h below P
-      for (int i0 = 16 * warp; i0 < Q; i0 += 16 * (kStThreads / 32)) {
-        const int ia = i0 + g;
-        const int ib = ia + 8;
-        float* ya = y + ((static_cast<size_t>(b) * S + t0 + ia) * H + h) * P;
-        float* yb = ya + 8 * x_tok;
-        float2 yv[8][2];
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          yv[nt][0] = ld_f2(ya, p0 + 8 * nt + 2 * c4, P, ia < Q);
-          yv[nt][1] = ld_f2(yb, p0 + 8 * nt + 2 * c4, P, ib < Q);
-        }
-        float acc[8][4];
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-        const bf16* c_a = cb + static_cast<size_t>(ia) * N;
-        const bf16* c_b = c_a + 8 * static_cast<size_t>(N);
-        for (int k0 = 0; k0 < np16; k0 += 16) {
-          const uint32_t a[4] = {
-              ld_bf16x2(c_a, k0 + 2 * c4, N, ia < Q), ld_bf16x2(c_b, k0 + 2 * c4, N, ib < Q),
-              ld_bf16x2(c_a, k0 + 2 * c4 + 8, N, ia < Q),
-              ld_bf16x2(c_b, k0 + 2 * c4 + 8, N, ib < Q)};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (j >= groups) break;
-            uint32_t bh[4], bl[4];
-            tc::ldsm_x4(bh, b_nk_addr(hsm + 16 * j * ldv + k0, ldv, lane));
-            tc::mma_bf16(acc[2 * j], a, bh[0], bh[1]);
-            tc::mma_bf16(acc[2 * j + 1], a, bh[2], bh[3]);
-            if (kSplitH) {
-              tc::ldsm_x4(bl, b_nk_addr(lsm + 16 * j * ldv + k0, ldv, lane));
-              tc::mma_bf16(acc[2 * j], a, bl[0], bl[1]);
-              tc::mma_bf16(acc[2 * j + 1], a, bl[2], bl[3]);
-            }
-          }
-        }
-        const float ea = ia < Q ? expf(cum[ia]) : 0.0f;
-        const float eb = ib < Q ? expf(cum[ib]) : 0.0f;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int p = p0 + 8 * nt + 2 * c4;
-          if (ia < Q)
-            st_f2(ya, p, P, yv[nt][0].x + ea * acc[nt][0], yv[nt][0].y + ea * acc[nt][1]);
-          if (ib < Q)
-            st_f2(yb, p, P, yv[nt][1].x + eb * acc[nt][2], yv[nt][1].y + eb * acc[nt][3]);
-        }
-      }
-    }
-    if (!update) continue;
 
     float acc[NPW][2][4];
 #pragma unroll

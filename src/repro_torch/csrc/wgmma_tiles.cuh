@@ -7,9 +7,10 @@
 // 128-byte swizzle, and the host side: tensor maps encoded by the
 // driver's `cuTensorMapEncodeTiled`, reached through
 // `cudaGetDriverEntryPoint`, so a library needs no -lcuda.  The
-// flash-attention forward (flash_attention.cu) and its backward
-// (flash_attention_bwd.cu) share them; mma_tiles.cuh holds the
-// `mma.sync` primitives of the bodies that stay on them.
+// flash-attention forward (flash_attention.cu), its backward
+// (flash_attention_bwd.cu) and the SSD scan's chunk kernel (ssd_scan.cu,
+// which also loads float32 tiles unswizzled) share them; mma_tiles.cuh
+// holds the `mma.sync` primitives of the bodies that stay on them.
 //
 // Tiles in shared memory: a row of 64 bf16 (128 bytes) per tile row, as
 // TMA writes a box of 64 elements under CU_TENSOR_MAP_SWIZZLE_128B: the
@@ -79,6 +80,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                "r"(bytes)
                : "memory");
 }
+// One plain arrival.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 // Until the phase of `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
@@ -98,6 +103,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // TMA (one thread issues; coordinates innermost first, in elements)
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -380,13 +401,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor at `base` of `rank` dims (innermost first; `strides` in
-// bytes of dims 1 .. rank - 1) read in boxes of `box` elements, the inner
-// box dim 64 (128 bytes) under the 128-byte swizzle; reads past an edge
-// are zeros, writes past it are dropped.  Returns a cudaError_t.
+// A tensor at `base` of `rank` dims (innermost first; `strides` in bytes
+// of dims 1 .. rank - 1) read in boxes of `box` elements: by default bf16,
+// the inner box dim 64 (128 bytes) under the 128-byte swizzle; a float32
+// tensor unswizzled (`type`, `swizzle`), the box's rows then dense in
+// shared memory.  Reads past an edge are zeros, writes past it are
+// dropped.  Returns a cudaError_t.
 inline int make_tensor_map(CUtensorMap* map, const void* base, int rank,
                            const uint64_t* dims, const uint64_t* strides,
-                           const uint32_t* box) {
+                           const uint32_t* box,
+                           CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[5], s[4];
@@ -397,10 +422,9 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                            d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), d, s, b, e,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

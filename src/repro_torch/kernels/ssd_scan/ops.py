@@ -4,9 +4,11 @@ backward (``csrc/ssd_scan_bwd.cu``).
 CPU tensors go to the plain versions (:mod:`.ref`), which autograd
 differentiates.  CUDA tensors go to the hand-written kernels, or the call
 raises: there is no fallback.  The type of B and C picks the body of the
-forward and of the backward: bfloat16 the tensor-core body (the forward's
-chunk kernel, then, with more than one chunk or with ``return_state``, its
-state kernel), float32 the CUDA-core body.
+forward and of the backward: bfloat16 the tensor-core body (with more than
+one chunk or with ``return_state`` the forward's state kernel, then its
+chunk kernel, which reads the states back; the chunk kernel's Hopper body
+at P = 64, N = 64 or 128, chunk >= 64, its mma.sync body at other shapes,
+:func:`chunk_kernel`), float32 the CUDA-core body.
 With ``return_state`` the kernel also writes the state after the last
 chunk, which a cache-producing prefill needs; that call has no backward.
 When grad mode is on and an input requires grad, a CUDA call without
@@ -48,6 +50,9 @@ def _launcher(name: str):
         elif name == "bwd_scratch":
             fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_scratch_floats
             fn.argtypes = [ctypes.c_int] * 8
+        elif name == "wgmma":
+            fn = _build.load("ssd_scan").ssd_scan_wgmma
+            fn.argtypes = [ctypes.c_int] * 3
         elif name == "bwd_heads_per_block":
             fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_heads_per_block
             fn.argtypes = [ctypes.c_int] * 7
@@ -74,6 +79,14 @@ def heads_per_block(b: int, s: int, h: int, p: int, n: int, chunk: int,
         raise ValueError(f"ssd_scan: the kernel refuses (b, s, h, p, n, chunk) = "
                          f"{(b, s, h, p, n, chunk)}")
     return group
+
+
+def chunk_kernel(p: int, n: int, chunk: int) -> str:
+    """The name of the forward's chunk kernel that a bfloat16 call with
+    head dim ``p``, state ``n`` and ``chunk`` launches on the card (16-byte
+    aligned tensors): ``ssd_wgmma_kernel`` (the Hopper body) or
+    ``ssd_mma_kernel``."""
+    return "ssd_wgmma_kernel" if _launcher("wgmma")(p, n, chunk) else "ssd_mma_kernel"
 
 
 def bwd_heads_per_block(b: int, s: int, h: int, p: int, n: int, chunk: int,

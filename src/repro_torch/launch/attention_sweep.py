@@ -1,20 +1,20 @@
-"""Time variants of the flash-, decode- and tree-decode-attention kernels,
-of the flash-attention backward and of the SSD scan on one GPU.
+"""Time variants of the flash-, decode- and tree-decode-attention kernels
+and of the flash-attention backward on one GPU (the SSD scan's are in
+``ssd_fwd_sweep.py`` and ``ssd_bwd_sweep.py``).
 
-    PYTHONPATH=src python -m repro_torch.launch.attention_sweep [--only flash,flash_bwd,decode,tree,ssd]
+    PYTHONPATH=src python -m repro_torch.launch.attention_sweep [--only flash,flash_bwd,decode,tree]
 
 Each variant is the shipped source of ``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``, ``csrc/decode_split.cuh``,
-``csrc/tree_decode_attention.cu`` or ``csrc/ssd_scan.cu`` with one text
+``csrc/flash_attention_bwd.cu``, ``csrc/decode_split.cuh`` or
+``csrc/tree_decode_attention.cu`` with one text
 substitution (an ablation that drops a part of the work, or another block
 shape or rounding), built by ``nvcc`` with the kernel's own flags into
 ``build/repro_torch/sweep/`` and called through its C entry point.  At the
 main paths' shapes (phase 8's, phase 14's and 24(a)'s flash forwards,
 24(a)'s backward and zamba2's at D=112, phase 7's decode step, phase 11's
-and 12's frontier forwards through both tree entry points, phase 13's and
-phase 14's scans; bf16) it
+and 12's frontier forwards through both tree entry points; bf16) it
 prints, per variant, the device time of one call, from CUDA-graph replay
-of 50 back-to-back calls (10 for the backward and the scan), and the
+of 50 back-to-back calls (10 for the backward), and the
 largest difference from the plain version (for the backward, the largest
 over dq, dk and dv as a share of that gradient's largest value; an
 ablation is not meant to be right).  The shipped wrappers and SDPA (for the tree kernels: a
@@ -56,7 +56,6 @@ from ..kernels.flash_attention import (
     flash_attention_ref,
 )
 from ..kernels.flash_attention import ops as flash_ops
-from ..kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
 SWEEP_DIR = _build.BUILD_DIR / "sweep"
 
@@ -103,24 +102,6 @@ _SHUFFLE_PER_SUM = """      for (int o = lp >> 1; o > 0; o >>= 1)
     }
   }
 """
-_SSD_LO = """          mma_bf16(acc[2 * dp], sh_[kk], bl[0], bl[1]);
-          mma_bf16(acc[2 * dp + 1], sh_[kk], bl[2], bl[3]);
-          mma_bf16(acc[2 * dp], sl_[kk], bh[0], bh[1]);
-          mma_bf16(acc[2 * dp + 1], sl_[kk], bh[2], bh[3]);
-"""
-# The scan's outputs stay live (else the compiler drops the products).
-_SSD_STORE = """        if (ia < Q) store2(yh + ia * x_tok + p, acc[nt][0], acc[nt][1], p, P, vec_y);
-        if (ib < Q) store2(yh + ib * x_tok + p, acc[nt][2], acc[nt][3], p, P, vec_y);
-"""
-_SSD_NO_STORE = """        if (acc[nt][0] == 1234.5f) yh[p] = acc[nt][1] + acc[nt][2] + acc[nt][3];
-"""
-_SSD_SPLIT = """        *reinterpret_cast<uint2*>(xh + r * kXb + p) = make_uint2(h01, h23);
-        *reinterpret_cast<uint2*>(xl + r * kXb + p) = make_uint2(l01, l23);
-"""
-_SSD_REFILL = """    if (it + 1 < items) issue_x(it + 1, (it + 1) & 1);
-"""
-_SSD_EXP = [("expf(ci[q] - cumj[q].x)", "1.0f"), ("expf(ci[q] - cumj[q].y)", "1.0f")]
-
 # The warp vote that lets p = 2^x run as MUFU.EX2 alone (exact).
 _VOTE = "  if (__all_sync(0xffffffffu, quick)) {"
 # The decode body's 16-byte loads, and with a hint that L2 fetch 256 bytes.
@@ -220,21 +201,6 @@ VARIANTS = {
                                      [(_OVERLAP, _OVERLAP.replace("true", "false"))]),
     "tree exp2f without the vote": ("tree_decode_attention", "decode_split.cuh",
                                     [(_VOTE, "  if (false) {")]),
-    "ssd shipped": ("ssd_scan", "ssd_scan.cu", []),
-    "ssd without expf": ("ssd_scan", "ssd_scan.cu", _SSD_EXP),
-    "ssd hi.hi only (no lo mma)": ("ssd_scan", "ssd_scan.cu", [(_SSD_LO, "")]),
-    "ssd without y stores": ("ssd_scan", "ssd_scan.cu", [(_SSD_STORE, _SSD_NO_STORE)]),
-    "ssd without xdt split": ("ssd_scan", "ssd_scan.cu", [(_SSD_SPLIT, "")]),
-    "ssd without xdt refills": ("ssd_scan", "ssd_scan.cu", [(_SSD_REFILL, "")]),
-    "ssd heads per block up to 8": ("ssd_scan", "ssd_scan.cu",
-                                    [("kMaxGroup = 16;", "kMaxGroup = 8;")]),
-    "ssd 80-row tiles, up to 8 heads": ("ssd_scan", "ssd_scan.cu",
-                                        [("kRowWarps = 4;", "kRowWarps = 5;"),
-                                         ("kMaxGroup = 16;", "kMaxGroup = 8;")]),
-    "ssd one set of 4 warps (no halves)": ("ssd_scan", "ssd_scan.cu",
-                                           [("kHalves = 2;", "kHalves = 1;")]),
-    "ssd 2 row warps (32-row tiles)": ("ssd_scan", "ssd_scan.cu",
-                                       [("kRowWarps = 4;", "kRowWarps = 2;")]),
 }
 
 
@@ -523,36 +489,11 @@ def _resource_usage(library):
             print(f"{library} {name}: {line[line.index('REG:'):].strip()}")
 
 
-def _ssd(libs, device, b, h, p, n, s=160):
-    """Phase 13's (b=128, h=80, n=128) or phase 14's (b=8, h=112, n=64)
-    scan: one chunk of 160 tokens, P=64, bf16 B/C."""
-    gen = torch.Generator(device=device).manual_seed(42)
-    xdt = torch.randn((b, s, h, p), generator=gen, device=device) * 0.3
-    dA = -F.softplus(torch.randn((b, s, h), generator=gen, device=device))
-    bm, cm = ((torch.randn((b, s, n), generator=gen, device=device) * 0.3).to(torch.bfloat16)
-              for _ in range(2))
-    ref = ssd_scan_ref(xdt, dA, bm, cm, chunk=s)
-    print(f"-- ssd_scan bf16 B/C (b, s, h, p, n, Q) = {(b, s, h, p, n, s)}")
-    _report("wrapper", graph_ms(lambda: ssd_scan(xdt, dA, bm, cm, chunk=s), calls=10),
-            ssd_scan(xdt, dA, bm, cm, chunk=s), ref)
-    out = torch.empty_like(xdt)
-    for name, lib in libs.items():
-        if not name.startswith("ssd"):
-            continue
-        fn = lib.ssd_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        call = lambda: _ok(fn(xdt.data_ptr(), dA.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                              out.data_ptr(), None, None, b, s, h, p, n, s, 1, device.index,
-                              torch.cuda.current_stream().cuda_stream))
-        _report(name, graph_ms(call, calls=10), out, ref)
-
-
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", default="flash,flash_bwd,decode,tree,ssd",
+    parser.add_argument("--only", default="flash,flash_bwd,decode,tree",
                         help="comma-separated kernels to sweep: flash, flash_bwd, decode, "
-                             "tree, ssd")
+                             "tree")
     kinds = set(parser.parse_args(argv).only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("attention_sweep needs a CUDA device")
@@ -580,9 +521,6 @@ def main(argv=None) -> None:
             _decode(libs, device)
         if "tree" in kinds:
             _tree(libs, device)
-        if "ssd" in kinds:
-            _ssd(libs, device, 128, 80, 64, 128)
-            _ssd(libs, device, 8, 112, 64, 64)
 
 
 if __name__ == "__main__":

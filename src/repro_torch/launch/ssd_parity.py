@@ -12,15 +12,23 @@ without the forward's ``states`` and the backward's ``hs_given`` argument,
 as its source declares them.  On ``chip_smoke.py`` phase 3's scan grid and
 driven shapes it requires, bit for bit: the forward's ``y`` with float32
 B/C, and with bf16 B/C at one chunk (phases 13 and 14 run one chunk of
-160), also beside ``return_state``; the backward's four gradients at the
-grid and phase 24(c)'s training shapes, in both types, from a direct call
-(which recomputes the states).  For bf16 B/C with more than one chunk,
-and for the final state, it prints the largest difference.  At the
-training shapes (8 x 512 tokens, two chunks of 256: mamba2-2.7b and
-zamba2-7b) and phase 20's prefills it times both builds' forward, and the
-backward at the training shapes, by CUDA-graph replay in turns (other,
-shipped, shipped, other).  The card's name and power limit are printed
-first.  Exits non-zero when an output that must not change differs.
+160; the Hopper chunk kernel sums its products in the mma.sync body's
+order), also beside ``return_state``; with bf16 B/C the states entering
+the chunks (``keep_states``) and the final state, in both types; the
+backward's four gradients at the grid and phase 24(c)'s training shapes,
+in both types, from a direct call (which recomputes the states).  With
+bf16 B/C and more than one chunk, where the carried-state term now starts
+the chunk kernel's accumulators instead of being added to y by the state
+kernel, ``y`` may differ: it prints the largest difference and requires
+it within ``chip_smoke.SSD_TOL`` of the other build's ``y``.  At phase 13's
+and phase 14's scans (one chunk of 160), the training shapes (8 x 512
+tokens, two chunks of 256: mamba2-2.7b and zamba2-7b) and phase 20's
+prefills it times both builds' forward, and the backward at the training
+shapes, by CUDA-graph replay in turns (other, shipped, shipped, other),
+and the device µs of each kernel of both builds under torch.profiler; at
+phase 13's shape also the paced eager call (CUDA events over back-to-back
+calls).  The card's name and power limit are printed first.  Exits
+non-zero when an output that must not change differs.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from ..kernels import _build
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan import ssd_scan_bwd
 from .attention_sweep import _ok, graph_ms
+from .ssd_bwd_sweep import _by_kernel
 
 PARITY_DIR = _build.BUILD_DIR / "parity" / "ssd"
 # chip_smoke.py phase 3: SSD_GRID, then the driven shapes (b, s, h, p, n, Q).
@@ -46,11 +55,14 @@ GRID = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 64, 64)
         (2, 32, 3, 128, 256, 16), (1, 34, 9, 16, 128, 17), (1, 126, 3, 64, 8, 63),
         (2, 128, 2, 128, 64, 64), (1, 130, 11, 64, 128, 65), (1, 320, 3, 16, 256, 160),
         (1, 256, 5, 128, 256, 256), (128, 160, 13, 64, 128, 160), (96, 256, 7, 16, 64, 128),
-        (2, 33, 3, 18, 12, 11)]
+        (2, 33, 3, 18, 12, 11), (16, 160, 20, 64, 128, 160)]
 TRAIN = [(8, 512, 80, 64, 128, 256), (8, 512, 112, 64, 64, 256)]
 DRIVEN = [(128, 160, 80, 64, 128, 160), (8, 160, 112, 64, 64, 160), (4, 160, 80, 64, 128, 160),
           (4, 384, 80, 64, 128, 128), (32, 20, 8, 16, 16, 4)] + TRAIN
 PREFILLS = [(1, 128, 80, 64, 128, 128), (1, 128, 112, 64, 64, 128)]
+PHASES = [(128, 160, 80, 64, 128, 160), (8, 160, 112, 64, 64, 160)]
+# chip_smoke.SSD_TOL: how far bf16 y may move from the other build's.
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def _build_other(csrc: Path) -> dict:
@@ -98,7 +110,8 @@ def _inputs(gen, shape, dtype, device):
 
 
 def _other_forward(entry, shape, args, return_state):
-    """A call of the other forward: ``(launch, y, h_final)``."""
+    """A call of the other forward: ``(launch, y, h_final, states)``
+    (``states`` None where the other source takes none)."""
     fn, newer = entry
     b, s, h, p, n, q = shape
     xdt, dA, bm, cm = args
@@ -111,7 +124,7 @@ def _other_forward(entry, shape, args, return_state):
                             *(x.data_ptr() for x in states), b, s, h, p, n, q,
                             ssd_ops._DTYPES[bm.dtype], xdt.device.index,
                             torch.cuda.current_stream().cuda_stream))
-    return launch, y, hout
+    return launch, y, hout, (states[0] if states else None)
 
 
 def _other_backward(entries, shape, args, dy):
@@ -133,8 +146,9 @@ def _other_backward(entries, shape, args, dy):
 
 
 def parity(entries, device) -> list:
-    """Raises where an output that must not change differs; returns the
-    printed differences of those that may."""
+    """Raises where an output that must not change differs, or where bf16
+    ``y`` moved beyond SSD_TOL; returns the printed differences of the
+    outputs that may move."""
     gen = torch.Generator(device=device).manual_seed(48)
     notes = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -142,20 +156,27 @@ def parity(entries, device) -> list:
             b, s, h, p, n, q = shape
             args = _inputs(gen, shape, dtype, device)
             for return_state in (False, True):
-                launch, y, hout = _other_forward(entries["ssd_scan"], shape, args, return_state)
+                launch, y, hout, states = _other_forward(entries["ssd_scan"], shape, args,
+                                                         return_state)
                 launch()
-                got = ssd_ops.ssd_scan(*args, chunk=q, return_state=return_state)
-                got_y, got_h = got if return_state else (got, None)
+                got = ssd_ops._forward(*args, chunk=q, return_state=return_state,
+                                       keep_states=True)
+                got_y, got_h, got_states = got if return_state else (got[0], None, got[1])
                 what = f"forward {dtype} {shape} return_state={return_state}"
                 if dtype == torch.float32 or s == q:
                     if not torch.equal(got_y, y):
                         raise AssertionError(f"{what}: y differs from the other build")
                 else:
-                    notes.append((what, "y", float((got_y - y).abs().max())))
-                if return_state and dtype == torch.float32 and not torch.equal(got_h, hout):
+                    diff = (got_y - y).abs()
+                    if bool((diff > SSD_TOL["atol"] + SSD_TOL["rtol"] * y.abs()).any()):
+                        raise AssertionError(f"{what}: y moved by up to {float(diff.max())!r} "
+                                             f"from the other build's, beyond {SSD_TOL}")
+                    notes.append((what, "y", float(diff.max())))
+                if return_state and not torch.equal(got_h, hout):
                     raise AssertionError(f"{what}: the final state differs")
-                if return_state and dtype == torch.bfloat16:
-                    notes.append((what, "final state", float((got_h - hout).abs().max())))
+                if got_states is not None and states is not None and \
+                        not torch.equal(got_states[:, 1:], states[:, 1:]):
+                    raise AssertionError(f"{what}: the states entering the chunks differ")
             if shape in GRID + TRAIN:
                 dy = torch.randn((b, s, h, p), generator=gen, device=device)
                 launch, grads = _other_backward(entries, shape, args, dy)
@@ -166,19 +187,42 @@ def parity(entries, device) -> list:
     return notes
 
 
+def _paced_us(fn, calls=20):
+    """Host-paced µs of one eager ``fn()``: CUDA events over back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
+
+
 def times(entries, device) -> list:
-    """Device µs of the other and the shipped build in turns (bf16 B/C)."""
+    """Device µs of the other and the shipped build in turns (bf16 B/C),
+    and each build's device µs by kernel."""
     gen = torch.Generator(device=device).manual_seed(49)
     rows = []
-    for shape, return_state in [(s, False) for s in TRAIN] + [(s, True) for s in PREFILLS]:
+    for shape, return_state in ([(s, False) for s in PHASES + TRAIN]
+                                + [(s, True) for s in PREFILLS]):
         b, s, h, p, n, q = shape
         args = _inputs(gen, shape, torch.bfloat16, device)
-        other, _, _ = _other_forward(entries["ssd_scan"], shape, args, return_state)
+        other, _, _, _ = _other_forward(entries["ssd_scan"], shape, args, return_state)
         shipped = lambda: ssd_ops.ssd_scan(*args, chunk=q, return_state=return_state)
         rows.append((f"forward {shape} return_state={return_state}",
                      [(name, graph_ms(fn, calls=10) * 1e3) for name, fn in
                       (("other", other), ("shipped", shipped), ("shipped", shipped),
                        ("other", other))]))
+        rows.append((f"forward {shape} return_state={return_state}, profiled by kernel",
+                     [("other", _by_kernel(other)), ("shipped", _by_kernel(shipped))]))
+        if shape == PHASES[0]:
+            rows.append((f"forward {shape}, paced eager call",
+                         [(name, _paced_us(fn)) for name, fn in
+                          (("other", other), ("shipped", shipped), ("shipped", shipped),
+                           ("other", other))]))
         if not return_state:
             dy = torch.randn((b, s, h, p), generator=gen, device=device)
             other_bwd, _ = _other_backward(entries, shape, args, dy)
@@ -204,16 +248,17 @@ def main(argv=None) -> None:
     entries = _build_other(args.csrc)
     notes = parity(entries, device)
     print(f"bit-equal to the other build: the forward's y with float32 B/C and with bf16 B/C "
-          f"at one chunk (with and without return_state), the float32 final state, the "
-          f"backward's gradients in both types; {len(GRID)} grid shapes, {len(DRIVEN)} driven")
-    worst = {}
-    for _, out, diff in notes:
-        worst[out] = max(worst.get(out, 0.0), diff)
-    print(f"bf16 B/C with more than one chunk, and the final state, max |shipped - other|: "
-          f"{worst}")
+          f"at one chunk (with and without return_state), the final state and the states "
+          f"entering the chunks, the backward's gradients in both types; {len(GRID)} grid "
+          f"shapes, {len(DRIVEN)} driven")
+    worst = 0.0
+    for what, _, diff in notes:
+        print(f"{what}: bf16 y max |shipped - other| {diff!r}")
+        worst = max(worst, diff)
+    print(f"bf16 y with more than one chunk: max |shipped - other| {worst!r} over "
+          f"{len(notes)} calls, each within {SSD_TOL}")
     for what, row in times(entries, device):
-        print(f"{what}, device us by graph replay: "
-              + ", ".join(f"{name} {us!r}" for name, us in row))
+        print(f"{what}: " + ", ".join(f"{name} {us!r}" for name, us in row))
 
 
 if __name__ == "__main__":

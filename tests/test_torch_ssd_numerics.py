@@ -1,22 +1,24 @@
 """What the bf16 ``ssd_scan`` kernels compute, modelled on the CPU.
 
-With bfloat16 B and C, ``csrc/ssd_scan.cu`` runs on the tensor cores.  The
-chunk kernel forms the part of y inside each chunk: C·Bᵀ is a float32 sum
-of exact bf16 products; ``cum`` is a warp scan of dA, 32 entries at a time;
-each head's scores are ``C_i·B_j · exp(cum_i - cum_j)`` in float32 under
-the causal mask; both the scores and xdt are split into ``hi = bf16(x)``
-and ``lo = bf16(x - hi)``, and y is ``hi·hi + hi·lo + lo·hi`` accumulated
-in float32.  With more than one chunk (or the final state asked for) the
-state kernel then forms the state entering each chunk, ``h <- exp(total)
-h + Σ_j (exp(total - cum_j) xdt_j)ᵀ B_j`` with the weighted xdt split (two
-terms) and B exact, and from the second chunk on adds ``exp(cum_i)
-C_i·hᵀ`` to y, C exact and h split (``kSplitH``, two terms).  This file models that arithmetic in plain
-PyTorch and holds it against the plain version ``ssd_scan_ref`` and the
-sequential recurrence within the bars that ``chip_smoke.py`` holds the
-kernel to (``SSD_TOL``, ``SSD_SEQ_TOL``), the final state too.  It also
-pins that rounding the scores, xdt or the state once to bf16 breaks the
-first bar, which is why the kernels split all three; the kernel's choice
-for the state is read from its source.
+With bfloat16 B and C, ``csrc/ssd_scan.cu`` runs on the tensor cores.
+With more than one chunk (or the final state asked for) the state kernel
+runs first and forms the state entering each chunk, ``h <- exp(total) h +
+Σ_j (exp(total - cum_j) xdt_j)ᵀ B_j`` with the weighted xdt split (two
+terms) and B exact.  Then the chunk kernel forms y: ``cum`` is a warp scan
+of dA, 32 entries at a time; a head's accumulators start, from the second
+chunk on, at the carried-state term ``exp(cum_i) C_i·h_cᵀ`` (C exact, h_c
+split: ``kSplitH``, two terms), else at zero; then, 32 tokens (a slab) at
+a time, C·Bᵀ is a float32 sum of exact bf16 products, the scores are
+``C_i·B_j · exp(cum_i - cum_j)`` in float32 under the causal mask, both
+the scores and xdt are split into ``hi = bf16(x)`` and ``lo = bf16(x -
+hi)``, and ``hi·hi + hi·lo + lo·hi`` joins the float32 accumulators.  This
+file models that arithmetic in plain PyTorch, in that order, and holds it
+against the plain version ``ssd_scan_ref`` and the sequential recurrence
+within the bars that ``chip_smoke.py`` holds the kernel to (``SSD_TOL``,
+``SSD_SEQ_TOL``), the final state too.  It also pins that rounding the
+scores, xdt or the state once to bf16 breaks the first bar, which is why
+the kernels split all three; the kernel's choice for the state is read
+from its source.
 """
 
 import importlib.util
@@ -33,8 +35,9 @@ from test_torch_ssm import SSD_SHAPES, _ssd_inputs
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
-SOURCE = REPO / "src" / "repro_torch" / "csrc" / "ssd_state.cuh"
+SOURCE = REPO / "src" / "repro_torch" / "csrc" / "ssd_scan.cu"
 SCAN_WIDTH = 32       # entries per step of the kernel's warp scan of dA
+SLAB = 32             # tokens per step of the chunk kernel's accumulation
 
 
 def _chip_smoke():
@@ -130,11 +133,6 @@ def kernel_model(xdt, dA, Bmat, Cmat, *, chunk, split_scores=True, split_x=True,
                          0.0)                              # [B, c, H, Q, Q]
     s_hi, x_hi = _bf16(scores), _bf16(xc)
     s_lo, x_lo = _bf16(scores - s_hi), _bf16(xc - x_hi)
-    y = torch.einsum("bchij,bcjhp->bcihp", s_hi, x_hi)
-    if split_x:
-        y = y + torch.einsum("bchij,bcjhp->bcihp", s_hi, x_lo)
-    if split_scores:
-        y = y + torch.einsum("bchij,bcjhp->bcihp", s_lo, x_hi)
     # The state kernel: the state entering each chunk (and, with
     # return_state, the one after the last) in float32, its update
     # exp(total - cum_j) xdt_j split (two terms) against B exact.
@@ -144,13 +142,24 @@ def kernel_model(xdt, dA, Bmat, Cmat, *, chunk, split_scores=True, split_x=True,
     for c in range(nc if return_state else nc - 1):
         upd = bf16_mm("bqhp,bqn->bhpn", w_end[:, c] * xc[:, c], bc[:, c], True, False)
         states.append(states[-1] * torch.exp(total[:, c])[..., None, None] + upd)
-    # From the second chunk on, exp(cum_i) C_i . h^T (C exact, h split: two
-    # terms) added to the chunk's own part of y.
-    ys = [y[:, 0]]
-    for c in range(1, nc):
-        decay = torch.exp(cum[:, c]).transpose(1, 2)[..., None]            # [B, Q, H, 1]
-        inter = bf16_mm("bin,bhpn->bihp", cc[:, c], states[c], False, split_h)
-        ys.append(inter * decay + y[:, c])
+    # The chunk kernel: from the second chunk on the accumulators start at
+    # exp(cum_i) C_i . h_c^T (C exact, h_c split: two terms), then each
+    # slab's hi.hi + hi.lo + lo.hi joins them.
+    ys = []
+    for c in range(nc):
+        if c > 0:
+            decay = torch.exp(cum[:, c]).transpose(1, 2)[..., None]        # [B, Q, H, 1]
+            acc = bf16_mm("bin,bhpn->bihp", cc[:, c], states[c], False, split_h) * decay
+        else:
+            acc = torch.zeros((b, q, h, p))
+        for j0 in range(0, q, SLAB):
+            js = slice(j0, j0 + SLAB)
+            acc = acc + torch.einsum("bhij,bjhp->bihp", s_hi[:, c, ..., js], x_hi[:, c, js])
+            if split_x:
+                acc = acc + torch.einsum("bhij,bjhp->bihp", s_hi[:, c, ..., js], x_lo[:, c, js])
+            if split_scores:
+                acc = acc + torch.einsum("bhij,bjhp->bihp", s_lo[:, c, ..., js], x_hi[:, c, js])
+        ys.append(acc)
     out = torch.stack(ys, dim=1).reshape(b, s, h, p)
     return (out, states[-1]) if return_state else out
 

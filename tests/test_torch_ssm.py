@@ -386,13 +386,16 @@ CUDA_TOL = dict(rtol=1e-4, atol=1e-4)
 # body's 16-row tiles and 64-row blocks (1, 15, 16, 17, 63, 64, 65, 160,
 # 256) with N in (8, 64, 128, 256) and P in (16, 64, 128), one and several
 # chunks; odd P and N (element-wise loads and stores); and two shapes whose
-# heads the block's group does not divide on an H100 (REMAINDER_SHAPES).
-REMAINDER_SHAPES = [(128, 160, 13, 64, 128, 160), (96, 256, 7, 16, 64, 128)]
+# heads the block's group does not divide on an H100 (REMAINDER_SHAPES), one
+# for each bf16 chunk kernel (the Hopper body at P = 64, N = 128, Q = 160:
+# 20 heads in groups of 3; the mma.sync body at P = 16).
+REMAINDER_SHAPES = [(16, 160, 20, 64, 128, 160), (96, 256, 7, 16, 64, 128)]
 CUDA_SHAPES = SSD_SHAPES + [
     (1, 512, 4, 64, 128, 256), (2, 8, 3, 16, 8, 1), (1, 45, 5, 64, 64, 15),
     (2, 32, 3, 128, 256, 16), (1, 34, 9, 16, 128, 17), (1, 126, 3, 64, 8, 63),
     (2, 128, 2, 128, 64, 64), (1, 130, 11, 64, 128, 65), (1, 320, 3, 16, 256, 160),
-    (1, 256, 5, 128, 256, 256), (2, 33, 3, 18, 12, 11)] + REMAINDER_SHAPES
+    (1, 256, 5, 128, 256, 256), (2, 33, 3, 18, 12, 11),
+    (128, 160, 13, 64, 128, 160)] + REMAINDER_SHAPES
 
 
 @pytest.mark.cuda
